@@ -1,0 +1,15 @@
+"""The API edge: everything that talks JSON to a kube-apiserver.
+
+The device never sees a string; this package converts between Kubernetes
+objects and engine rows:
+
+- render: dirty rows -> status documents (plain dict builders)
+- merge: strategic-merge + no-op suppression semantics
+- kubeclient: the list/watch/patch protocol the engine consumes
+- mockserver: a small in-memory apiserver speaking that protocol
+"""
+
+from kwok_tpu_torch.edge.selectors import LabelSelector, parse_selector
+from kwok_tpu_torch.edge.ippool import IPPool
+
+__all__ = ["LabelSelector", "parse_selector", "IPPool"]

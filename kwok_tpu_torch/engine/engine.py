@@ -1,0 +1,1019 @@
+"""ClusterEngine: the fake kubelet on a torch device.
+
+The single-lane engine of ``kwok_tpu.engine.engine`` on PyTorch:
+
+  watch threads ──> ingest queue ──> tick thread ──> patch executor
+                                      │    ▲
+                                      ▼    │
+                               device RowState (resident)
+
+- Watch threads register a watch, list, and queue the snapshot plus a
+  RESYNC marker (watch-then-list), re-watching with backoff on error.
+- The tick thread is the ONLY mutator of engine state: it drains the
+  ingest queue into staged row writes, flushes them to the device, runs
+  the fused tick (``ops/tick.MultiTickKernel``: the CUDA tick kernel per
+  kind plus the packed wire), and turns the wire's masks into patch jobs.
+  All of its device work runs on one CUDA stream of its own; up to
+  ``pipeline_depth`` dispatches are in flight, each with its own pinned
+  host wire.
+- The executor bounds API fan-out (default 16).
+
+Names and logic of the ingest, tick and emit methods follow the JAX
+package's engine so each has its counterpart there. Lanes, process
+lanes, the mesh, federation, HA, checkpoints, anti-entropy, fault
+injection, the watchdog, the native codec/pump/ingest, CNI, the profiler
+and the span tracer are not part of this engine; ``metrics`` is a plain
+counters dict.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from kwok_tpu_torch.edge.ippool import IPPool
+from kwok_tpu_torch.edge.kubeclient import (
+    ADDED,
+    BOOKMARK,
+    DELETED,
+    ERROR,
+    KubeClient,
+    TooManyRequests,
+)
+from kwok_tpu_torch.edge.merge import (
+    node_status_patch_needed,
+    pod_status_patch_needed,
+)
+from kwok_tpu_torch.edge.render import (
+    now_rfc3339,
+    render_node_heartbeat,
+    render_node_status,
+    render_pod_status,
+    rfc3339,
+)
+from kwok_tpu_torch.edge.selectors import parse_selector
+from kwok_tpu_torch.engine.rowpool import RowPool
+from kwok_tpu_torch.models import (
+    compile_rules,
+    default_node_rules,
+    default_pod_rules,
+)
+from kwok_tpu_torch.models.defaults import (
+    SEL_HEARTBEAT,
+    SEL_MANAGED,
+    SEL_ON_MANAGED_NODE,
+)
+from kwok_tpu_torch.models.lifecycle import (
+    NODE_PHASES,
+    POD_PHASES,
+    LifecycleRule,
+    ResourceKind,
+)
+from kwok_tpu_torch.ops.state import RowState, grow as grow_state, new_row_state
+from kwok_tpu_torch.ops.tick import (
+    REBASE_AFTER,
+    MultiTickKernel,
+    rebase_times,
+    unpack_wire,
+)
+from kwok_tpu_torch.ops.updates import UpdateBuffer
+
+logger = logging.getLogger("kwok_tpu_torch.engine")
+
+_NODE_READY_BITS = 1 << NODE_PHASES.condition_bit("Ready")
+_PENDING = POD_PHASES.phase_id("Pending")
+_NODE_READY = NODE_PHASES.phase_id("Ready")
+_NODE_OBSERVED = NODE_PHASES.phase_id("Observed")
+
+# the counters ``ClusterEngine.metrics`` always carries
+_COUNTERS = (
+    "watch_events_total", "watch_relists_total", "transitions_total",
+    "status_patches_total", "heartbeats_total", "deletes_total",
+    "patch_errors_total", "dropped_jobs_total", "ticks_total",
+    "epoch_rebases_total",
+)
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Mirrors ``kwok_tpu.engine.EngineConfig`` for the single-lane
+    engine, plus ``device``: the torch device the rows live on. It is
+    "cuda" unless the caller asks for the CPU (the tests pass "cpu"); a
+    "cuda" engine on a host without a card raises."""
+
+    manage_all_nodes: bool = False
+    manage_nodes_with_annotation_selector: str = ""
+    manage_nodes_with_label_selector: str = ""
+    disregard_status_with_annotation_selector: str = ""
+    disregard_status_with_label_selector: str = ""
+    cidr: str = "10.0.0.1/24"
+    node_ip: str = "196.168.0.1"
+    tick_interval: float = 0.05
+    # inner simulated ticks per device dispatch (MultiTickKernel steps)
+    tick_substeps: int = 1
+    heartbeat_interval: float = 30.0
+    parallelism: int = 16
+    initial_capacity: int = 4096
+    # max dispatches in flight before the tick loop blocks on the oldest
+    pipeline_depth: int = 8
+    node_rules: list[LifecycleRule] | None = None
+    pod_rules: list[LifecycleRule] | None = None
+    device: str = "cuda"
+
+    def validate(self) -> None:
+        if not (
+            self.manage_all_nodes
+            or self.manage_nodes_with_annotation_selector
+            or self.manage_nodes_with_label_selector
+        ):
+            # controller.go:98 "no nodes are managed"
+            raise ValueError("no nodes are managed")
+
+
+def _selector_bits(table, extra: tuple[str, ...]) -> dict[str, int]:
+    names = list(table.selector_names)
+    for e in extra:
+        if e not in names:
+            names.append(e)
+    if len(names) > 32:
+        raise ValueError("too many selector bits")
+    return {n: i for i, n in enumerate(names)}
+
+
+@dataclasses.dataclass
+class _PendingTick:
+    """A dispatched-but-unconsumed tick in the pipelined loop."""
+
+    wire: object  # ops.tick.Wire; self-contained (pack_rows wire)
+    caps: list  # per-kind capacities AT DISPATCH (grow may change them)
+    seq: int  # engine._release_seq at dispatch (stale-mask filtering)
+    now: float  # engine time of the dispatch (idle-wake arithmetic)
+    mono: float  # monotonic clock at dispatch (idle-wake anchor)
+    host_s: float  # host seconds spent in the dispatch half
+
+
+class _Kind:
+    """Per-resource-kind engine state (device rows + host bookkeeping)."""
+
+    def __init__(self, table, capacity: int, device: torch.device):
+        self.table = table
+        self.capacity = capacity
+        self.state: RowState = new_row_state(capacity, device)
+        self.pool = RowPool(capacity)
+        self.buffer = UpdateBuffer()
+        self.phase_h = np.zeros(capacity, np.int32)
+        self.cond_h = np.zeros(capacity, np.uint32)
+        # row -> release generation (engine._release_seq at release time):
+        # lets a pipelined consume skip mask bits of rows freed (and maybe
+        # re-acquired) after that tick was dispatched
+        self.released_at: dict[int, int] = {}
+
+    def grow(self, new_capacity: int) -> None:
+        """Grow in place on the device (state copied into a larger one)."""
+        self.state = grow_state(self.state, new_capacity)
+        self.capacity = new_capacity
+        self.pool.grow(new_capacity)
+        extra = new_capacity - self.phase_h.shape[0]
+        self.phase_h = np.concatenate([self.phase_h, np.zeros(extra, np.int32)])
+        self.cond_h = np.concatenate([self.cond_h, np.zeros(extra, np.uint32)])
+
+
+class ClusterEngine:
+    def __init__(self, client: KubeClient, config: EngineConfig) -> None:
+        config.validate()
+        self.device = torch.device(config.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"EngineConfig.device={config.device!r} but no CUDA device "
+                "is available (pass device='cpu' to run on the CPU)"
+            )
+        self.client = client
+        self.config = config
+        self.ippool = IPPool(config.cidr)
+
+        self._manage_annotation = parse_selector(
+            config.manage_nodes_with_annotation_selector
+        )
+        self._disregard_annotation = parse_selector(
+            config.disregard_status_with_annotation_selector
+        )
+        self._disregard_label = parse_selector(
+            config.disregard_status_with_label_selector
+        )
+
+        node_rules = (
+            config.node_rules if config.node_rules is not None else default_node_rules()
+        )
+        pod_rules = (
+            config.pod_rules if config.pod_rules is not None else default_pod_rules()
+        )
+        ntab = compile_rules(node_rules, ResourceKind.NODE)
+        ptab = compile_rules(pod_rules, ResourceKind.POD)
+        self.node_bits = _selector_bits(ntab, (SEL_MANAGED, SEL_HEARTBEAT))
+        self.pod_bits = _selector_bits(ptab, (SEL_MANAGED, SEL_ON_MANAGED_NODE))
+        self._pod_phases = ptab.space.phases
+        self._pod_phase_ids = {
+            name: i for i, name in enumerate(ptab.space.phases)
+        }
+        hb_bit = self.node_bits[SEL_HEARTBEAT]
+        # nodes + pods tick in ONE dispatch (ops/tick.MultiTickKernel)
+        self._fused_specs = [
+            (ntab, config.heartbeat_interval, (), hb_bit),
+            (ptab, config.heartbeat_interval, (), -1),
+        ]
+        self._fused: MultiTickKernel | None = None
+
+        # every device operation of the engine runs on this stream (the
+        # tick thread's); rows are allocated on it too, so no tensor the
+        # engine owns is ever used across streams
+        self._stream = (
+            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        )
+        cap = config.initial_capacity
+        with self._device_ctx():
+            self.nodes = _Kind(ntab, cap, self.device)
+            self.pods = _Kind(ptab, cap, self.device)
+
+        self.node_has: set[str] = set()  # nodesSets (need-heartbeat membership)
+        self.pods_by_node: dict[str, set[tuple[str, str]]] = {}
+
+        self._epoch = time.time()
+        self.start_time = rfc3339(None)
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._watches: dict[str, object] = {}
+        self._threads: list[threading.Thread] = []
+        self._running = False
+        self._stop_evt = threading.Event()
+        self._executor: ThreadPoolExecutor | None = None
+        # ONE lock for IP/meta allocation bookkeeping: pool get/use/put,
+        # podIP commits and row-release reads in _pod_deleted
+        self._alloc_lock = threading.Lock()
+        # monotonic wake-up for the idle tick loop; 0 = tick immediately,
+        # None = nothing scheduled on device (sleep until an event arrives)
+        self._idle_wake: float | None = 0.0
+        # bumped on every row release; _PendingTick.seq snapshots it at
+        # dispatch so consume can tell which mask bits went stale
+        self._release_seq = 0
+        self._metrics_lock = threading.Lock()
+        self._metrics: dict[str, float] = {name: 0 for name in _COUNTERS}
+        self._metrics.update(
+            tick_seconds_last=0.0, tick_seconds_total=0.0, nodes_managed=0,
+            pods_managed=0,
+        )
+        self.ready = False
+
+    # ---------------------------------------------------------------- metrics
+
+    @property
+    def metrics(self) -> dict:
+        """A snapshot of the engine's counters and gauges."""
+        with self._metrics_lock:
+            return dict(self._metrics)
+
+    def _inc(self, name: str, v=1) -> None:
+        with self._metrics_lock:
+            self._metrics[name] = self._metrics.get(name, 0) + v
+
+    def _set(self, name: str, v) -> None:
+        with self._metrics_lock:
+            self._metrics[name] = v
+
+    # ------------------------------------------------------------------ time
+
+    def _now(self) -> float:
+        return time.time() - self._epoch
+
+    def _device_ctx(self):
+        """Run device work on the engine's stream (no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    # ------------------------------------------------------- selector checks
+
+    def _node_need_heartbeat(self, node: dict) -> bool:
+        """needHeartbeat = nodeSelectorFunc (controller.go:81-101). Label
+        selector is pushed down into the watch, so anything we receive in
+        that mode already matches."""
+        if self.config.manage_all_nodes:
+            return True
+        if self._manage_annotation is not None:
+            annotations = (node.get("metadata") or {}).get("annotations") or {}
+            return self._manage_annotation.matches(annotations)
+        if self.config.manage_nodes_with_label_selector:
+            return True
+        return False
+
+    def _disregard(self, obj: dict) -> bool:
+        meta = obj.get("metadata") or {}
+        if self._disregard_annotation is not None and (meta.get("annotations") or {}):
+            if self._disregard_annotation.matches(meta["annotations"]):
+                return True
+        if self._disregard_label is not None and (meta.get("labels") or {}):
+            if self._disregard_label.matches(meta["labels"]):
+                return True
+        return False
+
+    # ------------------------------------------------------------- lifecycle
+
+    def start(self) -> None:
+        """Start watch ingest, the patch executor and the tick thread."""
+        self._running = True
+        self._stop_evt.clear()
+        self._executor = ThreadPoolExecutor(
+            max_workers=self.config.parallelism, thread_name_prefix="kwok-patch"
+        )
+        self._get_fused()
+        node_label_sel = self.config.manage_nodes_with_label_selector or None
+        self._spawn_watch("nodes", label_selector=node_label_sel)
+        self._spawn_watch("pods", field_selector="spec.nodeName!=")
+        t = threading.Thread(target=self._tick_loop, name="kwok-tick", daemon=True)
+        t.start()
+        self._threads.append(t)
+        self.ready = True
+
+    def _get_fused(self) -> MultiTickKernel:
+        if self._fused is None:
+            steps = max(1, int(self.config.tick_substeps))
+            self._fused = MultiTickKernel(
+                self._fused_specs, steps=steps,
+                dt=self.config.tick_interval / steps, device=self.device,
+            )
+        return self._fused
+
+    def stop(self) -> None:
+        self._running = False
+        self.ready = False
+        self._stop_evt.set()
+        for w in list(self._watches.values()):
+            w.stop()
+        self._q.put(None)
+        # the tick thread first: its shutdown path consumes the in-flight
+        # ticks and submits their patches before the executor drains
+        for t in sorted(self._threads, key=lambda t: t.name != "kwok-tick"):
+            t.join(timeout=60 if t.name == "kwok-tick" else 5)
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+        self._threads = []
+        dropped = self.metrics["dropped_jobs_total"]
+        if dropped:
+            logger.warning("%d patch jobs dropped during shutdown", dropped)
+
+    def _spawn_watch(self, kind: str, **sel) -> None:
+        """Watch-then-list, forever: register the watch FIRST, then list
+        and queue the snapshot plus a RESYNC marker — events in the
+        register/list gap are covered, and every re-watch after an error
+        resyncs (node_controller.go:121-143 ordering, made gap-proof)."""
+        opts = {k: v for k, v in sel.items() if v}
+
+        def loop():
+            delay = 0.0
+            while self._running:
+                try:
+                    w = self.client.watch(kind, **opts)
+                    self._watches[kind] = w
+                    objs = self.client.list(kind, **opts)
+                    self._inc("watch_relists_total")
+                    for obj in objs:
+                        self._q.put((kind, ADDED, obj, time.monotonic()))
+                    self._q.put((kind, "RESYNC", objs, time.monotonic()))
+                    delay = 0.0
+                    for ev in w:
+                        if ev.type == BOOKMARK:
+                            continue
+                        if ev.type == ERROR:
+                            logger.warning("watch %s error event: %.200r",
+                                           kind, ev.object)
+                            break
+                        self._q.put((kind, ev.type, ev.object, time.monotonic()))
+                    if not self._running:
+                        return
+                except Exception as e:  # re-watch with backoff
+                    if not self._running:
+                        return
+                    delay = min(max(2 * delay, 0.1), 5.0)
+                    logger.warning(
+                        "watch %s failed: %s; retrying in %.2fs", kind, e, delay
+                    )
+                    self._stop_evt.wait(delay)
+
+        t = threading.Thread(target=loop, name=f"kwok-watch-{kind}", daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    # ---------------------------------------------------------------- ingest
+
+    def _ingest(self, kind: str, type_: str, obj) -> None:
+        self._inc("watch_events_total")
+        if type_ == "RESYNC":
+            self._resync(kind, obj)
+            return
+        if kind == "nodes":
+            if type_ == DELETED:
+                self._node_deleted(obj)
+            else:
+                self._node_upsert(obj)
+        else:
+            if type_ == DELETED:
+                self._pod_deleted(obj)
+            else:
+                self._pod_upsert(obj)
+
+    def _ingest_safe(self, kind, type_, obj) -> None:
+        """One malformed event must not kill the tick thread."""
+        try:
+            self._ingest(kind, type_, obj)
+        except Exception:
+            logger.exception("ingest failed for %s %s", kind, type_)
+
+    def _resync(self, kind: str, objs: list[dict]) -> None:
+        """Free rows for objects that vanished while the watch was down."""
+        if kind == "nodes":
+            seen = {(o.get("metadata") or {}).get("name") for o in objs}
+            stale = [key for key in self.nodes.pool.keys() if key not in seen]
+            for name in stale:
+                self._node_deleted({"metadata": {"name": name}})
+        else:
+            seen = {
+                (
+                    (o.get("metadata") or {}).get("namespace") or "default",
+                    (o.get("metadata") or {}).get("name"),
+                )
+                for o in objs
+            }
+            stale = [key for key in self.pods.pool.keys() if key not in seen]
+            for ns, name in stale:
+                self._pod_deleted({"metadata": {"namespace": ns, "name": name}})
+
+    def _node_upsert(self, node: dict) -> None:
+        meta = node.get("metadata") or {}
+        name = meta.get("name")
+        if not name:
+            return
+        # Once a node enters the managed set it stays until Deleted
+        # (nodesSets has no removal on Modified, node_controller.go:256-268).
+        need_hb = self._node_need_heartbeat(node) or name in self.node_has
+        k = self.nodes
+        idx = k.pool.lookup(name)
+        if not need_hb and idx is None:
+            return  # never entered the managed set (WatchNodes Added gate)
+        need_lock = not self._disregard(node)
+        bits = 0
+        if need_hb:
+            bits |= 1 << self.node_bits[SEL_HEARTBEAT]
+            if need_lock:
+                bits |= 1 << self.node_bits[SEL_MANAGED]
+        if idx is None:
+            if k.pool.full:
+                self._grow(k)
+            idx = k.pool.acquire(name)
+            phase = self._node_phase_from_status(node)
+            k.phase_h[idx] = phase
+            k.cond_h[idx] = _NODE_READY_BITS
+            k.buffer.stage_init(
+                idx, True, phase=phase, cond_bits=_NODE_READY_BITS,
+                sel_bits=bits, has_deletion=False,
+            )
+        else:
+            k.buffer.stage_update(idx, bits, False)
+        k.pool.meta[idx].update(name=name, obj=node)
+        if need_hb and name not in self.node_has:
+            self.node_has.add(name)
+            self._update_pods_on_node(name)
+        # repair: reference re-locks on every event with no-op suppression
+        # (LockNode from WatchNodes Added|Modified)
+        if need_hb and need_lock and k.phase_h[idx] == _NODE_READY:
+            current = node.get("status") or {}
+            rendered = render_node_status(
+                node, int(k.cond_h[idx]), self.config.node_ip,
+                now_rfc3339(), self.start_time,
+            )
+            if node_status_patch_needed(current, rendered):
+                self._submit(self._patch_node_status, name, idx)
+
+    def _node_deleted(self, node: dict) -> None:
+        name = (node.get("metadata") or {}).get("name")
+        k = self.nodes
+        with self._alloc_lock:
+            # the release and its sequence stamp are one atomic step
+            idx = k.pool.release(name)
+            if idx is not None:
+                self._release_seq += 1
+                k.released_at[idx] = self._release_seq
+        if idx is not None:
+            k.buffer.stage_init(idx, False)
+        if name in self.node_has:
+            self.node_has.discard(name)
+            self._update_pods_on_node(name)
+
+    def _node_phase_from_status(self, node: dict) -> int:
+        for cond in (node.get("status") or {}).get("conditions") or []:
+            if cond.get("type") == "Ready" and cond.get("status") == "True":
+                return _NODE_READY
+        return _NODE_OBSERVED
+
+    def _pod_bits(self, pod_meta: dict) -> int:
+        nh = pod_meta.get("node") in self.node_has
+        bits = 0
+        if nh:
+            bits |= 1 << self.pod_bits[SEL_ON_MANAGED_NODE]
+            if not pod_meta.get("disregard"):
+                bits |= 1 << self.pod_bits[SEL_MANAGED]
+        return bits
+
+    def _pod_upsert(self, pod: dict) -> None:
+        meta = pod.get("metadata") or {}
+        name = meta.get("name")
+        ns = meta.get("namespace") or "default"
+        if not name:
+            return
+        key = (ns, name)
+        node_name = (pod.get("spec") or {}).get("nodeName") or ""
+        if not node_name:
+            return
+        k = self.pods
+        idx = k.pool.lookup(key)
+        new_row = idx is None
+        if new_row:
+            if k.pool.full:
+                self._grow(k)
+            idx = k.pool.acquire(key)
+        m = k.pool.meta[idx]
+        status = pod.get("status") or {}
+        m.update(
+            name=name,
+            namespace=ns,
+            node=node_name,
+            disregard=self._disregard(pod),
+            obj=pod,
+            finalizers=bool(meta.get("finalizers")),
+            has_del="deletionTimestamp" in meta,
+        )
+        pod_ip = status.get("podIP")
+        if pod_ip:
+            with self._alloc_lock:
+                if self.ippool.contains(pod_ip):
+                    # pin pool-range IPs on (re)list so a restarted engine
+                    # neither reassigns them nor hands them to another pod
+                    self.ippool.use(pod_ip)
+                m["podIP"] = pod_ip
+        has_del = m["has_del"]
+        self.pods_by_node.setdefault(node_name, set()).add(key)
+        bits = self._pod_bits(m)
+        if new_row:
+            phase = self._pod_phase_ids.get(
+                status.get("phase") or "Pending", _PENDING
+            )
+            cond = 0
+            for c in status.get("conditions") or []:
+                t = c.get("type")
+                if t in POD_PHASES.conditions and c.get("status") == "True":
+                    cond |= 1 << POD_PHASES.condition_bit(t)
+            k.buffer.stage_init(
+                idx, True, phase=phase, cond_bits=cond, sel_bits=bits,
+                has_deletion=has_del,
+            )
+            k.phase_h[idx] = phase
+            k.cond_h[idx] = cond
+        else:
+            k.buffer.stage_update(idx, bits, has_del)
+        # repair path (LockPod on every event + computePatchData
+        # suppression)
+        managed = bool(bits >> self.pod_bits[SEL_MANAGED] & 1)
+        if managed and not has_del and k.phase_h[idx] != _PENDING:
+            rendered = self._render_pod(idx)
+            if rendered is not None and pod_status_patch_needed(status, rendered):
+                self._submit(self._patch_pod_status, key, idx)
+
+    def _pod_deleted(self, pod: dict) -> None:
+        meta = pod.get("metadata") or {}
+        key = (meta.get("namespace") or "default", meta.get("name"))
+        k = self.pods
+        idx = k.pool.lookup(key)
+        if idx is None:
+            return
+        m = k.pool.meta[idx]
+        node_name = m.get("node")
+        with self._alloc_lock:
+            k.pool.release(key)
+            self._release_seq += 1
+            k.released_at[idx] = self._release_seq
+            ip = m.get("podIP") or (pod.get("status") or {}).get("podIP")
+        if ip and self.ippool.contains(ip):
+            # recycle pool-allocated IPs (pod_controller.go:334-337)
+            self.ippool.put(ip)
+        if node_name and node_name in self.pods_by_node:
+            self.pods_by_node[node_name].discard(key)
+        k.buffer.stage_init(idx, False)
+
+    def _update_pods_on_node(self, node_name: str) -> None:
+        """Re-evaluate pods bound to a node whose managed-ness changed
+        (LockPodsOnNode wiring, controller.go:113-115)."""
+        k = self.pods
+        for key in self.pods_by_node.get(node_name, set()):
+            idx = k.pool.lookup(key)
+            if idx is None:
+                continue
+            m = k.pool.meta[idx]
+            k.buffer.stage_update(idx, self._pod_bits(m), m.get("has_del", False))
+
+    # ------------------------------------------------------------------ grow
+
+    def _grow(self, k: _Kind) -> None:
+        new_cap = max(k.capacity * 2, 1024)
+        logger.info("growing row pool %d -> %d", k.capacity, new_cap)
+        with self._device_ctx():
+            k.grow(new_cap)
+
+    # ------------------------------------------------------------- tick loop
+
+    # Idle backstop: with no staged writes and no device timer pending, the
+    # loop still wakes this often (one cheap dispatch) as a safety net.
+    _IDLE_MAX = 60.0
+
+    def _tick_loop(self) -> None:
+        """Pipelined tick loop. Each iteration drains ingest, consumes any
+        in-flight ticks whose wire has landed on the host, then dispatches
+        the next tick; consume order is FIFO, so per-object patch order is
+        the synchronous loop's."""
+        with self._device_ctx():
+            self._tick_loop_body()
+
+    def _tick_loop_body(self) -> None:
+        interval = self.config.tick_interval
+        depth = max(1, int(self.config.pipeline_depth))
+        pending: "deque" = deque()
+        try:
+            while self._running:
+                deadline = time.monotonic() + interval
+                # idle: sleep until the device-reported deadline
+                if (
+                    not pending
+                    and self._q.empty()
+                    and not self.nodes.buffer.pending
+                    and not self.pods.buffer.pending
+                ):
+                    wake = self._idle_wake
+                    if wake is None:
+                        deadline = time.monotonic() + self._IDLE_MAX
+                    elif wake > deadline:
+                        deadline = min(wake, time.monotonic() + self._IDLE_MAX)
+                got_event = False
+                # drain ingest until the next tick is due; while ticks are
+                # in flight, wait in short slices so a wire landing
+                # mid-drain is consumed promptly
+                while True:
+                    timeout = deadline - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        item = self._q.get(
+                            timeout=min(timeout, 0.005) if pending else timeout
+                        )
+                    except queue.Empty:
+                        if pending and self._wire_ready(pending[0]):
+                            self._consume_safe(pending.popleft())
+                            self._prune_released(
+                                pending[0].seq if pending else self._release_seq
+                            )
+                        continue
+                    if item is None:
+                        if not self._running:
+                            return
+                        continue
+                    if not got_event:
+                        got_event = True
+                        # an event arriving during an idle sleep must be
+                        # ticked within one normal interval
+                        deadline = min(deadline, time.monotonic() + interval)
+                    self._ingest_safe(item[0], item[1], item[2])
+                    # keep draining whatever is immediately available
+                    while True:
+                        try:
+                            item = self._q.get_nowait()
+                        except queue.Empty:
+                            break
+                        if item is None:
+                            if not self._running:
+                                return
+                            continue
+                        self._ingest_safe(item[0], item[1], item[2])
+                try:
+                    # consume every tick whose wire has landed; a full
+                    # pipeline blocks on the oldest
+                    while pending and (
+                        len(pending) >= depth or self._wire_ready(pending[0])
+                    ):
+                        self._tick_consume(pending.popleft())
+                        self._prune_released(
+                            pending[0].seq if pending else self._release_seq
+                        )
+                    # dispatch only when something calls for a tick: an
+                    # event drained, writes staged, or a device timer due
+                    wake = self._idle_wake
+                    if (
+                        got_event
+                        or self.nodes.buffer.pending
+                        or self.pods.buffer.pending
+                        or (wake is not None and time.monotonic() >= wake)
+                    ):
+                        p = self._tick_dispatch()
+                        if p is not None:
+                            pending.append(p)
+                except Exception:
+                    logger.exception("tick failed")
+                    # re-arm: staged work may already be on the device
+                    # with no event left to trigger the gate
+                    self._idle_wake = time.monotonic() + interval
+        finally:
+            # stopping: flush in-flight ticks so patches already computed
+            # on the device are not dropped
+            while pending:
+                self._consume_safe(pending.popleft())
+
+    def _consume_safe(self, p: "_PendingTick") -> None:
+        try:
+            self._tick_consume(p)
+        except Exception:
+            logger.exception("tick consume failed")
+
+    def tick_once(self) -> None:
+        """One synchronous engine step: dispatch the fused kernel and
+        consume its wire immediately."""
+        with self._device_ctx():
+            p = self._tick_dispatch()
+            if p is not None:
+                self._tick_consume(p)
+        self._prune_released(self._release_seq)
+
+    @staticmethod
+    def _wire_ready(p) -> bool:
+        return p.wire.is_ready()
+
+    def _prune_released(self, min_seq: int) -> None:
+        """Drop release-log entries no in-flight tick can still consult
+        (everything at or before the oldest pending dispatch's seq)."""
+        for k in (self.nodes, self.pods):
+            if k.released_at:
+                k.released_at = {
+                    idx: s for idx, s in k.released_at.items() if s > min_seq
+                }
+
+    def _tick_dispatch(self) -> "_PendingTick | None":
+        """First half of a tick: flush staged ingest writes and dispatch the
+        fused kernel. Returns a _PendingTick whose wire lands on the host
+        asynchronously, or None when nothing is on the device."""
+        t0 = time.perf_counter()
+        now = self._now()
+        if now >= REBASE_AFTER:
+            # f32 engine time: re-zero the epoch before resolution decays
+            self._epoch += now
+            for k in (self.nodes, self.pods):
+                k.state = rebase_times(k.state, now)
+            self._inc("epoch_rebases_total")
+            logger.info("epoch rebase at engine time %.1fs", now)
+            now = 0.0
+        work = False
+        for k in (self.nodes, self.pods):
+            if k.buffer.pending:
+                k.state = k.buffer.flush(k.state)
+                work = True
+            elif len(k.pool):
+                work = True
+        self._set("nodes_managed", len(self.nodes.pool))
+        self._set("pods_managed", len(self.pods.pool))
+        self._inc("ticks_total")
+        if not work:
+            self._idle_wake = None  # empty engine: sleep until events
+            return None
+        fused = self._get_fused()
+        # with substeps, the kernel runs at now_base + i*dt; anchor the
+        # LAST substep at wall-now so firing never runs ahead of time
+        now_base = now - (fused.steps - 1) * fused.dt
+        _outs, wire = fused((self.nodes.state, self.pods.state), now_base)
+        t_end = time.perf_counter()
+        return _PendingTick(
+            wire=wire,
+            caps=[self.nodes.capacity, self.pods.capacity],
+            seq=self._release_seq,
+            now=now,
+            mono=time.monotonic(),
+            host_s=t_end - t0,
+        )
+
+    def _tick_consume(self, p: "_PendingTick") -> None:
+        """Second half of a tick: wait until p's wire is on the host (free
+        when it landed during the pipeline window), refresh the fired
+        rows' phase/cond mirrors, and emit patches."""
+        t0 = time.perf_counter()
+        counters, masks_fn, dues, rows_fn = unpack_wire(
+            np.asarray(p.wire), p.caps, rows=True
+        )
+        nd = float(dues.min())
+        self._idle_wake = (
+            None if nd == float("inf")
+            else p.mono + max(0.0, nd - p.now)
+        )
+        if counters.any():
+            now_str = now_rfc3339()
+            masks = masks_fn()
+            rows = None
+            for i, (k, kind) in enumerate(
+                ((self.nodes, "nodes"), (self.pods, "pods"))
+            ):
+                n_trans = int(counters[i])
+                n_hb = int(counters[2 + i])
+                if n_trans:
+                    self._inc("transitions_total", n_trans)
+                if not (n_trans or n_hb):
+                    continue
+                dirty, deleted, hb = masks[i]
+                # mask bits of rows released since this tick's dispatch
+                # describe the OLD occupant: the release path did their
+                # teardown. Rows beyond this dispatch's capacity have no
+                # mask bits to clear.
+                cap = dirty.shape[0]
+                stale = [
+                    idx for idx, s in k.released_at.items()
+                    if s > p.seq and idx < cap
+                ]
+                if stale:
+                    dirty[stale] = False
+                    deleted[stale] = False
+                    hb[stale] = False
+                if n_trans:
+                    idxs = np.nonzero(dirty | deleted)[0]
+                    if idxs.size:
+                        if rows is None:
+                            rows = rows_fn()
+                        ph, cb = rows[i]
+                        # refresh ONLY the fired rows
+                        k.phase_h[idxs] = ph[idxs]
+                        k.cond_h[idxs] = cb[idxs]
+                self._emit(kind, k, dirty, deleted, hb, now_str)
+        # host seconds of this tick on the tick thread: dispatch, the wait
+        # for the wire, unpack and emit (patches run on the executor)
+        elapsed = time.perf_counter() - t0 + p.host_s
+        self._set("tick_seconds_last", elapsed)
+        self._inc("tick_seconds_total", elapsed)
+
+    # ------------------------------------------------------------------ emit
+
+    def _submit(self, fn, *args) -> bool:
+        """Run fn on the patch executor (inline in synchronous mode).
+        Returns False when the executor is already shut down (the job is
+        dropped and counted)."""
+        if self._executor is None:
+            fn(*args)  # synchronous mode (tests call tick_once directly)
+            return True
+        try:
+            self._executor.submit(self._safe, fn, *args)
+            return True
+        except RuntimeError:
+            self._inc("dropped_jobs_total")
+            return False
+
+    @staticmethod
+    def _transient(e: Exception) -> bool:
+        """Connection-shaped failures and 429s, worth retrying. HTTP status
+        errors are definitive answers, never retried."""
+        import http.client
+        import urllib.error
+
+        if isinstance(e, urllib.error.HTTPError):
+            return False
+        return isinstance(
+            e, (ConnectionError, TimeoutError, OSError,
+                http.client.HTTPException, TooManyRequests)
+        )
+
+    # retry schedule for transient patch failures (seconds)
+    _RETRY_DELAYS = (0.05, 0.1, 0.2, 0.4, 0.8, 1.6)
+
+    def _safe(self, fn, *args) -> None:
+        """Executor job: run fn, retrying transient failures with backoff
+        so an apiserver blip does not silently eat a patch."""
+        for delay in (*self._RETRY_DELAYS, None):
+            try:
+                fn(*args)
+                return
+            except Exception as e:
+                if delay is None or not (self._running and self._transient(e)):
+                    self._inc("patch_errors_total")
+                    logger.exception("patch job failed")
+                    return
+                self._stop_evt.wait(max(delay, getattr(e, "retry_after", 0.0)))
+
+    def _emit(self, kind, k, dirty, deleted, hb, now_str) -> None:
+        if kind == "nodes":
+            for idx in np.nonzero(dirty)[0]:
+                name = k.pool.key_of(int(idx))
+                if name is not None:
+                    self._submit(self._patch_node_status, name, int(idx))
+            for idx in np.nonzero(hb)[0]:
+                name = k.pool.key_of(int(idx))
+                if name is not None:
+                    self._submit(self._heartbeat_node, name, int(idx), now_str)
+        else:
+            for idx in np.nonzero(dirty)[0]:
+                key = k.pool.key_of(int(idx))
+                if key is not None:
+                    self._submit(self._patch_pod_status, key, int(idx))
+            for idx in np.nonzero(deleted)[0]:
+                key = k.pool.key_of(int(idx))
+                if key is not None:
+                    self._submit(self._delete_pod, key, int(idx))
+
+    def _patch_node_status(self, name: str, idx: int) -> None:
+        k = self.nodes
+        m = k.pool.meta[idx]
+        if not m:
+            return
+        node = m.get("obj") or {}
+        current = node.get("status") or {}
+        rendered = render_node_status(
+            node, int(k.cond_h[idx]), self.config.node_ip,
+            now_rfc3339(), self.start_time,
+        )
+        if not node_status_patch_needed(current, rendered):
+            return
+        self.client.patch_status("nodes", None, name, {"status": rendered})
+        self._inc("status_patches_total")
+
+    def _heartbeat_node(self, name: str, idx: int, now_str: str) -> None:
+        k = self.nodes
+        rendered = render_node_heartbeat(int(k.cond_h[idx]), now_str, self.start_time)
+        self.client.patch_status("nodes", None, name, {"status": rendered})
+        self._inc("heartbeats_total")
+
+    def _render_pod_pre(self, idx: int):
+        """Shared render preamble: the row's meta dict + target phase
+        name, or None when the row has no object or is Gone."""
+        k = self.pods
+        m = k.pool.meta[idx]
+        if not m or m.get("obj") is None:
+            return None
+        phase_name = self._pod_phases[int(k.phase_h[idx])]
+        if phase_name == "Gone":
+            return None
+        return m, phase_name
+
+    def _pool_ip(self, m: dict, idx: int) -> "str | None":
+        """Pool-backed IP lookup/allocate under _alloc_lock. None when the
+        row vanished since the caller looked it up."""
+        with self._alloc_lock:  # check+allocate atomic across workers
+            ip = m.get("podIP")
+            if not ip:
+                if self.pods.pool.meta[idx] is not m:
+                    return None  # row deleted since this job was queued
+                ip = self.ippool.get()
+                m["podIP"] = ip
+        return ip
+
+    def _render_pod(self, idx: int):
+        """The pod's rendered status (IP from the pool), or None."""
+        pre = self._render_pod_pre(idx)
+        if pre is None:
+            return None
+        m, phase_name = pre
+        ip = self._pool_ip(m, idx)
+        if ip is None:
+            return None
+        return render_pod_status(
+            m["obj"], phase_name, int(self.pods.cond_h[idx]),
+            self.config.node_ip, ip,
+        )
+
+    def _patch_pod_status(self, key, idx: int) -> None:
+        k = self.pods
+        m = k.pool.meta[idx]
+        if not m:
+            return
+        rendered = self._render_pod(idx)
+        if rendered is None:
+            return
+        current = (m.get("obj") or {}).get("status") or {}
+        if not pod_status_patch_needed(current, rendered):
+            return
+        ns, name = key
+        self.client.patch_status("pods", ns, name, {"status": rendered})
+        self._inc("status_patches_total")
+
+    def _delete_pod(self, key, idx: int) -> None:
+        """Finalizer strip + grace-0 delete (DeletePod,
+        pod_controller.go:155-183)."""
+        ns, name = key
+        m = self.pods.pool.meta[idx]
+        if m and m.get("finalizers"):
+            self.client.patch_meta("pods", ns, name, {"metadata": {"finalizers": None}})
+        self.client.delete("pods", ns, name, grace_seconds=0)
+        self._inc("deletes_total")

@@ -1,0 +1,164 @@
+"""Scatter ops: host ingest writes -> device-resident state, in place.
+
+The port of ``kwok_tpu.ops.updates``'s ingest scatters:
+
+- init_rows: (re)initialize whole rows — object created, row freed/recycled
+- update_rows: modify the host-owned matching inputs of existing rows
+  (sel_bits / has_deletion) without touching device-owned phase/cond/timers;
+  the next tick's re-match notices any change (``best != pending_rule``).
+
+Each is torch index writes into the state tensors (JAX returned new,
+donated buffers; these write in place). Two rules the JAX scatters got
+from XLA are made explicit on the host, where the indices are numpy:
+
+- a padding or out-of-range index (``idx == capacity`` pads the JAX
+  batches) is dropped — XLA's ``mode="drop"``; torch would raise;
+- duplicate indices in one batch resolve last-writer-wins in staging
+  order; ``index_put_`` on CUDA picks no defined winner among duplicates,
+  so only each index's last occurrence is written.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from kwok_tpu_torch.ops.state import RowState
+
+INF = float("inf")
+
+
+class InitBatch(NamedTuple):
+    idx: np.ndarray  # int32, out-of-range (e.g. capacity) = padding
+    active: np.ndarray  # bool
+    phase: np.ndarray  # int32
+    cond_bits: np.ndarray  # uint32
+    sel_bits: np.ndarray  # uint32
+    has_deletion: np.ndarray  # bool
+
+
+class UpdateBatch(NamedTuple):
+    idx: np.ndarray  # int32, out-of-range (e.g. capacity) = padding
+    sel_bits: np.ndarray  # uint32
+    has_deletion: np.ndarray  # bool
+
+
+def _last_writers(idx: np.ndarray, cap: int) -> np.ndarray:
+    """Positions into ``idx`` that are written: in range, and each index's
+    LAST occurrence only."""
+    pos = np.nonzero((idx >= 0) & (idx < cap))[0]
+    kept = idx[pos]
+    if kept.size < 2:
+        return pos
+    # first occurrence in the reversed run == last occurrence in order
+    _, first_rev = np.unique(kept[::-1], return_index=True)
+    return pos[kept.size - 1 - first_rev]
+
+
+def init_rows(state: RowState, b: InitBatch) -> RowState:
+    """(Re)initialize rows ``b.idx`` in place; timers and pending rule
+    reset (-1 / +inf / +inf / gen 0). Returns ``state``."""
+    idx = np.asarray(b.idx, np.int64)
+    pos = _last_writers(idx, state.capacity)
+    if not pos.size:
+        return state
+    cols = np.empty((6, pos.size), np.int64)
+    cols[0] = idx[pos]
+    cols[1] = np.asarray(b.active, bool)[pos]
+    cols[2] = np.asarray(b.phase, np.int32)[pos]
+    # uint32 bits -> int32 bit pattern (the state's layout)
+    cols[3] = np.asarray(b.cond_bits, np.uint32)[pos].view(np.int32)
+    cols[4] = np.asarray(b.sel_bits, np.uint32)[pos].view(np.int32)
+    cols[5] = np.asarray(b.has_deletion, bool)[pos]
+    dev = torch.from_numpy(cols).to(state.device)
+    i = dev[0]
+    state.active[i] = dev[1].to(torch.bool)
+    state.phase[i] = dev[2].to(torch.int32)
+    state.cond_bits[i] = dev[3].to(torch.int32)
+    state.sel_bits[i] = dev[4].to(torch.int32)
+    state.has_deletion[i] = dev[5].to(torch.bool)
+    state.pending_rule.index_fill_(0, i, -1)
+    state.fire_at.index_fill_(0, i, INF)
+    state.hb_due.index_fill_(0, i, INF)
+    state.gen.index_fill_(0, i, 0)
+    return state
+
+
+def update_rows(state: RowState, b: UpdateBatch) -> RowState:
+    """Overwrite the matching inputs (sel_bits, has_deletion) of rows
+    ``b.idx`` in place. Returns ``state``."""
+    idx = np.asarray(b.idx, np.int64)
+    pos = _last_writers(idx, state.capacity)
+    if not pos.size:
+        return state
+    cols = np.empty((3, pos.size), np.int64)
+    cols[0] = idx[pos]
+    cols[1] = np.asarray(b.sel_bits, np.uint32)[pos].view(np.int32)
+    cols[2] = np.asarray(b.has_deletion, bool)[pos]
+    dev = torch.from_numpy(cols).to(state.device)
+    i = dev[0]
+    state.sel_bits[i] = dev[1].to(torch.int32)
+    state.has_deletion[i] = dev[2].to(torch.bool)
+    return state
+
+
+class UpdateBuffer:
+    """Host-side accumulator that flushes staged row writes to the device.
+
+    The per-row staging API of ``kwok_tpu.ops.updates.UpdateBuffer``
+    (``stage_init``/``stage_update``). The flush differs in shape only:
+    torch needs no static batch widths, so every staged init goes out as
+    ONE ``init_rows`` batch in staging order, then every staged update as
+    one ``update_rows`` batch. Last-writer-wins inside a batch makes that
+    equal to applying the entries one by one: a row released then
+    re-acquired in one window ends in its later write."""
+
+    def __init__(self) -> None:
+        self._init: list[tuple[int, bool, int, int, int, bool]] = []
+        self._upd: list[tuple[int, int, bool]] = []
+
+    def stage_init(
+        self,
+        idx: int,
+        active: bool,
+        phase: int = 0,
+        cond_bits: int = 0,
+        sel_bits: int = 0,
+        has_deletion: bool = False,
+    ) -> None:
+        self._init.append((idx, active, phase, cond_bits, sel_bits, has_deletion))
+
+    def stage_update(self, idx: int, sel_bits: int, has_deletion: bool) -> None:
+        self._upd.append((idx, sel_bits, has_deletion))
+
+    @property
+    def pending(self) -> int:
+        return len(self._init) + len(self._upd)
+
+    def flush(self, state: RowState) -> RowState:
+        """Apply staged writes to ``state`` in place and return it. Staged
+        entries are cleared only after the writes went out."""
+        if self._init:
+            init = self._init
+            n = len(init)
+            state = init_rows(state, InitBatch(
+                idx=np.fromiter((c[0] for c in init), np.int32, n),
+                active=np.fromiter((c[1] for c in init), bool, n),
+                phase=np.fromiter((c[2] for c in init), np.int32, n),
+                cond_bits=np.fromiter((c[3] for c in init), np.uint32, n),
+                sel_bits=np.fromiter((c[4] for c in init), np.uint32, n),
+                has_deletion=np.fromiter((c[5] for c in init), bool, n),
+            ))
+        if self._upd:
+            upd = self._upd
+            n = len(upd)
+            state = update_rows(state, UpdateBatch(
+                idx=np.fromiter((c[0] for c in upd), np.int32, n),
+                sel_bits=np.fromiter((c[1] for c in upd), np.uint32, n),
+                has_deletion=np.fromiter((c[2] for c in upd), bool, n),
+            ))
+        self._init = []
+        self._upd = []
+        return state

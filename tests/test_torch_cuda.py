@@ -1,0 +1,180 @@
+"""The CUDA tick kernel on the card. Marked ``cuda``: without an NVIDIA GPU
+every test here skips. On a machine with one, from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest sets up JAX's CPU devices; these
+tests import neither JAX nor the JAX package, only ``kwok_tpu_torch``.)
+
+Each launch is held against the kernel's plain torch version on the same
+card tensors: every state field, mask and counter bit-exact for constant,
+uniform and weighted delays; exponential delays go through ``logf``, so
+their ``fire_at`` is held to rtol 1e-6 and the rows that differ in any
+field to 1e-3 of the capacity. Capacities include ragged ones (not a
+multiple of the 256-thread block) to exercise the masked tail.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from kwok_tpu_torch import models as tm
+from kwok_tpu_torch.edge.mockserver import FakeKube
+from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
+from kwok_tpu_torch.models.defaults import chaos_pod_rules
+from kwok_tpu_torch.ops import cuda_tick
+from kwok_tpu_torch.ops import state as ts
+from kwok_tpu_torch.ops.tick import MultiTickKernel
+
+pytestmark = pytest.mark.cuda
+
+FIELDS = ("phase", "cond_bits", "pending_rule", "fire_at", "hb_due", "gen")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_cuda.py on a machine with one")
+    return torch.device("cuda")
+
+
+def uniform_weighted_rules():
+    to = ["Running", "Succeeded", "Failed"]
+    return [
+        tm.LifecycleRule(
+            name=f"w{i}", resource=tm.ResourceKind.POD, from_phases=("Pending",),
+            effect=tm.StatusEffect(to_phase=to[i]),
+            delay=tm.Delay.uniform(0.1, 0.9), weight=w,
+        )
+        for i, w in enumerate([1, 0, 3])
+    ]
+
+
+SPECS = {
+    "default": lambda: cuda_tick.TickSpec(
+        tm.compile_rules(tm.default_pod_rules(), tm.ResourceKind.POD), 30.0, (), -1),
+    "nodes-hb": lambda: cuda_tick.TickSpec(
+        tm.compile_rules(tm.default_node_rules(), tm.ResourceKind.NODE), 0.3,
+        ("Ready",), 1),
+    "weighted-uniform": lambda: cuda_tick.TickSpec(
+        tm.compile_rules(uniform_weighted_rules(), tm.ResourceKind.POD), 30.0, (), -1),
+    "chaos": lambda: cuda_tick.TickSpec(
+        tm.compile_rules(chaos_pod_rules(1.0), tm.ResourceKind.POD), 30.0, (), -1),
+}
+
+
+def population(cap: int, seed: int):
+    """A numpy (host-layout) population made from a seed."""
+    rng = np.random.default_rng(seed)
+    s = ts.to_numpy(ts.new_row_state(cap, "cpu"))
+    s.active[:] = rng.random(cap) < 0.9
+    s.phase[:] = rng.integers(0, 2, cap)
+    s.sel_bits[:] = rng.integers(0, 4, cap).astype(np.uint32)
+    s.has_deletion[:] = rng.random(cap) < 0.1
+    return s
+
+
+@pytest.mark.parametrize("cap", [1001, 70_000])
+@pytest.mark.parametrize("steps", [1, 16])
+@pytest.mark.parametrize("rules", sorted(SPECS))
+def test_kernel_matches_plain_on_card(card, rules, steps, cap):
+    spec = SPECS[rules]()
+    host = population(cap, seed=cap + steps)
+    k_state = ts.from_numpy(host, card)
+    p_state = ts.from_numpy(host, card)
+    exact = rules != "chaos"
+    fired = 0
+    for n, now in enumerate((0.0, 0.7, 3.0), start=1):
+        seed = cuda_tick.SEED_BASE + n
+        before = cuda_tick.tick_steps.launches
+        kd, kx, kh, kc = cuda_tick.tick_steps(k_state, spec, now, seed, steps, 0.05)
+        assert cuda_tick.tick_steps.launches == before + 1
+        pd, px, ph, pc = cuda_tick.tick_steps_plain(p_state, spec, now, seed, steps, 0.05)
+        torch.cuda.synchronize()
+        kf, pf = k_state.fire_at, p_state.fire_at
+        assert torch.equal(torch.isinf(kf), torch.isinf(pf))
+        fin = ~torch.isinf(kf)
+        if exact:
+            for f in FIELDS:
+                assert torch.equal(getattr(k_state, f), getattr(p_state, f)), f
+            assert torch.equal(kd, pd) and torch.equal(kx, px) and torch.equal(kh, ph)
+            assert torch.equal(kc, pc)
+        else:
+            torch.testing.assert_close(kf[fin], pf[fin], rtol=1e-6, atol=0.0)
+            differ = (kd != pd) | (kx != px) | (kh != ph)
+            for f in ("phase", "cond_bits", "pending_rule", "gen"):
+                differ |= getattr(k_state, f) != getattr(p_state, f)
+            assert int(differ.sum()) <= 1e-3 * cap
+            # carry the plain side forward from the kernel's state
+            for f in FIELDS:
+                getattr(p_state, f).copy_(getattr(k_state, f))
+        fired += int(kc[0]) + int(kc[1])
+    assert fired > 0
+
+
+def test_fused_wire_on_card_matches_cpu(card):
+    """The port's MultiTickKernel on the card and on the CPU (the plain
+    version) give the same wire bytes, ragged capacities included."""
+    specs = [
+        (tm.compile_rules(tm.default_node_rules(), tm.ResourceKind.NODE), 2.0, (), 1),
+        (tm.compile_rules(tm.default_pod_rules(), tm.ResourceKind.POD), 2.0, (), -1),
+    ]
+    caps = (1001, 4099)
+    hosts = [population(c, seed=c) for c in caps]
+    on_card = MultiTickKernel(specs, steps=6, dt=0.05, device=card)
+    on_cpu = MultiTickKernel(specs, steps=6, dt=0.05, device="cpu")
+    gs = tuple(ts.from_numpy(h, card) for h in hosts)
+    cs = tuple(ts.from_numpy(h, "cpu") for h in hosts)
+    for now in (0.0, 1.7, 3.4):
+        _, gw = on_card(gs, now)
+        _, cw = on_cpu(cs, now)
+        np.testing.assert_array_equal(np.asarray(gw), np.asarray(cw))
+        assert gw.is_ready()
+
+
+def test_wrapper_rejects_mixed_devices(card):
+    spec = SPECS["default"]()
+    st = ts.new_row_state(64, card)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda_tick.tick_steps(st._replace(gen=st.gen.cpu()), spec, 0.0, 1, 1, 0.05)
+
+
+def test_threaded_engine_on_card(card):
+    server = FakeKube()
+    eng = ClusterEngine(server, EngineConfig(manage_all_nodes=True, tick_interval=0.02))
+    assert eng.nodes.state.device.type == "cuda"
+    before = cuda_tick.tick_steps.launches
+    eng.start()
+    threads = list(eng._threads)
+    try:
+        for i in range(20):
+            server.create("nodes", {"metadata": {"name": f"n{i}"}})
+        for i in range(300):
+            server.create("pods", {
+                "metadata": {"name": f"p{i}", "namespace": "default",
+                             "finalizers": ["x/y"]},
+                "spec": {"nodeName": f"n{i % 20}"},
+                "status": {"phase": "Pending"},
+            })
+        deadline = time.time() + 60
+        while time.time() < deadline and server.count(
+            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running"
+        ) < 300:
+            time.sleep(0.05)
+        assert server.count(
+            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running"
+        ) == 300
+        for i in range(30):
+            server.delete("pods", "default", f"p{i}", grace_seconds=30)
+        while time.time() < deadline and server.count("pods") > 270:
+            time.sleep(0.05)
+        assert server.count("pods") == 270
+    finally:
+        eng.stop()
+    assert not any(t.is_alive() for t in threads)
+    assert cuda_tick.tick_steps.launches > before

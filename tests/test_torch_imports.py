@@ -1,0 +1,60 @@
+"""The port stands alone: no module of kwok_tpu_torch/ and no line of
+chip_smoke.py imports jax (or any jax* package) or kwok_tpu, and a "cuda"
+engine on a host without a card raises instead of running on the CPU."""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "kwok_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path: pathlib.Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:  # relative import stays inside the package
+                out.append("kwok_tpu_torch." + (node.module or ""))
+            else:
+                out.append(node.module or "")
+    return out
+
+
+def forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top.startswith("jax") or top == "kwok_tpu"
+
+
+def test_port_files_exist():
+    assert (ROOT / "kwok_tpu_torch" / "csrc" / "tick.cu").exists()
+    assert len(PORT_FILES) > 10
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in imported_modules(path) if forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_rule():
+    assert forbidden("jax") and forbidden("jaxlib.xla_client") and forbidden("jax.numpy")
+    assert forbidden("kwok_tpu") and forbidden("kwok_tpu.ops.tick")
+    assert not forbidden("kwok_tpu_torch.ops.tick") and not forbidden("torch")
+
+
+def test_cuda_engine_without_card_raises(monkeypatch):
+    from kwok_tpu_torch.edge.mockserver import FakeKube
+    from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert EngineConfig(manage_all_nodes=True).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClusterEngine(FakeKube(), EngineConfig(manage_all_nodes=True))
