@@ -21,6 +21,22 @@ result line then):
    Running with a pod IP; then 500 finalizer-guarded pods are deleted
    gracefully and must be gone. The kernel's launch count is zeroed just
    before and read just after; it must be > 0.
+4. CLI: the real entry point, kwok_tpu_torch.kwok.cli.main, on a thread of
+   this script, against the port's HTTP mock apiserver in a subprocess of
+   its own (python3 -m kwok_tpu_torch.edge.mockserver --port 0), with a
+   Stage file of JSON documents: the default pod-delete stage and two
+   weighted Pending->Running stages (weights 3 and 1, uniform 0.1-0.5 s
+   and 0.5-1.0 s). 10,000 nodes exist before the CLI starts; /readyz must
+   answer 503 until the first re-list is ingested and 200 after. A spawned
+   creator process then creates 50,000 pods over several keep-alive HTTP
+   connections: every node Ready, every pod Running with a distinct pod IP
+   in the CIDR, then 500 finalizer-guarded pods deleted with grace 30 s
+   must be gone; /metrics must parse with kwok_ticks_total > 0 and
+   kwok_status_patches_total >= 60,000; main must return 0 once stopped.
+   The launch count (zeroed before main) must be > 0. After the phase the
+   kernel is held bit-exact against its plain version at the CLI engine's
+   capacities with the Stage rule tables, over two dispatches that re-arm
+   half the pod rows through the weighted uniform draw and fire them.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -30,9 +46,14 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 POD_ROWS = 1_048_576
 NODE_ROWS = 10_240
@@ -45,6 +66,11 @@ ENGINE_DEADLINE_S = 600.0
 # the poll counts 60,000 objects under the FakeKube lock; polling often
 # would take the interpreter lock from the engine it measures
 POLL_S = 0.25
+CLI_NODES = 10_000
+CLI_PODS = 50_000
+CLI_DELETES = 500
+CLI_DEADLINE_S = 600.0
+CLI_CONNS = 8  # keep-alive connections of the creator process
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -225,12 +251,27 @@ def time_dispatch(torch, node_spec, pod_spec, steps, states, now, reps: int = 20
     return med(times["kernel"]), med(times["plain"]), med(times["wire"])
 
 
-def engine_shape_check(torch, eng):
-    """The tick kernel against its plain version at the shapes the engine
-    phase gave it: the engine's grown capacities, its rule tables and the
-    rows it left on the card, one K=1 dispatch at its clock, bit-exact
-    (constant rules). Returns the capacities and the kernel, plain and
-    wire D2H ms there. Runs after the engine's launch count was read."""
+def rearmed(state, pending_phase: int):
+    """A copy of a pod state with every other active row back in Pending
+    and unarmed, so the next dispatch re-matches it (through the weighted
+    draw and its delay, under the Stage rules)."""
+    st = clone(state)
+    rows = st.active.nonzero().flatten()[::2]
+    st.phase[rows] = pending_phase
+    st.pending_rule[rows] = -1
+    st.fire_at[rows] = float("inf")
+    return st
+
+
+def engine_shape_check(torch, eng, rearm: bool = False):
+    """The tick kernel against its plain version at the shapes an engine
+    run gave it: the engine's grown capacities, its rule tables and the
+    rows it left on the card, K=1 dispatches at its clock, bit-exact (the
+    -fmad=false build makes constant, uniform and weighted draws exact).
+    With ``rearm``, half the pod rows are put back in Pending first and a
+    second dispatch 1.0 s later fires them. Returns the capacities and the
+    kernel, plain and wire D2H ms there. Runs after the engine's launch
+    count was read."""
     from kwok_tpu_torch.ops import cuda_tick
     from kwok_tpu_torch.ops.state import TickOutputs
     from kwok_tpu_torch.ops.tick import pack_wire
@@ -238,26 +279,31 @@ def engine_shape_check(torch, eng):
     torch.cuda.synchronize()
     fused = eng._get_fused()
     states = (eng.nodes.state, eng.pods.state)
+    if rearm:
+        states = (states[0], rearmed(states[1], eng._pod_phase_ids["Pending"]))
     now = eng._now()
-    wires = {}
-    for path, fn in (("kernel", cuda_tick.tick_steps), ("plain", cuda_tick.tick_steps_plain)):
-        outs = []
-        for spec, st0 in zip(fused.specs, states):
-            st = clone(st0)
-            d, x, h, c = fn(st, spec, now, cuda_tick.SEED_BASE + 1, fused.steps, fused.dt)
-            outs.append(TickOutputs(st, d, x, h, c[0], c[1]))
-        wires[path] = outs, pack_wire(outs)
-    torch.cuda.synchronize()
-    (kres, kwire), (pres, pwire) = wires["kernel"], wires["plain"]
-    for kind, ko, po in zip(("nodes", "pods"), kres, pres):
-        for f in ko.state._fields:
-            if not torch.equal(getattr(ko.state, f), getattr(po.state, f)):
-                raise AssertionError(f"engine shapes {kind}: {f} differs")
-        for m in ("dirty", "deleted", "hb_fired", "transitions", "heartbeats"):
-            if not torch.equal(getattr(ko, m), getattr(po, m)):
-                raise AssertionError(f"engine shapes {kind}: {m} differs")
-    if not torch.equal(kwire, pwire):
-        raise AssertionError("engine shapes: wire bytes differ")
+    starts = {"kernel": [clone(s) for s in states], "plain": [clone(s) for s in states]}
+    for n, at in enumerate((now, now + 1.0) if rearm else (now,), start=1):
+        wires = {}
+        for path, fn in (("kernel", cuda_tick.tick_steps), ("plain", cuda_tick.tick_steps_plain)):
+            outs = []
+            for spec, st in zip(fused.specs, starts[path]):
+                d, x, h, c = fn(st, spec, at, cuda_tick.SEED_BASE + n, fused.steps, fused.dt)
+                outs.append(TickOutputs(st, d, x, h, c[0], c[1]))
+            wires[path] = outs, pack_wire(outs)
+        torch.cuda.synchronize()
+        (kres, kwire), (pres, pwire) = wires["kernel"], wires["plain"]
+        for kind, ko, po in zip(("nodes", "pods"), kres, pres):
+            for f in ko.state._fields:
+                if not torch.equal(getattr(ko.state, f), getattr(po.state, f)):
+                    raise AssertionError(f"engine shapes {kind} dispatch {n}: {f} differs")
+            for m in ("dirty", "deleted", "hb_fired", "transitions", "heartbeats"):
+                if not torch.equal(getattr(ko, m), getattr(po, m)):
+                    raise AssertionError(f"engine shapes {kind} dispatch {n}: {m} differs")
+        if not torch.equal(kwire, pwire):
+            raise AssertionError(f"engine shapes dispatch {n}: wire bytes differ")
+        if rearm and n == 2 and int(kres[1].transitions) == 0:
+            raise AssertionError("re-armed pod rows did not fire")
     caps = [st.capacity for st in states]
     ms, plain_ms, wire_ms = time_dispatch(
         torch, fused.specs[0], fused.specs[1], fused.steps, states, now)
@@ -357,6 +403,311 @@ def engine_phase():
     }
 
 
+STAGE_RUNNING = {"phase": "Running",
+                 "conditions": {"Initialized": True, "Ready": True, "ContainersReady": True}}
+
+
+def stage_documents() -> list[dict]:
+    """The CLI phase's pod Stages: the default pod-delete stage and two
+    weighted Pending->Running stages with uniform delays, each with the
+    Running conditions of default_pod_rules."""
+    def stage(name, selector, nxt, delay=None, weight=None):
+        spec = {"resourceRef": {"apiGroup": "v1", "kind": "Pod"},
+                "selector": selector, "next": nxt}
+        if delay is not None:
+            spec["delay"] = delay
+        if weight is not None:
+            spec["weight"] = weight
+        return {"apiVersion": "kwok.x-k8s.io/v1alpha1", "kind": "Stage",
+                "metadata": {"name": name}, "spec": spec}
+
+    return [
+        stage("pod-delete",
+              {"matchPhases": ["Pending", "Running", "Succeeded", "Failed", "Terminating"],
+               "matchDeletion": "present", "matchSelector": "on-managed-node"},
+              {"delete": True}, delay={"duration": 0}),
+        stage("pod-running-fast", {"matchPhases": ["Pending"]}, STAGE_RUNNING,
+              delay={"uniform": {"min": "100ms", "max": "500ms"}}, weight=3),
+        stage("pod-running-slow", {"matchPhases": ["Pending"]}, STAGE_RUNNING,
+              delay={"uniform": {"min": "500ms", "max": "1s"}}, weight=1),
+    ]
+
+
+def create_over_http(url: str, kind: str, count: int, conns: int,
+                     nodes: int, span) -> None:
+    """Create ``count`` nodes, or pods bound round-robin to ``nodes``
+    nodes, over ``conns`` keep-alive connections (one per thread). Runs in a spawned process, so the creator does not share an
+    interpreter lock with the engine; ``span`` (a shared double array)
+    gets the wall-clock start and end."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+
+    client = HttpKubeClient(url)
+
+    def make(i: int) -> dict:
+        if kind == "nodes":
+            return {"metadata": {"name": f"node-{i}"}}
+        return {
+            "metadata": {"name": f"pod-{i}", "namespace": "default",
+                         "finalizers": ["kwok.x-k8s.io/smoke"]},
+            "spec": {"nodeName": f"node-{i % nodes}",
+                     "containers": [{"name": "c", "image": "busybox"}]},
+            "status": {"phase": "Pending"},
+        }
+
+    def run(lane: int) -> None:
+        for i in range(lane, count, conns):
+            client.create(kind, make(i))
+
+    span[0] = time.time()
+    with ThreadPoolExecutor(max_workers=conns) as pool:
+        for f in [pool.submit(run, lane) for lane in range(conns)]:
+            f.result()
+    span[1] = time.time()
+    client.close()
+
+
+def spawn_creator(url: str, kind: str, count: int):
+    """Start create_over_http in a spawned process; returns it and its
+    (start, end) span."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    span = ctx.Array("d", 2)
+    proc = ctx.Process(target=create_over_http,
+                       args=(url, kind, count, CLI_CONNS, CLI_NODES, span),
+                       name=f"create-{kind}")
+    proc.start()
+    return proc, span
+
+
+def join_creator(proc, deadline: float) -> None:
+    proc.join(max(1.0, deadline - time.monotonic()))
+    if proc.is_alive():
+        proc.terminate()
+        proc.join(10)
+        raise AssertionError(f"{proc.name}: did not finish in time")
+    if proc.exitcode != 0:
+        raise AssertionError(f"{proc.name}: exit code {proc.exitcode}")
+
+
+def http_get(url: str):
+    """(status, body text) of a GET; (None, "") when nothing listens."""
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, ""
+    except OSError:
+        return None, ""
+
+
+def parse_metrics(text: str) -> dict[str, float]:
+    """Prometheus text exposition -> {series: value}; raises on a sample
+    line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def cpu_seconds(pid: int) -> float:
+    """User + system CPU seconds of a live process (Linux /proc)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_phase():
+    import torch
+
+    import kwok_tpu_torch.engine as engine_mod
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+    from kwok_tpu_torch.kwok import cli
+    from kwok_tpu_torch.ops import cuda_tick
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    mock = subprocess.Popen(
+        [sys.executable, "-m", "kwok_tpu_torch.edge.mockserver", "--port", "0"],
+        cwd=here, stdout=subprocess.PIPE, text=True,
+    )
+    workdir = tempfile.mkdtemp(prefix="kwok-smoke-")
+    stop = threading.Event()
+    cli_thread = None
+    engines: list = []
+    real_engine = engine_mod.ClusterEngine
+
+    class Recorded(real_engine):
+        """The CLI's engine, kept for the checks after the phase."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    try:
+        line = mock.stdout.readline()
+        if not line.startswith("mock apiserver listening on "):
+            raise AssertionError(f"mock apiserver did not start: {line!r}")
+        url = line.split()[-1]
+        t0 = time.monotonic()
+        deadline = t0 + CLI_DEADLINE_S
+        proc, _span = spawn_creator(url, "nodes", CLI_NODES)
+        join_creator(proc, deadline)
+        stage_path = os.path.join(workdir, "stages.json")
+        with open(stage_path, "w") as f:
+            f.write("---\n".join(json.dumps(d) + "\n" for d in stage_documents()))
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        argv = ["--master", url, "--kubeconfig", os.path.join(workdir, "no-kubeconfig"),
+                "--manage-all-nodes", "true", "--server-address", f"127.0.0.1:{port}",
+                "--cidr", "10.0.0.1/16", "--config", stage_path]
+        readyz: list = []
+
+        def poll_readyz():
+            while not stop.is_set() and time.monotonic() < deadline:
+                code, _ = http_get(base + "/readyz")
+                if code is not None:
+                    readyz.append(code)
+                    if code == 200:
+                        return
+                time.sleep(0.005)
+
+        rc: list = []
+        engine_mod.ClusterEngine = Recorded
+        cuda_tick.tick_steps.launches = 0
+        poller = threading.Thread(target=poll_readyz, name="readyz-poll")
+        poller.start()
+        cli_thread = threading.Thread(
+            target=lambda: rc.append(cli.main(argv, stop_event=stop)), name="kwok-cli")
+        cli_thread.start()
+        poller.join(max(1.0, deadline - time.monotonic()))
+        if not readyz or readyz[0] != 503 or readyz[-1] != 200:
+            raise AssertionError(f"/readyz: want 503 before the first re-list, then 200; got {readyz[:3]}...{readyz[-3:]}")
+        eng = engines[0]
+        if eng.device.type != DEVICE:
+            raise AssertionError(f"the CLI's engine runs on {eng.device}, not {DEVICE}")
+
+        def metrics():
+            code, text = http_get(base + "/metrics")
+            if code != 200:
+                raise AssertionError(f"/metrics answered {code}")
+            return parse_metrics(text)
+
+        m0 = metrics()
+        patches0 = m0["kwok_status_patches_total"]
+        mock_cpu0 = cpu_seconds(mock.pid)
+        proc, span = spawn_creator(url, "pods", CLI_PODS)
+        join_creator(proc, deadline)
+        client = HttpKubeClient(url)
+
+        def running(p):
+            st = p.get("status") or {}
+            return st.get("phase") == "Running" and bool(st.get("podIP"))
+
+        # progress from the engine's counters (a cheap scrape), each
+        # crossing confirmed by one full LIST
+        while True:
+            m_run = metrics()
+            patches = m_run["kwok_status_patches_total"]
+            if patches >= CLI_NODES + CLI_PODS:
+                t_patched = time.time()
+                mock_cpu_run = cpu_seconds(mock.pid)
+                n_run = sum(map(running, client.list("pods")))
+                if n_run == CLI_PODS:
+                    break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"timeout: {metrics()} ")
+            time.sleep(POLL_S)
+        nodes = client.list("nodes")
+        n_ready = sum(
+            any(c.get("type") == "Ready" and c.get("status") == "True"
+                for c in (n.get("status") or {}).get("conditions") or [])
+            for n in nodes)
+        if n_ready != CLI_NODES:
+            raise AssertionError(f"{n_ready} of {CLI_NODES} nodes Ready")
+        t_del = time.time()
+        for i in range(CLI_DELETES):
+            client.delete("pods", "default", f"pod-{i}", grace_seconds=30)
+        while True:
+            if metrics()["kwok_deletes_total"] >= CLI_DELETES:
+                pods = client.list("pods")
+                if len(pods) == CLI_PODS - CLI_DELETES:
+                    break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"timeout deleting: {metrics()}")
+            time.sleep(POLL_S)
+        t_deleted = time.time()
+        m = metrics()
+    finally:
+        stop.set()
+        if cli_thread is not None:
+            cli_thread.join(120)
+        engine_mod.ClusterEngine = real_engine
+        mock.terminate()
+        try:
+            mock.wait(30)
+        except subprocess.TimeoutExpired:
+            mock.kill()
+            mock.wait(30)
+    if cli_thread.is_alive() or rc != [0]:
+        raise AssertionError(f"cli.main did not return 0 after stop: {rc}")
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the CLI ran without launching the tick kernel")
+    if m["kwok_ticks_total"] <= 0 or m["kwok_status_patches_total"] < CLI_NODES + CLI_PODS:
+        raise AssertionError(f"/metrics: {m}")
+    if m["kwok_patch_errors_total"]:
+        raise AssertionError(f"{m['kwok_patch_errors_total']} patch errors")
+    names = {p["metadata"]["name"] for p in pods}
+    if any(f"pod-{i}" in names for i in range(CLI_DELETES)):
+        raise AssertionError("a deleted pod is still listed")
+    ips = {p["status"]["podIP"] for p in pods}
+    if len(ips) != len(pods) or not all(ip.startswith("10.0.") for ip in ips):
+        raise AssertionError(f"{len(pods)} pods, {len(ips)} distinct IPs in the CIDR")
+    caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng, rearm=True)
+    log(f"kernel at the CLI engine's capacities {caps} with the Stage rules: checked; "
+        f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
+    t_pods, t_created = span[0], span[1]
+    return {
+        "nodes": CLI_NODES, "pods": CLI_PODS, "deleted": CLI_DELETES,
+        "connections": CLI_CONNS,
+        "readyz_503_polls": readyz.count(503),
+        "create_to_running_pods_per_s": CLI_PODS / (t_patched - t_pods),
+        "pod_create_s": t_created - t_pods,
+        "create_to_running_s": t_patched - t_pods,
+        "delete_s": t_deleted - t_del,
+        "status_patches": m["kwok_status_patches_total"],
+        # pod patches from the first pod create until all were Running
+        "status_patches_per_s": (patches - patches0) / (t_patched - t_pods),
+        "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
+        "transitions": m["kwok_transitions_total"],
+        "heartbeats": m["kwok_heartbeats_total"],
+        "watch_events": m["kwok_watch_events_total"],
+        "tick_thread_s": m["kwok_tick_seconds_total"],
+        # CPU seconds from the first pod create until all were Running:
+        # the mock apiserver's process, this process (engine + checks),
+        # and the tick thread's host seconds
+        "window_mock_cpu_s": mock_cpu_run - mock_cpu0,
+        "window_kwok_process_cpu_s": (m_run["process_cpu_seconds_total"]
+                                      - m0["process_cpu_seconds_total"]),
+        "window_tick_thread_s": (m_run["kwok_tick_seconds_total"]
+                                 - m0["kwok_tick_seconds_total"]),
+        "capacities": caps, "kernel_ms_at_capacities": shape_ms,
+        "plain_ms_at_capacities": shape_plain_ms,
+        "wire_d2h_ms_at_capacities": shape_wire_ms,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -383,6 +734,14 @@ def main() -> int:
         print(json.dumps({"kernel_config": c}), flush=True)
     engine = engine_phase()
     print(json.dumps({"engine": engine}), flush=True)
+    cli_run = cli_phase()
+    print(json.dumps({"cli": cli_run}), flush=True)
+    card = card_line()
+    print(f"cli: {cli_run['create_to_running_pods_per_s']:.1f} pods/s create->Running, "
+          f"{cli_run['status_patches_per_s']:.1f} status patches/s, "
+          f"tick thread {cli_run['tick_thread_s']:.2f} s, kernel "
+          f"{cli_run['kernel_ms_at_capacities']:.4f} ms at {cli_run['capacities']} ({card})",
+          flush=True)
 
     main_cfg = next(c for c in configs if c["rules"] == "default" and c["substeps"] == 1)
     kernels = {"kernels": [{
@@ -390,7 +749,7 @@ def main() -> int:
         "route": "cuda",
         "source": "kwok_tpu_torch/csrc/tick.cu",
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
-        "launches": engine["kernel_launches"],
+        "launches": engine["kernel_launches"] + cli_run["kernel_launches"],
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],

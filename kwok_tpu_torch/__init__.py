@@ -11,8 +11,13 @@ the API edge, the row pool) are its own copies.
   and the ingest scatters.
 - ``kwok_tpu_torch.engine``: the single-lane ``ClusterEngine`` (watch ->
   ingest -> fused tick -> wire -> status patches).
-- ``kwok_tpu_torch.edge``: the KubeClient protocol, renderers, strategic
-  merge, and a small in-memory apiserver (``edge/mockserver.FakeKube``).
+- ``kwok_tpu_torch.edge``: the KubeClient protocol, the HTTP client,
+  renderers, strategic merge, and a small apiserver in memory and over
+  HTTP (``edge/mockserver``).
+- ``kwok_tpu_torch.config``: the config file, ``KWOK_*`` env overrides and
+  Stage rules.
+- ``kwok_tpu_torch.kwok``: the ``kwok`` entry point
+  (``python -m kwok_tpu_torch.kwok``) and its healthz/metrics server.
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,9 @@ objects and engine rows:
 - render: dirty rows -> status documents (plain dict builders)
 - merge: strategic-merge + no-op suppression semantics
 - kubeclient: the list/watch/patch protocol the engine consumes
-- mockserver: a small in-memory apiserver speaking that protocol
+- httpclient: that protocol over a real kube-apiserver (HTTP(S))
+- mockserver: a small apiserver speaking that protocol, in memory and
+  over HTTP
 """
 
 from kwok_tpu_torch.edge.selectors import LabelSelector, parse_selector

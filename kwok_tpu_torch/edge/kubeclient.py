@@ -4,9 +4,10 @@ The reference consumes client-go's typed clientset; the contract it actually
 exercises is list / watch / get / patch-status / merge-patch-metadata /
 delete (SURVEY.md section 3). Implementations:
 
-- tests/fake_apiserver.FakeKube — in-memory, the unit-test fixture (the
-  analogue of fake.NewSimpleClientset in node_controller_test.go:38)
-- kwok_tpu.edge.httpclient.HttpKubeClient — real apiserver over HTTP(S)
+- kwok_tpu_torch.edge.mockserver.FakeKube — in-memory (the analogue of
+  fake.NewSimpleClientset in node_controller_test.go:38)
+- kwok_tpu_torch.edge.httpclient.HttpKubeClient — real apiserver over
+  HTTP(S)
 """
 
 from __future__ import annotations

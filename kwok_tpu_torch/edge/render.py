@@ -7,7 +7,7 @@ marked dirty — the replacement for per-object template execution
 (renderer.go:49-89).
 
 Generalization beyond the reference: phase names and condition bits come
-from the row (kwok_tpu.models.lifecycle), so custom rule sets render
+from the row (kwok_tpu_torch.models.lifecycle), so custom rule sets render
 faithfully; container states follow the pod phase (running / terminated).
 """
 

@@ -85,7 +85,13 @@ from kwok_tpu_torch.ops.tick import (
     rebase_times,
     unpack_wire,
 )
-from kwok_tpu_torch.ops.updates import UpdateBuffer
+from kwok_tpu_torch.ops.updates import (
+    InitBatch,
+    UpdateBatch,
+    UpdateBuffer,
+    init_rows,
+    update_rows,
+)
 
 logger = logging.getLogger("kwok_tpu_torch.engine")
 
@@ -127,6 +133,11 @@ class EngineConfig:
     pipeline_depth: int = 8
     node_rules: list[LifecycleRule] | None = None
     pod_rules: list[LifecycleRule] | None = None
+    # host lanes of the drain+emit pipeline; this engine runs one lane
+    # whatever the count (threaded lanes are a later slice) and says so
+    drain_shards: int = 1
+    # cap on the AUTO lane count (0 = built-in default); resolved by the CLI
+    max_drain_shards: int = 0
     device: str = "cuda"
 
     def validate(self) -> None:
@@ -198,6 +209,12 @@ class ClusterEngine:
             )
         self.client = client
         self.config = config
+        if config.drain_shards > 1:
+            logger.warning(
+                "drain_shards=%d: threaded lanes are not ported yet "
+                "(ROADMAP item 7); running the single-lane engine",
+                config.drain_shards,
+            )
         self.ippool = IPPool(config.cidr)
 
         self._manage_annotation = parse_selector(
@@ -267,8 +284,11 @@ class ClusterEngine:
         self._metrics: dict[str, float] = {name: 0 for name in _COUNTERS}
         self._metrics.update(
             tick_seconds_last=0.0, tick_seconds_total=0.0, nodes_managed=0,
-            pods_managed=0,
+            pods_managed=0, ingest_queue_depth=0,
         )
+        # kinds whose first full re-list is not ingested yet; None when
+        # the startup gate is not armed (before start()) or finished
+        self._startup_pending: set[str] | None = None
         self.ready = False
 
     # ---------------------------------------------------------------- metrics
@@ -325,21 +345,79 @@ class ClusterEngine:
 
     # ------------------------------------------------------------- lifecycle
 
+    @property
+    def startup_resync_pending(self) -> bool:
+        """True while the startup gate is open: the first full re-list of
+        both kinds has not been ingested, so /readyz answers 503."""
+        return self._running and self._startup_pending is not None
+
     def start(self) -> None:
-        """Start watch ingest, the patch executor and the tick thread."""
+        """Warm the device path, then start watch ingest, the patch
+        executor and the tick thread. ``ready`` stays False until the tick
+        thread has ingested the first full re-list of both kinds."""
         self._running = True
         self._stop_evt.clear()
         self._executor = ThreadPoolExecutor(
             max_workers=self.config.parallelism, thread_name_prefix="kwok-patch"
         )
-        self._get_fused()
+        with self._device_ctx():
+            self._warm_scatters()
+            self._warm_tick()
+        # armed before the watch threads exist; only the tick thread
+        # mutates it from here on
+        self._startup_pending = {"nodes", "pods"}
         node_label_sel = self.config.manage_nodes_with_label_selector or None
         self._spawn_watch("nodes", label_selector=node_label_sel)
         self._spawn_watch("pods", field_selector="spec.nodeName!=")
         t = threading.Thread(target=self._tick_loop, name="kwok-tick", daemon=True)
         t.start()
         self._threads.append(t)
-        self.ready = True
+
+    def _warm_scatters(self) -> None:
+        """Run both ingest scatters once on a row that is still in its
+        initial state, writing that same state back, so the first real
+        ingest wave does not pay for loading their device code."""
+        for k in (self.nodes, self.pods):
+            if len(k.pool):
+                continue  # rows already live: nothing safe to rewrite
+            one = np.zeros(1, np.int32)
+            k.state = init_rows(k.state, InitBatch(
+                idx=one, active=np.zeros(1, bool), phase=one,
+                cond_bits=np.zeros(1, np.uint32),
+                sel_bits=np.zeros(1, np.uint32),
+                has_deletion=np.zeros(1, bool),
+            ))
+            k.state = update_rows(k.state, UpdateBatch(
+                idx=one, sel_bits=np.zeros(1, np.uint32),
+                has_deletion=np.zeros(1, bool),
+            ))
+
+    def _warm_tick(self) -> None:
+        """One all-inactive fused dispatch at startup: on a CUDA device it
+        builds and loads the tick kernel's library (an nvcc build on a
+        cold cache), and it warms the pinned wire's D2H path, so neither
+        lands in the serving path."""
+        _outs, wire = self._get_fused()((self.nodes.state, self.pods.state), 0.0)
+        np.asarray(wire)
+
+    def _mark_resync(self, kind: str) -> None:
+        """The first full re-list of ``kind`` has been ingested (tick
+        thread)."""
+        if self._startup_pending is not None:
+            self._startup_pending.discard(kind)
+
+    def _startup_gate(self) -> None:
+        """Flip ``ready`` once every kind's first re-list is ingested and
+        its staged rows went to the device (tick thread)."""
+        if (
+            self._startup_pending is not None
+            and not self._startup_pending
+            and not self.nodes.buffer.pending
+            and not self.pods.buffer.pending
+        ):
+            self._startup_pending = None
+            self.ready = True
+            logger.info("startup re-list ingested; engine ready")
 
     def _get_fused(self) -> MultiTickKernel:
         if self._fused is None:
@@ -353,6 +431,7 @@ class ClusterEngine:
     def stop(self) -> None:
         self._running = False
         self.ready = False
+        self._startup_pending = None
         self._stop_evt.set()
         for w in list(self._watches.values()):
             w.stop()
@@ -453,6 +532,7 @@ class ClusterEngine:
             stale = [key for key in self.pods.pool.keys() if key not in seen]
             for ns, name in stale:
                 self._pod_deleted({"metadata": {"namespace": ns, "name": name}})
+        self._mark_resync(kind)
 
     def _node_upsert(self, node: dict) -> None:
         meta = node.get("metadata") or {}
@@ -734,6 +814,8 @@ class ClusterEngine:
                     # re-arm: staged work may already be on the device
                     # with no event left to trigger the gate
                     self._idle_wake = time.monotonic() + interval
+                self._set("ingest_queue_depth", self._q.qsize())
+                self._startup_gate()
         finally:
             # stopping: flush in-flight ticks so patches already computed
             # on the device are not dropped

@@ -1,0 +1,307 @@
+"""The port's kwok CLI (kwok_tpu_torch.kwok) against kwok_tpu.kwok.
+
+- The JAX CLI (``--drain-shards 1``) and the port's (``KWOK_TPU_PLATFORM=cpu``),
+  each against its own package's HTTP mock apiserver, given the same
+  nodes, pods, deletes and constant-delay Stage file, end in the same
+  apiserver objects with timestamps and resourceVersions masked (the
+  order in which patches of different objects commit is a thread race).
+- Both parsers have the same option strings and defaults.
+- Every flag (and environment twin) that would switch on a subsystem the
+  port lacks exits non-zero naming its ROADMAP item; so does the default
+  cuda device on a host without a card.
+- ``/readyz`` answers 503 until the first re-list is ingested, and
+  ``/metrics`` carries the ``kwok_`` counters.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+from kwok_tpu.edge.mockserver import HttpFakeApiserver as JaxServer
+from kwok_tpu.kwok import cli as jcli
+from kwok_tpu_torch.config.types import KwokConfigurationOptions
+from kwok_tpu_torch.edge.mockserver import FakeKube as PortFakeKube
+from kwok_tpu_torch.edge.mockserver import HttpFakeApiserver as PortServer
+from kwok_tpu_torch.kwok import cli as tcli
+from tests.test_torch_engine import make_node, make_pod, masked
+
+STAGES = [
+    {"apiVersion": "kwok.x-k8s.io/v1alpha1", "kind": "Stage",
+     "metadata": {"name": "pod-delete"},
+     "spec": {"resourceRef": {"apiGroup": "v1", "kind": "Pod"},
+              "selector": {"matchPhases": ["Pending", "Running", "Succeeded", "Failed", "Terminating"],
+                           "matchDeletion": "present", "matchSelector": "on-managed-node"},
+              "next": {"delete": True}}},
+    {"apiVersion": "kwok.x-k8s.io/v1alpha1", "kind": "Stage",
+     "metadata": {"name": "pod-running"},
+     "spec": {"resourceRef": {"apiGroup": "v1", "kind": "Pod"},
+              "selector": {"matchPhases": ["Pending"]},
+              "delay": {"duration": "200ms"},
+              "next": {"phase": "Running",
+                       "conditions": {"Initialized": True, "Ready": True, "ContainersReady": True}}}},
+]
+
+
+def stage_file(tmp_path):
+    p = tmp_path / "stages.json"
+    p.write_text("---\n".join(json.dumps(d) + "\n" for d in STAGES))
+    return str(p)
+
+
+def base_args(tmp_path, master, config=None):
+    return [
+        "--master", master,
+        "--kubeconfig", str(tmp_path / "no-kubeconfig"),  # force the master path
+        "--manage-all-nodes", "true",
+        "--tick-interval", "0.02",
+        "--config", config or str(tmp_path / "absent.yaml"),
+    ]
+
+
+def run_cli(main, argv):
+    """main(argv) on a thread; returns (stop event, thread, return codes)."""
+    stop, rc = threading.Event(), []
+    t = threading.Thread(target=lambda: rc.append(main(argv, stop_event=stop)), daemon=True)
+    t.start()
+    return stop, t, rc
+
+
+def wait_for(cond, timeout=30.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if cond():
+            return True
+        time.sleep(0.05)
+    return cond()
+
+
+def running(p):
+    st = p.get("status") or {}
+    return st.get("phase") == "Running" and bool(st.get("podIP"))
+
+
+def cli_scenario(lib, tmp_path, monkeypatch):
+    """The same cluster through one package's CLI and HTTP mock; returns
+    the final objects (masked) and the delete count."""
+    srv = (JaxServer() if lib == "jax" else PortServer()).start()
+    store = srv.store
+    if lib == "torch":
+        monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    try:
+        for i in range(3):
+            store.create("nodes", make_node(f"n{i}"))
+        for i in range(6):
+            store.create("pods", make_pod(f"p{i}", node=f"n{i % 3}",
+                                          finalizers=["kwok.dev/guard"] if i == 0 else None))
+        main = jcli.main if lib == "jax" else tcli.main
+        # one patch worker: IPs go out in row order in both engines
+        argv = base_args(tmp_path, srv.url, stage_file(tmp_path)) + [
+            "--drain-shards", "1", "--parallelism", "1"]
+        stop, t, rc = run_cli(main, argv)
+        try:
+            assert wait_for(lambda: all(running(p) for p in store.list("pods")))
+            store.delete("pods", "default", "p0", grace_seconds=30)
+            store.delete("pods", "default", "p1", grace_seconds=30)
+            assert wait_for(lambda: len(store.list("pods")) == 4)
+        finally:
+            stop.set()
+            t.join(30)
+        assert rc == [0] and not t.is_alive()
+        objs = {k: masked(store.list(k)) for k in ("nodes", "pods")}
+        for o in objs["nodes"] + objs["pods"]:
+            o["metadata"]["resourceVersion"] = "<rv>"
+        return objs, store.delete_count
+    finally:
+        srv.stop()
+
+
+def test_port_cli_matches_jax_cli(tmp_path, monkeypatch):
+    ref = cli_scenario("jax", tmp_path, monkeypatch)
+    got = cli_scenario("torch", tmp_path, monkeypatch)
+    assert got == ref
+    objs, deletes = got
+    assert deletes == 2 and len(objs["pods"]) == 4
+    assert all(c["status"] == "True" for n in objs["nodes"]
+               for c in n["status"]["conditions"] if c["type"] == "Ready")
+
+
+def parser_surface(build):
+    p = build(KwokConfigurationOptions())
+    return {
+        tuple(a.option_strings): (a.dest, a.default, a.choices, a.nargs, type(a).__name__)
+        for a in p._actions
+    }
+
+
+def test_parsers_have_the_same_flags_and_defaults():
+    assert parser_surface(tcli.build_parser) == parser_surface(jcli.build_parser)
+
+
+REFUSED = {
+    "use-mesh": (["--use-mesh", "true"], {}, 9),
+    "lane-procs": (["--lane-procs", "true"], {}, 8),
+    "ha-primary": (["--ha-role", "primary"], {}, 12),
+    "ha-standby": (["--ha-role", "standby"], {}, 12),
+    "checkpoint-dir": (["--checkpoint-dir", "ckpt"], {}, 6),
+    "audit-interval": (["--audit-interval", "5"], {}, 13),
+    "faults": (["--faults", "seed=1;pump.drop=0.1"], {}, 13),
+    "enable-cni": (["--enable-cni", "true"], {}, 14),
+    "profile-dir": (["--profile-dir", "prof"], {}, 15),
+    "trace-dump": (["--trace-dump", "trace.json"], {}, 15),
+    "two-masters": (["--master", "http://127.0.0.1:1,http://127.0.0.1:2"], {}, 9),
+    "member-config": (["--member-config", "member.yaml"], {}, 9),
+    "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, 9),
+    "env-lane-procs": ([], {"KWOK_LANE_PROCS": "true"}, 8),
+    "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, 12),
+    "env-checkpoint-dir": ([], {"KWOK_CHECKPOINT_DIR": "ckpt"}, 6),
+    "env-tpu-checkpoint-dir": ([], {"KWOK_TPU_CHECKPOINT_DIR": "ckpt"}, 6),
+    "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, 13),
+    "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, 13),
+    "env-faults": ([], {"KWOK_FAULTS": "seed=1"}, 13),
+    "env-tpu-faults": ([], {"KWOK_TPU_FAULTS": "seed=1"}, 13),
+    "env-enable-cni": ([], {"KWOK_ENABLE_CNI": "true"}, 14),
+    "env-tpu-trace": ([], {"KWOK_TPU_TRACE": "trace.json"}, 15),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
+    extra, env, item = REFUSED[name]
+    monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    # port 1 has no apiserver: a refusal must come before any network wait
+    with pytest.raises(SystemExit) as e:
+        tcli.main(base_args(tmp_path, "http://127.0.0.1:1") + extra)
+    assert isinstance(e.value.code, str), e.value.code  # exit status 1
+    assert f"ROADMAP item {item}" in e.value.code
+
+
+def test_ha_role_off_and_defaults_are_not_refused(tmp_path):
+    args = tcli.build_parser(KwokConfigurationOptions()).parse_args(["--ha-role", "off"])
+    assert tcli.refusals(args, ["http://127.0.0.1:1"]) == []
+
+
+def test_cuda_default_without_card_exits(tmp_path, monkeypatch):
+    monkeypatch.delenv("KWOK_TPU_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        tcli.main(base_args(tmp_path, "http://127.0.0.1:1"))
+    assert "CUDA" in str(e.value.code)
+    monkeypatch.setenv("KWOK_TPU_PLATFORM", "tpu")
+    with pytest.raises(SystemExit, match="cuda or cpu"):
+        tcli.main(base_args(tmp_path, "http://127.0.0.1:1"))
+
+
+def test_module_entry_point_exits_nonzero_without_card(tmp_path):
+    """``python -m kwok_tpu_torch.kwok`` with no card and no
+    KWOK_TPU_PLATFORM=cpu ends with a non-zero status; it does not run on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the cuda engine would start")
+    env = {k: v for k, v in os.environ.items() if k != "KWOK_TPU_PLATFORM"}
+    r = subprocess.run(
+        [sys.executable, "-m", "kwok_tpu_torch.kwok", *base_args(tmp_path, "http://127.0.0.1:1")],
+        capture_output=True, text=True, timeout=120, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert r.returncode != 0
+    assert "CUDA" in r.stderr
+
+
+class GatedStore(PortFakeKube):
+    """A store whose LISTs after the first (the CLI's apiserver probe)
+    wait for ``gate``: the engine's first re-list is held back."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.gate = threading.Event()
+        self.lists = 0
+
+    def list_bytes(self, kind, **kw):
+        self.lists += 1
+        if self.lists > 1:
+            self.gate.wait(30)
+        return super().list_bytes(kind, **kw)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=5) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.reason
+    except OSError:
+        return None, ""
+
+
+def test_readyz_503_until_first_relist_and_metrics(tmp_path, monkeypatch):
+    monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    store = GatedStore()
+    store.create("nodes", make_node("n0"))
+    store.create("pods", make_pod("p0", node="n0"))
+    srv = PortServer(store=store).start()
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    stop, t, rc = run_cli(tcli.main, base_args(tmp_path, srv.url) + [
+        "--server-address", f"127.0.0.1:{port}"])
+    try:
+        assert wait_for(lambda: get(base + "/healthz")[0] == 200)
+        assert wait_for(lambda: store.lists > 1)  # the engine's re-list waits
+        assert get(base + "/readyz") == (503, "startup_resync")
+        assert get(base + "/livez")[0] == 200
+        store.gate.set()
+        assert wait_for(lambda: get(base + "/readyz")[0] == 200)
+        assert wait_for(lambda: running(store.get("pods", "default", "p0")))
+        assert get(base + "/debug/trace")[0] == 404
+        code, text = get(base + "/metrics")
+        assert code == 200
+        samples = dict(
+            line.rsplit(" ", 1) for line in text.splitlines()
+            if line and not line.startswith("#")
+        )
+        for name in ("kwok_ticks_total", "kwok_status_patches_total",
+                     "kwok_watch_relists_total", "kwok_ingest_queue_depth",
+                     "kwok_nodes_managed", "kwok_pods_managed",
+                     "process_cpu_seconds_total"):
+            assert name in samples, name
+        assert float(samples["kwok_ticks_total"]) > 0
+        assert float(samples["kwok_status_patches_total"]) >= 2
+        assert "# TYPE kwok_ticks_total counter" in text
+        assert "# TYPE kwok_pods_managed gauge" in text
+    finally:
+        store.gate.set()
+        stop.set()
+        t.join(30)
+        srv.stop()
+    assert rc == [0]
+
+
+def test_signal_handler_and_stop_deadline():
+    stop = threading.Event()
+    forced = []
+    h = tcli.make_signal_handler(stop, force_exit=forced.append)
+    h(tcli.signal.SIGTERM)
+    assert stop.is_set() and forced == []
+    h(tcli.signal.SIGTERM)
+    assert forced == [130]
+    ran = []
+    tcli.stop_with_deadline([lambda: ran.append(1)], 5.0, force_exit=forced.append)
+    assert ran == [1] and forced == [130]
