@@ -15,13 +15,31 @@ result line then):
    bit-exact. Chaos rules: fire_at to rtol 1e-6, rows that differ in any
    field at most 1e-5 of the rows. Kernel, plain and wire D2H times are
    taken with CUDA events.
-3. Engine: the port's threaded ClusterEngine (the normal start() path,
-   device="cuda") against the port's in-memory FakeKube holding 10,000
-   nodes and 50,000 pods bound round-robin: every node Ready, every pod
-   Running with a pod IP; then 500 finalizer-guarded pods are deleted
-   gracefully and must be gone. The kernel's launch count is zeroed just
-   before and read just after; it must be > 0.
-4. CLI: the real entry point, kwok_tpu_torch.kwok.cli.main, on a thread of
+3. Engine: the port's threaded single-lane ClusterEngine (the normal
+   start() path, device="cuda") against the port's in-memory FakeKube
+   holding 10,000 nodes and 50,000 pods bound round-robin: every node
+   Ready, every pod Running with a distinct pod IP in the CIDR; then 500
+   finalizer-guarded pods are deleted gracefully and must be gone. The
+   kernel's launch count is zeroed just before and read just after; it
+   must be > 0. The kernel is then held bit-exact against its plain
+   version at the engine's capacities.
+4. Lanes: the same run with drain_shards = resolve_drain_shards(0) (the
+   CLI's auto lane count): a router, a drain and an emit worker per lane
+   and one coordinator over a stacked state per kind. More than one lane
+   must have drained and emitted, the stacked state must have regrown,
+   and the kernel is held bit-exact at the stacked capacities.
+5. Restart: lanes on, 10,000 nodes and 50,000 pods under one
+   Pending->Running rule with a constant 30 s delay, checkpoints every
+   1 s. Once the checkpoint file covers every pod armed, 5 s more, then
+   the engine stops (writing the final checkpoint) and a second engine
+   starts on the same directory: it must become ready and close its
+   restore with at least 49,900 rows refined; each pod's fire_at - now,
+   read back from the card, must lie within 2 s of its checkpointed
+   residue; no pod may go Running in the store more than 1 s before that
+   deadline (seen on a watch), the engine must have every pod Running
+   within 10 s after it (its host mirror, polled), and every pod must
+   reach Running in the store.
+6. CLI: the real entry point, kwok_tpu_torch.kwok.cli.main, on a thread of
    this script, against the port's HTTP mock apiserver in a subprocess of
    its own (python3 -m kwok_tpu_torch.edge.mockserver --port 0), with a
    Stage file of JSON documents: the default pod-delete stage and two
@@ -33,10 +51,13 @@ result line then):
    in the CIDR, then 500 finalizer-guarded pods deleted with grace 30 s
    must be gone; /metrics must parse with kwok_ticks_total > 0 and
    kwok_status_patches_total >= 60,000; main must return 0 once stopped.
+   The CLI's default --drain-shards must have built lanes of the auto
+   count; the per-lane drain and emit seconds are read from /metrics.
    The launch count (zeroed before main) must be > 0. After the phase the
    kernel is held bit-exact against its plain version at the CLI engine's
-   capacities with the Stage rule tables, over two dispatches that re-arm
-   half the pod rows through the weighted uniform draw and fire them.
+   stacked capacities with the Stage rule tables, over two dispatches
+   that re-arm half the pod rows through the weighted uniform draw and
+   fire them.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -71,6 +92,11 @@ CLI_PODS = 50_000
 CLI_DELETES = 500
 CLI_DEADLINE_S = 600.0
 CLI_CONNS = 8  # keep-alive connections of the creator process
+RESTART_NODES = 10_000
+RESTART_PODS = 50_000
+RESTART_DELAY_S = 30.0
+RESTART_EXTRA_S = 5.0  # run on after the file covers every armed pod
+RESTART_DEADLINE_S = 300.0
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -263,6 +289,13 @@ def rearmed(state, pending_phase: int):
     return st
 
 
+def engine_states(eng):
+    """The device states an engine ticks: the stacked ones under lanes."""
+    if eng._lanes is not None:
+        return (eng._lanes.stacked["nodes"], eng._lanes.stacked["pods"])
+    return (eng.nodes.state, eng.pods.state)
+
+
 def engine_shape_check(torch, eng, rearm: bool = False):
     """The tick kernel against its plain version at the shapes an engine
     run gave it: the engine's grown capacities, its rule tables and the
@@ -278,7 +311,7 @@ def engine_shape_check(torch, eng, rearm: bool = False):
 
     torch.cuda.synchronize()
     fused = eng._get_fused()
-    states = (eng.nodes.state, eng.pods.state)
+    states = engine_states(eng)
     if rearm:
         states = (states[0], rearmed(states[1], eng._pod_phase_ids["Pending"]))
     now = eng._now()
@@ -310,14 +343,19 @@ def engine_shape_check(torch, eng, rearm: bool = False):
     return caps, ms, plain_ms, wire_ms
 
 
-def engine_phase():
+def engine_phase(drain_shards: int = 1):
     from kwok_tpu_torch.edge.mockserver import FakeKube
     from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
     from kwok_tpu_torch.ops import cuda_tick
 
     server = FakeKube()
-    cfg = EngineConfig(manage_all_nodes=True, cidr="10.0.0.1/16", device=DEVICE)
+    cfg = EngineConfig(manage_all_nodes=True, cidr="10.0.0.1/16",
+                       drain_shards=drain_shards, device=DEVICE)
     eng = ClusterEngine(server, cfg)
+    lanes = eng._lanes
+    if (lanes.n if lanes is not None else 1) != drain_shards:
+        raise AssertionError(f"asked for {drain_shards} lanes, got {lanes}")
+    r0 = lanes.r if lanes is not None else 0
     cuda_tick.tick_steps.launches = 0
     t0 = time.monotonic()
     eng.start()
@@ -379,12 +417,25 @@ def engine_phase():
     m = eng.metrics
     if m["patch_errors_total"]:
         raise AssertionError(f"{m['patch_errors_total']} patch errors")
+    lane_info = {}
+    if lanes is not None:
+        drain_s = [ln.telemetry.stage_sums["drain"] for ln in lanes.lanes]
+        emit_s = [ln.telemetry.stage_sums["emit"] for ln in lanes.lanes]
+        if sum(x > 0 for x in drain_s) < 2 or sum(x > 0 for x in emit_s) < 2:
+            raise AssertionError(f"lanes did not share the work: drain {drain_s}, emit {emit_s}")
+        if lanes.r <= r0:
+            raise AssertionError(f"the stacked state never regrew ({r0} rows per lane)")
+        lane_info = {"lanes": lanes.n, "rows_per_lane_start": r0,
+                     "rows_per_lane_end": lanes.r,
+                     "lane_drain_s": drain_s, "lane_emit_s": emit_s,
+                     "lane_pods": [len(ln.engine.pods.pool) for ln in lanes.lanes]}
     import torch
 
     caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng)
-    log(f"kernel at the engine's capacities {caps}: checked; kernel "
+    log(f"kernel at the engine's capacities {caps} ({drain_shards} lanes): checked; kernel "
         f"{shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     return {
+        **lane_info,
         "nodes": ENGINE_NODES, "pods": ENGINE_PODS, "deleted": ENGINE_DELETES,
         "create_to_running_pods_per_s": ENGINE_PODS / (t_running - t_pods),
         "pod_create_s": t_created - t_pods,
@@ -400,6 +451,173 @@ def engine_phase():
         "capacities": caps, "kernel_ms_at_capacities": shape_ms,
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
+    }
+
+
+def restart_phase():
+    """Checkpoint, stop, restart: the residues of 50,000 armed pods carry
+    over to a second engine on the same directory (lanes on)."""
+    import numpy as np
+    import torch
+
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.edge.mockserver import FakeKube
+    from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
+    from kwok_tpu_torch.models.defaults import default_pod_rules
+    from kwok_tpu_torch.models.lifecycle import Delay
+    from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
+
+    workdir = tempfile.mkdtemp(prefix="kwok-ckpt-")
+    path = ckpt_mod.checkpoint_path(workdir, "engine")
+    server = FakeKube()
+    lanes = resolve_drain_shards(0)
+
+    def config():
+        return EngineConfig(
+            manage_all_nodes=True, cidr="10.0.0.1/16", drain_shards=lanes,
+            pod_rules=default_pod_rules(running_delay=Delay.constant(RESTART_DELAY_S)),
+            checkpoint_dir=workdir, checkpoint_interval=1.0, device=DEVICE,
+        )
+
+    def running(p):
+        return (p.get("status") or {}).get("phase") == "Running"
+
+    cuda_tick.tick_steps.launches = 0
+    deadline = time.monotonic() + RESTART_DEADLINE_S
+    e1 = ClusterEngine(server, config())
+    e1.start()
+    try:
+        for i in range(RESTART_NODES):
+            server.create("nodes", {"metadata": {"name": f"node-{i}"}})
+        for i in range(RESTART_PODS):
+            server.create("pods", {
+                "metadata": {"name": f"pod-{i}", "namespace": "default"},
+                "spec": {"nodeName": f"node-{i % RESTART_NODES}",
+                         "containers": [{"name": "c", "image": "busybox"}]},
+                "status": {"phase": "Pending"},
+            })
+
+        def covered():
+            doc = ckpt_mod.load(workdir, "engine")
+            pods = (doc or {}).get("kinds", {}).get("pods", {})
+            return len(pods) == RESTART_PODS and all(v[2] is not None for v in pods.values())
+
+        while not covered():
+            if time.monotonic() > deadline:
+                raise AssertionError("the checkpoint never covered every armed pod")
+            time.sleep(1.0)
+        time.sleep(RESTART_EXTRA_S)
+    finally:
+        e1.stop()  # writes the final checkpoint
+    m1 = e1.metrics
+    if server.count("pods", running):
+        raise AssertionError("pods went Running before the restart: the phase ran too slowly")
+    residues = {k: v[2] for k, v in ckpt_mod.load(workdir, "engine")["kinds"]["pods"].items()}
+    if len(residues) != RESTART_PODS or any(v is None for v in residues.values()):
+        raise AssertionError("the final checkpoint does not hold every armed pod")
+    file_bytes = os.path.getsize(path)
+
+    # every pod's first Running event, stamped when this thread sees it
+    # (never before the store committed it)
+    seen: dict = {}
+    w = server.watch("pods")
+
+    def follow():
+        for ev in w:
+            if running(ev.object):
+                seen.setdefault(ev.object["metadata"]["name"], time.time())
+
+    follower = threading.Thread(target=follow, name="running-watch")
+    follower.start()
+    e2 = ClusterEngine(server, config())
+    t_start = time.monotonic()
+    e2.start()
+    try:
+        while not e2.ready:
+            if time.monotonic() > deadline:
+                raise AssertionError("the restarted engine never became ready")
+            time.sleep(0.02)
+        t_ready = time.monotonic()
+        while e2._restore is not None:
+            if time.monotonic() > deadline:
+                raise AssertionError("the restore session never closed")
+            time.sleep(0.02)
+        # the deadlines on the card, read on the coordinator's stream
+        ls = e2._lanes
+        with torch.cuda.stream(e2._stream):
+            fire = ls.stacked["pods"].fire_at.cpu().numpy()
+        now, wall = e2._now(), time.time()
+        expected = {}
+        worst = 0.0
+        for li, lane in enumerate(ls.lanes):
+            with lane.stage_lock:
+                rows = list(lane.engine.pods.pool.items())
+            for (ns, name), idx in rows:
+                res = float(fire[li * ls.r + idx]) - now
+                worst = max(worst, abs(res - residues[f"{ns}/{name}"]))
+                expected[name] = wall + res
+        if len(expected) != RESTART_PODS:
+            raise AssertionError(f"{len(expected)} pods in the restarted engine's pools")
+        if worst > 2.0:
+            raise AssertionError(f"a refined deadline is {worst:.3f} s off its checkpointed residue")
+        # when the engine itself has each pod Running (its host mirror,
+        # refreshed from the consumed wire; the patch is queued then),
+        # polled every 0.1 s: the poll time is never before the flip
+        running_id = e2._pod_phase_ids["Running"]
+        views = []
+        for lane in ls.lanes:
+            with lane.stage_lock:
+                rows = list(lane.engine.pods.pool.items())
+            views.append((lane.engine.pods, np.array([i for _, i in rows]),
+                          [key[1] for key, _ in rows], np.zeros(len(rows), bool)))
+        flipped = {}
+        limit = max(expected.values()) + 10.0
+        while len(flipped) < RESTART_PODS:
+            t = time.time()
+            for k, idx, names, done in views:
+                new = np.nonzero((k.phase_h[idx] == running_id) & ~done)[0]
+                done[new] = True
+                for j in new:
+                    flipped[names[j]] = t
+            if time.time() > limit:
+                raise AssertionError(f"the engine had {len(flipped)} of {RESTART_PODS} pods "
+                                     "Running 10 s past their deadlines")
+            time.sleep(0.1)
+        while len(seen) < RESTART_PODS:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{len(seen)} of {RESTART_PODS} pods Running in the store")
+            time.sleep(0.25)
+    finally:
+        e2.stop()
+        w.stop()
+        follower.join(30)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the restart phase ran without launching the tick kernel")
+    early = min(seen[n] - expected[n] for n in expected)
+    late = max(seen[n] - expected[n] for n in expected)
+    flip_late = max(flipped[n] - expected[n] for n in expected)
+    if early < -1.0 or flip_late > 10.0:
+        raise AssertionError(f"pods went Running {early:.3f} s before or {flip_late:.3f} s "
+                             "after their deadlines")
+    m2 = e2.metrics
+    if m2["restore_refined_rows"] < RESTART_PODS - 100:
+        raise AssertionError(f"only {m2['restore_refined_rows']} rows refined")
+    return {
+        "lanes": lanes, "nodes": RESTART_NODES, "pods": RESTART_PODS,
+        "delay_s": RESTART_DELAY_S,
+        "refined": m2["restore_refined_rows"], "stale": m2["restore_stale_rows"],
+        "restart_recovery_seconds": m2["restart_recovery_seconds"],
+        "ready_after_start_s": t_ready - t_start,
+        "checkpoint_bytes": file_bytes,
+        "checkpoint_writes": m1["checkpoint_writes_total"],
+        "snapshot_s": m1["checkpoint_snapshot_seconds_last"],
+        "write_s": m1["checkpoint_write_seconds_last"],
+        "max_refined_residue_error_s": worst,
+        "engine_running_after_deadline_max_s": flip_late,
+        "store_running_vs_deadline_s": [early, late],
+        "kernel_launches": launches,
     }
 
 
@@ -532,6 +750,7 @@ def cli_phase():
     import torch
 
     import kwok_tpu_torch.engine as engine_mod
+    from kwok_tpu_torch.config.types import resolve_drain_shards
     from kwok_tpu_torch.edge.httpclient import HttpKubeClient
     from kwok_tpu_torch.kwok import cli
     from kwok_tpu_torch.ops import cuda_tick
@@ -596,6 +815,9 @@ def cli_phase():
         eng = engines[0]
         if eng.device.type != DEVICE:
             raise AssertionError(f"the CLI's engine runs on {eng.device}, not {DEVICE}")
+        n_lanes = resolve_drain_shards(0, 0)
+        if eng._lanes is None or eng._lanes.n != n_lanes:
+            raise AssertionError(f"the CLI's default --drain-shards did not run {n_lanes} lanes")
 
         def metrics():
             code, text = http_get(base + "/metrics")
@@ -674,11 +896,19 @@ def cli_phase():
     ips = {p["status"]["podIP"] for p in pods}
     if len(ips) != len(pods) or not all(ip.startswith("10.0.") for ip in ips):
         raise AssertionError(f"{len(pods)} pods, {len(ips)} distinct IPs in the CIDR")
+    lane_s = {stage: [m.get(f'kwok_lane_stage_seconds_sum{{shard="{i}",stage="{stage}"}}')
+                      for i in range(n_lanes)] for stage in ("drain", "emit")}
+    for stage, xs in lane_s.items():
+        if None in xs or sum(x > 0 for x in xs) < 2:
+            raise AssertionError(f"/metrics lane {stage} seconds: {xs}")
+    log(f"cli lanes: drain s {lane_s['drain']}, emit s {lane_s['emit']}")
     caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng, rearm=True)
     log(f"kernel at the CLI engine's capacities {caps} with the Stage rules: checked; "
         f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     t_pods, t_created = span[0], span[1]
     return {
+        "lanes": n_lanes, "lane_drain_s": lane_s["drain"], "lane_emit_s": lane_s["emit"],
+        "lane_pods": [len(ln.engine.pods.pool) for ln in eng._lanes.lanes],
         "nodes": CLI_NODES, "pods": CLI_PODS, "deleted": CLI_DELETES,
         "connections": CLI_CONNS,
         "readyz_503_polls": readyz.count(503),
@@ -732,12 +962,28 @@ def main() -> int:
     configs, max_abs_err = kernel_phase(torch, np)
     for c in configs:
         print(json.dumps({"kernel_config": c}), flush=True)
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+
     engine = engine_phase()
     print(json.dumps({"engine": engine}), flush=True)
+    n_lanes = resolve_drain_shards(0)
+    print(f"lanes: {n_lanes} (cpu_count {os.cpu_count()})", flush=True)
+    lanes_run = engine_phase(n_lanes)
+    print(json.dumps({"lanes_engine": lanes_run}), flush=True)
+    restart = restart_phase()
+    print(json.dumps({"restart": restart}), flush=True)
     cli_run = cli_phase()
     print(json.dumps({"cli": cli_run}), flush=True)
     card = card_line()
-    print(f"cli: {cli_run['create_to_running_pods_per_s']:.1f} pods/s create->Running, "
+    print(f"engine: {engine['create_to_running_pods_per_s']:.1f} pods/s with 1 lane, "
+          f"{lanes_run['create_to_running_pods_per_s']:.1f} pods/s with {n_lanes} lanes; "
+          f"kernel {lanes_run['kernel_ms_at_capacities']:.4f} ms at the stacked "
+          f"{lanes_run['capacities']} ({card})", flush=True)
+    print(f"restart: recovery {restart['restart_recovery_seconds']:.3f} s, "
+          f"{restart['refined']} rows refined, checkpoint {restart['checkpoint_bytes']} B, "
+          f"snapshot {restart['snapshot_s']:.4f} s, write {restart['write_s']:.4f} s ({card})",
+          flush=True)
+    print(f"cli ({n_lanes} lanes): {cli_run['create_to_running_pods_per_s']:.1f} pods/s create->Running, "
           f"{cli_run['status_patches_per_s']:.1f} status patches/s, "
           f"tick thread {cli_run['tick_thread_s']:.2f} s, kernel "
           f"{cli_run['kernel_ms_at_capacities']:.4f} ms at {cli_run['capacities']} ({card})",
@@ -749,7 +995,8 @@ def main() -> int:
         "route": "cuda",
         "source": "kwok_tpu_torch/csrc/tick.cu",
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
-        "launches": engine["kernel_launches"] + cli_run["kernel_launches"],
+        "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
+                     + restart["kernel_launches"] + cli_run["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],
@@ -758,6 +1005,13 @@ def main() -> int:
         "library_ms": None,
         "wire_d2h_ms": main_cfg["wire_d2h_ms"],
         "shape": f"{POD_ROWS} pod + {NODE_ROWS} node rows, default rules, K=1",
+        "launches_by_phase": {
+            "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
+            "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
+        },
+        "stacked_capacities": lanes_run["capacities"],
+        "stacked_ms": lanes_run["kernel_ms_at_capacities"],
+        "stacked_plain_ms": lanes_run["plain_ms_at_capacities"],
         "configs": configs,
     }]}
     print(json.dumps(kernels), flush=True)

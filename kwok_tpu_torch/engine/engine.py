@@ -1,6 +1,6 @@
 """ClusterEngine: the fake kubelet on a torch device.
 
-The single-lane engine of ``kwok_tpu.engine.engine`` on PyTorch:
+The engine of ``kwok_tpu.engine.engine`` on PyTorch. With one lane:
 
   watch threads ──> ingest queue ──> tick thread ──> patch executor
                                       │    ▲
@@ -18,12 +18,22 @@ The single-lane engine of ``kwok_tpu.engine.engine`` on PyTorch:
   host wire.
 - The executor bounds API fan-out (default 16).
 
+With ``drain_shards`` above one (the CLI's auto default) the engine runs
+the threaded lanes of ``engine/lanes.py`` instead: a router, a drain and
+an emit worker per lane, and a coordinator tick thread that owns one
+stacked device state per kind. The engine then holds no rows of its own.
+
+With a checkpoint directory the device-owning thread gathers the timer
+residues every ``checkpoint_interval`` seconds and at stop, and a start
+on a directory holding a checkpoint refines the re-listed rows' timers
+from it (``resilience/checkpoint.py``).
+
 Names and logic of the ingest, tick and emit methods follow the JAX
-package's engine so each has its counterpart there. Lanes, process
-lanes, the mesh, federation, HA, checkpoints, anti-entropy, fault
-injection, the watchdog, the native codec/pump/ingest, CNI, the profiler
-and the span tracer are not part of this engine; ``metrics`` is a plain
-counters dict.
+package's engine so each has its counterpart there. Process lanes, the
+mesh, federation, HA, anti-entropy, fault injection, the watchdog, the
+native codec/pump/ingest, CNI, the profiler and the span tracer are not
+part of this engine; ``metrics`` is a plain counters dict, and the lane
+and degraded-mode families live on ``registry``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -40,6 +51,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from kwok_tpu_torch.config.types import resolve_drain_shards
 from kwok_tpu_torch.edge.ippool import IPPool
 from kwok_tpu_torch.edge.kubeclient import (
     ADDED,
@@ -82,6 +94,7 @@ from kwok_tpu_torch.ops.state import RowState, grow as grow_state, new_row_state
 from kwok_tpu_torch.ops.tick import (
     REBASE_AFTER,
     MultiTickKernel,
+    gather_deadlines,
     rebase_times,
     unpack_wire,
 )
@@ -90,8 +103,12 @@ from kwok_tpu_torch.ops.updates import (
     UpdateBatch,
     UpdateBuffer,
     init_rows,
+    refine_flush,
     update_rows,
 )
+from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
+from kwok_tpu_torch.resilience.policy import Degradation
+from kwok_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger("kwok_tpu_torch.engine")
 
@@ -99,6 +116,10 @@ _NODE_READY_BITS = 1 << NODE_PHASES.condition_bit("Ready")
 _PENDING = POD_PHASES.phase_id("Pending")
 _NODE_READY = NODE_PHASES.phase_id("Ready")
 _NODE_OBSERVED = NODE_PHASES.phase_id("Observed")
+
+# the checkpoint file is <checkpoint_dir>/engine.ckpt.json, as the JAX
+# package's engine names it, so one file restores in either package
+_CKPT_NAME = "engine"
 
 # the counters ``ClusterEngine.metrics`` always carries
 _COUNTERS = (
@@ -109,12 +130,21 @@ _COUNTERS = (
 )
 
 
+def _rv_of(meta: dict) -> int:
+    """metadata.resourceVersion as an int, 0 when absent or unparseable
+    (the object then carries no identity a checkpoint could match)."""
+    try:
+        return int(meta.get("resourceVersion") or 0)
+    except (TypeError, ValueError):
+        return 0
+
+
 @dataclasses.dataclass
 class EngineConfig:
-    """Mirrors ``kwok_tpu.engine.EngineConfig`` for the single-lane
-    engine, plus ``device``: the torch device the rows live on. It is
-    "cuda" unless the caller asks for the CPU (the tests pass "cpu"); a
-    "cuda" engine on a host without a card raises."""
+    """Mirrors the ported part of ``kwok_tpu.engine.EngineConfig``, plus
+    ``device``: the torch device the rows live on. It is "cuda" unless
+    the caller asks for the CPU (the tests pass "cpu"); a "cuda" engine
+    on a host without a card raises."""
 
     manage_all_nodes: bool = False
     manage_nodes_with_annotation_selector: str = ""
@@ -133,11 +163,25 @@ class EngineConfig:
     pipeline_depth: int = 8
     node_rules: list[LifecycleRule] | None = None
     pod_rules: list[LifecycleRule] | None = None
-    # host lanes of the drain+emit pipeline; this engine runs one lane
-    # whatever the count (threaded lanes are a later slice) and says so
+    # hash-partitioned host lanes of the drain+emit pipeline
+    # (engine/lanes.py): 1 = the single-lane engine (the library/test
+    # default); 0 = auto (config.types.auto_drain_shards: cpu_count capped
+    # by max_drain_shards), what the CLI defaults to
     drain_shards: int = 1
-    # cap on the AUTO lane count (0 = built-in default); resolved by the CLI
+    # cap on the AUTO lane count (0 = built-in default)
     max_drain_shards: int = 0
+    # graceful degradation: shed routed events when a lane queue is deeper
+    # than this (kwok_dropped_jobs_total + kwok_degraded{reason=}, /readyz
+    # 503) instead of letting it grow without bound; 0 = never shed
+    shed_queue_depth: int = 0
+    # crash-durable restarts (resilience/checkpoint.py): the device timer
+    # residues are checkpointed to <dir>/engine.ckpt.json every
+    # checkpoint_interval seconds (atomic rename), and a start on a
+    # directory holding one refines the re-listed rows' timers from it.
+    # "" = disabled (falls back to KWOK_TPU_CHECKPOINT_DIR); the literal
+    # "off" disables even under the env var (lane engines)
+    checkpoint_dir: str = ""
+    checkpoint_interval: float = 2.0
     device: str = "cuda"
 
     def validate(self) -> None:
@@ -173,12 +217,16 @@ class _PendingTick:
 
 
 class _Kind:
-    """Per-resource-kind engine state (device rows + host bookkeeping)."""
+    """Per-resource-kind engine state: device rows (None when another
+    thread owns them: a lane's rows live in the coordinator's stacked
+    state) and host bookkeeping."""
 
-    def __init__(self, table, capacity: int, device: torch.device):
+    def __init__(self, table, capacity: int, device: "torch.device | None"):
         self.table = table
         self.capacity = capacity
-        self.state: RowState = new_row_state(capacity, device)
+        self.state: "RowState | None" = (
+            new_row_state(capacity, device) if device is not None else None
+        )
         self.pool = RowPool(capacity)
         self.buffer = UpdateBuffer()
         self.phase_h = np.zeros(capacity, np.int32)
@@ -189,8 +237,10 @@ class _Kind:
         self.released_at: dict[int, int] = {}
 
     def grow(self, new_capacity: int) -> None:
-        """Grow in place on the device (state copied into a larger one)."""
-        self.state = grow_state(self.state, new_capacity)
+        """Grow in place (device state, when held, copied into a larger
+        one)."""
+        if self.state is not None:
+            self.state = grow_state(self.state, new_capacity)
         self.capacity = new_capacity
         self.pool.grow(new_capacity)
         extra = new_capacity - self.phase_h.shape[0]
@@ -198,7 +248,27 @@ class _Kind:
         self.cond_h = np.concatenate([self.cond_h, np.zeros(extra, np.uint32)])
 
 
+def _warm_scatter(state: RowState) -> RowState:
+    """Both ingest scatters once on row 0, writing its initial state back
+    (the caller knows no row is live), so the first ingest wave does not
+    pay for loading their device code."""
+    one = np.zeros(1, np.int32)
+    state = init_rows(state, InitBatch(
+        idx=one, active=np.zeros(1, bool), phase=one,
+        cond_bits=np.zeros(1, np.uint32), sel_bits=np.zeros(1, np.uint32),
+        has_deletion=np.zeros(1, bool),
+    ))
+    return update_rows(state, UpdateBatch(
+        idx=one, sel_bits=np.zeros(1, np.uint32),
+        has_deletion=np.zeros(1, bool),
+    ))
+
+
 class ClusterEngine:
+    # False for a lane of engine/lanes.py: its rows live in the
+    # coordinator's stacked state, so it holds no stream and no device rows
+    _owns_device = True
+
     def __init__(self, client: KubeClient, config: EngineConfig) -> None:
         config.validate()
         self.device = torch.device(config.device)
@@ -209,12 +279,9 @@ class ClusterEngine:
             )
         self.client = client
         self.config = config
-        if config.drain_shards > 1:
-            logger.warning(
-                "drain_shards=%d: threaded lanes are not ported yet "
-                "(ROADMAP item 7); running the single-lane engine",
-                config.drain_shards,
-            )
+        self._n_lanes = resolve_drain_shards(
+            config.drain_shards, config.max_drain_shards
+        )
         self.ippool = IPPool(config.cidr)
 
         self._manage_annotation = parse_selector(
@@ -253,12 +320,19 @@ class ClusterEngine:
         # tick thread's); rows are allocated on it too, so no tensor the
         # engine owns is ever used across streams
         self._stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+            torch.cuda.Stream(self.device)
+            if self._owns_device and self.device.type == "cuda" else None
         )
+        # under lanes the LaneSet owns all rows: the engine's own kinds
+        # stay host-only at a token capacity, and a lane's kinds are
+        # host-only (its device rows are a slice of the stacked state)
         cap = config.initial_capacity
+        if self._n_lanes > 1:
+            cap = min(cap, 1024)
+        dev = self.device if self._owns_device and self._n_lanes <= 1 else None
         with self._device_ctx():
-            self.nodes = _Kind(ntab, cap, self.device)
-            self.pods = _Kind(ptab, cap, self.device)
+            self.nodes = _Kind(ntab, cap, dev)
+            self.pods = _Kind(ptab, cap, dev)
 
         self.node_has: set[str] = set()  # nodesSets (need-heartbeat membership)
         self.pods_by_node: dict[str, set[tuple[str, str]]] = {}
@@ -285,11 +359,50 @@ class ClusterEngine:
         self._metrics.update(
             tick_seconds_last=0.0, tick_seconds_total=0.0, nodes_managed=0,
             pods_managed=0, ingest_queue_depth=0,
+            restart_recovery_seconds=0.0,
         )
+        # the labeled families (lanes, kwok_degraded) and the degraded-mode
+        # ledger behind /readyz's 503
+        self.registry = MetricsRegistry()
+        self._degradation = Degradation(self.registry)
+        # monotonic stamp of the last shed-clear stream resync (written by
+        # lane drain workers; see lanes._SHED_RESYNC_MIN_S)
+        self._shed_resync_at = 0.0
+        # crash-durable restarts: config < KWOK_TPU_CHECKPOINT_DIR; "off"
+        # disables even under the env var. The Checkpointer and the
+        # RestoreSession are built in start().
+        self._ckpt_dir = (
+            config.checkpoint_dir
+            or os.environ.get("KWOK_TPU_CHECKPOINT_DIR", "")
+        ).strip()
+        if self._ckpt_dir == "off":
+            self._ckpt_dir = ""
+        self._ckpt: "ckpt_mod.Checkpointer | None" = None
+        self._restore: "ckpt_mod.RestoreSession | None" = None
+        # guards the startup gate's bookkeeping (drain workers of several
+        # lanes mark their RESYNCs concurrently) and the restore swap
+        self._ckpt_lock = threading.Lock()
         # kinds whose first full re-list is not ingested yet; None when
         # the startup gate is not armed (before start()) or finished
         self._startup_pending: set[str] | None = None
+        self._startup_lanes: dict[str, set] = {}
+        self._startup_flush_wait = False
+        self._startup_t0 = 0.0
+        # iterations left during which the tick loop is forced awake after
+        # a timer refine: in-flight wires dispatched BEFORE the refine
+        # still carry fresh-arm deadlines, and each of their consumes
+        # overwrites the idle wake (device-owning thread only)
+        self._ckpt_force_ticks = 0
+        # a dispatch ran since the last checkpoint gather (device thread)
+        self._ckpt_dirty = False
         self.ready = False
+        # the threaded lanes (engine/lanes.py); lane engines are built
+        # with drain_shards=1, so they never recurse
+        self._lanes = None
+        if self._owns_device and self._n_lanes > 1:
+            from kwok_tpu_torch.engine.lanes import LaneSet
+
+            self._lanes = LaneSet(self, self._n_lanes)
 
     # ---------------------------------------------------------------- metrics
 
@@ -348,28 +461,64 @@ class ClusterEngine:
     @property
     def startup_resync_pending(self) -> bool:
         """True while the startup gate is open: the first full re-list of
-        both kinds has not been ingested, so /readyz answers 503."""
+        both kinds (and the checkpoint reconcile, when one is armed) has
+        not completed, so /readyz answers 503."""
         return self._running and self._startup_pending is not None
 
+    @property
+    def degraded(self) -> bool:
+        """Degraded mode (a lane shedding load, a checkpoint writer that
+        cannot reach its disk): /readyz answers 503 while it is True."""
+        return self._degradation.active
+
     def start(self) -> None:
-        """Warm the device path, then start watch ingest, the patch
-        executor and the tick thread. ``ready`` stays False until the tick
+        """Arm the startup gate (and the checkpoint service), warm the
+        device path, then start watch ingest, the patch executor and the
+        tick thread (the lane coordinator under lanes, with the router
+        and the lane workers). ``ready`` stays False until the device
         thread has ingested the first full re-list of both kinds."""
         self._running = True
         self._stop_evt.clear()
         self._executor = ThreadPoolExecutor(
             max_workers=self.config.parallelism, thread_name_prefix="kwok-patch"
         )
-        with self._device_ctx():
-            self._warm_scatters()
-            self._warm_tick()
-        # armed before the watch threads exist; only the tick thread
-        # mutates it from here on
+        # armed before any worker exists; afterwards only the device
+        # thread finishes it (_mark_resync takes _ckpt_lock)
         self._startup_pending = {"nodes", "pods"}
+        self._startup_lanes = {}
+        self._startup_flush_wait = False
+        self._startup_t0 = time.monotonic()
+        if self._ckpt_dir:
+            self._ckpt = ckpt_mod.Checkpointer(
+                self._ckpt_dir, _CKPT_NAME,
+                self.config.checkpoint_interval, on_write=self._ckpt_written,
+                degradation=self._degradation,
+            )
+            data = ckpt_mod.load(self._ckpt_dir, _CKPT_NAME)
+            if data is not None:
+                self._restore = ckpt_mod.RestoreSession(
+                    data["kinds"], gate_ready=True
+                )
+                logger.info(
+                    "checkpoint %s: %d rows to reconcile after re-list",
+                    self._ckpt.path, self._restore.remaining,
+                )
+            self._ckpt.start()
+        with self._device_ctx():
+            if self._lanes is not None:
+                self._lanes.prepare(self._executor)
+            else:
+                self._warm_scatters()
+                self._warm_tick()
         node_label_sel = self.config.manage_nodes_with_label_selector or None
         self._spawn_watch("nodes", label_selector=node_label_sel)
         self._spawn_watch("pods", field_selector="spec.nodeName!=")
-        t = threading.Thread(target=self._tick_loop, name="kwok-tick", daemon=True)
+        if self._lanes is not None:
+            self._lanes.start_workers(self._threads)
+            loop = self._lanes.tick_loop
+        else:
+            loop = self._tick_loop
+        t = threading.Thread(target=loop, name="kwok-tick", daemon=True)
         t.start()
         self._threads.append(t)
 
@@ -380,17 +529,7 @@ class ClusterEngine:
         for k in (self.nodes, self.pods):
             if len(k.pool):
                 continue  # rows already live: nothing safe to rewrite
-            one = np.zeros(1, np.int32)
-            k.state = init_rows(k.state, InitBatch(
-                idx=one, active=np.zeros(1, bool), phase=one,
-                cond_bits=np.zeros(1, np.uint32),
-                sel_bits=np.zeros(1, np.uint32),
-                has_deletion=np.zeros(1, bool),
-            ))
-            k.state = update_rows(k.state, UpdateBatch(
-                idx=one, sel_bits=np.zeros(1, np.uint32),
-                has_deletion=np.zeros(1, bool),
-            ))
+            k.state = _warm_scatter(k.state)
 
     def _warm_tick(self) -> None:
         """One all-inactive fused dispatch at startup: on a CUDA device it
@@ -400,24 +539,83 @@ class ClusterEngine:
         _outs, wire = self._get_fused()((self.nodes.state, self.pods.state), 0.0)
         np.asarray(wire)
 
-    def _mark_resync(self, kind: str) -> None:
-        """The first full re-list of ``kind`` has been ingested (tick
-        thread)."""
-        if self._startup_pending is not None:
-            self._startup_pending.discard(kind)
+    def _mark_resync(self, kind: str, lane: int = 0) -> None:
+        """One full re-list snapshot for ``kind`` has been ingested (its
+        RESYNC marker applied). Under lanes the marker broadcasts to every
+        lane, so the kind only counts once all lanes applied theirs; drain
+        workers call this concurrently, hence the lock."""
+        if self._startup_pending is None:
+            return
+        with self._ckpt_lock:
+            sp = self._startup_pending
+            if sp is None or kind not in sp:
+                return
+            done = self._startup_lanes.setdefault(kind, set())
+            done.add(lane)
+            if len(done) >= (self._n_lanes if self._lanes is not None else 1):
+                sp.discard(kind)
 
-    def _startup_gate(self) -> None:
-        """Flip ``ready`` once every kind's first re-list is ingested and
-        its staged rows went to the device (tick thread)."""
-        if (
-            self._startup_pending is not None
-            and not self._startup_pending
-            and not self.nodes.buffer.pending
-            and not self.pods.buffer.pending
-        ):
-            self._startup_pending = None
-            self.ready = True
-            logger.info("startup re-list ingested; engine ready")
+    def _ckpt_gate(self, dispatched: bool, staged: bool) -> None:
+        """Finish the startup gate once every kind's first re-list has
+        been ingested AND its staged rows have reached the device through
+        one arming dispatch (refine runs after that dispatch, so matched
+        rows' timers are already restored when ready flips). Device
+        thread."""
+        sp = self._startup_pending
+        if sp is None:
+            return
+        with self._ckpt_lock:
+            empty = not sp
+        if not empty:
+            return
+        if not self._startup_flush_wait:
+            self._startup_flush_wait = True
+            if staged:
+                return  # listed rows not flushed yet: one more dispatch
+        elif not (dispatched or not staged):
+            return
+        self._finish_startup()
+
+    def _finish_startup(self) -> None:
+        self._startup_pending = None
+        self._startup_lanes = {}
+        dt = time.monotonic() - self._startup_t0
+        self._set("restart_recovery_seconds", dt)
+        r = self._restore
+        if r is not None and r.gate_ready:
+            if r.remaining:
+                # rows re-listed but not ARMED yet (a pod's managed bit can
+                # arrive through a later cross-lane fan-out): readiness
+                # flips now, the session keeps refining for a bounded tail
+                r.gate_ready = False
+                r.deadline = time.monotonic() + 10.0
+                logger.info(
+                    "checkpoint reconcile: %d rows refined, %d stale, "
+                    "%d awaiting arming (tail refine continues)",
+                    r.matched, r.stale, r.remaining,
+                )
+            else:
+                self._end_restore(r)
+        else:
+            logger.info("startup re-list ingested in %.3fs; engine ready", dt)
+        self.ready = True
+
+    def _end_restore(self, r) -> None:
+        """Close a finished or expired restore session (its leftovers are
+        stale) and publish its summary: ``restore_refined_rows``,
+        ``restore_stale_rows``."""
+        s = r.finish()
+        with self._ckpt_lock:
+            if self._restore is r:
+                self._restore = None
+        with self._metrics_lock:
+            self._metrics.update(
+                restore_refined_rows=s["refined"], restore_stale_rows=s["stale"],
+            )
+        logger.info(
+            "checkpoint restore closed: %d rows refined, %d stale dropped",
+            s["refined"], s["stale"],
+        )
 
     def _get_fused(self) -> MultiTickKernel:
         if self._fused is None:
@@ -428,6 +626,18 @@ class ClusterEngine:
             )
         return self._fused
 
+    def resync_streams(self) -> None:
+        """Force every watch stream through a full list+RESYNC: the watch
+        threads always re-list on reconnect, so cutting the live streams
+        is enough. Safe from any thread."""
+        for w in list(self._watches.values()):
+            try:
+                w.stop()
+            except Exception:
+                # a dying or already replaced handle: the watch loop's
+                # reconnect owns recovery either way
+                logger.debug("watch stop during resync failed", exc_info=True)
+
     def stop(self) -> None:
         self._running = False
         self.ready = False
@@ -436,12 +646,29 @@ class ClusterEngine:
         for w in list(self._watches.values()):
             w.stop()
         self._q.put(None)
+
         # the tick thread first: its shutdown path consumes the in-flight
-        # ticks and submits their patches before the executor drains
-        for t in sorted(self._threads, key=lambda t: t.name != "kwok-tick"):
-            t.join(timeout=60 if t.name == "kwok-tick" else 5)
+        # ticks (handing their final items to the lane emit queues) and
+        # queues the final checkpoint; then the emit workers get time to
+        # drain those items before the executor shuts down under them
+        def join_rank(t):
+            if t.name == "kwok-tick":
+                return 0
+            return 1 if t.name.startswith("kwok-emit") else 2
+
+        for t in sorted(self._threads, key=join_rank):
+            t.join(timeout=(
+                60 if t.name == "kwok-tick"
+                else 30 if t.name.startswith("kwok-emit") else 5
+            ))
         if self._executor is not None:
             self._executor.shutdown(wait=True)
+        if self._lanes is not None:
+            self._lanes.close()
+        if self._ckpt is not None:
+            # the tick thread queued the final snapshot in its finally;
+            # this drains the writer and joins it
+            self._ckpt.stop()
         self._threads = []
         dropped = self.metrics["dropped_jobs_total"]
         if dropped:
@@ -493,6 +720,10 @@ class ClusterEngine:
 
     def _ingest(self, kind: str, type_: str, obj) -> None:
         self._inc("watch_events_total")
+        self._apply(kind, type_, obj)
+
+    def _apply(self, kind: str, type_: str, obj) -> None:
+        """Apply one watch event (or RESYNC snapshot) to the rows."""
         if type_ == "RESYNC":
             self._resync(kind, obj)
             return
@@ -565,7 +796,11 @@ class ClusterEngine:
             )
         else:
             k.buffer.stage_update(idx, bits, False)
-        k.pool.meta[idx].update(name=name, obj=node)
+        # checkpoint identity: rv + uid of the last ingested revision (a
+        # restore refines timers only for rows whose (uid, rv) still match)
+        k.pool.meta[idx].update(
+            name=name, obj=node, rv=_rv_of(meta), uid=meta.get("uid") or "",
+        )
         if need_hb and name not in self.node_has:
             self.node_has.add(name)
             self._update_pods_on_node(name)
@@ -637,6 +872,8 @@ class ClusterEngine:
             obj=pod,
             finalizers=bool(meta.get("finalizers")),
             has_del="deletionTimestamp" in meta,
+            rv=_rv_of(meta),
+            uid=meta.get("uid") or "",
         )
         pod_ip = status.get("podIP")
         if pod_ip:
@@ -747,6 +984,7 @@ class ClusterEngine:
                         deadline = time.monotonic() + self._IDLE_MAX
                     elif wake > deadline:
                         deadline = min(wake, time.monotonic() + self._IDLE_MAX)
+                    deadline = self._idle_deadline(deadline)
                 got_event = False
                 # drain ingest until the next tick is due; while ticks are
                 # in flight, wait in short slices so a wire landing
@@ -787,6 +1025,7 @@ class ClusterEngine:
                                 return
                             continue
                         self._ingest_safe(item[0], item[1], item[2])
+                did_dispatch = False
                 try:
                     # consume every tick whose wire has landed; a full
                     # pipeline blocks on the oldest
@@ -806,6 +1045,7 @@ class ClusterEngine:
                         or self.pods.buffer.pending
                         or (wake is not None and time.monotonic() >= wake)
                     ):
+                        did_dispatch = True
                         p = self._tick_dispatch()
                         if p is not None:
                             pending.append(p)
@@ -815,12 +1055,25 @@ class ClusterEngine:
                     # with no event left to trigger the gate
                     self._idle_wake = time.monotonic() + interval
                 self._set("ingest_queue_depth", self._q.qsize())
-                self._startup_gate()
+                if self._startup_pending is not None or self._ckpt is not None:
+                    # the startup gate, the restore refine and the
+                    # checkpoint gathers (one attribute test per iteration
+                    # when disabled)
+                    try:
+                        self._ckpt_service(did_dispatch)
+                    except Exception:
+                        logger.exception("checkpoint service failed")
         finally:
             # stopping: flush in-flight ticks so patches already computed
-            # on the device are not dropped
+            # on the device are not dropped, then gather the final
+            # checkpoint on this thread
             while pending:
                 self._consume_safe(pending.popleft())
+            if self._ckpt is not None:
+                try:
+                    self._ckpt.final(self._ckpt_snapshot(self._now()))
+                except Exception:
+                    logger.exception("final checkpoint failed")
 
     def _consume_safe(self, p: "_PendingTick") -> None:
         try:
@@ -830,12 +1083,112 @@ class ClusterEngine:
 
     def tick_once(self) -> None:
         """One synchronous engine step: dispatch the fused kernel and
-        consume its wire immediately."""
+        consume its wire immediately. Under lanes, the coordinator's
+        synchronous step (route and drain inline, dispatch, consume with
+        inline emit)."""
         with self._device_ctx():
+            if self._lanes is not None:
+                self._lanes.tick_once()
+                return
             p = self._tick_dispatch()
             if p is not None:
                 self._tick_consume(p)
         self._prune_released(self._release_seq)
+
+    # -------------------------------------------- crash-durable restarts
+
+    def _ckpt_service(self, dispatched: bool) -> None:
+        """Single-lane checkpoint/restore service, once per tick-loop
+        iteration on the tick thread (the only mutator of pools, buffers
+        and device state here). The lanes run LaneSet._ckpt_service."""
+        now = self._now()
+        r = self._restore
+        if r is not None:
+            if r.expired() or (not r.gate_ready and not r.remaining):
+                self._end_restore(r)
+            else:
+                self._ckpt_refine(now)
+            # keep the loop TICKING while a session is live and until the
+            # pipeline has flushed every pre-refine wire: each consume
+            # recomputes the idle wake from its wire's dues, and wires
+            # dispatched before a refine carry the fresh-arm deadlines
+            self._ckpt_force_ticks = max(1, int(self.config.pipeline_depth)) + 2
+        if self._ckpt_force_ticks > 0:
+            self._ckpt_force_ticks -= 1
+            self._idle_wake = time.monotonic()
+        self._ckpt_gate(
+            dispatched,
+            staged=bool(self.nodes.buffer.pending or self.pods.buffer.pending),
+        )
+        self._ckpt_due(now, dispatched, self._ckpt_snapshot)
+
+    def _ckpt_due(self, now: float, dispatched: bool, snapshot) -> None:
+        """Gather (``snapshot(now)``) and submit a checkpoint when the
+        cadence is due and a dispatch ran since the last one: an idle
+        engine's residues only shrink together with time."""
+        ck = self._ckpt
+        if ck is None:
+            return
+        self._ckpt_dirty = self._ckpt_dirty or dispatched
+        if self._ckpt_dirty and ck.due():
+            self._ckpt_dirty = False
+            ck.submit(snapshot(now))
+
+    def _idle_deadline(self, deadline: float) -> float:
+        """Cap an idle sleep at the checkpoint's next due time while a
+        dispatch since the last checkpoint is not written yet, so the file
+        catches up with the last arming dispatch without waiting for the
+        next event."""
+        ck = self._ckpt
+        if ck is not None and self._ckpt_dirty:
+            return min(deadline, time.monotonic() + ck.seconds_to_due())
+        return deadline
+
+    def _ckpt_refine(self, now: float) -> None:
+        """Scatter checkpointed timer residues into matching rows. Runs
+        AFTER the arming dispatch (the kernel re-armed restored rows with
+        fresh delays; this overwrites them with ``now + residue``), and
+        skips rows whose init is still staged."""
+        r = self._restore
+        for k, kind in ((self.nodes, "nodes"), (self.pods, "pods")):
+            if not r.kinds.get(kind):
+                continue
+            staged = k.buffer.staged_rows() if k.buffer.pending else frozenset()
+            # an entry with a delay residue is consumed only once the
+            # kernel ARMED its row (finite fire_at): refining earlier is
+            # undone by the arming re-arm itself
+            cur_fire = k.state.fire_at.cpu().numpy()
+            idx, fire, hb, gen = r.match_kind(
+                kind, k.pool, staged, now, phase_h=k.phase_h, fire=cur_fire,
+            )
+            if idx.size:
+                k.state = refine_flush(k.state, idx, fire, hb, gen)
+
+    def _ckpt_snapshot(self, now: float) -> dict:
+        """Gather the checkpoint rows: one host copy of the timer fields
+        per kind plus a pool/meta walk (tick thread, between dispatches)."""
+        t0 = time.perf_counter()
+        kinds = {}
+        for k, kind in ((self.nodes, "nodes"), (self.pods, "pods")):
+            fire, hb, gen = gather_deadlines(k.state)
+            staged = k.buffer.staged_rows() if k.buffer.pending else frozenset()
+            kinds[kind] = ckpt_mod.gather_rows(
+                kind, k.pool, k.phase_h, fire, hb, gen, staged, now
+            )
+        self._set("checkpoint_snapshot_seconds_last", time.perf_counter() - t0)
+        return {"kinds": kinds}
+
+    def _ckpt_written(self, seconds: float, nbytes: int, armed: int,
+                      idle: int) -> None:
+        """The checkpoint writer's report after each good write."""
+        self._inc("checkpoint_writes_total")
+        with self._metrics_lock:
+            self._metrics.update(
+                checkpoint_write_seconds_last=seconds,
+                checkpoint_bytes_last=nbytes,
+                checkpoint_rows_armed=armed,
+                checkpoint_rows_idle=idle,
+            )
 
     @staticmethod
     def _wire_ready(p) -> bool:

@@ -12,8 +12,9 @@ variable the CLI exits non-zero with the engine's error.
 
 A flag value that would switch on a subsystem the port does not have yet
 exits non-zero with a message naming the ROADMAP item that brings it; so
-do its KWOK_TPU_* environment twins. ``--drain-shards`` above one runs the
-single-lane engine and says so once (threaded lanes are ROADMAP item 7).
+do its KWOK_TPU_* environment twins. ``--drain-shards`` (default 0 =
+auto) runs the threaded lanes; ``--checkpoint-dir`` (or
+KWOK_TPU_CHECKPOINT_DIR) turns on crash-durable checkpoints.
 """
 
 from __future__ import annotations
@@ -83,9 +84,7 @@ def build_parser(defaults) -> argparse.ArgumentParser:
     p.add_argument("--parallelism", type=int, default=o.parallelism)
     p.add_argument("--drain-shards", type=int, default=o.drainShards,
                    help="hash-partitioned host lanes (0 = auto: cpu_count "
-                   "capped by --max-drain-shards). This engine runs one "
-                   "lane whatever the count until threaded lanes land "
-                   "(ROADMAP item 7)")
+                   "capped by --max-drain-shards)")
     p.add_argument("--max-drain-shards", type=int, default=o.maxDrainShards,
                    help="cap on the AUTO --drain-shards lane count "
                    "(0 = built-in default)")
@@ -113,7 +112,7 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    "ROADMAP item 13)")
     p.add_argument("--shed-queue-depth", type=int, default=o.shedQueueDepth,
                    help="shed routed events when a lane queue is deeper "
-                   "than this; 0 = never shed (lanes: ROADMAP item 7)")
+                   "than this; 0 = never shed")
     p.add_argument("--worker-restart-budget", type=int,
                    default=o.workerRestartBudget,
                    help="watchdog: max restarts of one crashed lane "
@@ -123,8 +122,7 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    help="watchdog restart-budget window in seconds")
     p.add_argument("--checkpoint-dir", default=o.checkpointDir,
                    help="crash-durable restarts: checkpoint the device "
-                   "timer state here; KWOK_TPU_CHECKPOINT_DIR works too "
-                   "(refused when non-empty: ROADMAP item 6)")
+                   "timer state here; KWOK_TPU_CHECKPOINT_DIR works too")
     p.add_argument("--checkpoint-interval", type=float,
                    default=o.checkpointInterval,
                    help="checkpoint cadence in seconds")
@@ -192,9 +190,6 @@ def refusals(args, masters: list[str]) -> list[str]:
     if args.ha_role in ("primary", "standby"):
         out.append(f"--ha-role {args.ha_role} needs HA and the lease "
                    "calls: ROADMAP item 12")
-    if args.checkpoint_dir or env.get("KWOK_TPU_CHECKPOINT_DIR"):
-        out.append("--checkpoint-dir (or KWOK_TPU_CHECKPOINT_DIR) needs "
-                   "checkpoints and refine_rows: ROADMAP item 6")
     if args.audit_interval > 0 or _env_float("KWOK_TPU_AUDIT_INTERVAL") > 0:
         out.append("--audit-interval > 0 (or KWOK_TPU_AUDIT_INTERVAL) "
                    "needs the anti-entropy auditor: ROADMAP item 13")
@@ -245,6 +240,9 @@ def _engine_config(args, stages: list[Stage], device: str):
         heartbeat_interval=args.heartbeat_interval,
         parallelism=args.parallelism,
         initial_capacity=args.initial_capacity,
+        shed_queue_depth=args.shed_queue_depth,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_interval=args.checkpoint_interval,
         node_rules=stages_to_rules(stages, ResourceKind.NODE),
         pod_rules=stages_to_rules(stages, ResourceKind.POD),
         device=device,

@@ -6,8 +6,10 @@ transitions/sec, patches/sec, tick latency, watch lag).
 
 The port's engine keeps a plain counters dict (``ClusterEngine.metrics``),
 so ``/metrics`` renders the reference's flat ``kwok_``-prefixed surface,
-with the process-wide error counters (``telemetry/errors.py``) and the
-process CPU collector appended. ``/debug/trace`` answers 404, as the
+then the engine's labeled families (``ClusterEngine.registry``: the lane
+stage seconds and queue depths, ``kwok_degraded``), with the process-wide
+error counters (``telemetry/errors.py``) and the process CPU collector
+appended. ``/debug/trace`` answers 404, as the
 reference does for an engine without a span tracer.
 """
 
@@ -67,10 +69,11 @@ def _process_block() -> str:
 
 
 def render_metrics(metrics) -> str:
-    """Render /metrics text from an engine (its ``metrics``) or a flat
-    name->value dict. Types go strictly by suffix: ``*_total``/``*_sum``
-    are counters, everything else (``*_seconds_last`` included) is a
-    gauge."""
+    """Render /metrics text from an engine (its ``metrics`` and
+    ``registry``) or a flat name->value dict. Flat types go strictly by
+    suffix: ``*_total``/``*_sum`` are counters, everything else
+    (``*_seconds_last`` included) is a gauge."""
+    registry = getattr(metrics, "registry", None)
     metrics = dict(getattr(metrics, "metrics", metrics))
     lines = []
     for name, value in sorted(metrics.items()):
@@ -80,7 +83,11 @@ def render_metrics(metrics) -> str:
         kind = "counter" if name.endswith(("_total", "_sum")) else "gauge"
         lines.append(f"# TYPE {full} {kind}")
         lines.append(f"{full} {value}")
-    return "\n".join(lines) + "\n" + _errors_block() + _process_block()
+    labeled = registry.render() if registry is not None else ""
+    return (
+        "\n".join(lines) + "\n" + labeled.lstrip("\n")
+        + _errors_block() + _process_block()
+    )
 
 
 class EngineServer:
@@ -114,6 +121,18 @@ class EngineServer:
                             else "engine warming up"
                         )
                         self.send_error(503, reason)
+                        return
+                    if getattr(engine, "degraded", False):
+                        # degraded mode (resilience/policy.py): shedding
+                        # load or a checkpoint writer off its disk; alive
+                        # (/livez stays 200) but not to be sent traffic.
+                        # The reasons ride the status line
+                        deg = getattr(engine, "_degradation", None)
+                        reasons = ",".join(getattr(deg, "reasons", ()))
+                        self.send_error(
+                            503,
+                            "engine degraded" + (f": {reasons}" if reasons else ""),
+                        )
                         return
                     body = b"ok"
                     ctype = "text/plain"

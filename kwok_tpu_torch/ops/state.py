@@ -127,6 +127,23 @@ def grow(state: RowState, new_capacity: int) -> RowState:
     return out
 
 
+def regrow_stacked(state: RowState, n: int, new_rows: int) -> RowState:
+    """A stacked state of ``n`` equal slices (lane ``i`` owns rows
+    ``[i*r, (i+1)*r)``) regrown to ``new_rows`` rows per slice, on the
+    state's own device and the current stream: each field is viewed as
+    ``[n, r]`` and copied into the first ``r`` columns of a fresh state
+    viewed as ``[n, new_rows]``; the new rows start empty."""
+    old_rows = state.capacity // n
+    if new_rows <= old_rows:
+        return state
+    out = new_row_state(n * new_rows, state.device)
+    for name in RowState._fields:
+        getattr(out, name).view(n, new_rows)[:, :old_rows].copy_(
+            getattr(state, name).view(n, old_rows)
+        )
+    return out
+
+
 def from_numpy(state, device) -> RowState:
     """A numpy RowState (``kwok_tpu.ops.state`` layout: uint32 cond/sel
     bits) as the port's torch RowState on ``device``. The uint32 fields

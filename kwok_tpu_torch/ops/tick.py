@@ -17,6 +17,13 @@ byte, so ``unpack_wire`` (a verbatim copy) reads it:
 The state tensors are updated in place (JAX donated them). The wire is a
 fresh tensor, so it stays self-contained while later dispatches keep
 changing the state: the pipelined engine keeps several wires in flight.
+
+For the threaded lanes (``engine/lanes.py``) ``lane_views`` carves an
+unpacked stacked wire into per-lane slices, and ``gather_deadlines``
+copies the timer fields to the host for a checkpoint. The JAX package's
+``prefetch`` and ``to_host`` have no counterpart: a ``Wire`` starts its
+copy at dispatch, and the lanes regrow their stacked state on the device
+(``ops/state.regrow_stacked``).
 """
 
 from __future__ import annotations
@@ -211,3 +218,53 @@ def unpack_wire(
         return out
 
     return counters, (masks_fn if lazy else masks_fn()), next_dues, rows_fn
+
+
+def lane_views(masks, rows, n_lanes: int, r: int):
+    """Per-shard index slices of an unpacked STACKED wire.
+
+    The threaded lanes (engine/lanes.py) keep every lane's rows in one
+    stacked device state: lane ``i`` owns rows ``[i*r, (i+1)*r)``. This
+    carves the unpacked wire into exactly those slices so the coordinator
+    can hand each lane its own view without copying: for each lane, a list
+    of per-kind ``(dirty, deleted, hb, phase, cond)`` tuples. ``masks`` is
+    ``masks_fn()``'s output, ``rows`` is ``rows_fn()``'s (or None — the
+    phase/cond entries come back None then, e.g. a heartbeat-only wire).
+
+    The slices are numpy VIEWS over the materialized wire arrays — lanes
+    own disjoint ranges, so one lane clearing stale mask bits in its
+    slice can never touch another lane's rows.
+    """
+    out = []
+    for lane in range(n_lanes):
+        lo, hi = lane * r, (lane + 1) * r
+        kinds = []
+        for ki, (dirty, deleted, hb) in enumerate(masks):
+            if rows is not None:
+                ph, cb = rows[ki]
+                ph, cb = ph[lo:hi], cb[lo:hi]
+            else:
+                ph = cb = None
+            kinds.append((dirty[lo:hi], deleted[lo:hi], hb[lo:hi], ph, cb))
+        out.append(kinds)
+    return out
+
+
+def gather_deadlines(state: RowState):
+    """Host numpy copies of the device-owned timer fields ``(fire_at,
+    hb_due, gen)`` — the checkpoint gather (resilience/checkpoint.py).
+
+    On a CUDA device the three copies go out together on the current
+    stream (the tick thread's: they read the state its queued dispatches
+    produce) into pinned buffers, one event marks their end, and the host
+    waits once. Call it on the thread that owns the state."""
+    fields = (state.fire_at, state.hb_due, state.gen)
+    if state.device.type != "cuda":
+        return tuple(t.numpy().copy() for t in fields)
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in fields]
+    for h, t in zip(host, fields):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(state.device))
+    done.synchronize()
+    return tuple(h.numpy() for h in host)

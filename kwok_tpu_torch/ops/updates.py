@@ -16,6 +16,12 @@ from XLA are made explicit on the host, where the indices are numpy:
 - duplicate indices in one batch resolve last-writer-wins in staging
   order; ``index_put_`` on CUDA picks no defined winner among duplicates,
   so only each index's last occurrence is written.
+
+``refine_rows``/``refine_flush`` are the checkpoint-restore scatter
+(``resilience/checkpoint.py``) under the same two rules. A flush into a
+stacked state (one slice of ``rows`` rows per lane, ``engine/lanes.py``)
+drops out-of-range lane indices BEFORE shifting them by the lane's
+offset, so a stray index can never land in the next lane's rows.
 """
 
 from __future__ import annotations
@@ -55,6 +61,17 @@ def _last_writers(idx: np.ndarray, cap: int) -> np.ndarray:
     # first occurrence in the reversed run == last occurrence in order
     _, first_rev = np.unique(kept[::-1], return_index=True)
     return pos[kept.size - 1 - first_rev]
+
+
+def _shift(idx, offset: int, rows: "int | None") -> np.ndarray:
+    """Slice-local row indices -> indices into the target state: padding
+    and indices outside ``[0, rows)`` become -1 (dropped by the scatter),
+    the rest move by ``offset``."""
+    idx = np.asarray(idx, np.int64)
+    if rows is None:
+        return idx + offset if offset else idx
+    keep = (idx >= 0) & (idx < rows)
+    return np.where(keep, idx + offset, -1)
 
 
 def init_rows(state: RowState, b: InitBatch) -> RowState:
@@ -104,6 +121,54 @@ def update_rows(state: RowState, b: UpdateBatch) -> RowState:
     return state
 
 
+class RefineBatch(NamedTuple):
+    """Checkpoint-restore refinement: overwrite the device-owned timer
+    fields of already-armed rows. The tick kernel re-arms a restarted row
+    with a FRESH delay; this scatter runs after that arming dispatch and
+    restores the checkpointed residue, so an in-flight Stage delay
+    resumes instead of resetting."""
+
+    idx: np.ndarray  # int32, out-of-range (e.g. capacity) = padding
+    fire_at: np.ndarray  # float32
+    hb_due: np.ndarray  # float32
+    gen: np.ndarray  # int32
+
+
+def refine_rows(state: RowState, b: RefineBatch) -> RowState:
+    """Overwrite (fire_at, hb_due, gen) of rows ``b.idx`` in place.
+    Returns ``state``."""
+    idx = np.asarray(b.idx, np.int64)
+    pos = _last_writers(idx, state.capacity)
+    if not pos.size:
+        return state
+    dev = state.device
+    i = torch.from_numpy(idx[pos]).to(dev)
+    state.fire_at[i] = torch.from_numpy(
+        np.asarray(b.fire_at, np.float32)[pos]).to(dev)
+    state.hb_due[i] = torch.from_numpy(
+        np.asarray(b.hb_due, np.float32)[pos]).to(dev)
+    state.gen[i] = torch.from_numpy(np.asarray(b.gen, np.int32)[pos]).to(dev)
+    return state
+
+
+def refine_flush(
+    state: RowState,
+    idx: np.ndarray,
+    fire_at: np.ndarray,
+    hb_due: np.ndarray,
+    gen: np.ndarray,
+    offset: int = 0,
+    rows: "int | None" = None,
+) -> RowState:
+    """Apply one refine run of slice-local indices to ``state``: indices
+    outside ``[0, rows)`` are dropped, the rest shifted by ``offset``
+    (a lane's slice of a stacked state). Returns ``state``."""
+    return refine_rows(state, RefineBatch(
+        idx=_shift(idx, offset, rows), fire_at=fire_at, hb_due=hb_due,
+        gen=gen,
+    ))
+
+
 class UpdateBuffer:
     """Host-side accumulator that flushes staged row writes to the device.
 
@@ -133,18 +198,33 @@ class UpdateBuffer:
     def stage_update(self, idx: int, sel_bits: int, has_deletion: bool) -> None:
         self._upd.append((idx, sel_bits, has_deletion))
 
+    def staged_rows(self) -> frozenset:
+        """Row indices with a staged-but-unflushed INIT. The checkpoint
+        gather and restore refine skip these: their device slots still
+        describe a previous occupant (or nothing) until the init
+        flushes. Updates are excluded on purpose: they only touch
+        matching inputs, and the kernel's re-arm supersedes any refine on
+        such rows at the next tick."""
+        return frozenset(c[0] for c in self._init)
+
     @property
     def pending(self) -> int:
         return len(self._init) + len(self._upd)
 
-    def flush(self, state: RowState) -> RowState:
-        """Apply staged writes to ``state`` in place and return it. Staged
-        entries are cleared only after the writes went out."""
+    def flush(
+        self, state: RowState, offset: int = 0, rows: "int | None" = None,
+    ) -> RowState:
+        """Apply staged writes to ``state`` in place and return it. With
+        ``offset``/``rows`` the staged indices are slice-local (a lane of
+        a stacked state): those outside ``[0, rows)`` are dropped, the
+        rest shifted by ``offset``. Staged entries are cleared only after
+        the writes went out."""
         if self._init:
             init = self._init
             n = len(init)
             state = init_rows(state, InitBatch(
-                idx=np.fromiter((c[0] for c in init), np.int32, n),
+                idx=_shift(np.fromiter((c[0] for c in init), np.int64, n),
+                           offset, rows),
                 active=np.fromiter((c[1] for c in init), bool, n),
                 phase=np.fromiter((c[2] for c in init), np.int32, n),
                 cond_bits=np.fromiter((c[3] for c in init), np.uint32, n),
@@ -155,7 +235,8 @@ class UpdateBuffer:
             upd = self._upd
             n = len(upd)
             state = update_rows(state, UpdateBatch(
-                idx=np.fromiter((c[0] for c in upd), np.int32, n),
+                idx=_shift(np.fromiter((c[0] for c in upd), np.int64, n),
+                           offset, rows),
                 sel_bits=np.fromiter((c[1] for c in upd), np.uint32, n),
                 has_deletion=np.fromiter((c[2] for c in upd), bool, n),
             ))

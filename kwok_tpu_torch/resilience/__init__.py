@@ -1,0 +1,11 @@
+"""kwok_tpu_torch.resilience: degraded mode and crash-durable restarts.
+
+- ``policy``: the ``Degradation`` ledger behind ``kwok_degraded{reason=}``
+  and the ``/readyz`` 503 (lane queue shedding, a checkpoint writer that
+  cannot reach its disk).
+- ``checkpoint``: the periodic atomic-rename checkpoint of the device
+  timer state (``--checkpoint-dir``) and the cold-start reconcile that
+  resumes matching rows' Stage delays after a restart. The file format is
+  ``kwok_tpu.resilience.checkpoint``'s: a file written by either package
+  restores in the other.
+"""

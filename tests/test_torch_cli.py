@@ -8,7 +8,9 @@
 - Both parsers have the same option strings and defaults.
 - Every flag (and environment twin) that would switch on a subsystem the
   port lacks exits non-zero naming its ROADMAP item; so does the default
-  cuda device on a host without a card.
+  cuda device on a host without a card. ``--checkpoint-dir`` and its two
+  environment twins start an engine with a checkpoint writer on that
+  directory; the default ``--drain-shards`` runs the auto lane count.
 - ``/readyz`` answers 503 until the first re-list is ingested, and
   ``/metrics`` carries the ``kwok_`` counters.
 """
@@ -153,7 +155,6 @@ REFUSED = {
     "lane-procs": (["--lane-procs", "true"], {}, 8),
     "ha-primary": (["--ha-role", "primary"], {}, 12),
     "ha-standby": (["--ha-role", "standby"], {}, 12),
-    "checkpoint-dir": (["--checkpoint-dir", "ckpt"], {}, 6),
     "audit-interval": (["--audit-interval", "5"], {}, 13),
     "faults": (["--faults", "seed=1;pump.drop=0.1"], {}, 13),
     "enable-cni": (["--enable-cni", "true"], {}, 14),
@@ -164,8 +165,6 @@ REFUSED = {
     "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, 9),
     "env-lane-procs": ([], {"KWOK_LANE_PROCS": "true"}, 8),
     "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, 12),
-    "env-checkpoint-dir": ([], {"KWOK_CHECKPOINT_DIR": "ckpt"}, 6),
-    "env-tpu-checkpoint-dir": ([], {"KWOK_TPU_CHECKPOINT_DIR": "ckpt"}, 6),
     "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, 13),
     "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, 13),
     "env-faults": ([], {"KWOK_FAULTS": "seed=1"}, 13),
@@ -186,6 +185,78 @@ def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
         tcli.main(base_args(tmp_path, "http://127.0.0.1:1") + extra)
     assert isinstance(e.value.code, str), e.value.code  # exit status 1
     assert f"ROADMAP item {item}" in e.value.code
+
+
+CHECKPOINT_DIR_FORMS = {
+    "checkpoint-dir": (True, {}),
+    "env-checkpoint-dir": (False, {"KWOK_CHECKPOINT_DIR": "DIR"}),
+    "env-tpu-checkpoint-dir": (False, {"KWOK_TPU_CHECKPOINT_DIR": "DIR"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHECKPOINT_DIR_FORMS))
+def test_checkpoint_dir_arms_a_checkpointer(name, tmp_path, monkeypatch):
+    """The flag and both environment forms start the engine with a
+    Checkpointer on that directory, which writes the final checkpoint
+    there at stop."""
+    import kwok_tpu_torch.engine as engine_mod
+
+    flag, env = CHECKPOINT_DIR_FORMS[name]
+    ckpt_dir = str(tmp_path / "ckpt")
+    monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    monkeypatch.delenv("KWOK_TPU_CHECKPOINT_DIR", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v.replace("DIR", ckpt_dir))
+    engines = []
+
+    class Recorded(engine_mod.ClusterEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    monkeypatch.setattr(engine_mod, "ClusterEngine", Recorded)
+    srv = PortServer().start()
+    srv.store.create("nodes", make_node("n0"))
+    argv = base_args(tmp_path, srv.url) + ["--checkpoint-interval", "0.2",
+                                           "--drain-shards", "2"]
+    if flag:
+        argv += ["--checkpoint-dir", ckpt_dir]
+    stop, t, rc = run_cli(tcli.main, argv)
+    try:
+        assert wait_for(lambda: engines and engines[0].ready)
+        eng = engines[0]
+        assert eng._ckpt is not None and eng._ckpt.directory == ckpt_dir
+    finally:
+        stop.set()
+        t.join(30)
+        srv.stop()
+    assert rc == [0]
+    doc = json.load(open(os.path.join(ckpt_dir, "engine.ckpt.json")))
+    assert list(doc["kinds"]["nodes"]) == ["n0"]
+
+
+def test_cli_flags_reach_engine_config():
+    p = tcli.build_parser(KwokConfigurationOptions())
+    args = p.parse_args([
+        "--shed-queue-depth", "128", "--checkpoint-dir", "/var/ckpt-here",
+        "--checkpoint-interval", "0.75", "--manage-all-nodes", "true",
+    ])
+    cfg = tcli._engine_config(args, [], "cpu")
+    assert cfg.shed_queue_depth == 128
+    assert cfg.checkpoint_dir == "/var/ckpt-here"
+    assert cfg.checkpoint_interval == 0.75
+
+
+def test_default_flags_run_the_auto_lane_count():
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.engine import ClusterEngine
+
+    args = tcli.build_parser(KwokConfigurationOptions()).parse_args(
+        ["--manage-all-nodes", "true"])
+    assert args.drain_shards == 0
+    eng = ClusterEngine(PortFakeKube(), tcli._engine_config(args, [], "cpu"))
+    n = resolve_drain_shards(0, args.max_drain_shards)
+    assert (eng._lanes.n if eng._lanes is not None else 1) == n
 
 
 def test_ha_role_off_and_defaults_are_not_refused(tmp_path):

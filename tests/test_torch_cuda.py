@@ -178,3 +178,62 @@ def test_threaded_engine_on_card(card):
         eng.stop()
     assert not any(t.is_alive() for t in threads)
     assert cuda_tick.tick_steps.launches > before
+
+
+def test_stacked_lanes_with_regrow_on_card(card):
+    """A stacked state of 4 lanes with ragged occupancy (full, half, one
+    row, empty), regrown on the card: the regrow equals the CPU one, the
+    kernel is bit-exact against its plain version at the stacked shape,
+    and lane_views of the fused wire are each lane's rows."""
+    from kwok_tpu_torch.ops.tick import lane_views, unpack_wire
+
+    n, r, new_r = 4, 1000, 1536
+    specs = {
+        "nodes": SPECS["nodes-hb"](),
+        "pods": SPECS["weighted-uniform"](),
+    }
+    grown = {}
+    for kind in specs:
+        host = population(n * r, seed=len(kind))
+        occupancy = (r, r // 2, 1, 0)
+        for li, occ in enumerate(occupancy):
+            host.active[li * r:li * r + occ] = True
+            host.active[li * r + occ:(li + 1) * r] = False
+        on_card = ts.regrow_stacked(ts.from_numpy(host, card), n, new_r)
+        on_cpu = ts.regrow_stacked(ts.from_numpy(host, "cpu"), n, new_r)
+        got, want = ts.to_numpy(on_card), ts.to_numpy(on_cpu)
+        for f in ts.RowState._fields:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+        assert int(got.active.sum()) == r + r // 2 + 1
+        grown[kind] = got
+    for kind, spec in specs.items():
+        k_state = ts.from_numpy(grown[kind], card)
+        p_state = ts.from_numpy(grown[kind], card)
+        for step, now in enumerate((0.0, 0.6, 1.2), start=1):
+            seed = cuda_tick.SEED_BASE + step
+            kd, kx, kh, kc = cuda_tick.tick_steps(k_state, spec, now, seed, 1, 0.05)
+            pd, px, ph, pc = cuda_tick.tick_steps_plain(p_state, spec, now, seed, 1, 0.05)
+            torch.cuda.synchronize()
+            for f in ts.RowState._fields:
+                assert torch.equal(getattr(k_state, f), getattr(p_state, f)), (kind, f)
+            assert torch.equal(kd, pd) and torch.equal(kx, px) and torch.equal(kh, ph)
+            assert torch.equal(kc, pc)
+    fused = MultiTickKernel([
+        (tm.compile_rules(tm.default_node_rules(), tm.ResourceKind.NODE), 0.3, ("Ready",), 1),
+        (tm.compile_rules(uniform_weighted_rules(), tm.ResourceKind.POD), 30.0, (), -1),
+    ], device=card)
+    states = tuple(ts.from_numpy(grown[k], card) for k in ("nodes", "pods"))
+    outs, wire = fused(states, 1.0)
+    cap = n * new_r
+    counters, masks_fn, _dues, rows_fn = unpack_wire(np.asarray(wire), [cap, cap], rows=True)
+    assert int(counters[0]) + int(counters[1]) > 0
+    views = lane_views(masks_fn(), rows_fn(), n, new_r)
+    for ki, o in enumerate(outs):
+        host = ts.to_numpy(o.state)
+        dirty = o.dirty.cpu().numpy()
+        for li in range(n):
+            lo, hi = li * new_r, (li + 1) * new_r
+            vd, _vx, _vh, vph, vcb = views[li][ki]
+            np.testing.assert_array_equal(vd, dirty[lo:hi])
+            np.testing.assert_array_equal(vph, host.phase[lo:hi].astype(np.uint8))
+            np.testing.assert_array_equal(vcb, host.cond_bits[lo:hi])

@@ -38,6 +38,24 @@ def test_port_files_exist():
     assert len(PORT_FILES) > 10
 
 
+LANE_AND_RESILIENCE_MODULES = (
+    "engine/lanes.py", "resilience/__init__.py", "resilience/policy.py",
+    "resilience/checkpoint.py", "telemetry/lanes.py",
+)
+
+
+@pytest.mark.parametrize("rel", LANE_AND_RESILIENCE_MODULES)
+def test_lane_and_resilience_modules_are_walked_and_import(rel):
+    """The AST walk above covers the lane, resilience and lane-telemetry
+    modules, and each imports without jax or kwok_tpu loaded for it."""
+    import importlib
+
+    path = ROOT / "kwok_tpu_torch" / rel
+    assert path in PORT_FILES
+    mod = "kwok_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(".__init__")
+    importlib.import_module(mod)
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in imported_modules(path) if forbidden(m)]

@@ -2,8 +2,7 @@
 the warm-up dispatch runs before the watches start, and ``ready`` flips
 only once the first full re-list of both kinds is ingested and on the
 device, as in kwok_tpu's engine (``_warm_tick``, the startup catch-up
-gate). A ``drain_shards`` above one runs the single-lane engine and says
-so."""
+gate). A ``drain_shards`` above one runs the threaded lanes."""
 
 from __future__ import annotations
 
@@ -57,8 +56,29 @@ def test_ready_only_after_warm_up_and_first_relist():
     assert not eng.ready
 
 
-def test_drain_shards_above_one_runs_one_lane(caplog):
+def test_drain_shards_above_one_runs_lanes(caplog):
+    """``drain_shards`` above one runs the threaded lanes (engine/lanes.py)
+    on a stacked state, with no warning, and serves pods end to end."""
+    server = PortFakeKube()
     with caplog.at_level("WARNING", logger="kwok_tpu_torch.engine"):
-        eng = TorchEngine(PortFakeKube(), TorchConfig(manage_all_nodes=True, drain_shards=4, device="cpu"))
-    assert [r.getMessage() for r in caplog.records if "ROADMAP item 7" in r.getMessage()]
+        eng = TorchEngine(server, TorchConfig(
+            manage_all_nodes=True, drain_shards=4, tick_interval=0.02, device="cpu"))
+    assert not [r for r in caplog.records if "ROADMAP item 7" in r.getMessage()]
+    assert eng._lanes is not None and eng._lanes.n == 4
+    assert eng.nodes.state is None and eng.pods.state is None  # rows live in the stack
+    eng.start()
+    try:
+        server.create("nodes", make_node("n0"))
+        for i in range(8):
+            server.create("pods", make_pod(f"p{i}", node="n0"))
+        deadline = time.time() + 30
+        while time.time() < deadline and server.count(
+            "pods", lambda p: p["status"].get("phase") == "Running"
+        ) < 8:
+            time.sleep(0.02)
+        assert eng.ready
+        assert server.count("pods", lambda p: p["status"].get("phase") == "Running") == 8
+        assert eng.metrics["pods_managed"] == 8
+    finally:
+        eng.stop()
     assert eng.metrics["ingest_queue_depth"] == 0
