@@ -58,6 +58,21 @@ result line then):
    stacked capacities with the Stage rule tables, over two dispatches
    that re-arm half the pod rows through the weighted uniform draw and
    fire them.
+7. Process lanes: the same topology, Stage file and mock through main
+   with --lane-procs true (auto lane count) and checkpoints every 1 s:
+   one spawned lane process per lane, each running its own single-lane
+   engine and tick kernel on the card. /readyz 503 then 200; every node
+   Ready, every pod Running with a distinct pod IP in the CIDR, the
+   deleted pods gone; every lane process on cuda with kernel launches,
+   every lane<i>.ckpt.json written; /metrics with
+   kwok_status_patches_total >= 60,000 summed over the lanes and lane
+   stage seconds for at least 2 shards. Lane 0 is then SIGKILLed: it
+   must be back within 60 s, kwok_lane_proc_restarts_total{shard="0"}
+   must read 1, the engine must not be degraded, and 1,000 more pods
+   (some owned by lane 0) must reach Running. main must return 0 with no
+   lane process and no shared-memory arena left. The kernel is then held
+   bit-exact against its plain version at a lane's capacities with the
+   Stage rule tables. The free bytes of /dev/shm are printed first.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -92,6 +107,8 @@ CLI_PODS = 50_000
 CLI_DELETES = 500
 CLI_DEADLINE_S = 600.0
 CLI_CONNS = 8  # keep-alive connections of the creator process
+PROCS_MORE_PODS = 1_000  # created after the SIGKILL of lane 0
+PROCS_RESPAWN_S = 60.0
 RESTART_NODES = 10_000
 RESTART_PODS = 50_000
 RESTART_DELAY_S = 30.0
@@ -296,7 +313,7 @@ def engine_states(eng):
     return (eng.nodes.state, eng.pods.state)
 
 
-def engine_shape_check(torch, eng, rearm: bool = False):
+def engine_shape_check(torch, eng, rearm: bool = False, states=None):
     """The tick kernel against its plain version at the shapes an engine
     run gave it: the engine's grown capacities, its rule tables and the
     rows it left on the card, K=1 dispatches at its clock, bit-exact (the
@@ -304,14 +321,16 @@ def engine_shape_check(torch, eng, rearm: bool = False):
     With ``rearm``, half the pod rows are put back in Pending first and a
     second dispatch 1.0 s later fires them. Returns the capacities and the
     kernel, plain and wire D2H ms there. Runs after the engine's launch
-    count was read."""
+    count was read. ``states`` replaces the engine's own (process lanes
+    keep theirs in the lane processes)."""
     from kwok_tpu_torch.ops import cuda_tick
     from kwok_tpu_torch.ops.state import TickOutputs
     from kwok_tpu_torch.ops.tick import pack_wire
 
     torch.cuda.synchronize()
     fused = eng._get_fused()
-    states = engine_states(eng)
+    if states is None:
+        states = engine_states(eng)
     if rearm:
         states = (states[0], rearmed(states[1], eng._pod_phase_ids["Pending"]))
     now = eng._now()
@@ -652,11 +671,12 @@ def stage_documents() -> list[dict]:
 
 
 def create_over_http(url: str, kind: str, count: int, conns: int,
-                     nodes: int, span) -> None:
+                     nodes: int, span, first: int = 0) -> None:
     """Create ``count`` nodes, or pods bound round-robin to ``nodes``
-    nodes, over ``conns`` keep-alive connections (one per thread). Runs in a spawned process, so the creator does not share an
-    interpreter lock with the engine; ``span`` (a shared double array)
-    gets the wall-clock start and end."""
+    nodes, numbered from ``first``, over ``conns`` keep-alive connections
+    (one per thread). Runs in a spawned process, so the creator does not
+    share an interpreter lock with the engine; ``span`` (a shared double
+    array) gets the wall-clock start and end."""
     from concurrent.futures import ThreadPoolExecutor
 
     from kwok_tpu_torch.edge.httpclient import HttpKubeClient
@@ -675,7 +695,7 @@ def create_over_http(url: str, kind: str, count: int, conns: int,
         }
 
     def run(lane: int) -> None:
-        for i in range(lane, count, conns):
+        for i in range(first + lane, first + count, conns):
             client.create(kind, make(i))
 
     span[0] = time.time()
@@ -686,7 +706,7 @@ def create_over_http(url: str, kind: str, count: int, conns: int,
     client.close()
 
 
-def spawn_creator(url: str, kind: str, count: int):
+def spawn_creator(url: str, kind: str, count: int, first: int = 0):
     """Start create_over_http in a spawned process; returns it and its
     (start, end) span."""
     import multiprocessing
@@ -694,7 +714,7 @@ def spawn_creator(url: str, kind: str, count: int):
     ctx = multiprocessing.get_context("spawn")
     span = ctx.Array("d", 2)
     proc = ctx.Process(target=create_over_http,
-                       args=(url, kind, count, CLI_CONNS, CLI_NODES, span),
+                       args=(url, kind, count, CLI_CONNS, CLI_NODES, span, first),
                        name=f"create-{kind}")
     proc.start()
     return proc, span
@@ -746,27 +766,32 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def cli_phase():
-    import torch
+def running(p) -> bool:
+    st = p.get("status") or {}
+    return st.get("phase") == "Running" and bool(st.get("podIP"))
 
+
+def start_cli(extra_argv: list) -> dict:
+    """The kwok entry point as a user runs it: the port's HTTP mock
+    apiserver in a subprocess of its own, CLI_NODES nodes created by a
+    spawned process, then kwok_tpu_torch.kwok.cli.main on a thread of this
+    script with the phase's Stage file and ``extra_argv``. /readyz must
+    answer 503 until the first re-list is ingested and 200 after. Returns
+    the run's handles (the engine main built among them); stop_cli ends
+    it."""
     import kwok_tpu_torch.engine as engine_mod
-    from kwok_tpu_torch.config.types import resolve_drain_shards
-    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
     from kwok_tpu_torch.kwok import cli
-    from kwok_tpu_torch.ops import cuda_tick
 
     here = os.path.dirname(os.path.abspath(__file__))
-    mock = subprocess.Popen(
+    run = {"stop": threading.Event(), "engines": [], "rc": [], "thread": None,
+           "real_engine": engine_mod.ClusterEngine, "workdir": tempfile.mkdtemp(prefix="kwok-smoke-")}
+    run["mock"] = subprocess.Popen(
         [sys.executable, "-m", "kwok_tpu_torch.edge.mockserver", "--port", "0"],
         cwd=here, stdout=subprocess.PIPE, text=True,
     )
-    workdir = tempfile.mkdtemp(prefix="kwok-smoke-")
-    stop = threading.Event()
-    cli_thread = None
-    engines: list = []
-    real_engine = engine_mod.ClusterEngine
+    engines = run["engines"]
 
-    class Recorded(real_engine):
+    class Recorded(run["real_engine"]):
         """The CLI's engine, kept for the checks after the phase."""
 
         def __init__(self, *a, **kw):
@@ -774,26 +799,26 @@ def cli_phase():
             engines.append(self)
 
     try:
-        line = mock.stdout.readline()
+        line = run["mock"].stdout.readline()
         if not line.startswith("mock apiserver listening on "):
             raise AssertionError(f"mock apiserver did not start: {line!r}")
-        url = line.split()[-1]
-        t0 = time.monotonic()
-        deadline = t0 + CLI_DEADLINE_S
+        url = run["url"] = line.split()[-1]
+        deadline = run["deadline"] = time.monotonic() + CLI_DEADLINE_S
         proc, _span = spawn_creator(url, "nodes", CLI_NODES)
         join_creator(proc, deadline)
+        workdir = run["workdir"]
         stage_path = os.path.join(workdir, "stages.json")
         with open(stage_path, "w") as f:
             f.write("---\n".join(json.dumps(d) + "\n" for d in stage_documents()))
         port = free_port()
-        base = f"http://127.0.0.1:{port}"
+        base = run["base"] = f"http://127.0.0.1:{port}"
         argv = ["--master", url, "--kubeconfig", os.path.join(workdir, "no-kubeconfig"),
                 "--manage-all-nodes", "true", "--server-address", f"127.0.0.1:{port}",
-                "--cidr", "10.0.0.1/16", "--config", stage_path]
-        readyz: list = []
+                "--cidr", "10.0.0.1/16", "--config", stage_path, *extra_argv]
+        readyz = run["readyz"] = []
 
         def poll_readyz():
-            while not stop.is_set() and time.monotonic() < deadline:
+            while not run["stop"].is_set() and time.monotonic() < deadline:
                 code, _ = http_get(base + "/readyz")
                 if code is not None:
                     readyz.append(code)
@@ -801,93 +826,130 @@ def cli_phase():
                         return
                 time.sleep(0.005)
 
-        rc: list = []
         engine_mod.ClusterEngine = Recorded
-        cuda_tick.tick_steps.launches = 0
         poller = threading.Thread(target=poll_readyz, name="readyz-poll")
         poller.start()
-        cli_thread = threading.Thread(
-            target=lambda: rc.append(cli.main(argv, stop_event=stop)), name="kwok-cli")
-        cli_thread.start()
+        t_main = time.monotonic()
+        run["thread"] = threading.Thread(
+            target=lambda: run["rc"].append(cli.main(argv, stop_event=run["stop"])),
+            name="kwok-cli")
+        run["thread"].start()
         poller.join(max(1.0, deadline - time.monotonic()))
+        run["main_to_ready_s"] = time.monotonic() - t_main
         if not readyz or readyz[0] != 503 or readyz[-1] != 200:
-            raise AssertionError(f"/readyz: want 503 before the first re-list, then 200; got {readyz[:3]}...{readyz[-3:]}")
-        eng = engines[0]
-        if eng.device.type != DEVICE:
-            raise AssertionError(f"the CLI's engine runs on {eng.device}, not {DEVICE}")
-        n_lanes = resolve_drain_shards(0, 0)
-        if eng._lanes is None or eng._lanes.n != n_lanes:
-            raise AssertionError(f"the CLI's default --drain-shards did not run {n_lanes} lanes")
+            raise AssertionError(f"/readyz: want 503 before the first re-list, then 200; "
+                                 f"got {readyz[:3]}...{readyz[-3:]}")
+        run["engine"] = engines[0]
+        if run["engine"].device.type != DEVICE:
+            raise AssertionError(f"the CLI's engine runs on {run['engine'].device}, not {DEVICE}")
+    except BaseException:
+        stop_cli(run)
+        raise
+    return run
 
-        def metrics():
-            code, text = http_get(base + "/metrics")
-            if code != 200:
-                raise AssertionError(f"/metrics answered {code}")
-            return parse_metrics(text)
 
-        m0 = metrics()
-        patches0 = m0["kwok_status_patches_total"]
-        mock_cpu0 = cpu_seconds(mock.pid)
-        proc, span = spawn_creator(url, "pods", CLI_PODS)
-        join_creator(proc, deadline)
-        client = HttpKubeClient(url)
+def stop_cli(run: dict) -> None:
+    """Stop main (its graceful drain included), then the mock apiserver;
+    main must have returned 0."""
+    import kwok_tpu_torch.engine as engine_mod
 
-        def running(p):
-            st = p.get("status") or {}
-            return st.get("phase") == "Running" and bool(st.get("podIP"))
+    t_stop = time.monotonic()
+    run["stop"].set()
+    t = run["thread"]
+    if t is not None:
+        t.join(180)
+    run["stop_s"] = time.monotonic() - t_stop
+    engine_mod.ClusterEngine = run["real_engine"]
+    mock = run["mock"]
+    mock.terminate()
+    try:
+        mock.wait(30)
+    except subprocess.TimeoutExpired:
+        mock.kill()
+        mock.wait(30)
+    if t is not None and (t.is_alive() or run["rc"] != [0]):
+        raise AssertionError(f"cli.main did not return 0 after stop: {run['rc']}")
 
-        # progress from the engine's counters (a cheap scrape), each
-        # crossing confirmed by one full LIST
-        while True:
-            m_run = metrics()
-            patches = m_run["kwok_status_patches_total"]
-            if patches >= CLI_NODES + CLI_PODS:
-                t_patched = time.time()
-                mock_cpu_run = cpu_seconds(mock.pid)
-                n_run = sum(map(running, client.list("pods")))
-                if n_run == CLI_PODS:
-                    break
-            if time.monotonic() > deadline:
-                raise AssertionError(f"timeout: {metrics()} ")
-            time.sleep(POLL_S)
-        nodes = client.list("nodes")
-        n_ready = sum(
-            any(c.get("type") == "Ready" and c.get("status") == "True"
-                for c in (n.get("status") or {}).get("conditions") or [])
-            for n in nodes)
-        if n_ready != CLI_NODES:
-            raise AssertionError(f"{n_ready} of {CLI_NODES} nodes Ready")
-        t_del = time.time()
-        for i in range(CLI_DELETES):
-            client.delete("pods", "default", f"pod-{i}", grace_seconds=30)
-        while True:
-            if metrics()["kwok_deletes_total"] >= CLI_DELETES:
-                pods = client.list("pods")
-                if len(pods) == CLI_PODS - CLI_DELETES:
-                    break
-            if time.monotonic() > deadline:
-                raise AssertionError(f"timeout deleting: {metrics()}")
-            time.sleep(POLL_S)
-        t_deleted = time.time()
-        m = metrics()
-    finally:
-        stop.set()
-        if cli_thread is not None:
-            cli_thread.join(120)
-        engine_mod.ClusterEngine = real_engine
-        mock.terminate()
-        try:
-            mock.wait(30)
-        except subprocess.TimeoutExpired:
-            mock.kill()
-            mock.wait(30)
-    if cli_thread.is_alive() or rc != [0]:
-        raise AssertionError(f"cli.main did not return 0 after stop: {rc}")
-    launches = cuda_tick.tick_steps.launches
-    if launches <= 0:
-        raise AssertionError("the CLI ran without launching the tick kernel")
-    if m["kwok_ticks_total"] <= 0 or m["kwok_status_patches_total"] < CLI_NODES + CLI_PODS:
-        raise AssertionError(f"/metrics: {m}")
+
+def scrape(run: dict) -> dict:
+    """/metrics of the running CLI, parsed."""
+    code, text = http_get(run["base"] + "/metrics")
+    if code != 200:
+        raise AssertionError(f"/metrics answered {code}")
+    return parse_metrics(text)
+
+
+def drive_pods(run: dict, pids=()) -> dict:
+    """CLI_PODS pods from a spawned creator over CLI_CONNS connections
+    until every pod is Running with a pod IP (progress from the engine's
+    counters, each crossing confirmed by one full LIST), every node Ready,
+    then CLI_DELETES graceful deletes until they are gone. Returns the
+    times, the /metrics at the start and at the end of the create->Running
+    window, and the CPU seconds over that window of the mock and of
+    ``pids``."""
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+
+    url, deadline, mock = run["url"], run["deadline"], run["mock"]
+    m0 = scrape(run)
+    cpu0 = {pid: cpu_seconds(pid) for pid in (mock.pid, *pids)}
+    proc, span = spawn_creator(url, "pods", CLI_PODS)
+    join_creator(proc, deadline)
+    client = HttpKubeClient(url)
+    while True:
+        m_run = scrape(run)
+        if m_run["kwok_status_patches_total"] >= CLI_NODES + CLI_PODS:
+            t_patched = time.time()
+            cpu_run = {pid: cpu_seconds(pid) for pid in cpu0}
+            if sum(map(running, client.list("pods"))) == CLI_PODS:
+                break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timeout: {m_run['kwok_status_patches_total']} patches")
+        time.sleep(POLL_S)
+    nodes = client.list("nodes")
+    n_ready = sum(
+        any(c.get("type") == "Ready" and c.get("status") == "True"
+            for c in (n.get("status") or {}).get("conditions") or [])
+        for n in nodes)
+    if n_ready != CLI_NODES:
+        raise AssertionError(f"{n_ready} of {CLI_NODES} nodes Ready")
+    t_del = time.time()
+    for i in range(CLI_DELETES):
+        client.delete("pods", "default", f"pod-{i}", grace_seconds=30)
+    while True:
+        if scrape(run)["kwok_deletes_total"] >= CLI_DELETES:
+            if len(client.list("pods")) == CLI_PODS - CLI_DELETES:
+                break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timeout deleting: {scrape(run)['kwok_deletes_total']} deletes")
+        time.sleep(POLL_S)
+    t_deleted = time.time()
+    t_pods, t_created = span[0], span[1]
+    window = t_patched - t_pods
+    return {
+        "client": client, "m0": m0, "m_run": m_run,
+        "cpu_s": {pid: cpu_run[pid] - cpu0[pid] for pid in cpu0},
+        "report": {
+            "nodes": CLI_NODES, "pods": CLI_PODS, "deleted": CLI_DELETES,
+            "connections": CLI_CONNS,
+            "create_to_running_pods_per_s": CLI_PODS / window,
+            "pod_create_s": t_created - t_pods,
+            "create_to_running_s": window,
+            "delete_s": t_deleted - t_del,
+            # pod patches from the first pod create until all were Running
+            "status_patches_per_s": (m_run["kwok_status_patches_total"]
+                                     - m0["kwok_status_patches_total"]) / window,
+            # CPU seconds from the first pod create until all were Running:
+            # the mock apiserver's process and this process (engine + checks)
+            "window_mock_cpu_s": cpu_run[mock.pid] - cpu0[mock.pid],
+            "window_kwok_process_cpu_s": (m_run["process_cpu_seconds_total"]
+                                          - m0["process_cpu_seconds_total"]),
+        },
+    }
+
+
+def check_final_pods(pods: list, m: dict) -> None:
+    """After a CLI phase: no patch errors, the deleted pods gone, every
+    survivor with a distinct pod IP in the CIDR."""
     if m["kwok_patch_errors_total"]:
         raise AssertionError(f"{m['kwok_patch_errors_total']} patch errors")
     names = {p["metadata"]["name"] for p in pods}
@@ -896,45 +958,250 @@ def cli_phase():
     ips = {p["status"]["podIP"] for p in pods}
     if len(ips) != len(pods) or not all(ip.startswith("10.0.") for ip in ips):
         raise AssertionError(f"{len(pods)} pods, {len(ips)} distinct IPs in the CIDR")
+
+
+def lane_seconds(m: dict, n_lanes: int) -> dict:
+    """Per-shard drain and emit seconds from /metrics; at least two lanes
+    must have done each."""
     lane_s = {stage: [m.get(f'kwok_lane_stage_seconds_sum{{shard="{i}",stage="{stage}"}}')
                       for i in range(n_lanes)] for stage in ("drain", "emit")}
     for stage, xs in lane_s.items():
         if None in xs or sum(x > 0 for x in xs) < 2:
             raise AssertionError(f"/metrics lane {stage} seconds: {xs}")
+    return lane_s
+
+
+def cli_phase():
+    import torch
+
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.ops import cuda_tick
+
+    n_lanes = resolve_drain_shards(0, 0)
+    cuda_tick.tick_steps.launches = 0
+    run = start_cli([])
+    try:
+        eng = run["engine"]
+        if eng._lanes is None or eng._lanes.n != n_lanes:
+            raise AssertionError(f"the CLI's default --drain-shards did not run {n_lanes} lanes")
+        load = drive_pods(run)
+        pods = load["client"].list("pods")
+        m = scrape(run)
+    finally:
+        stop_cli(run)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the CLI ran without launching the tick kernel")
+    if m["kwok_ticks_total"] <= 0 or m["kwok_status_patches_total"] < CLI_NODES + CLI_PODS:
+        raise AssertionError(f"/metrics: {m}")
+    check_final_pods(pods, m)
+    lane_s = lane_seconds(m, n_lanes)
     log(f"cli lanes: drain s {lane_s['drain']}, emit s {lane_s['emit']}")
     caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng, rearm=True)
     log(f"kernel at the CLI engine's capacities {caps} with the Stage rules: checked; "
         f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
-    t_pods, t_created = span[0], span[1]
+    m_run, m0 = load["m_run"], load["m0"]
     return {
         "lanes": n_lanes, "lane_drain_s": lane_s["drain"], "lane_emit_s": lane_s["emit"],
         "lane_pods": [len(ln.engine.pods.pool) for ln in eng._lanes.lanes],
-        "nodes": CLI_NODES, "pods": CLI_PODS, "deleted": CLI_DELETES,
-        "connections": CLI_CONNS,
-        "readyz_503_polls": readyz.count(503),
-        "create_to_running_pods_per_s": CLI_PODS / (t_patched - t_pods),
-        "pod_create_s": t_created - t_pods,
-        "create_to_running_s": t_patched - t_pods,
-        "delete_s": t_deleted - t_del,
+        **load["report"],
+        "readyz_503_polls": run["readyz"].count(503),
         "status_patches": m["kwok_status_patches_total"],
-        # pod patches from the first pod create until all were Running
-        "status_patches_per_s": (patches - patches0) / (t_patched - t_pods),
         "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
         "transitions": m["kwok_transitions_total"],
         "heartbeats": m["kwok_heartbeats_total"],
         "watch_events": m["kwok_watch_events_total"],
         "tick_thread_s": m["kwok_tick_seconds_total"],
-        # CPU seconds from the first pod create until all were Running:
-        # the mock apiserver's process, this process (engine + checks),
-        # and the tick thread's host seconds
-        "window_mock_cpu_s": mock_cpu_run - mock_cpu0,
-        "window_kwok_process_cpu_s": (m_run["process_cpu_seconds_total"]
-                                      - m0["process_cpu_seconds_total"]),
+        # the tick thread's host seconds over the create->Running window
         "window_tick_thread_s": (m_run["kwok_tick_seconds_total"]
                                  - m0["kwok_tick_seconds_total"]),
         "capacities": caps, "kernel_ms_at_capacities": shape_ms,
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
+    }
+
+
+def shm_free_bytes() -> int:
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def lane_states(np, eng, caps, seed: int = 7):
+    """Node and pod states at one lane process's capacities, populated
+    like its shard (its share of the nodes Ready with heartbeats, its pods
+    Pending or Running, all managed), with the engine's selector bits:
+    what that lane's kernel launches see."""
+    from kwok_tpu_torch.models.defaults import (
+        SEL_HEARTBEAT,
+        SEL_MANAGED,
+        SEL_ON_MANAGED_NODE,
+    )
+    from kwok_tpu_torch.models.lifecycle import NODE_PHASES
+    from kwok_tpu_torch.ops import state as ts
+
+    rng = np.random.default_rng(seed)
+    n_cap, p_cap = caps
+    nodes = ts.to_numpy(ts.new_row_state(n_cap, "cpu"))
+    n_live = min(n_cap, -(-CLI_NODES // eng._proc.n))
+    nodes.active[:n_live] = True
+    nodes.phase[:n_live] = NODE_PHASES.phase_id("Ready")
+    nodes.sel_bits[:n_live] = (1 << eng.node_bits[SEL_MANAGED]) | (1 << eng.node_bits[SEL_HEARTBEAT])
+    nodes.hb_due[:n_live] = (rng.random(n_live) * 0.5).astype(np.float32)
+    pods = ts.to_numpy(ts.new_row_state(p_cap, "cpu"))
+    p_live = min(p_cap, -(-CLI_PODS // eng._proc.n))
+    pods.active[:p_live] = True
+    pods.phase[:p_live] = rng.choice([eng._pod_phase_ids["Pending"], eng._pod_phase_ids["Running"]], p_live)
+    pods.sel_bits[:p_live] = (1 << eng.pod_bits[SEL_MANAGED]) | (1 << eng.pod_bits[SEL_ON_MANAGED_NODE])
+    return ts.from_numpy(nodes, DEVICE), ts.from_numpy(pods, DEVICE)
+
+
+def byte_bound_ms(caps) -> float:
+    """The byte bound of one dispatch (both kinds) at these capacities."""
+    return sum(caps) * ROW_BYTES / HBM_BYTES_PER_S * 1e3
+
+
+def _alive(pid: int) -> bool:
+    """A live (not zombie) process with this pid."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def procs_phase(cli_run):
+    """The kwok entry point with --lane-procs true: one lane process per
+    lane, each with its own single-lane engine and tick kernel on the
+    card (see the module docstring, phase 7)."""
+    import numpy as np
+    import torch
+
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.engine.rowpool import shard_of
+
+    shm_free = shm_free_bytes()
+    print(f"procs: /dev/shm free {shm_free} B", flush=True)
+    n_lanes = resolve_drain_shards(0, 0)
+    ckpt_dir = tempfile.mkdtemp(prefix="kwok-procs-ckpt-")
+    run = start_cli(["--lane-procs", "true", "--checkpoint-dir", ckpt_dir,
+                     "--checkpoint-interval", "1"])
+    arenas: list = []
+    try:
+        eng = run["engine"]
+        pl = eng._proc
+        if pl is None or pl.n != n_lanes or eng._lanes is not None:
+            raise AssertionError(f"--lane-procs true did not run {n_lanes} lane processes")
+        if eng._stream is not None or eng.nodes.state is not None:
+            raise AssertionError("the parent engine holds a stream or device rows")
+        arenas = [pl.bank.name] + [a.name for ln in pl.lanes for a in (ln.ring, ln.slot, ln.mbank)]
+        pids = [s["pid"] for s in pl.status()]
+        load = drive_pods(run, pids)
+        client = load["client"]
+        # every lane process on the card, launching; every lane checkpointed
+        t_wait = time.monotonic() + 10.0
+        while True:
+            status = pl.status()
+            if all(s["device"] == DEVICE and s["launches"] > 0 for s in status):
+                break
+            if time.monotonic() > t_wait:
+                raise AssertionError(f"lane processes not all on {DEVICE} and launching: {status}")
+            time.sleep(0.1)
+        want = {f"lane{i}.ckpt.json" for i in range(n_lanes)}
+        if not want <= set(os.listdir(ckpt_dir)):
+            raise AssertionError(f"checkpoints: {sorted(os.listdir(ckpt_dir))}")
+        m = scrape(run)
+        if m["kwok_status_patches_total"] < CLI_NODES + CLI_PODS:
+            raise AssertionError(f"kwok_status_patches_total {m['kwok_status_patches_total']}")
+        lane_s = lane_seconds(m, n_lanes)
+        before_kill = pl.status()
+        # respawn: SIGKILL lane 0; back (its engine ready again) within the bound
+        lane0 = pl.lanes[0]
+        old_pid = lane0.proc.pid
+        t_kill = time.monotonic()
+        if not lane0.sigkill():
+            raise AssertionError("could not SIGKILL lane 0")
+        while True:
+            st0 = pl.status()[0]
+            if st0["restarts"] >= 1 and st0["alive"] and st0["ready"] and st0["pid"] != old_pid:
+                break
+            if time.monotonic() - t_kill > PROCS_RESPAWN_S:
+                raise AssertionError(f"lane 0 not back within {PROCS_RESPAWN_S} s: {st0}")
+            time.sleep(0.05)
+        respawn_s = time.monotonic() - t_kill
+        restarts0 = scrape(run).get('kwok_lane_proc_restarts_total{shard="0"}')
+        if restarts0 != 1 or eng.degraded:
+            raise AssertionError(f"restarts {restarts0}, degraded {eng._degradation.reasons}")
+        proc, _span = spawn_creator(run["url"], "pods", PROCS_MORE_PODS, first=CLI_PODS)
+        join_creator(proc, run["deadline"])
+        more = [f"pod-{CLI_PODS + i}" for i in range(PROCS_MORE_PODS)]
+        on_lane0 = sum(shard_of(("default", n), n_lanes) == 0 for n in more)
+        if on_lane0 == 0:
+            raise AssertionError("none of the later pods belongs to lane 0")
+        while True:
+            pods = client.list("pods")
+            by_name = {p["metadata"]["name"]: p for p in pods}
+            n_more = sum(running(by_name.get(n, {})) for n in more)
+            if n_more == PROCS_MORE_PODS:
+                break
+            if time.monotonic() > run["deadline"]:
+                raise AssertionError(f"{n_more} of {PROCS_MORE_PODS} later pods Running; "
+                                     f"lanes {pl.status()}")
+            time.sleep(POLL_S)
+        more_s = time.monotonic() - t_kill
+        status = pl.status()
+        if status[0]["pods"] < before_kill[0]["pods"] + on_lane0 or eng.degraded:
+            raise AssertionError(f"lane 0 after the respawn: {status[0]} (before {before_kill[0]})")
+        code, _ = http_get(run["base"] + "/readyz")
+        if code != 200:
+            raise AssertionError(f"/readyz {code} after the respawn")
+        m = scrape(run)
+        pids_all = pids + [status[0]["pid"]]
+    finally:
+        stop_cli(run)
+    final = pl.status()
+    if any(s["alive"] for s in final) or any(_alive(pid) for pid in pids_all):
+        raise AssertionError(f"lane processes left after stop: {final}")
+    left = [a for a in arenas if os.path.exists(f"/dev/shm/{a}")]
+    if left:
+        raise AssertionError(f"shared-memory arenas left after stop: {left}")
+    launches = sum(s["launches"] for s in final)
+    if launches <= 0:
+        raise AssertionError("the lane processes ran without launching the tick kernel")
+    check_final_pods(pods, m)
+    # the kernel at a lane's starting capacity (ProcLaneSet.capacity) and
+    # at the capacities lane 0 grew to, with the Stage rule tables
+    start_caps, start_ms, _, _ = engine_shape_check(
+        torch, eng, rearm=True, states=lane_states(np, eng, [pl.capacity] * 2))
+    caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(
+        torch, eng, rearm=True, states=lane_states(np, eng, status[0]["capacities"]))
+    log(f"kernel at a lane's starting capacities {start_caps}: checked, {start_ms:.4f} ms; "
+        f"at lane 0's capacities {caps} with the Stage rules: checked; kernel "
+        f"{shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
+    return {
+        "lanes": n_lanes, "shm_free_bytes": shm_free, "arena_bytes": pl.arena_bytes(),
+        "lane_capacity_start": pl.capacity,
+        "lane_capacities_end": [s["capacities"] for s in status],
+        "lane_pods": [s["pods"] for s in before_kill],
+        "lane_launches": [s["launches"] for s in final],
+        "lane_drain_s": lane_s["drain"], "lane_emit_s": lane_s["emit"],
+        **load["report"],
+        "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
+        "cli_phase_status_patches_per_s": cli_run["status_patches_per_s"],
+        "readyz_503_polls": run["readyz"].count(503), "main_to_ready_s": run["main_to_ready_s"],
+        "status_patches": m["kwok_status_patches_total"],
+        "respawn_s": respawn_s, "stop_s": run["stop_s"], "more_pods": PROCS_MORE_PODS,
+        "more_pods_on_lane0": on_lane0, "more_pods_running_s": more_s,
+        "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
+        "transitions": m["kwok_transitions_total"],
+        "watch_events": m["kwok_watch_events_total"],
+        "lane_tick_thread_s": m["kwok_tick_seconds_total"],
+        # CPU seconds of each lane process over the create->Running window
+        "window_lane_cpu_s": [load["cpu_s"][pid] for pid in pids],
+        "start_capacities": start_caps, "kernel_ms_at_start_capacities": start_ms,
+        "capacities": caps, "kernel_ms_at_capacities": shape_ms,
+        "plain_ms_at_capacities": shape_plain_ms,
+        "wire_d2h_ms_at_capacities": shape_wire_ms,
+        "bound_ms_at_capacities": byte_bound_ms(caps),
     }
 
 
@@ -974,6 +1241,8 @@ def main() -> int:
     print(json.dumps({"restart": restart}), flush=True)
     cli_run = cli_phase()
     print(json.dumps({"cli": cli_run}), flush=True)
+    procs = procs_phase(cli_run)
+    print(json.dumps({"procs": procs}), flush=True)
     card = card_line()
     print(f"engine: {engine['create_to_running_pods_per_s']:.1f} pods/s with 1 lane, "
           f"{lanes_run['create_to_running_pods_per_s']:.1f} pods/s with {n_lanes} lanes; "
@@ -988,6 +1257,11 @@ def main() -> int:
           f"tick thread {cli_run['tick_thread_s']:.2f} s, kernel "
           f"{cli_run['kernel_ms_at_capacities']:.4f} ms at {cli_run['capacities']} ({card})",
           flush=True)
+    print(f"procs ({n_lanes} lane processes): {procs['create_to_running_pods_per_s']:.1f} pods/s "
+          f"create->Running, {procs['status_patches_per_s']:.1f} status patches/s, respawn "
+          f"{procs['respawn_s']:.2f} s, {procs['kernel_launches']} lane launches, kernel "
+          f"{procs['kernel_ms_at_capacities']:.4f} ms at {procs['capacities']} ({card})",
+          flush=True)
 
     main_cfg = next(c for c in configs if c["rules"] == "default" and c["substeps"] == 1)
     kernels = {"kernels": [{
@@ -996,7 +1270,8 @@ def main() -> int:
         "source": "kwok_tpu_torch/csrc/tick.cu",
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
         "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
-                     + restart["kernel_launches"] + cli_run["kernel_launches"]),
+                     + restart["kernel_launches"] + cli_run["kernel_launches"]
+                     + procs["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],
@@ -1008,10 +1283,16 @@ def main() -> int:
         "launches_by_phase": {
             "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
             "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
+            "procs": procs["kernel_launches"],
         },
         "stacked_capacities": lanes_run["capacities"],
         "stacked_ms": lanes_run["kernel_ms_at_capacities"],
         "stacked_plain_ms": lanes_run["plain_ms_at_capacities"],
+        "stacked_bound_ms": byte_bound_ms(lanes_run["capacities"]),
+        "lane_process_capacities": procs["capacities"],
+        "lane_process_bound_ms": procs["bound_ms_at_capacities"],
+        "lane_process_ms": procs["kernel_ms_at_capacities"],
+        "lane_process_plain_ms": procs["plain_ms_at_capacities"],
         "configs": configs,
     }]}
     print(json.dumps(kernels), flush=True)

@@ -73,6 +73,14 @@ class HttpKubeClient:
         self.server = server.rstrip("/")
         self.token = token
         self.timeout = timeout
+        # what a lane process (engine/proclanes.py) needs to open the same
+        # client: plain values, carried in its spawn arguments
+        self.connection_args = {
+            "server": server, "token": token, "ca_file": ca_file,
+            "cert_file": cert_file, "key_file": key_file,
+            "insecure_skip_tls_verify": insecure_skip_tls_verify,
+            "timeout": timeout,
+        }
         # per-thread persistent connections for unary requests (keep-alive):
         # a new TCP (+TLS) handshake per status patch would dominate the
         # egress at high transition rates (SURVEY.md "Hard parts":
@@ -452,6 +460,13 @@ class _HttpWatch:
             raise
 
     def __iter__(self) -> Iterator[WatchEvent]:
+        for ev, _line in self.events_with_raw():
+            yield ev
+
+    def events_with_raw(self) -> Iterator[tuple[WatchEvent, bytes]]:
+        """Each event together with its undecoded JSON line: the
+        process-lane parent routes by the decoded key and ships the line
+        itself to the lane process."""
         try:
             for raw in self._resp:
                 if self._stopped.is_set():
@@ -479,7 +494,7 @@ class _HttpWatch:
                 if type_ in ("ADDED", "MODIFIED", "DELETED", "BOOKMARK"):
                     # BOOKMARK objects carry only metadata.resourceVersion;
                     # callers advance their resume revision and move on
-                    yield WatchEvent(type_, doc.get("object") or {})
+                    yield WatchEvent(type_, doc.get("object") or {}), line
                 elif type_ == "ERROR":
                     obj = doc.get("object") or {}
                     if obj.get("code") == 410:

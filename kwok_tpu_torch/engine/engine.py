@@ -23,17 +23,23 @@ the threaded lanes of ``engine/lanes.py`` instead: a router, a drain and
 an emit worker per lane, and a coordinator tick thread that owns one
 stacked device state per kind. The engine then holds no rows of its own.
 
+With ``lane_procs`` as well, the lanes are processes
+(``engine/proclanes.py``): this engine then holds no device rows, no
+stream and no CUDA context; it runs the watches, a router, a supervisor
+and a status coordinator, and each lane process runs a single-lane
+engine of its own over its hash shard, on its own stream.
+
 With a checkpoint directory the device-owning thread gathers the timer
 residues every ``checkpoint_interval`` seconds and at stop, and a start
 on a directory holding a checkpoint refines the re-listed rows' timers
 from it (``resilience/checkpoint.py``).
 
 Names and logic of the ingest, tick and emit methods follow the JAX
-package's engine so each has its counterpart there. Process lanes, the
-mesh, federation, HA, anti-entropy, fault injection, the watchdog, the
-native codec/pump/ingest, CNI, the profiler and the span tracer are not
-part of this engine; ``metrics`` is a plain counters dict, and the lane
-and degraded-mode families live on ``registry``.
+package's engine so each has its counterpart there. The mesh,
+federation, HA, anti-entropy, fault injection, the native
+codec/pump/ingest, CNI, the profiler and the span tracer are not part of
+this engine; ``metrics`` is a plain counters dict, and the lane and
+degraded-mode families live on ``registry``.
 """
 
 from __future__ import annotations
@@ -108,6 +114,7 @@ from kwok_tpu_torch.ops.updates import (
 )
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
 from kwok_tpu_torch.resilience.policy import Degradation
+from kwok_tpu_torch.resilience.watchdog import Watchdog
 from kwok_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger("kwok_tpu_torch.engine")
@@ -116,10 +123,6 @@ _NODE_READY_BITS = 1 << NODE_PHASES.condition_bit("Ready")
 _PENDING = POD_PHASES.phase_id("Pending")
 _NODE_READY = NODE_PHASES.phase_id("Ready")
 _NODE_OBSERVED = NODE_PHASES.phase_id("Observed")
-
-# the checkpoint file is <checkpoint_dir>/engine.ckpt.json, as the JAX
-# package's engine names it, so one file restores in either package
-_CKPT_NAME = "engine"
 
 # the counters ``ClusterEngine.metrics`` always carries
 _COUNTERS = (
@@ -170,12 +173,22 @@ class EngineConfig:
     drain_shards: int = 1
     # cap on the AUTO lane count (0 = built-in default)
     max_drain_shards: int = 0
+    # process lanes (engine/proclanes.py): with more than one lane, each
+    # lane is a spawned process running the single-lane engine over its
+    # hash shard; needs an HTTP apiserver
+    lane_procs: bool = False
+    # watchdog budget: more than this many restarts of one worker (a lane
+    # process respawn, the router, the supervisor) within the window
+    # degrades the engine (/readyz 503)
+    worker_restart_budget: int = 5
+    worker_restart_window: float = 30.0
     # graceful degradation: shed routed events when a lane queue is deeper
     # than this (kwok_dropped_jobs_total + kwok_degraded{reason=}, /readyz
     # 503) instead of letting it grow without bound; 0 = never shed
     shed_queue_depth: int = 0
     # crash-durable restarts (resilience/checkpoint.py): the device timer
-    # residues are checkpointed to <dir>/engine.ckpt.json every
+    # residues are checkpointed to <dir>/engine.ckpt.json (a lane process:
+    # lane<i>.ckpt.json) every
     # checkpoint_interval seconds (atomic rename), and a start on a
     # directory holding one refines the re-listed rows' timers from it.
     # "" = disabled (falls back to KWOK_TPU_CHECKPOINT_DIR); the literal
@@ -282,6 +295,9 @@ class ClusterEngine:
         self._n_lanes = resolve_drain_shards(
             config.drain_shards, config.max_drain_shards
         )
+        # process lanes: the lane processes own every row and stream, so
+        # this engine touches no device at all
+        proc = self._owns_device and self._n_lanes > 1 and config.lane_procs
         self.ippool = IPPool(config.cidr)
 
         self._manage_annotation = parse_selector(
@@ -321,7 +337,8 @@ class ClusterEngine:
         # engine owns is ever used across streams
         self._stream = (
             torch.cuda.Stream(self.device)
-            if self._owns_device and self.device.type == "cuda" else None
+            if self._owns_device and not proc and self.device.type == "cuda"
+            else None
         )
         # under lanes the LaneSet owns all rows: the engine's own kinds
         # stay host-only at a token capacity, and a lane's kinds are
@@ -377,10 +394,15 @@ class ClusterEngine:
         ).strip()
         if self._ckpt_dir == "off":
             self._ckpt_dir = ""
+        # <checkpoint_dir>/<name>.ckpt.json: "engine", as the JAX
+        # package's engine names it (one file restores in either
+        # package); a lane process writes lane<i>
+        self._ckpt_name = "engine"
         self._ckpt: "ckpt_mod.Checkpointer | None" = None
         self._restore: "ckpt_mod.RestoreSession | None" = None
         # guards the startup gate's bookkeeping (drain workers of several
-        # lanes mark their RESYNCs concurrently) and the restore swap
+        # lanes mark their RESYNCs concurrently), the restore swap and the
+        # integrity-doubt re-list's timer
         self._ckpt_lock = threading.Lock()
         # kinds whose first full re-list is not ingested yet; None when
         # the startup gate is not armed (before start()) or finished
@@ -396,10 +418,23 @@ class ClusterEngine:
         # a dispatch ran since the last checkpoint gather (device thread)
         self._ckpt_dirty = False
         self.ready = False
-        # the threaded lanes (engine/lanes.py); lane engines are built
-        # with drain_shards=1, so they never recurse
+        # supervision (resilience/watchdog.py), built in start()
+        self._watchdog = None
+        # integrity-doubt re-lists (_integrity_resync): the kinds in
+        # doubt, the last re-list's monotonic stamp, a deferred one's timer
+        self._wire_doubt: set[str] = set()
+        self._wire_resync_at = 0.0
+        self._wire_timer: "threading.Timer | None" = None
+        # the threaded lanes (engine/lanes.py) or the process lanes
+        # (engine/proclanes.py); lane engines are built with
+        # drain_shards=1, so neither recurses
         self._lanes = None
-        if self._owns_device and self._n_lanes > 1:
+        self._proc = None
+        if proc:
+            from kwok_tpu_torch.engine.proclanes import ProcLaneSet
+
+            self._proc = ProcLaneSet(self, self._n_lanes)
+        elif self._owns_device and self._n_lanes > 1:
             from kwok_tpu_torch.engine.lanes import LaneSet
 
             self._lanes = LaneSet(self, self._n_lanes)
@@ -408,9 +443,30 @@ class ClusterEngine:
 
     @property
     def metrics(self) -> dict:
-        """A snapshot of the engine's counters and gauges."""
+        """A snapshot of the engine's counters and gauges; under process
+        lanes with every lane process's counters added in."""
         with self._metrics_lock:
-            return dict(self._metrics)
+            own = dict(self._metrics)
+        if self._proc is not None:
+            return self._proc.merged_flat(own)
+        return own
+
+    def metrics_text(self) -> str:
+        """The labeled families of ``registry`` as exposition text; under
+        process lanes merged with every lane process's snapshot."""
+        if self._proc is not None:
+            return self._proc.merged_metrics_text()
+        return self.registry.render()
+
+    def process_metrics_text(self) -> str:
+        """The process-wide error counters (``telemetry/errors.py``);
+        under process lanes the lane processes' shares are added in.
+        Empty until one of them has moved."""
+        if self._proc is not None:
+            return self._proc.merged_process_text()
+        from kwok_tpu_torch.telemetry.errors import render_nonempty
+
+        return render_nonempty()
 
     def _inc(self, name: str, v=1) -> None:
         with self._metrics_lock:
@@ -471,14 +527,26 @@ class ClusterEngine:
         cannot reach its disk): /readyz answers 503 while it is True."""
         return self._degradation.active
 
-    def start(self) -> None:
+    def start(self, spawn_watches: bool = True) -> None:
         """Arm the startup gate (and the checkpoint service), warm the
         device path, then start watch ingest, the patch executor and the
         tick thread (the lane coordinator under lanes, with the router
         and the lane workers). ``ready`` stays False until the device
-        thread has ingested the first full re-list of both kinds."""
+        thread has ingested the first full re-list of both kinds.
+
+        Under process lanes this engine warms nothing and checkpoints
+        nothing (the lane processes do both); it spawns the lane
+        processes, and its tick thread is the status coordinator. A lane
+        process passes ``spawn_watches=False``: its events arrive routed
+        from the parent, never from watch streams of its own."""
         self._running = True
         self._stop_evt.clear()
+        self._watchdog = Watchdog(
+            budget=self.config.worker_restart_budget,
+            window=self.config.worker_restart_window,
+            on_exhausted=self._worker_budget_exhausted,
+            on_restart=self._worker_restarted_resync,
+        )
         self._executor = ThreadPoolExecutor(
             max_workers=self.config.parallelism, thread_name_prefix="kwok-patch"
         )
@@ -488,13 +556,13 @@ class ClusterEngine:
         self._startup_lanes = {}
         self._startup_flush_wait = False
         self._startup_t0 = time.monotonic()
-        if self._ckpt_dir:
+        if self._ckpt_dir and self._proc is None:
             self._ckpt = ckpt_mod.Checkpointer(
-                self._ckpt_dir, _CKPT_NAME,
+                self._ckpt_dir, self._ckpt_name,
                 self.config.checkpoint_interval, on_write=self._ckpt_written,
                 degradation=self._degradation,
             )
-            data = ckpt_mod.load(self._ckpt_dir, _CKPT_NAME)
+            data = ckpt_mod.load(self._ckpt_dir, self._ckpt_name)
             if data is not None:
                 self._restore = ckpt_mod.RestoreSession(
                     data["kinds"], gate_ready=True
@@ -504,16 +572,23 @@ class ClusterEngine:
                     self._ckpt.path, self._restore.remaining,
                 )
             self._ckpt.start()
-        with self._device_ctx():
-            if self._lanes is not None:
-                self._lanes.prepare(self._executor)
-            else:
-                self._warm_scatters()
-                self._warm_tick()
-        node_label_sel = self.config.manage_nodes_with_label_selector or None
-        self._spawn_watch("nodes", label_selector=node_label_sel)
-        self._spawn_watch("pods", field_selector="spec.nodeName!=")
-        if self._lanes is not None:
+        if self._proc is not None:
+            self._proc.prepare()
+        else:
+            with self._device_ctx():
+                if self._lanes is not None:
+                    self._lanes.prepare(self._executor)
+                else:
+                    self._warm_scatters()
+                    self._warm_tick()
+        if spawn_watches:
+            node_label_sel = self.config.manage_nodes_with_label_selector or None
+            self._spawn_watch("nodes", label_selector=node_label_sel)
+            self._spawn_watch("pods", field_selector="spec.nodeName!=")
+        if self._proc is not None:
+            self._proc.start_workers(self._threads)
+            loop = self._proc.coordinator_loop
+        elif self._lanes is not None:
             self._lanes.start_workers(self._threads)
             loop = self._lanes.tick_loop
         else:
@@ -552,7 +627,8 @@ class ClusterEngine:
                 return
             done = self._startup_lanes.setdefault(kind, set())
             done.add(lane)
-            if len(done) >= (self._n_lanes if self._lanes is not None else 1):
+            lanes = self._lanes is not None or self._proc is not None
+            if len(done) >= (self._n_lanes if lanes else 1):
                 sp.discard(kind)
 
     def _ckpt_gate(self, dispatched: bool, staged: bool) -> None:
@@ -626,6 +702,56 @@ class ClusterEngine:
             )
         return self._fused
 
+    # minimum seconds between two integrity-doubt re-lists
+    _WIRE_RESYNC_MIN_S = 5.0
+
+    def _integrity_resync(self, kind: str) -> None:
+        """Corrupt or lost input for ``kind`` (an unparseable routed line,
+        events a lane process could not take): cut that kind's watch
+        stream so its loop re-lists, at most once per
+        ``_WIRE_RESYNC_MIN_S``; a doubt inside the window is deferred to
+        one timer, never dropped. The cut runs off the caller's thread."""
+        now = time.monotonic()
+        with self._ckpt_lock:
+            self._wire_doubt.add(kind)
+            if self._wire_timer is not None:
+                return  # a deferred re-list is already scheduled
+            wait = self._WIRE_RESYNC_MIN_S - (now - self._wire_resync_at)
+            t = threading.Timer(max(0.0, wait), self._integrity_fire)
+            t.daemon = True
+            self._wire_timer = t
+        logger.warning("integrity doubt on %s: scheduling a full re-list", kind)
+        t.start()
+
+    def _integrity_fire(self) -> None:
+        with self._ckpt_lock:
+            self._wire_timer = None
+            self._wire_resync_at = time.monotonic()
+            kinds, self._wire_doubt = self._wire_doubt, set()
+        if not self._running:
+            return
+        self._inc("watch_integrity_resyncs_total")
+        for kind in kinds:
+            w = self._watches.get(kind)
+            if w is not None:
+                try:
+                    w.stop()
+                except Exception:
+                    logger.debug("watch stop for a re-list failed", exc_info=True)
+
+    def _worker_budget_exhausted(self, name: str) -> None:
+        """Watchdog callback: a supervised worker (or a lane process)
+        failed past its restart budget; the lane topology is partial."""
+        if self._degradation.set("worker_restart_budget"):
+            logger.error("engine degraded: worker %s out of restart budget", name)
+
+    def _worker_restarted_resync(self, name: str) -> None:
+        """Watchdog callback after an in-thread restart: a crash may have
+        eaten an in-flight item, and only a full list+RESYNC re-delivers
+        it."""
+        if self._running:
+            self.resync_streams()
+
     def resync_streams(self) -> None:
         """Force every watch stream through a full list+RESYNC: the watch
         threads always re-list on reconnect, so cutting the live streams
@@ -643,6 +769,12 @@ class ClusterEngine:
         self.ready = False
         self._startup_pending = None
         self._stop_evt.set()
+        if self._watchdog is not None:
+            self._watchdog.close()
+        with self._ckpt_lock:
+            timer, self._wire_timer = self._wire_timer, None
+        if timer is not None:
+            timer.cancel()
         for w in list(self._watches.values()):
             w.stop()
         self._q.put(None)
@@ -665,6 +797,10 @@ class ClusterEngine:
             self._executor.shutdown(wait=True)
         if self._lanes is not None:
             self._lanes.close()
+        if self._proc is not None:
+            # STOP every lane process: each drains its patches and writes
+            # its final checkpoint before it exits
+            self._proc.close()
         if self._ckpt is not None:
             # the tick thread queued the final snapshot in its finally;
             # this drains the writer and joins it
@@ -680,6 +816,10 @@ class ClusterEngine:
         register/list gap are covered, and every re-watch after an error
         resyncs (node_controller.go:121-143 ordering, made gap-proof)."""
         opts = {k: v for k, v in sel.items() if v}
+        # process lanes: the router ships each event's raw line to its
+        # lane, and a re-list travels as the RESYNC snapshot alone (the
+        # lane process applies its objects before the prune)
+        proc = self._proc is not None
 
         def loop():
             delay = 0.0
@@ -689,18 +829,21 @@ class ClusterEngine:
                     self._watches[kind] = w
                     objs = self.client.list(kind, **opts)
                     self._inc("watch_relists_total")
-                    for obj in objs:
-                        self._q.put((kind, ADDED, obj, time.monotonic()))
+                    if not proc:
+                        for obj in objs:
+                            self._q.put((kind, ADDED, obj, time.monotonic()))
                     self._q.put((kind, "RESYNC", objs, time.monotonic()))
                     delay = 0.0
-                    for ev in w:
+                    events = w.events_with_raw() if proc else ((ev, None) for ev in w)
+                    for ev, raw in events:
                         if ev.type == BOOKMARK:
                             continue
                         if ev.type == ERROR:
                             logger.warning("watch %s error event: %.200r",
                                            kind, ev.object)
                             break
-                        self._q.put((kind, ev.type, ev.object, time.monotonic()))
+                        item = (kind, ev.type, ev.object, time.monotonic())
+                        self._q.put(item if raw is None else item + (raw,))
                     if not self._running:
                         return
                 except Exception as e:  # re-watch with backoff

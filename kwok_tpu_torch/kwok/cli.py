@@ -13,8 +13,11 @@ variable the CLI exits non-zero with the engine's error.
 A flag value that would switch on a subsystem the port does not have yet
 exits non-zero with a message naming the ROADMAP item that brings it; so
 do its KWOK_TPU_* environment twins. ``--drain-shards`` (default 0 =
-auto) runs the threaded lanes; ``--checkpoint-dir`` (or
-KWOK_TPU_CHECKPOINT_DIR) turns on crash-durable checkpoints.
+auto) runs the threaded lanes, and with ``--lane-procs true`` (or
+KWOK_LANE_PROCS=true) each lane is a process of its own
+(``engine/proclanes.py``; it needs the HTTP ``--master``);
+``--checkpoint-dir`` (or KWOK_TPU_CHECKPOINT_DIR) turns on crash-durable
+checkpoints.
 """
 
 from __future__ import annotations
@@ -89,8 +92,8 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    help="cap on the AUTO --drain-shards lane count "
                    "(0 = built-in default)")
     p.add_argument("--lane-procs", type=_bool, default=o.laneProcs,
-                   help="run each drain shard as a worker process (refused "
-                   "when true: ROADMAP item 8)")
+                   help="run each drain shard as a worker process, each "
+                   "with its own single-lane engine on the device")
     p.add_argument("--initial-capacity", type=int, default=o.initialCapacity)
     p.add_argument("--use-mesh", type=_bool, default=o.useMesh,
                    help="shard cluster state across all local devices "
@@ -115,8 +118,9 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    "than this; 0 = never shed")
     p.add_argument("--worker-restart-budget", type=int,
                    default=o.workerRestartBudget,
-                   help="watchdog: max restarts of one crashed lane "
-                   "worker per --worker-restart-window (ROADMAP item 13)")
+                   help="watchdog: max respawns of one crashed lane "
+                   "process per --worker-restart-window; past it the "
+                   "engine degrades")
     p.add_argument("--worker-restart-window", type=float,
                    default=o.workerRestartWindow,
                    help="watchdog restart-budget window in seconds")
@@ -185,8 +189,6 @@ def refusals(args, masters: list[str]) -> list[str]:
     if args.use_mesh:
         out.append("--use-mesh true splits rows across devices: "
                    "ROADMAP item 9")
-    if args.lane_procs:
-        out.append("--lane-procs true runs process lanes: ROADMAP item 8")
     if args.ha_role in ("primary", "standby"):
         out.append(f"--ha-role {args.ha_role} needs HA and the lease "
                    "calls: ROADMAP item 12")
@@ -240,6 +242,9 @@ def _engine_config(args, stages: list[Stage], device: str):
         heartbeat_interval=args.heartbeat_interval,
         parallelism=args.parallelism,
         initial_capacity=args.initial_capacity,
+        lane_procs=args.lane_procs,
+        worker_restart_budget=args.worker_restart_budget,
+        worker_restart_window=args.worker_restart_window,
         shed_queue_depth=args.shed_queue_depth,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_interval=args.checkpoint_interval,
@@ -332,7 +337,8 @@ def main(argv=None, stop_event: threading.Event | None = None) -> int:
     try:
         engine = ClusterEngine(client, _engine_config(args, stages, engine_device()))
     except (RuntimeError, ValueError) as e:
-        # no card for a cuda engine, or an invalid configuration
+        # no card for a cuda engine, or an invalid configuration (process
+        # lanes without an HTTP apiserver among them)
         raise SystemExit(f"kwok: {e}") from e
     wait_for_apiserver(client)
     # liveness first, readiness after: the server comes up immediately (so

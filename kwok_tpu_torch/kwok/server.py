@@ -6,10 +6,12 @@ transitions/sec, patches/sec, tick latency, watch lag).
 
 The port's engine keeps a plain counters dict (``ClusterEngine.metrics``),
 so ``/metrics`` renders the reference's flat ``kwok_``-prefixed surface,
-then the engine's labeled families (``ClusterEngine.registry``: the lane
-stage seconds and queue depths, ``kwok_degraded``), with the process-wide
-error counters (``telemetry/errors.py``) and the process CPU collector
-appended. ``/debug/trace`` answers 404, as the
+then the engine's labeled families (``ClusterEngine.metrics_text``: the
+lane stage seconds and queue depths, ``kwok_degraded``, and under process
+lanes ``kwok_lane_proc_restarts_total``), with the process-wide error
+counters (``telemetry/errors.py``) and the process CPU collector
+appended. Under process lanes the counters and families are summed over
+the lane processes. ``/debug/trace`` answers 404, as the
 reference does for an engine without a span tracer.
 """
 
@@ -69,12 +71,15 @@ def _process_block() -> str:
 
 
 def render_metrics(metrics) -> str:
-    """Render /metrics text from an engine (its ``metrics`` and
-    ``registry``) or a flat name->value dict. Flat types go strictly by
+    """Render /metrics text from an engine (its ``metrics`` and labeled
+    families) or a flat name->value dict. Flat types go strictly by
     suffix: ``*_total``/``*_sum`` are counters, everything else
-    (``*_seconds_last`` included) is a gauge."""
-    registry = getattr(metrics, "registry", None)
-    metrics = dict(getattr(metrics, "metrics", metrics))
+    (``*_seconds_last`` included) is a gauge. Under process lanes the
+    engine's counters, labeled families and error counters already hold
+    every lane process's share."""
+    engine = metrics
+    registry = getattr(engine, "registry", None)
+    metrics = dict(getattr(engine, "metrics", engine))
     lines = []
     for name, value in sorted(metrics.items()):
         full = f"kwok_{name}"
@@ -83,10 +88,15 @@ def render_metrics(metrics) -> str:
         kind = "counter" if name.endswith(("_total", "_sum")) else "gauge"
         lines.append(f"# TYPE {full} {kind}")
         lines.append(f"{full} {value}")
-    labeled = registry.render() if registry is not None else ""
+    if hasattr(engine, "metrics_text"):
+        labeled = engine.metrics_text()
+        errors = engine.process_metrics_text()
+    else:
+        labeled = registry.render() if registry is not None else ""
+        errors = _errors_block()
     return (
         "\n".join(lines) + "\n" + labeled.lstrip("\n")
-        + _errors_block() + _process_block()
+        + errors + _process_block()
     )
 
 

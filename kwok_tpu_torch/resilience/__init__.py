@@ -2,7 +2,9 @@
 
 - ``policy``: the ``Degradation`` ledger behind ``kwok_degraded{reason=}``
   and the ``/readyz`` 503 (lane queue shedding, a checkpoint writer that
-  cannot reach its disk).
+  cannot reach its disk, a spent restart budget), and ``RetryPolicy``.
+- ``watchdog``: supervised workers and the restart budget that the
+  process-lane supervisor charges for every lane respawn.
 - ``checkpoint``: the periodic atomic-rename checkpoint of the device
   timer state (``--checkpoint-dir``) and the cold-start reconcile that
   resumes matching rows' Stage delays after a restart. The file format is

@@ -1,16 +1,77 @@
-"""The engine's degraded-mode ledger (``kwok_tpu.resilience.policy``'s
-``Degradation``, on the port's registry).
+"""Retry pacing and the engine's degraded-mode ledger
+(``kwok_tpu.resilience.policy``'s ``RetryPolicy`` and ``Degradation``,
+on the port's registry).
 
-Named reasons (``lane2_queue``, ``checkpoint``) raise the
-``kwok_degraded{reason=}`` gauge on the engine's registry and flip the
-engine's ``degraded`` property, which ``/readyz`` reflects with a 503:
-load balancers and rigs stop sending work to an engine that is shedding
-instead of keeping up. Reasons clear when the condition heals.
+``RetryPolicy`` is client-go's wait.Backoff with full jitter: attempt
+``n`` sleeps ``uniform(0, min(cap, base * factor**n))``, optionally
+bounded by a wall-clock deadline. The watchdog paces its restarts with
+it.
+
+Named reasons (``lane2_queue``, ``checkpoint``, ``worker_restart_budget``)
+raise the ``kwok_degraded{reason=}`` gauge on the engine's registry and
+flip the engine's ``degraded`` property, which ``/readyz`` reflects with
+a 503: load balancers and rigs stop sending work to an engine that is
+shedding instead of keeping up. Reasons clear when the condition heals.
 """
 
 from __future__ import annotations
 
+import random
 import threading
+import time
+
+
+class RetryPolicy:
+    """Immutable backoff shape; ``session()`` mints independent attempt
+    state, so one policy object can serve many concurrent loops."""
+
+    def __init__(
+        self,
+        base: float = 0.5,
+        cap: float = 5.0,
+        factor: float = 2.0,
+        deadline: "float | None" = None,
+        jitter: bool = True,
+        rng: "random.Random | None" = None,
+    ):
+        if base <= 0 or cap < base or factor < 1.0:
+            raise ValueError("invalid retry policy shape")
+        self.base = float(base)
+        self.cap = float(cap)
+        self.factor = float(factor)
+        self.deadline = deadline
+        self.jitter = bool(jitter)
+        self._rng = rng or random
+
+    def session(self) -> "Backoff":
+        return Backoff(self)
+
+
+class Backoff:
+    """Mutable attempt state for one retry loop (one owner, no lock)."""
+
+    def __init__(self, policy: RetryPolicy):
+        self.policy = policy
+        self.attempt = 0
+        self._started = time.monotonic()
+
+    def reset(self) -> None:
+        """A success: the next failure backs off from scratch."""
+        self.attempt = 0
+        self._started = time.monotonic()
+
+    def next_delay(self) -> "float | None":
+        """The next sleep, or None once the policy deadline has passed."""
+        p = self.policy
+        if p.deadline is not None and (
+            time.monotonic() - self._started >= p.deadline
+        ):
+            return None
+        ceiling = min(p.cap, p.base * (p.factor ** self.attempt))
+        self.attempt += 1
+        if p.jitter:
+            return p._rng.uniform(0, ceiling)
+        return ceiling
 
 _DEGRADED_HELP = (
     "Degraded-mode reasons currently active (1 = degraded): queue "

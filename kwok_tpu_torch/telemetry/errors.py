@@ -33,6 +33,13 @@ _crashes = PROCESS_REGISTRY.counter(
     "Uncaught exceptions that killed a spawned worker thread",
     ("thread",),
 )
+_restarts = PROCESS_REGISTRY.counter(
+    "kwok_worker_restarts_total",
+    "Crashed workers restarted by the resilience watchdog (within its "
+    "restart budget); a crash WITHOUT a matching restart means the "
+    "budget ran out and the engine went degraded",
+    ("thread",),
+)
 _wire_rejects = PROCESS_REGISTRY.counter(
     "kwok_wire_rejects_total",
     "Corrupt or regressed wire input quarantined instead of applied: "
@@ -57,6 +64,24 @@ def swallowed(site: str) -> None:
 def worker_crashed(thread_name: str) -> None:
     """Account an uncaught exception escaping a spawn_worker thread."""
     _crashes.labels(thread=thread_name).inc()
+
+
+def worker_restarted(thread_name: str) -> None:
+    """Account a watchdog restart of a crashed worker (a thread, or a
+    lane process respawned by the process-lane supervisor)."""
+    _restarts.labels(thread=thread_name).inc()
+
+
+def worker_crash_ledger() -> dict:
+    """Every worker's (crashes, restarts) pair: a crash without a
+    matching restart means a worker died for good outside the
+    watchdog's care."""
+    out: dict = {}
+    for (thread,), c in _crashes.children():
+        out[thread] = [c.value, 0]
+    for (thread,), c in _restarts.children():
+        out.setdefault(thread, [0, 0])[1] = c.value
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def wire_reject(reason: str, n: int = 1) -> None:

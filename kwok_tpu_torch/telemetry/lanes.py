@@ -11,6 +11,13 @@ registry:
 ``kwok_degraded{reason}`` lives with its ledger in
 ``resilience/policy.py``. Every other engine counter stays on the flat
 ``kwok_`` surface of ``ClusterEngine.metrics``.
+
+Under process lanes (``engine/proclanes.py``) each lane child is a
+single-lane engine that times its drain and emit stages into
+``kwok_tick_stage_seconds{stage}``; ``merge_proc_lane_metrics`` folds the
+children's registry snapshots into one scratch registry per scrape and
+label-splits those stages into ``kwok_lane_stage_seconds{shard,stage}``,
+so the exposition has the threaded lanes' families.
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ _HELP = {
     "emit=patch fan-out)",
     "kwok_lane_queue_depth": "Routed events waiting in a lane's ingest "
     "queue (shard=lane index)",
+    "kwok_tick_stage_seconds": "Wall seconds by stage of a process lane's "
+    "single-lane engine (drain=ingest of routed events, emit=consume of a "
+    "tick's wire)",
 }
 
 
@@ -54,3 +64,66 @@ class LaneTelemetry:
     def stage_sums(self) -> dict:
         """Per-lane stage second totals."""
         return {s: h.sum for s, h in self.stage_hists.items()}
+
+
+def _merge_lane_snapshot(reg, shard: int, snap: dict) -> None:
+    from kwok_tpu_torch.telemetry.registry import family_from_doc, merge_child
+
+    lane_fam = reg.histogram(
+        "kwok_lane_stage_seconds", _HELP["kwok_lane_stage_seconds"],
+        ("shard", "stage"),
+    )
+    for name, doc in sorted(snap.items()):
+        if name == "kwok_tick_stage_seconds":
+            # aggregate into the whole-engine stage family AND label-split
+            # drain/emit under the lane's shard (the LaneTelemetry shape)
+            fam = family_from_doc(reg, name, doc)
+            for values, v in doc.get("children", ()):
+                merge_child(fam, values, v)
+                stage = str(values[-1]) if values else ""
+                if stage in LANE_STAGES:
+                    merge_child(lane_fam, (str(shard), stage), v)
+            continue
+        if doc.get("type") == "gauge":
+            # gauges are the parent's (kwok_degraded, the queue depths it
+            # reads from the StatusBank); a lane's copy would double them
+            continue
+        fam = family_from_doc(reg, name, doc)
+        for values, v in doc.get("children", ()):
+            merge_child(fam, values, v)
+
+
+def merge_proc_lane_metrics(parent_snap: dict, lane_snaps: dict,
+                            retired_snaps: dict, n: int,
+                            queue_depths: "dict | None" = None):
+    """One scratch registry for a process-lane scrape: the parent's own
+    snapshot, every live lane's snapshot (``{shard: snap}``) and each
+    lane's retired accumulator (earlier incarnations' final snapshots,
+    so sums stay monotonic across respawns); counters and histograms
+    add up, lane gauges are left out. ``queue_depths`` feeds
+    ``kwok_lane_queue_depth`` from the StatusBank. The lane families
+    exist for every shard from the first scrape, before any child has
+    published."""
+    from kwok_tpu_torch.telemetry.registry import registry_from_snapshot
+
+    reg = registry_from_snapshot(parent_snap)
+    lane_fam = reg.histogram(
+        "kwok_lane_stage_seconds", _HELP["kwok_lane_stage_seconds"],
+        ("shard", "stage"),
+    )
+    depth_fam = reg.gauge(
+        "kwok_lane_queue_depth", _HELP["kwok_lane_queue_depth"], ("shard",)
+    )
+    for i in range(n):
+        for s in LANE_STAGES:
+            lane_fam.labels(shard=str(i), stage=s)
+        depth_fam.labels(shard=str(i)).set(
+            int((queue_depths or {}).get(i, 0))
+        )
+    for shard, snap in sorted(retired_snaps.items()):
+        if snap:
+            _merge_lane_snapshot(reg, shard, snap)
+    for shard, snap in sorted(lane_snaps.items()):
+        if snap:
+            _merge_lane_snapshot(reg, shard, snap)
+    return reg

@@ -264,3 +264,124 @@ class MetricsRegistry:
             out.append(f"# TYPE {fam.name} {fam.type}")
             fam.render(out)
         return "\n".join(out) + "\n"
+
+    def snapshot(self) -> dict:
+        """JSON-able dump of every family and child, the payload a lane
+        process publishes in its MetricsBank slab. Per family: type,
+        help, label names, buckets (histograms), and ``children`` as
+        ``[label_values, value]`` pairs where a histogram's value is
+        ``[counts, sum]``. ``registry_from_snapshot`` round-trips it."""
+        fams: dict = {}
+        with self._lock:
+            families = list(self._families.values())
+        for fam in families:
+            doc: dict = {
+                "type": fam.type,
+                "help": fam.help,
+                "labels": list(fam.label_names),
+                "children": [],
+            }
+            if fam.type == "histogram":
+                doc["buckets"] = list(fam.buckets)
+            for values, c in fam.children():
+                if fam.type == "histogram":
+                    with c._lock:
+                        v = [list(c.counts), c.sum]
+                else:
+                    v = c.value
+                doc["children"].append([list(values), v])
+            fams[fam.name] = doc
+        return fams
+
+
+# ------------------------------------------------- snapshot merge plumbing
+# (the process-lane parent folds every lane's snapshot into ONE scratch
+# registry per scrape, so each family keeps a single TYPE declaration)
+
+
+def family_from_doc(registry: MetricsRegistry, name: str, doc: dict):
+    """Get-or-create the family a snapshot doc describes."""
+    t = doc.get("type")
+    labels = tuple(doc.get("labels") or ())
+    help_ = doc.get("help", "")
+    if t == "counter":
+        return registry.counter(name, help_, labels)
+    if t == "gauge":
+        return registry.gauge(name, help_, labels)
+    if t == "histogram":
+        return registry.histogram(
+            name, help_, labels, buckets=doc.get("buckets")
+        )
+    raise ValueError(f"snapshot family {name}: unknown type {t!r}")
+
+
+def merge_child(fam, label_values, value, gauge: str = "sum") -> None:
+    """Fold one snapshot child's value into ``fam``'s child at
+    ``label_values``: counters and histograms accumulate; gauges follow
+    ``gauge`` ("sum" | "max" | "set")."""
+    values = tuple(str(v) for v in label_values)
+    child = fam.labels(**dict(zip(fam.label_names, values)))
+    if fam.type == "histogram":
+        counts, s = value
+        if len(counts) != len(child.counts):
+            return  # bucket-shape drift across versions: drop, never lie
+        with child._lock:
+            child.counts = [a + b for a, b in zip(child.counts, counts)]
+            child.sum += s
+    elif fam.type == "gauge":
+        if gauge == "set":
+            child.set(value)
+        elif gauge == "max":
+            child.set(max(child.value, value))
+        else:
+            child.inc(value)
+    else:
+        child.inc(value)
+
+
+def registry_from_snapshot(snap: dict) -> MetricsRegistry:
+    """A scratch registry (values included) rebuilt from a
+    ``MetricsRegistry.snapshot()`` document."""
+    reg = MetricsRegistry()
+    for name, doc in snap.items():
+        fam = family_from_doc(reg, name, doc)
+        for values, v in doc.get("children", ()):
+            merge_child(fam, values, v, gauge="set")
+    return reg
+
+
+def fold_snapshot(acc: "dict | None", snap: dict) -> dict:
+    """Accumulate one snapshot doc into ``acc`` at the dict level:
+    counters and histogram counts/sums add, gauges take the newer value.
+    This is the retired-lane accumulator: a respawned lane's counters
+    restart at zero, so its predecessor's final snapshot must keep
+    contributing or the merged counters would decrease."""
+    import json as _json
+
+    snap = _json.loads(_json.dumps(snap))  # defensive deep copy
+    if acc is None:
+        return snap
+    for name, doc in snap.items():
+        adoc = acc.get(name)
+        if adoc is None or adoc.get("type") != doc.get("type"):
+            acc[name] = doc
+            continue
+        amap = {tuple(map(str, v)): val for v, val in adoc["children"]}
+        for values, v in doc["children"]:
+            key = tuple(map(str, values))
+            old = amap.get(key)
+            if old is None:
+                adoc["children"].append([list(values), v])
+                continue
+            for pair in adoc["children"]:
+                if tuple(map(str, pair[0])) != key:
+                    continue
+                if doc["type"] == "histogram":
+                    counts = [a + b for a, b in zip(old[0], v[0])]
+                    pair[1] = [counts, old[1] + v[1]]
+                elif doc["type"] == "counter":
+                    pair[1] = old + v
+                else:
+                    pair[1] = v
+                break
+    return acc

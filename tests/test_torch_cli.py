@@ -8,9 +8,12 @@
 - Both parsers have the same option strings and defaults.
 - Every flag (and environment twin) that would switch on a subsystem the
   port lacks exits non-zero naming its ROADMAP item; so does the default
-  cuda device on a host without a card. ``--checkpoint-dir`` and its two
-  environment twins start an engine with a checkpoint writer on that
-  directory; the default ``--drain-shards`` runs the auto lane count.
+  cuda device on a host without a card. ``--lane-procs`` and its
+  environment twin reach the engine's config (process lanes need an
+  HTTP apiserver; with them off no arena is made). ``--checkpoint-dir``
+  and its two environment twins start an engine with a checkpoint writer
+  on that directory; the default ``--drain-shards`` runs the auto lane
+  count.
 - ``/readyz`` answers 503 until the first re-list is ingested, and
   ``/metrics`` carries the ``kwok_`` counters.
 """
@@ -152,7 +155,6 @@ def test_parsers_have_the_same_flags_and_defaults():
 
 REFUSED = {
     "use-mesh": (["--use-mesh", "true"], {}, 9),
-    "lane-procs": (["--lane-procs", "true"], {}, 8),
     "ha-primary": (["--ha-role", "primary"], {}, 12),
     "ha-standby": (["--ha-role", "standby"], {}, 12),
     "audit-interval": (["--audit-interval", "5"], {}, 13),
@@ -163,7 +165,6 @@ REFUSED = {
     "two-masters": (["--master", "http://127.0.0.1:1,http://127.0.0.1:2"], {}, 9),
     "member-config": (["--member-config", "member.yaml"], {}, 9),
     "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, 9),
-    "env-lane-procs": ([], {"KWOK_LANE_PROCS": "true"}, 8),
     "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, 12),
     "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, 13),
     "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, 13),
@@ -245,6 +246,64 @@ def test_cli_flags_reach_engine_config():
     assert cfg.shed_queue_depth == 128
     assert cfg.checkpoint_dir == "/var/ckpt-here"
     assert cfg.checkpoint_interval == 0.75
+
+
+LANE_PROCS_FORMS = {
+    "lane-procs": (["--lane-procs", "true"], {}),
+    "env-lane-procs": ([], {"KWOK_LANE_PROCS": "true"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LANE_PROCS_FORMS))
+def test_lane_procs_reaches_engine_config(name, monkeypatch):
+    """The flag and its environment twin turn on process lanes (the
+    refusal of earlier slices is gone), along with the watchdog budget
+    flags."""
+    from kwok_tpu_torch.config.types import apply_env_overrides
+
+    extra, env = LANE_PROCS_FORMS[name]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    opts = KwokConfigurationOptions()
+    apply_env_overrides(opts)
+    args = tcli.build_parser(opts).parse_args(extra + [
+        "--worker-restart-budget", "3", "--worker-restart-window", "12.5"])
+    assert tcli.refusals(args, ["http://127.0.0.1:1"]) == []
+    cfg = tcli._engine_config(args, [], "cpu")
+    assert cfg.lane_procs is True
+    assert (cfg.worker_restart_budget, cfg.worker_restart_window) == (3, 12.5)
+
+
+def test_lane_procs_without_http_master_raises():
+    from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
+
+    with pytest.raises(ValueError, match="HTTP"):
+        ClusterEngine(PortFakeKube(), EngineConfig(
+            manage_all_nodes=True, drain_shards=2, lane_procs=True, device="cpu"))
+
+
+def test_lane_procs_off_creates_no_process_lanes_or_arena(monkeypatch):
+    """Threaded lanes over HTTP: no ProcLaneSet, and no shared-memory
+    arena is ever made."""
+    from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
+    from kwok_tpu_torch.engine import shm as tshm
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+
+    def no_arena(*a, **kw):
+        raise AssertionError("a shared-memory arena was created")
+
+    monkeypatch.setattr(tshm, "Arena", no_arena)
+    srv = PortServer().start()
+    srv.store.create("nodes", make_node("n0"))
+    eng = ClusterEngine(HttpKubeClient(srv.url), EngineConfig(
+        manage_all_nodes=True, drain_shards=2, device="cpu"))
+    try:
+        assert eng._proc is None and eng._lanes is not None
+        eng.start()
+        assert wait_for(lambda: eng.ready)
+    finally:
+        eng.stop()
+        srv.stop()
 
 
 def test_default_flags_run_the_auto_lane_count():

@@ -16,6 +16,7 @@ multiple of the 256-thread block) to exercise the masked tail.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -237,3 +238,47 @@ def test_stacked_lanes_with_regrow_on_card(card):
             np.testing.assert_array_equal(vd, dirty[lo:hi])
             np.testing.assert_array_equal(vph, host.phase[lo:hi].astype(np.uint8))
             np.testing.assert_array_equal(vcb, host.cond_bits[lo:hi])
+
+
+def test_process_lanes_on_card(card, tmp_path):
+    """Two process lanes against the port's HTTP mock: each lane process
+    runs its single-lane engine on cuda and launches the tick kernel; the
+    parent makes no CUDA context of its own for them."""
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+    from kwok_tpu_torch.edge.mockserver import HttpFakeApiserver
+
+    srv = HttpFakeApiserver(store=FakeKube()).start()
+    store = srv.store
+    eng = ClusterEngine(HttpKubeClient(srv.url), EngineConfig(
+        manage_all_nodes=True, tick_interval=0.02, drain_shards=2, lane_procs=True,
+        checkpoint_dir=str(tmp_path), checkpoint_interval=0.5, device="cuda",
+    ))
+    assert eng._stream is None and eng.nodes.state is None
+    try:
+        eng.start()
+        deadline = time.time() + 120
+        while not eng.ready and time.time() < deadline:
+            time.sleep(0.05)
+        assert eng.ready
+        store.create("nodes", {"metadata": {"name": "n0"}})
+        for i in range(40):
+            store.create("pods", {
+                "metadata": {"name": f"p{i}", "namespace": "default"},
+                "spec": {"nodeName": "n0", "containers": [{"name": "c", "image": "b"}]},
+                "status": {"phase": "Pending"},
+            })
+
+        def done():
+            st = eng._proc.status()
+            return (all((p.get("status") or {}).get("phase") == "Running"
+                        for p in store.list("pods"))
+                    and all(s["device"] == "cuda" and s["launches"] > 0 for s in st))
+
+        while not done() and time.time() < deadline:
+            time.sleep(0.1)
+        assert done(), eng._proc.status()
+        assert all(s["pods"] > 0 for s in eng._proc.status())
+    finally:
+        eng.stop()
+        srv.stop()
+    assert {"lane0.ckpt.json", "lane1.ckpt.json"} <= set(os.listdir(tmp_path))

@@ -41,13 +41,15 @@ def test_port_files_exist():
 LANE_AND_RESILIENCE_MODULES = (
     "engine/lanes.py", "resilience/__init__.py", "resilience/policy.py",
     "resilience/checkpoint.py", "telemetry/lanes.py",
+    "engine/proclanes.py", "engine/shm.py", "resilience/watchdog.py",
 )
 
 
 @pytest.mark.parametrize("rel", LANE_AND_RESILIENCE_MODULES)
 def test_lane_and_resilience_modules_are_walked_and_import(rel):
-    """The AST walk above covers the lane, resilience and lane-telemetry
-    modules, and each imports without jax or kwok_tpu loaded for it."""
+    """The AST walk above covers the lane (threaded and process),
+    shared-memory, resilience and lane-telemetry modules, and each
+    imports without jax or kwok_tpu loaded for it."""
     import importlib
 
     path = ROOT / "kwok_tpu_torch" / rel
