@@ -17,7 +17,7 @@ result line then):
    taken with CUDA events.
 3. Engine: the port's threaded single-lane ClusterEngine (the normal
    start() path, device="cuda") against the port's in-memory FakeKube
-   holding 10,000 nodes and 50,000 pods bound round-robin: every node
+   holding 10,000 nodes and 25,000 pods bound round-robin: every node
    Ready, every pod Running with a distinct pod IP in the CIDR; then 500
    finalizer-guarded pods are deleted gracefully and must be gone. The
    kernel's launch count is zeroed just before and read just after; it
@@ -28,12 +28,12 @@ result line then):
    and one coordinator over a stacked state per kind. More than one lane
    must have drained and emitted, the stacked state must have regrown,
    and the kernel is held bit-exact at the stacked capacities.
-5. Restart: lanes on, 10,000 nodes and 50,000 pods under one
+5. Restart: lanes on, 10,000 nodes and 25,000 pods under one
    Pending->Running rule with a constant 30 s delay, checkpoints every
    1 s. Once the checkpoint file covers every pod armed, 5 s more, then
    the engine stops (writing the final checkpoint) and a second engine
    starts on the same directory: it must become ready and close its
-   restore with at least 49,900 rows refined; each pod's fire_at - now,
+   restore with at least 24,900 rows refined; each pod's fire_at - now,
    read back from the card, must lie within 2 s of its checkpointed
    residue; no pod may go Running in the store more than 1 s before that
    deadline (seen on a watch), the engine must have every pod Running
@@ -46,11 +46,11 @@ result line then):
    weighted Pending->Running stages (weights 3 and 1, uniform 0.1-0.5 s
    and 0.5-1.0 s). 10,000 nodes exist before the CLI starts; /readyz must
    answer 503 until the first re-list is ingested and 200 after. A spawned
-   creator process then creates 50,000 pods over several keep-alive HTTP
+   creator process then creates 25,000 pods over several keep-alive HTTP
    connections: every node Ready, every pod Running with a distinct pod IP
    in the CIDR, then 500 finalizer-guarded pods deleted with grace 30 s
    must be gone; /metrics must parse with kwok_ticks_total > 0 and
-   kwok_status_patches_total >= 60,000; main must return 0 once stopped.
+   kwok_status_patches_total >= 35,000; main must return 0 once stopped.
    The CLI's default --drain-shards must have built lanes of the auto
    count; the per-lane drain and emit seconds are read from /metrics.
    The launch count (zeroed before main) must be > 0. After the phase the
@@ -65,7 +65,7 @@ result line then):
    Ready, every pod Running with a distinct pod IP in the CIDR, the
    deleted pods gone; every lane process on cuda with kernel launches,
    every lane<i>.ckpt.json written; /metrics with
-   kwok_status_patches_total >= 60,000 summed over the lanes and lane
+   kwok_status_patches_total >= 35,000 summed over the lanes and lane
    stage seconds for at least 2 shards. Lane 0 is then SIGKILLed: it
    must be back within 60 s, kwok_lane_proc_restarts_total{shard="0"}
    must read 1, the engine must not be degraded, and 1,000 more pods
@@ -73,6 +73,23 @@ result line then):
    lane process and no shared-memory arena left. The kernel is then held
    bit-exact against its plain version at a lane's capacities with the
    Stage rule tables. The free bytes of /dev/shm are printed first.
+8. Federation (BASELINE config 5, 8 kwok apiservers federated): 8 port
+   HTTP mocks, each in a subprocess of its own, 1,250 nodes in each, then
+   main with --master naming all 8, checkpoints every 1 s, members 0-5 on
+   the CLI phase's Stage file and members 6 and 7 on a --member-config of
+   pod-delete plus one constant 1 s Pending->Running stage: two rule-set
+   groups, each one stacked state per kind on the card. /readyz 503 until
+   every member's first re-list is in, 200 after. One spawned creator per
+   member creates its 6,250 pods: every node Ready, every pod Running with
+   a pod IP distinct within its member and in the CIDR; then 500
+   finalizer-guarded pods, spread over the members, deleted with grace
+   30 s must be gone. /metrics must parse with kwok_status_patches_total
+   >= 60,000 summed over the shard series, both
+   kwok_group_dispatches_total{group} > 0 and kwok_fed_pods_managed at
+   49,500; every member<i>.ckpt.json written; launches > 0; main returns 0.
+   The kernel is then held bit-exact against its plain version at each
+   group's stacked capacities with that group's rule tables (a re-arm
+   dispatch and a fire dispatch).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -96,21 +113,33 @@ NODE_ROWS = 10_240
 DT = 0.05
 SUBSTEPS = (1, 16)
 ENGINE_NODES = 10_000
-ENGINE_PODS = 50_000
+# the in-process engine and lanes phases run half the other phases' pods,
+# so the whole script, federation phase included, stays well inside its
+# time limit
+ENGINE_PODS = 25_000
 ENGINE_DELETES = 500
 ENGINE_DEADLINE_S = 600.0
 # the poll counts 60,000 objects under the FakeKube lock; polling often
 # would take the interpreter lock from the engine it measures
 POLL_S = 0.25
 CLI_NODES = 10_000
-CLI_PODS = 50_000
+# 25,000 pods (50,000 before the federation phase came) in the CLI,
+# process-lanes and restart phases keep the whole script inside half its
+# time limit on a slow host
+CLI_PODS = 25_000
 CLI_DELETES = 500
 CLI_DEADLINE_S = 600.0
 CLI_CONNS = 8  # keep-alive connections of the creator process
 PROCS_MORE_PODS = 1_000  # created after the SIGKILL of lane 0
 PROCS_RESPAWN_S = 60.0
+FED_MEMBERS = 8  # BASELINE config 5: 8 kwok apiservers, federated
+FED_NODES = 1_250  # per member: 10,000 in all, as in the other phases
+FED_PODS = 6_250  # per member: 50,000 in all
+FED_DELETES = 500  # spread over the members
+FED_CONNS = 4  # keep-alive connections of each member's creator process
+FED_MEMBER_CONFIG = frozenset({6, 7})  # members given --member-config
 RESTART_NODES = 10_000
-RESTART_PODS = 50_000
+RESTART_PODS = 25_000
 RESTART_DELAY_S = 30.0
 RESTART_EXTRA_S = 5.0  # run on after the file covers every armed pod
 RESTART_DEADLINE_S = 300.0
@@ -313,16 +342,17 @@ def engine_states(eng):
     return (eng.nodes.state, eng.pods.state)
 
 
-def engine_shape_check(torch, eng, rearm: bool = False, states=None):
+def engine_shape_check(torch, eng, rearm: bool = False, states=None, fire_after: float = 1.0):
     """The tick kernel against its plain version at the shapes an engine
     run gave it: the engine's grown capacities, its rule tables and the
     rows it left on the card, K=1 dispatches at its clock, bit-exact (the
     -fmad=false build makes constant, uniform and weighted draws exact).
     With ``rearm``, half the pod rows are put back in Pending first and a
-    second dispatch 1.0 s later fires them. Returns the capacities and the
-    kernel, plain and wire D2H ms there. Runs after the engine's launch
-    count was read. ``states`` replaces the engine's own (process lanes
-    keep theirs in the lane processes)."""
+    second dispatch ``fire_after`` s later fires them. Returns the
+    capacities and the kernel, plain and wire D2H ms there. Runs after the
+    engine's launch count was read. ``states`` replaces the engine's own
+    (process lanes keep theirs in the lane processes, a federation one
+    stacked state per group)."""
     from kwok_tpu_torch.ops import cuda_tick
     from kwok_tpu_torch.ops.state import TickOutputs
     from kwok_tpu_torch.ops.tick import pack_wire
@@ -335,7 +365,7 @@ def engine_shape_check(torch, eng, rearm: bool = False, states=None):
         states = (states[0], rearmed(states[1], eng._pod_phase_ids["Pending"]))
     now = eng._now()
     starts = {"kernel": [clone(s) for s in states], "plain": [clone(s) for s in states]}
-    for n, at in enumerate((now, now + 1.0) if rearm else (now,), start=1):
+    for n, at in enumerate((now, now + fire_after) if rearm else (now,), start=1):
         wires = {}
         for path, fn in (("kernel", cuda_tick.tick_steps), ("plain", cuda_tick.tick_steps_plain)):
             outs = []
@@ -474,7 +504,7 @@ def engine_phase(drain_shards: int = 1):
 
 
 def restart_phase():
-    """Checkpoint, stop, restart: the residues of 50,000 armed pods carry
+    """Checkpoint, stop, restart: the residues of 25,000 armed pods carry
     over to a second engine on the same directory (lanes on)."""
     import numpy as np
     import torch
@@ -706,15 +736,20 @@ def create_over_http(url: str, kind: str, count: int, conns: int,
     client.close()
 
 
-def spawn_creator(url: str, kind: str, count: int, first: int = 0):
-    """Start create_over_http in a spawned process; returns it and its
-    (start, end) span."""
+def spawn_creator(url: str, kind: str, count: int, first: int = 0,
+                  nodes: "int | None" = None, conns: "int | None" = None):
+    """Start create_over_http in a spawned process (pods bound to
+    ``nodes`` nodes, CLI_NODES by default, over ``conns`` connections,
+    CLI_CONNS by default); returns it and its (start, end) span."""
     import multiprocessing
+
+    nodes = CLI_NODES if nodes is None else nodes
+    conns = CLI_CONNS if conns is None else conns
 
     ctx = multiprocessing.get_context("spawn")
     span = ctx.Array("d", 2)
     proc = ctx.Process(target=create_over_http,
-                       args=(url, kind, count, CLI_CONNS, CLI_NODES, span, first),
+                       args=(url, kind, count, conns, nodes, span, first),
                        name=f"create-{kind}")
     proc.start()
     return proc, span
@@ -771,48 +806,59 @@ def running(p) -> bool:
     return st.get("phase") == "Running" and bool(st.get("podIP"))
 
 
-def start_cli(extra_argv: list) -> dict:
-    """The kwok entry point as a user runs it: the port's HTTP mock
-    apiserver in a subprocess of its own, CLI_NODES nodes created by a
-    spawned process, then kwok_tpu_torch.kwok.cli.main on a thread of this
-    script with the phase's Stage file and ``extra_argv``. /readyz must
-    answer 503 until the first re-list is ingested and 200 after. Returns
-    the run's handles (the engine main built among them); stop_cli ends
-    it."""
+def start_cli(extra_argv: list, members: int = 1, nodes: "int | None" = None) -> dict:
+    """The kwok entry point as a user runs it: ``members`` port HTTP mock
+    apiservers, each in a subprocess of its own, ``nodes`` nodes
+    (CLI_NODES by default) created in each by a spawned process, then kwok_tpu_torch.kwok.cli.main on a
+    thread of this script with --master naming every mock, the phase's
+    Stage file and ``extra_argv``. /readyz must answer 503 until the first
+    re-list is ingested (every member's, for several) and 200 after.
+    Returns the run's handles (the engine main built among them);
+    stop_cli ends it."""
     import kwok_tpu_torch.engine as engine_mod
     from kwok_tpu_torch.kwok import cli
 
     here = os.path.dirname(os.path.abspath(__file__))
+    nodes = CLI_NODES if nodes is None else nodes
     run = {"stop": threading.Event(), "engines": [], "rc": [], "thread": None,
-           "real_engine": engine_mod.ClusterEngine, "workdir": tempfile.mkdtemp(prefix="kwok-smoke-")}
-    run["mock"] = subprocess.Popen(
+           "real_engines": (engine_mod.ClusterEngine, engine_mod.FederatedEngine),
+           "workdir": tempfile.mkdtemp(prefix="kwok-smoke-")}
+    run["mocks"] = [subprocess.Popen(
         [sys.executable, "-m", "kwok_tpu_torch.edge.mockserver", "--port", "0"],
         cwd=here, stdout=subprocess.PIPE, text=True,
-    )
+    ) for _ in range(members)]
+    run["mock"] = run["mocks"][0]
     engines = run["engines"]
 
-    class Recorded(run["real_engine"]):
-        """The CLI's engine, kept for the checks after the phase."""
+    def recorded(real):
+        class Recorded(real):
+            """The CLI's engine, kept for the checks after the phase."""
 
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            engines.append(self)
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                engines.append(self)
+
+        return Recorded
 
     try:
-        line = run["mock"].stdout.readline()
-        if not line.startswith("mock apiserver listening on "):
-            raise AssertionError(f"mock apiserver did not start: {line!r}")
-        url = run["url"] = line.split()[-1]
+        urls = run["urls"] = []
+        for mock in run["mocks"]:
+            line = mock.stdout.readline()
+            if not line.startswith("mock apiserver listening on "):
+                raise AssertionError(f"mock apiserver did not start: {line!r}")
+            urls.append(line.split()[-1])
+        url = run["url"] = urls[0]
         deadline = run["deadline"] = time.monotonic() + CLI_DEADLINE_S
-        proc, _span = spawn_creator(url, "nodes", CLI_NODES)
-        join_creator(proc, deadline)
+        creators = [spawn_creator(u, "nodes", nodes, nodes=nodes) for u in urls]
+        for proc, _span in creators:
+            join_creator(proc, deadline)
         workdir = run["workdir"]
         stage_path = os.path.join(workdir, "stages.json")
         with open(stage_path, "w") as f:
             f.write("---\n".join(json.dumps(d) + "\n" for d in stage_documents()))
         port = free_port()
         base = run["base"] = f"http://127.0.0.1:{port}"
-        argv = ["--master", url, "--kubeconfig", os.path.join(workdir, "no-kubeconfig"),
+        argv = ["--master", ",".join(urls), "--kubeconfig", os.path.join(workdir, "no-kubeconfig"),
                 "--manage-all-nodes", "true", "--server-address", f"127.0.0.1:{port}",
                 "--cidr", "10.0.0.1/16", "--config", stage_path, *extra_argv]
         readyz = run["readyz"] = []
@@ -826,7 +872,7 @@ def start_cli(extra_argv: list) -> dict:
                         return
                 time.sleep(0.005)
 
-        engine_mod.ClusterEngine = Recorded
+        engine_mod.ClusterEngine, engine_mod.FederatedEngine = map(recorded, run["real_engines"])
         poller = threading.Thread(target=poll_readyz, name="readyz-poll")
         poller.start()
         t_main = time.monotonic()
@@ -849,7 +895,7 @@ def start_cli(extra_argv: list) -> dict:
 
 
 def stop_cli(run: dict) -> None:
-    """Stop main (its graceful drain included), then the mock apiserver;
+    """Stop main (its graceful drain included), then the mock apiservers;
     main must have returned 0."""
     import kwok_tpu_torch.engine as engine_mod
 
@@ -859,14 +905,15 @@ def stop_cli(run: dict) -> None:
     if t is not None:
         t.join(180)
     run["stop_s"] = time.monotonic() - t_stop
-    engine_mod.ClusterEngine = run["real_engine"]
-    mock = run["mock"]
-    mock.terminate()
-    try:
-        mock.wait(30)
-    except subprocess.TimeoutExpired:
-        mock.kill()
-        mock.wait(30)
+    engine_mod.ClusterEngine, engine_mod.FederatedEngine = run["real_engines"]
+    for mock in run["mocks"]:
+        mock.terminate()
+    for mock in run["mocks"]:
+        try:
+            mock.wait(30)
+        except subprocess.TimeoutExpired:
+            mock.kill()
+            mock.wait(30)
     if t is not None and (t.is_alive() or run["rc"] != [0]):
         raise AssertionError(f"cli.main did not return 0 after stop: {run['rc']}")
 
@@ -1205,6 +1252,179 @@ def procs_phase(cli_run):
     }
 
 
+def member_stage_documents() -> list[dict]:
+    """Federation members 6 and 7's pod Stages: the default pod-delete
+    stage and one constant 1 s Pending->Running stage (a second rule-set
+    group beside the CLI phase's weighted uniform stages)."""
+    delete, _fast, _slow = stage_documents()
+    running_1s = json.loads(json.dumps(_fast))
+    running_1s["metadata"]["name"] = "pod-running-1s"
+    running_1s["spec"]["delay"] = {"duration": "1s"}
+    del running_1s["spec"]["weight"]
+    return [delete, running_1s]
+
+
+class GroupView:
+    """One federation group seen as engine_shape_check sees an engine:
+    its kernel specs, clock and pod phase ids."""
+
+    def __init__(self, group) -> None:
+        self._group = group
+        e0 = group.engines[0]
+        self._now = e0._now
+        self._pod_phase_ids = e0._pod_phase_ids
+
+    def _get_fused(self):
+        return self._group.fused
+
+
+def summed(m: dict, name: str) -> float:
+    """The sum of a family's series over its labels (a federation's
+    per-shard counters)."""
+    return sum(v for k, v in m.items() if k == name or k.startswith(name + "{"))
+
+
+def fed_phase(cli_run):
+    """The kwok entry point with --master naming 8 mock apiservers (BASELINE
+    config 5): one federation member per mock, two rule-set groups (see
+    the module docstring, phase 8)."""
+    import torch
+
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+    from kwok_tpu_torch.ops import cuda_tick
+
+    n = FED_MEMBERS
+    ckpt_dir = tempfile.mkdtemp(prefix="kwok-fed-ckpt-")
+    member_path = os.path.join(ckpt_dir, "member-stages.json")
+    with open(member_path, "w") as f:
+        f.write("---\n".join(json.dumps(d) + "\n" for d in member_stage_documents()))
+    member_argv = []
+    for c in range(n):
+        member_argv += ["--member-config", member_path if c in FED_MEMBER_CONFIG else ""]
+    cuda_tick.tick_steps.launches = 0
+    run = start_cli(["--checkpoint-dir", ckpt_dir, "--checkpoint-interval", "1", *member_argv],
+                    members=n, nodes=FED_NODES)
+    try:
+        fed = run["engine"]
+        if not hasattr(fed, "groups") or len(fed.engines) != n:
+            raise AssertionError(f"--master with {n} URLs did not run a federation of {n}")
+        parts = [[fed.engines.index(e) for e in g.engines] for g in fed.groups]
+        if sorted(parts) != [sorted(set(range(n)) - FED_MEMBER_CONFIG), sorted(FED_MEMBER_CONFIG)]:
+            raise AssertionError(f"rule-set groups {parts}")
+        caps_start = [g.stacked["pods"].capacity for g in fed.groups]
+        mocks = run["mocks"]
+        m0 = scrape(run)
+        cpu0 = {p.pid: cpu_seconds(p.pid) for p in mocks}
+        creators = [spawn_creator(u, "pods", FED_PODS, nodes=FED_NODES, conns=FED_CONNS)
+                    for u in run["urls"]]
+        for proc, _span in creators:
+            join_creator(proc, run["deadline"])
+        clients = [HttpKubeClient(u) for u in run["urls"]]
+        want = n * (FED_NODES + FED_PODS)
+        while True:
+            m_run = scrape(run)
+            if summed(m_run, "kwok_status_patches_total") >= want:
+                t_patched = time.time()
+                cpu_run = {pid: cpu_seconds(pid) for pid in cpu0}
+                if all(sum(map(running, c.list("pods"))) == FED_PODS for c in clients):
+                    break
+            if time.monotonic() > run["deadline"]:
+                raise AssertionError(f"timeout: {summed(m_run, 'kwok_status_patches_total')} patches")
+            time.sleep(POLL_S)
+        for c, client in enumerate(clients):
+            n_ready = sum(
+                any(x.get("type") == "Ready" and x.get("status") == "True"
+                    for x in (nd.get("status") or {}).get("conditions") or [])
+                for nd in client.list("nodes"))
+            if n_ready != FED_NODES:
+                raise AssertionError(f"member {c}: {n_ready} of {FED_NODES} nodes Ready")
+        # the graceful deletes, spread over the members
+        per = [FED_DELETES // n + (c < FED_DELETES % n) for c in range(n)]
+        t_del = time.time()
+        for c, client in enumerate(clients):
+            for i in range(per[c]):
+                client.delete("pods", "default", f"pod-{i}", grace_seconds=30)
+        while True:
+            # the engine's counters first: a LIST of every member decodes
+            # 50,000 objects in this process, beside the engine it measures
+            m = scrape(run)
+            if (summed(m, "kwok_deletes_total") >= FED_DELETES
+                    and m.get("kwok_fed_pods_managed") == n * FED_PODS - FED_DELETES):
+                pods = [c.list("pods") for c in clients]
+                if all(len(p) == FED_PODS - per[i] for i, p in enumerate(pods)):
+                    break
+            if time.monotonic() > run["deadline"]:
+                raise AssertionError(f"timeout deleting: {summed(m, 'kwok_deletes_total')} deletes, "
+                                     f"kwok_fed_pods_managed {m.get('kwok_fed_pods_managed')}")
+            time.sleep(POLL_S)
+        t_deleted = time.time()
+        for c in clients:
+            c.close()
+    finally:
+        stop_cli(run)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the federation ran without launching the tick kernel")
+    dispatches = [m.get(f'kwok_group_dispatches_total{{group="{i}"}}', 0) for i in range(len(fed.groups))]
+    if not all(d > 0 for d in dispatches):
+        raise AssertionError(f"group dispatches {dispatches}")
+    if summed(m, "kwok_status_patches_total") < want or summed(m, "kwok_patch_errors_total"):
+        raise AssertionError(f"/metrics: {m}")
+    for c, member_pods in enumerate(pods):
+        names = {p["metadata"]["name"] for p in member_pods}
+        if any(f"pod-{i}" in names for i in range(per[c])):
+            raise AssertionError(f"member {c}: a deleted pod is still listed")
+        ips = {p["status"]["podIP"] for p in member_pods}
+        if len(ips) != len(member_pods) or not all(ip.startswith("10.0.") for ip in ips):
+            raise AssertionError(f"member {c}: {len(member_pods)} pods, {len(ips)} distinct IPs in the CIDR")
+    files = {f"member{c}.ckpt.json" for c in range(n)}
+    if not files <= set(os.listdir(ckpt_dir)):
+        raise AssertionError(f"checkpoints: {sorted(os.listdir(ckpt_dir))}")
+    groups = []
+    for g in fed.groups:
+        caps, ms, plain_ms, wire_ms = engine_shape_check(
+            torch, GroupView(g), rearm=True, states=(g.stacked["nodes"], g.stacked["pods"]),
+            fire_after=1.5)
+        groups.append({
+            "members": [fed.engines.index(e) for e in g.engines],
+            "rows_per_member": g.r, "capacities": caps,
+            "dispatches": g.dispatches, "kernel_ms_at_capacities": ms,
+            "plain_ms_at_capacities": plain_ms, "wire_d2h_ms_at_capacities": wire_ms,
+            "bound_ms_at_capacities": byte_bound_ms(caps),
+        })
+        log(f"kernel at federation group {groups[-1]['members']}'s capacities {caps}: checked; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, wire D2H {wire_ms:.4f} ms")
+    t_pods = min(span[0] for _p, span in creators)
+    t_created = max(span[1] for _p, span in creators)
+    window = t_patched - t_pods
+    total = n * FED_PODS
+    return {
+        "members": n, "nodes": n * FED_NODES, "pods": total, "deleted": FED_DELETES,
+        "connections_per_member": FED_CONNS, "groups": groups,
+        "pod_capacities_start": caps_start,
+        "create_to_running_pods_per_s": total / window,
+        "pod_create_s": t_created - t_pods, "create_to_running_s": window,
+        "delete_s": t_deleted - t_del,
+        "status_patches_per_s": (summed(m_run, "kwok_status_patches_total")
+                                 - summed(m0, "kwok_status_patches_total")) / window,
+        "window_kwok_process_cpu_s": (m_run["process_cpu_seconds_total"]
+                                      - m0["process_cpu_seconds_total"]),
+        "window_mocks_cpu_s": sum(cpu_run[pid] - cpu0[pid] for pid in cpu0),
+        "window_mock_cpu_s": [cpu_run[pid] - cpu0[pid] for pid in cpu0],
+        "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
+        "cli_phase_status_patches_per_s": cli_run["status_patches_per_s"],
+        "readyz_503_polls": run["readyz"].count(503), "main_to_ready_s": run["main_to_ready_s"],
+        "stop_s": run["stop_s"],
+        "status_patches": summed(m, "kwok_status_patches_total"),
+        "ticks": summed(m, "kwok_ticks_total") / n, "kernel_launches": launches,
+        "transitions": summed(m, "kwok_transitions_total"),
+        "watch_events": summed(m, "kwok_watch_events_total"),
+        "tick_thread_s": summed(m, "kwok_tick_seconds_total") / n,
+        "window_tick_thread_s": (summed(m_run, "kwok_tick_seconds_total")
+                                 - summed(m0, "kwok_tick_seconds_total")) / n,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1243,6 +1463,8 @@ def main() -> int:
     print(json.dumps({"cli": cli_run}), flush=True)
     procs = procs_phase(cli_run)
     print(json.dumps({"procs": procs}), flush=True)
+    fed = fed_phase(cli_run)
+    print(json.dumps({"federation": fed}), flush=True)
     card = card_line()
     print(f"engine: {engine['create_to_running_pods_per_s']:.1f} pods/s with 1 lane, "
           f"{lanes_run['create_to_running_pods_per_s']:.1f} pods/s with {n_lanes} lanes; "
@@ -1263,6 +1485,15 @@ def main() -> int:
           f"{procs['kernel_ms_at_capacities']:.4f} ms at {procs['capacities']} ({card})",
           flush=True)
 
+    print(f"federation ({FED_MEMBERS} members, {len(fed['groups'])} groups): "
+          f"{fed['create_to_running_pods_per_s']:.1f} pods/s create->Running, "
+          f"{fed['status_patches_per_s']:.1f} status patches/s, ready "
+          f"{fed['main_to_ready_s']:.2f} s, kwok CPU {fed['window_kwok_process_cpu_s']:.1f} s, "
+          f"mocks CPU {fed['window_mocks_cpu_s']:.1f} s, "
+          + ", ".join(f"group {g['members']}: {g['dispatches']} dispatches at {g['capacities']}, "
+                      f"kernel {g['kernel_ms_at_capacities']:.4f} ms" for g in fed["groups"])
+          + f" ({card})", flush=True)
+
     main_cfg = next(c for c in configs if c["rules"] == "default" and c["substeps"] == 1)
     kernels = {"kernels": [{
         "name": "tick",
@@ -1271,7 +1502,7 @@ def main() -> int:
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
         "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
                      + restart["kernel_launches"] + cli_run["kernel_launches"]
-                     + procs["kernel_launches"]),
+                     + procs["kernel_launches"] + fed["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],
@@ -1283,7 +1514,7 @@ def main() -> int:
         "launches_by_phase": {
             "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
             "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
-            "procs": procs["kernel_launches"],
+            "procs": procs["kernel_launches"], "federation": fed["kernel_launches"],
         },
         "stacked_capacities": lanes_run["capacities"],
         "stacked_ms": lanes_run["kernel_ms_at_capacities"],
@@ -1293,6 +1524,10 @@ def main() -> int:
         "lane_process_bound_ms": procs["bound_ms_at_capacities"],
         "lane_process_ms": procs["kernel_ms_at_capacities"],
         "lane_process_plain_ms": procs["plain_ms_at_capacities"],
+        "federation_groups": [
+            {k: g[k] for k in ("members", "capacities", "dispatches", "kernel_ms_at_capacities",
+                               "plain_ms_at_capacities", "bound_ms_at_capacities")}
+            for g in fed["groups"]],
         "configs": configs,
     }]}
     print(json.dumps(kernels), flush=True)

@@ -34,12 +34,16 @@ residues every ``checkpoint_interval`` seconds and at stop, and a start
 on a directory holding a checkpoint refines the re-listed rows' timers
 from it (``resilience/checkpoint.py``).
 
+A federation (``engine/federation.py``) runs engines of this class as
+members, each started with ``run_tick_loop=False``: its rows live in a
+slice of a stacked state that the federation's loop ticks.
+
 Names and logic of the ingest, tick and emit methods follow the JAX
-package's engine so each has its counterpart there. The mesh,
-federation, HA, anti-entropy, fault injection, the native
-codec/pump/ingest, CNI, the profiler and the span tracer are not part of
-this engine; ``metrics`` is a plain counters dict, and the lane and
-degraded-mode families live on ``registry``.
+package's engine so each has its counterpart there. The mesh, HA,
+anti-entropy, fault injection, the native codec/pump/ingest, CNI, the
+profiler and the span tracer are not part of this engine; ``metrics`` is
+a plain counters dict, and the lane and degraded-mode families live on
+``registry``.
 """
 
 from __future__ import annotations
@@ -396,8 +400,12 @@ class ClusterEngine:
             self._ckpt_dir = ""
         # <checkpoint_dir>/<name>.ckpt.json: "engine", as the JAX
         # package's engine names it (one file restores in either
-        # package); a lane process writes lane<i>
+        # package); a lane process writes lane<i>, a federation member
+        # member<i>
         self._ckpt_name = "engine"
+        # appended to the watch threads' names (a federation member's
+        # "-m<i>" says whose watch a thread is)
+        self._worker_suffix = ""
         self._ckpt: "ckpt_mod.Checkpointer | None" = None
         self._restore: "ckpt_mod.RestoreSession | None" = None
         # guards the startup gate's bookkeeping (drain workers of several
@@ -527,7 +535,7 @@ class ClusterEngine:
         cannot reach its disk): /readyz answers 503 while it is True."""
         return self._degradation.active
 
-    def start(self, spawn_watches: bool = True) -> None:
+    def start(self, spawn_watches: bool = True, run_tick_loop: bool = True) -> None:
         """Arm the startup gate (and the checkpoint service), warm the
         device path, then start watch ingest, the patch executor and the
         tick thread (the lane coordinator under lanes, with the router
@@ -538,7 +546,12 @@ class ClusterEngine:
         nothing (the lane processes do both); it spawns the lane
         processes, and its tick thread is the status coordinator. A lane
         process passes ``spawn_watches=False``: its events arrive routed
-        from the parent, never from watch streams of its own."""
+        from the parent, never from watch streams of its own. A
+        federation member (``engine/federation.py``) passes
+        ``run_tick_loop=False``: it warms nothing and starts no tick
+        thread; the federation's loop drains its queue, ticks its rows in
+        the group's stacked state, emits through its executor and closes
+        its startup gate."""
         self._running = True
         self._stop_evt.clear()
         self._watchdog = Watchdog(
@@ -572,9 +585,11 @@ class ClusterEngine:
                     self._ckpt.path, self._restore.remaining,
                 )
             self._ckpt.start()
-        if self._proc is not None:
+        # (a federation member warms nothing: the federation warms its
+        # group's stacked state)
+        if run_tick_loop and self._proc is not None:
             self._proc.prepare()
-        else:
+        elif run_tick_loop:
             with self._device_ctx():
                 if self._lanes is not None:
                     self._lanes.prepare(self._executor)
@@ -585,6 +600,8 @@ class ClusterEngine:
             node_label_sel = self.config.manage_nodes_with_label_selector or None
             self._spawn_watch("nodes", label_selector=node_label_sel)
             self._spawn_watch("pods", field_selector="spec.nodeName!=")
+        if not run_tick_loop:
+            return
         if self._proc is not None:
             self._proc.start_workers(self._threads)
             loop = self._proc.coordinator_loop
@@ -855,7 +872,9 @@ class ClusterEngine:
                     )
                     self._stop_evt.wait(delay)
 
-        t = threading.Thread(target=loop, name=f"kwok-watch-{kind}", daemon=True)
+        t = threading.Thread(
+            target=loop, name=f"kwok-watch-{kind}{self._worker_suffix}", daemon=True
+        )
         t.start()
         self._threads.append(t)
 

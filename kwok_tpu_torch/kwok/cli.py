@@ -17,7 +17,9 @@ auto) runs the threaded lanes, and with ``--lane-procs true`` (or
 KWOK_LANE_PROCS=true) each lane is a process of its own
 (``engine/proclanes.py``; it needs the HTTP ``--master``);
 ``--checkpoint-dir`` (or KWOK_TPU_CHECKPOINT_DIR) turns on crash-durable
-checkpoints.
+checkpoints. A comma-separated ``--master`` runs a federation
+(``engine/federation.py``): one member engine per apiserver, with
+per-member Stage files from the positional ``--member-config`` flags.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import signal
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from kwok_tpu_torch.config.stages import Stage, stages_to_rules
 from kwok_tpu_torch.config.types import (
@@ -59,11 +62,16 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    "separated by '---' lines; kwok.x-k8s.io/v1alpha1)")
     p.add_argument("--kubeconfig", default=os.environ.get("KUBECONFIG", ""))
     p.add_argument("--master", default="",
-                   help="apiserver URL override (like kube --master); one "
-                   "URL (federating several is ROADMAP item 9)")
+                   help="apiserver URL override (like kube --master); a "
+                   "comma-separated list federates N apiservers onto one "
+                   "stacked tick")
     p.add_argument("--member-config", action="append", default=[],
-                   help="per-member config for a federation (refused: "
-                   "ROADMAP item 9)")
+                   help="per-member kwok config for --master federation, "
+                   "repeatable and positional: the i-th flag applies to "
+                   "the i-th master (its Stage documents replace that "
+                   "member's lifecycle rules). An empty value inherits "
+                   "--config. Fewer flags than masters: the remainder "
+                   "inherit.")
     p.add_argument("--cidr", default=o.cidr)
     p.add_argument("--node-ip", default=o.nodeIP)
     p.add_argument("--manage-all-nodes", type=_bool, default=o.manageAllNodes)
@@ -97,7 +105,7 @@ def build_parser(defaults) -> argparse.ArgumentParser:
     p.add_argument("--initial-capacity", type=int, default=o.initialCapacity)
     p.add_argument("--use-mesh", type=_bool, default=o.useMesh,
                    help="shard cluster state across all local devices "
-                   "(refused when true: ROADMAP item 9)")
+                   "(refused when true: ROADMAP item 9b)")
     p.add_argument("--profile-dir", default="",
                    help="write a device profiler trace here (refused: "
                    "ROADMAP item 15)")
@@ -180,15 +188,9 @@ def refusals(args, masters: list[str]) -> list[str]:
     that brings it. Empty when the engine can run it."""
     env = os.environ
     out = []
-    if len(masters) > 1:
-        out.append("--master with several URLs federates apiservers: "
-                   "federation is ROADMAP item 9")
-    if args.member_config:
-        out.append("--member-config configures federation members: "
-                   "federation is ROADMAP item 9")
     if args.use_mesh:
-        out.append("--use-mesh true splits rows across devices: "
-                   "ROADMAP item 9")
+        out.append("--use-mesh true splits rows across cards (a "
+                   "federation's stacked state too): ROADMAP item 9b")
     if args.ha_role in ("primary", "standby"):
         out.append(f"--ha-role {args.ha_role} needs HA and the lease "
                    "calls: ROADMAP item 12")
@@ -206,6 +208,58 @@ def refusals(args, masters: list[str]) -> list[str]:
     if args.trace_dump or env.get("KWOK_TPU_TRACE"):
         out.append("--trace-dump (or KWOK_TPU_TRACE) needs the span "
                    "tracer: ROADMAP item 15")
+    return out
+
+
+def check_federation(args, masters: list[str]) -> None:
+    """The reference's own refusals around federation (exit non-zero
+    before any network wait): ``--member-config`` without several
+    masters, more of them than masters, or naming a missing file; and
+    the single-cluster topologies ``--lane-procs`` and ``--ha-role``
+    (or their environment twins) with several masters."""
+    if args.member_config and len(masters) < 2:
+        raise SystemExit(
+            "--member-config is a federation flag: it needs a multi-master "
+            "--master list (use --config for a single cluster)"
+        )
+    if len(args.member_config) > len(masters):
+        raise SystemExit(
+            f"--member-config given {len(args.member_config)} times "
+            f"for {len(masters)} masters"
+        )
+    for mc in args.member_config:
+        if mc and not os.path.exists(mc):
+            # a typo'd path must not silently fall back to default rules
+            raise SystemExit(f"--member-config {mc}: no such file")
+    if len(masters) > 1 and args.lane_procs:
+        raise SystemExit(
+            "--lane-procs is a single-cluster flag; federation "
+            "(multi-master --master) shards the host per member"
+        )
+    if len(masters) > 1 and args.ha_role not in ("", "off"):
+        raise SystemExit(
+            "--ha-role is a single-cluster flag; federation "
+            "(multi-master --master) has its own member failover"
+        )
+
+
+def member_configs(args, stages: list[Stage], n_masters: int, device: str):
+    """One EngineConfig per master from the positional --member-config
+    files (an empty or missing entry inherits --config's Stages), or None
+    without the flag. A file with no Stage documents is an error."""
+    if not args.member_config:
+        return None
+    out = []
+    for i in range(n_masters):
+        path = args.member_config[i] if i < len(args.member_config) else ""
+        mstages = stages
+        if path:
+            mstages = [d for d in load_documents(path) if isinstance(d, Stage)]
+            if not mstages:
+                # a file with no Stage docs (typo'd kind/apiVersion) must
+                # not silently run the default rules
+                raise SystemExit(f"--member-config {path}: no Stage documents")
+        out.append(_engine_config(args, mstages, device))
     return out
 
 
@@ -323,24 +377,38 @@ def main(argv=None, stop_event: threading.Event | None = None) -> int:
     log.setup(args.verbosity)
 
     from kwok_tpu_torch.edge.httpclient import HttpKubeClient
-    from kwok_tpu_torch.engine import ClusterEngine
+    from kwok_tpu_torch.engine import ClusterEngine, FederatedEngine
     from kwok_tpu_torch.kwok.server import EngineServer
 
+    # --master takes a comma-separated list: N apiservers federate onto
+    # one stacked tick per rule-set group (engine/federation.py)
     masters = [m.strip() for m in (args.master or "").split(",") if m.strip()]
     # validate BEFORE any network waiting: misconfiguration must fail fast
+    check_federation(args, masters)
     refused = refusals(args, masters)
     if refused:
         raise SystemExit("not supported by kwok_tpu_torch yet: " + "; ".join(refused))
-    client = HttpKubeClient.from_kubeconfig(
-        args.kubeconfig or None, masters[0] if masters else None
-    )
+    device = engine_device()
+    clients = [
+        HttpKubeClient.from_kubeconfig(args.kubeconfig or None, m)
+        for m in masters or [None]
+    ]
     try:
-        engine = ClusterEngine(client, _engine_config(args, stages, engine_device()))
+        if len(clients) > 1:
+            engine = FederatedEngine(
+                clients, _engine_config(args, stages, device),
+                member_configs=member_configs(args, stages, len(clients), device),
+            )
+        else:
+            engine = ClusterEngine(clients[0], _engine_config(args, stages, device))
     except (RuntimeError, ValueError) as e:
         # no card for a cuda engine, or an invalid configuration (process
         # lanes without an HTTP apiserver among them)
         raise SystemExit(f"kwok: {e}") from e
-    wait_for_apiserver(client)
+    # wait for every member concurrently: startup is bounded by ONE
+    # backoff window, not N sequential ones
+    with ThreadPoolExecutor(max_workers=len(clients)) as pool:
+        list(pool.map(wait_for_apiserver, clients))
     # liveness first, readiness after: the server comes up immediately (so
     # /healthz and /livez probes never kill the process mid-warm-up) but
     # /readyz answers 503 until the engine has built its kernel and

@@ -11,7 +11,11 @@ lane stage seconds and queue depths, ``kwok_degraded``, and under process
 lanes ``kwok_lane_proc_restarts_total``), with the process-wide error
 counters (``telemetry/errors.py``) and the process CPU collector
 appended. Under process lanes the counters and families are summed over
-the lane processes. ``/debug/trace`` answers 404, as the
+the lane processes. A federation (``engine/federation.py``) renders each
+member's counters under ``shard="<i>"``, then its shared registry
+(``kwok_group_dispatches_total{group}``, the ``kwok_fed_*`` aggregates);
+``/readyz`` is 503 until every member's first re-list is in and while
+any member is degraded. ``/debug/trace`` answers 404, as the
 reference does for an engine without a span tracer.
 """
 
@@ -79,15 +83,24 @@ def render_metrics(metrics) -> str:
     every lane process's share."""
     engine = metrics
     registry = getattr(engine, "registry", None)
-    metrics = dict(getattr(engine, "metrics", engine))
+    # a federation's counters go out once per member, as the reference's
+    # shard="<i>" series; any other engine's once, unlabeled
+    shards = getattr(engine, "shard_metrics", None)
+    if shards is None:
+        shards = [dict(getattr(engine, "metrics", engine))]
+        label = [""]
+    else:
+        label = [f'{{shard="{i}"}}' for i in range(len(shards))]
     lines = []
-    for name, value in sorted(metrics.items()):
+    for name in sorted(set().union(*shards)):
         full = f"kwok_{name}"
         if name in _METRIC_HELP:
             lines.append(f"# HELP {full} {_METRIC_HELP[name]}")
         kind = "counter" if name.endswith(("_total", "_sum")) else "gauge"
         lines.append(f"# TYPE {full} {kind}")
-        lines.append(f"{full} {value}")
+        for suffix, m in zip(label, shards):
+            if name in m:
+                lines.append(f"{full}{suffix} {m[name]}")
     if hasattr(engine, "metrics_text"):
         labeled = engine.metrics_text()
         errors = engine.process_metrics_text()

@@ -153,8 +153,10 @@ def test_parsers_have_the_same_flags_and_defaults():
     assert parser_surface(tcli.build_parser) == parser_surface(jcli.build_parser)
 
 
+TWO = ["--master", "http://127.0.0.1:1,http://127.0.0.1:2"]
+
 REFUSED = {
-    "use-mesh": (["--use-mesh", "true"], {}, 9),
+    "use-mesh": (["--use-mesh", "true"], {}, "9b"),
     "ha-primary": (["--ha-role", "primary"], {}, 12),
     "ha-standby": (["--ha-role", "standby"], {}, 12),
     "audit-interval": (["--audit-interval", "5"], {}, 13),
@@ -162,9 +164,11 @@ REFUSED = {
     "enable-cni": (["--enable-cni", "true"], {}, 14),
     "profile-dir": (["--profile-dir", "prof"], {}, 15),
     "trace-dump": (["--trace-dump", "trace.json"], {}, 15),
-    "two-masters": (["--master", "http://127.0.0.1:1,http://127.0.0.1:2"], {}, 9),
-    "member-config": (["--member-config", "member.yaml"], {}, 9),
-    "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, 9),
+    # a federation runs on one card: its stacked state over several is 9b
+    "two-masters": (TWO + ["--use-mesh", "true"], {}, "9b"),
+    # a federation's merged span trace waits for the tracer
+    "member-config": (TWO + ["--member-config", "", "--trace-dump", "t.json"], {}, 15),
+    "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, "9b"),
     "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, 12),
     "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, 13),
     "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, 13),
@@ -186,6 +190,67 @@ def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
         tcli.main(base_args(tmp_path, "http://127.0.0.1:1") + extra)
     assert isinstance(e.value.code, str), e.value.code  # exit status 1
     assert f"ROADMAP item {item}" in e.value.code
+
+
+FEDERATION_MISUSE = {
+    "member-config-one-master": (["--member-config", ""], {}, "multi-master"),
+    "member-config-too-many": (TWO + ["--member-config", ""] * 3, {}, "given 3 times"),
+    "member-config-missing": (TWO + ["--member-config", "absent.json"], {}, "no such file"),
+    "lane-procs": (TWO + ["--lane-procs", "true"], {}, "single-cluster flag"),
+    "env-lane-procs": (TWO, {"KWOK_LANE_PROCS": "true"}, "single-cluster flag"),
+    "ha-role": (TWO + ["--ha-role", "primary"], {}, "single-cluster flag"),
+    "env-ha-role": (TWO, {"KWOK_HA_ROLE": "standby"}, "single-cluster flag"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FEDERATION_MISUSE))
+def test_federation_misuse_exits(name, tmp_path, monkeypatch):
+    """The reference's own refusals around federation, before any network
+    wait (ports 1 and 2 have no apiserver)."""
+    extra, env, words = FEDERATION_MISUSE[name]
+    monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit) as e:
+        tcli.main(base_args(tmp_path, "http://127.0.0.1:1") + extra)
+    assert words in str(e.value.code)
+
+
+def test_member_config_without_stages_exits(tmp_path, monkeypatch):
+    monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    empty = tmp_path / "member.json"
+    empty.write_text(json.dumps({"apiVersion": "kwok.x-k8s.io/v1alpha1",
+                                 "kind": "KwokConfiguration", "options": {}}) + "\n")
+    with pytest.raises(SystemExit, match="no Stage documents"):
+        tcli.main(base_args(tmp_path, "http://127.0.0.1:1") + TWO
+                  + ["--member-config", "", "--member-config", str(empty)])
+
+
+def test_member_config_is_positional(tmp_path):
+    """The i-th --member-config applies to the i-th master; an empty value
+    and a missing tail inherit --config."""
+    from kwok_tpu_torch.config.stages import Stage
+    from kwok_tpu_torch.config.types import load_documents
+
+    base = [d for d in load_documents(stage_file(tmp_path)) if isinstance(d, Stage)]
+    member = tmp_path / "member.json"
+    member.write_text(json.dumps(STAGES[1]) + "\n")
+    args = tcli.build_parser(KwokConfigurationOptions()).parse_args(
+        ["--manage-all-nodes", "true", "--member-config", "", "--member-config", str(member)])
+    cfgs = tcli.member_configs(args, base, 3, "cpu")
+    names = [[r.name for r in c.pod_rules] for c in cfgs]
+    assert names[0] == names[2] == ["pod-delete", "pod-running"]
+    assert names[1] == ["pod-running"]
+    assert tcli.member_configs(
+        tcli.build_parser(KwokConfigurationOptions()).parse_args([]), base, 2, "cpu") is None
+
+
+def test_federation_without_card_exits(tmp_path, monkeypatch):
+    monkeypatch.delenv("KWOK_TPU_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        tcli.main(base_args(tmp_path, "http://127.0.0.1:1") + TWO)
+    assert "CUDA" in str(e.value.code)
 
 
 CHECKPOINT_DIR_FORMS = {
@@ -435,3 +500,69 @@ def test_signal_handler_and_stop_deadline():
     ran = []
     tcli.stop_with_deadline([lambda: ran.append(1)], 5.0, force_exit=forced.append)
     assert ran == [1] and forced == [130]
+
+
+def test_two_master_federation_over_http(tmp_path, monkeypatch):
+    """``--master A,B`` runs one member per apiserver from one process:
+    /readyz is 503 until BOTH members' first re-list is in (member B's is
+    held back) and while a member is degraded; /metrics carries per-shard
+    series and one dispatch counter per rule-set group (member B's
+    --member-config makes a second group)."""
+    import kwok_tpu_torch.engine as engine_mod
+
+    monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    feds = []
+
+    class Recorded(engine_mod.FederatedEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            feds.append(self)
+
+    monkeypatch.setattr(engine_mod, "FederatedEngine", Recorded)
+    gated = GatedStore()
+    srvs = [PortServer().start(), PortServer(store=gated).start()]
+    member = tmp_path / "member.json"
+    member.write_text(json.dumps(STAGES[1]) + "\n")
+    for c, srv in enumerate(srvs):
+        srv.store.create("nodes", make_node(f"n{c}"))
+        for i in range(3):
+            srv.store.create("pods", make_pod(f"p{c}-{i}", node=f"n{c}"))
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    argv = base_args(tmp_path, f"{srvs[0].url},{srvs[1].url}", stage_file(tmp_path)) + [
+        "--server-address", f"127.0.0.1:{port}",
+        "--member-config", "", "--member-config", str(member)]
+    stop, t, rc = run_cli(tcli.main, argv)
+    try:
+        assert wait_for(lambda: get(base + "/healthz")[0] == 200)
+        assert wait_for(lambda: gated.lists > 1)  # member 1's re-list waits
+        assert wait_for(lambda: all(running(p) for p in srvs[0].store.list("pods")))
+        assert get(base + "/readyz") == (503, "startup_resync")
+        gated.gate.set()
+        assert wait_for(lambda: get(base + "/readyz")[0] == 200)
+        assert wait_for(lambda: all(running(p) for srv in srvs for p in srv.store.list("pods")))
+        fed = feds[0]
+        assert [len(g.engines) for g in fed.groups] == [1, 1]
+        fed.engines[1]._degradation.set("checkpoint")
+        code, reason = get(base + "/readyz")
+        assert code == 503 and "member1:checkpoint" in reason
+        fed.engines[1]._degradation.clear("checkpoint")
+        assert get(base + "/readyz")[0] == 200
+        code, text = get(base + "/metrics")
+        assert code == 200
+    finally:
+        gated.gate.set()
+        stop.set()
+        t.join(30)
+        for srv in srvs:
+            srv.stop()
+    assert rc == [0] and not t.is_alive()
+    samples = dict(line.rsplit(" ", 1) for line in text.splitlines()
+                   if line and not line.startswith("#"))
+    for c in (0, 1):
+        assert float(samples[f'kwok_status_patches_total{{shard="{c}"}}']) >= 4  # node + 3 pods
+        assert float(samples[f'kwok_group_dispatches_total{{group="{c}"}}']) > 0
+    assert float(samples["kwok_fed_pods_managed"]) == 6
+    assert "kwok_status_patches_total" not in samples  # per shard only
+    assert text.count("# TYPE kwok_ticks_total counter") == 1
+    assert "process_cpu_seconds_total" in samples

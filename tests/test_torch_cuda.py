@@ -282,3 +282,60 @@ def test_process_lanes_on_card(card, tmp_path):
         eng.stop()
         srv.stop()
     assert {"lane0.ckpt.json", "lane1.ckpt.json"} <= set(os.listdir(tmp_path))
+
+
+def test_federation_on_card(card, tmp_path):
+    """A 2-member federation with two rule-set groups on cuda: both
+    groups' stacked states live on the card, every group launches the
+    kernel, every member's pods reach Running with its checkpoint
+    written, and the kernel is bit-exact against its plain version at
+    each group's stacked shape."""
+    import dataclasses
+
+    from kwok_tpu_torch.engine import FederatedEngine
+
+    servers = [FakeKube(), FakeKube()]
+    base = EngineConfig(manage_all_nodes=True, tick_interval=0.02, initial_capacity=300,
+                        checkpoint_dir=str(tmp_path), checkpoint_interval=0.5, device="cuda")
+    fed = FederatedEngine(servers, base, member_configs=[
+        base, dataclasses.replace(base, pod_rules=tm.default_pod_rules(
+            running_delay=tm.Delay.constant(0.2)))])
+    assert len(fed.groups) == 2
+    before = cuda_tick.tick_steps.launches
+    fed.start()
+    try:
+        for c, s in enumerate(servers):
+            s.create("nodes", {"metadata": {"name": f"n{c}"}})
+            for i in range(40):
+                s.create("pods", {
+                    "metadata": {"name": f"p{i}", "namespace": "default"},
+                    "spec": {"nodeName": f"n{c}", "containers": [{"name": "c", "image": "b"}]},
+                    "status": {"phase": "Pending"},
+                })
+        deadline = time.time() + 120
+
+        def done():
+            return fed.ready and all(
+                s.count("pods", lambda p: p["status"].get("phase") == "Running") == 40
+                for s in servers)
+
+        while not done() and time.time() < deadline:
+            time.sleep(0.05)
+        assert done()
+    finally:
+        fed.stop()
+    assert cuda_tick.tick_steps.launches > before
+    assert all(g.dispatches > 0 for g in fed.groups)
+    assert {"member0.ckpt.json", "member1.ckpt.json"} <= set(os.listdir(tmp_path))
+    for g in fed.groups:
+        assert all(st.device.type == "cuda" for st in g.stacked.values())
+        k_states = [type(st)(*(t.clone() for t in st)) for st in (g.stacked["nodes"], g.stacked["pods"])]
+        p_states = [type(st)(*(t.clone() for t in st)) for st in (g.stacked["nodes"], g.stacked["pods"])]
+        for spec, ks, ps in zip(g.fused.specs, k_states, p_states):
+            k = cuda_tick.tick_steps(ks, spec, 5.0, cuda_tick.SEED_BASE, 1, 0.02)
+            p = cuda_tick.tick_steps_plain(ps, spec, 5.0, cuda_tick.SEED_BASE, 1, 0.02)
+            torch.cuda.synchronize()
+            for f in ts.RowState._fields:
+                assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+            for a, b in zip(k, p):
+                assert torch.equal(a, b)

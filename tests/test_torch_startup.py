@@ -82,3 +82,40 @@ def test_drain_shards_above_one_runs_lanes(caplog):
     finally:
         eng.stop()
     assert eng.metrics["ingest_queue_depth"] == 0
+
+
+def test_run_tick_loop_hook_leaves_single_lane_start_unchanged():
+    """start() with its defaults warms the scatters and the tick and runs
+    the 'kwok-tick' thread, as before the federation's hook; only
+    start(run_tick_loop=False) (a federation member) skips all three and
+    leaves the startup gate for the federation's loop to close."""
+    for default in (True, False):
+        server = PortFakeKube()
+        eng = TorchEngine(server, TorchConfig(manage_all_nodes=True, tick_interval=0.02, device="cpu"))
+        calls = []
+        eng._warm_scatters = lambda: calls.append("scatters")
+        warm_tick = eng._warm_tick
+        eng._warm_tick = lambda: (calls.append("tick"), warm_tick())
+        if default:
+            eng.start()
+        else:
+            eng.start(run_tick_loop=False)
+        threads = list(eng._threads)
+        try:
+            names = [t.name for t in threads]
+            assert sorted(names) == sorted(
+                ["kwok-watch-nodes", "kwok-watch-pods"] + (["kwok-tick"] if default else []))
+            assert calls == (["scatters", "tick"] if default else [])
+            assert eng._executor is not None and eng.startup_resync_pending
+            if default:
+                server.create("nodes", make_node("n0"))
+                deadline = time.time() + 20
+                while time.time() < deadline and not eng.ready:
+                    time.sleep(0.01)
+                assert eng.ready
+            else:
+                time.sleep(0.2)
+                assert not eng.ready and eng._q.qsize() >= 2  # the two RESYNCs wait
+        finally:
+            eng.stop()
+        assert not any(t.is_alive() for t in threads)
