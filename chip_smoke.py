@@ -90,6 +90,25 @@ result line then):
    The kernel is then held bit-exact against its plain version at each
    group's stacked capacities with that group's rule tables (a re-arm
    dispatch and a fire dispatch).
+9. Watch (the reflector: resume, 410, bookmarks): the CLI phase again
+   (auto threaded lanes, 10,000 nodes, the same Stage file) with 10,000
+   pods, its mock sending bookmarks every second
+   (KWOK_TPU_BOOKMARK_INTERVAL=1).
+   /readyz 503 then 200. During the create flood the engine's live pods
+   watch connection is dropped (stop() on its handle) every 3 s, 5 times,
+   and the nodes one once; each time the seconds until a new handle is
+   installed are taken (resume_s). Once, between two of those, a node
+   label patch, POST /compact and a pods cut: that resume must get the
+   410, and the seconds until every lane ingested the re-list's RESYNC are
+   taken (relist_s). After the flood, 3 s of quiet, then
+   kwok_watch_bookmarks_total must be > 0; POST /compact, and once a
+   bookmark has followed it (node heartbeats keep writing), both
+   connections are dropped: neither may re-list. Over the phase
+   kwok_watch_relists_total must move by exactly 1 (the compaction's).
+   Then the usual end state (every node Ready, every pod Running with a
+   distinct pod IP in the CIDR, 500 graceful deletes gone, /metrics
+   parsed, launches > 0, main returns 0) and the kernel bit-exact at the
+   phase engine's stacked capacities with the Stage rules.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -130,6 +149,13 @@ CLI_PODS = 25_000
 CLI_DELETES = 500
 CLI_DEADLINE_S = 600.0
 CLI_CONNS = 8  # keep-alive connections of the creator process
+# the watch phase: the CLI phase's 10,000 nodes, one pod each (at 25,000
+# pods its flood and deletes alone took 159 s on an H100, which would
+# bring the whole script near its limit on a slow host)
+WATCH_PODS = 10_000
+WATCH_POD_CUTS = 5  # dropped pods connections during the flood
+WATCH_CUT_EVERY_S = 3.0
+WATCH_BOOKMARK_WAIT_S = 3.0  # quiet time after the flood before the bookmark check
 PROCS_MORE_PODS = 1_000  # created after the SIGKILL of lane 0
 PROCS_RESPAWN_S = 60.0
 FED_MEMBERS = 8  # BASELINE config 5: 8 kwok apiservers, federated
@@ -806,10 +832,12 @@ def running(p) -> bool:
     return st.get("phase") == "Running" and bool(st.get("podIP"))
 
 
-def start_cli(extra_argv: list, members: int = 1, nodes: "int | None" = None) -> dict:
+def start_cli(extra_argv: list, members: int = 1, nodes: "int | None" = None,
+              mock_env: "dict | None" = None) -> dict:
     """The kwok entry point as a user runs it: ``members`` port HTTP mock
-    apiservers, each in a subprocess of its own, ``nodes`` nodes
-    (CLI_NODES by default) created in each by a spawned process, then kwok_tpu_torch.kwok.cli.main on a
+    apiservers, each in a subprocess of its own (``mock_env`` added to
+    their environment), ``nodes`` nodes (CLI_NODES by default) created in
+    each by a spawned process, then kwok_tpu_torch.kwok.cli.main on a
     thread of this script with --master naming every mock, the phase's
     Stage file and ``extra_argv``. /readyz must answer 503 until the first
     re-list is ingested (every member's, for several) and 200 after.
@@ -825,7 +853,7 @@ def start_cli(extra_argv: list, members: int = 1, nodes: "int | None" = None) ->
            "workdir": tempfile.mkdtemp(prefix="kwok-smoke-")}
     run["mocks"] = [subprocess.Popen(
         [sys.executable, "-m", "kwok_tpu_torch.edge.mockserver", "--port", "0"],
-        cwd=here, stdout=subprocess.PIPE, text=True,
+        cwd=here, stdout=subprocess.PIPE, text=True, env={**os.environ, **(mock_env or {})},
     ) for _ in range(members)]
     run["mock"] = run["mocks"][0]
     engines = run["engines"]
@@ -926,28 +954,30 @@ def scrape(run: dict) -> dict:
     return parse_metrics(text)
 
 
-def drive_pods(run: dict, pids=()) -> dict:
-    """CLI_PODS pods from a spawned creator over CLI_CONNS connections
-    until every pod is Running with a pod IP (progress from the engine's
-    counters, each crossing confirmed by one full LIST), every node Ready,
-    then CLI_DELETES graceful deletes until they are gone. Returns the
-    times, the /metrics at the start and at the end of the create->Running
-    window, and the CPU seconds over that window of the mock and of
-    ``pids``."""
+def drive_pods(run: dict, pids=(), after_running=None, pods: "int | None" = None) -> dict:
+    """``pods`` pods (CLI_PODS by default) from a spawned creator over
+    CLI_CONNS connections until every pod is Running with a pod IP
+    (progress from the engine's counters, each crossing confirmed by one
+    full LIST), every node Ready,
+    ``after_running()`` when given, then CLI_DELETES graceful deletes
+    until they are gone. Returns the times, the /metrics at the start and
+    at the end of the create->Running window, and the CPU seconds over
+    that window of the mock and of ``pids``."""
     from kwok_tpu_torch.edge.httpclient import HttpKubeClient
 
     url, deadline, mock = run["url"], run["deadline"], run["mock"]
+    pods = CLI_PODS if pods is None else pods
     m0 = scrape(run)
     cpu0 = {pid: cpu_seconds(pid) for pid in (mock.pid, *pids)}
-    proc, span = spawn_creator(url, "pods", CLI_PODS)
+    proc, span = spawn_creator(url, "pods", pods)
     join_creator(proc, deadline)
     client = HttpKubeClient(url)
     while True:
         m_run = scrape(run)
-        if m_run["kwok_status_patches_total"] >= CLI_NODES + CLI_PODS:
+        if m_run["kwok_status_patches_total"] >= CLI_NODES + pods:
             t_patched = time.time()
             cpu_run = {pid: cpu_seconds(pid) for pid in cpu0}
-            if sum(map(running, client.list("pods"))) == CLI_PODS:
+            if sum(map(running, client.list("pods"))) == pods:
                 break
         if time.monotonic() > deadline:
             raise AssertionError(f"timeout: {m_run['kwok_status_patches_total']} patches")
@@ -959,12 +989,14 @@ def drive_pods(run: dict, pids=()) -> dict:
         for n in nodes)
     if n_ready != CLI_NODES:
         raise AssertionError(f"{n_ready} of {CLI_NODES} nodes Ready")
+    if after_running is not None:
+        after_running()
     t_del = time.time()
     for i in range(CLI_DELETES):
         client.delete("pods", "default", f"pod-{i}", grace_seconds=30)
     while True:
         if scrape(run)["kwok_deletes_total"] >= CLI_DELETES:
-            if len(client.list("pods")) == CLI_PODS - CLI_DELETES:
+            if len(client.list("pods")) == pods - CLI_DELETES:
                 break
         if time.monotonic() > deadline:
             raise AssertionError(f"timeout deleting: {scrape(run)['kwok_deletes_total']} deletes")
@@ -976,9 +1008,9 @@ def drive_pods(run: dict, pids=()) -> dict:
         "client": client, "m0": m0, "m_run": m_run,
         "cpu_s": {pid: cpu_run[pid] - cpu0[pid] for pid in cpu0},
         "report": {
-            "nodes": CLI_NODES, "pods": CLI_PODS, "deleted": CLI_DELETES,
+            "nodes": CLI_NODES, "pods": pods, "deleted": CLI_DELETES,
             "connections": CLI_CONNS,
-            "create_to_running_pods_per_s": CLI_PODS / window,
+            "create_to_running_pods_per_s": pods / window,
             "pod_create_s": t_created - t_pods,
             "create_to_running_s": window,
             "delete_s": t_deleted - t_del,
@@ -1065,6 +1097,172 @@ def cli_phase():
         "capacities": caps, "kernel_ms_at_capacities": shape_ms,
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
+    }
+
+
+def cut_stream(eng, kind: str, deadline: float) -> float:
+    """Drop the engine's live ``kind`` watch connection (``stop()`` on its
+    handle) and return the seconds until its watch loop installed a new
+    handle."""
+    old = eng._watches[kind]
+    t = time.monotonic()
+    old.stop()
+    while eng._watches.get(kind) is old:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the {kind} watch never reconnected")
+        time.sleep(0.001)
+    return time.monotonic() - t
+
+
+def post_compact(url: str) -> int:
+    """POST /compact on a mock apiserver; its compacted revision."""
+    req = urllib.request.Request(url + "/compact", data=b"", method="POST")
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return json.loads(r.read())["compactedRevision"]
+
+
+def watch_phase(cli_run):
+    """The CLI phase's run with the reflector exercised (see the module
+    docstring, phase 9)."""
+    import torch
+
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+    from kwok_tpu_torch.ops import cuda_tick
+
+    n_lanes = resolve_drain_shards(0, 0)
+    cuda_tick.tick_steps.launches = 0
+    run = start_cli([], mock_env={"KWOK_TPU_BOOKMARK_INTERVAL": "1"})
+    cuts = {"pods": [], "nodes": []}
+    info: dict = {}
+    try:
+        eng = run["engine"]
+        if eng._lanes is None or eng._lanes.n != n_lanes:
+            raise AssertionError(f"the CLI's default --drain-shards did not run {n_lanes} lanes")
+        deadline = run["deadline"]
+        client = HttpKubeClient(run["url"])
+        relists0 = scrape(run)["kwok_watch_relists_total"]
+        # every lane's RESYNC ingest, stamped (the lanes call the parent's)
+        resyncs: list = []
+        mark = eng._mark_resync
+
+        def marked(kind, lane=0):
+            resyncs.append((kind, lane, time.monotonic()))
+            mark(kind, lane)
+
+        eng._mark_resync = marked
+        errors: list = []
+        flood_over = threading.Event()
+
+        def compaction_relist():
+            # a write the pods stream never sees puts its revision below
+            # the floor, so this resume must get the 410 and re-list
+            client.patch_meta("nodes", None, "node-0",
+                              {"metadata": {"labels": {"kwok-smoke": "compact"}}})
+            info["compacted_mid_flood"] = post_compact(run["url"])
+            gen, n0 = eng._stream_gen.get("pods", 0), len(resyncs)
+            t = time.monotonic()
+            eng._watches["pods"].stop()
+            while {ln for k, ln, _ in resyncs[n0:] if k == "pods"} != set(range(n_lanes)):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the re-list after the 410 never reached every lane")
+                time.sleep(0.005)
+            info["relist_s"] = max(ts for k, _, ts in resyncs[n0:] if k == "pods") - t
+            if eng._stream_gen.get("pods", 0) <= gen:
+                raise AssertionError("the resume after the compaction did not get its 410")
+            info["relist_during_flood"] = not flood_over.is_set()
+
+        def cutter():
+            # every WATCH_CUT_EVERY_S s a pods cut; the nodes cut and the
+            # compaction between two of them; each step waits for the one
+            # before (a cut during the 410's re-list would re-list again)
+            try:
+                for i in range(WATCH_POD_CUTS):
+                    time.sleep(WATCH_CUT_EVERY_S)
+                    cuts["pods"].append((cut_stream(eng, "pods", deadline),
+                                         not flood_over.is_set()))
+                    if i == 0:
+                        time.sleep(WATCH_CUT_EVERY_S / 2)
+                        cuts["nodes"].append((cut_stream(eng, "nodes", deadline),
+                                              not flood_over.is_set()))
+                    elif i == 1:
+                        time.sleep(WATCH_CUT_EVERY_S / 2)
+                        compaction_relist()
+            except Exception as e:  # re-raised on the phase's thread
+                errors.append(e)
+
+        def bookmarks():
+            # the flood is over: quiet pods stream, node heartbeats only
+            flood_over.set()
+            cut_thread.join(max(1.0, deadline - time.monotonic()))
+            if errors:
+                raise errors[0]
+            time.sleep(WATCH_BOOKMARK_WAIT_S)
+            m = scrape(run)
+            info["bookmarks_before_compact"] = m["kwok_watch_bookmarks_total"]
+            if info["bookmarks_before_compact"] <= 0:
+                raise AssertionError("no bookmark reached the engine")
+            relists = m["kwok_watch_relists_total"]
+            gens = dict(eng._stream_gen)
+            info["compacted_after_flood"] = post_compact(run["url"])
+            # node heartbeats keep writing, so the bookmark a resume rides
+            # is the first one after the compaction (one per interval)
+            t_bm = time.monotonic() + 10.0
+            while scrape(run)["kwok_watch_bookmarks_total"] < info["bookmarks_before_compact"] + 2:
+                if time.monotonic() > t_bm:
+                    raise AssertionError("no bookmark after the compaction")
+                time.sleep(0.05)
+            info["resume_after_compact_s"] = [cut_stream(eng, k, deadline) for k in ("nodes", "pods")]
+            time.sleep(1.0)  # a 410 would have re-listed by now
+            if scrape(run)["kwok_watch_relists_total"] != relists or dict(eng._stream_gen) != gens:
+                raise AssertionError("a resume after the compaction re-listed: the bookmark "
+                                     "revision did not carry it")
+
+        cut_thread = threading.Thread(target=cutter, name="watch-cutter")
+        cut_thread.start()
+        try:
+            load = drive_pods(run, after_running=bookmarks, pods=WATCH_PODS)
+        finally:
+            flood_over.set()
+            cut_thread.join(60)
+        if errors:
+            raise errors[0]
+        pods = load["client"].list("pods")
+        m = scrape(run)
+        client.close()
+    finally:
+        stop_cli(run)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the watch phase ran without launching the tick kernel")
+    if len(cuts["pods"]) < WATCH_POD_CUTS or len(cuts["nodes"]) != 1:
+        raise AssertionError(f"cuts: {cuts}")
+    relists = m["kwok_watch_relists_total"] - relists0
+    if relists != 1:
+        raise AssertionError(f"{relists} re-lists after start; only the compaction's one may re-list")
+    check_final_pods(pods, m)
+    caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng, rearm=True)
+    log(f"kernel at the watch phase's capacities {caps} with the Stage rules: checked; "
+        f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
+    resume = sorted(s for s, _ in cuts["pods"] + cuts["nodes"])
+    return {
+        "lanes": n_lanes, **load["report"],
+        "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
+        "readyz_503_polls": run["readyz"].count(503), "main_to_ready_s": run["main_to_ready_s"],
+        "cuts": len(resume), "cuts_during_flood": sum(f for _, f in cuts["pods"] + cuts["nodes"]),
+        "pods_resume_s": [s for s, _ in cuts["pods"]], "nodes_resume_s": [s for s, _ in cuts["nodes"]],
+        "resume_s_median": resume[len(resume) // 2], "resume_s_max": resume[-1],
+        **info,
+        "relists_after_start": relists, "bookmarks": m["kwok_watch_bookmarks_total"],
+        "stale_rv_rejects": m.get('kwok_wire_rejects_total{reason="stale_rv"}', 0.0),
+        "client_throttle_seconds": m["kwok_client_throttle_seconds_total"],
+        "status_patches": m["kwok_status_patches_total"],
+        "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
+        "watch_events": m["kwok_watch_events_total"],
+        "capacities": caps, "kernel_ms_at_capacities": shape_ms,
+        "plain_ms_at_capacities": shape_plain_ms,
+        "wire_d2h_ms_at_capacities": shape_wire_ms,
+        "bound_ms_at_capacities": byte_bound_ms(caps),
     }
 
 
@@ -1461,6 +1659,8 @@ def main() -> int:
     print(json.dumps({"restart": restart}), flush=True)
     cli_run = cli_phase()
     print(json.dumps({"cli": cli_run}), flush=True)
+    watch = watch_phase(cli_run)
+    print(json.dumps({"watch": watch}), flush=True)
     procs = procs_phase(cli_run)
     print(json.dumps({"procs": procs}), flush=True)
     fed = fed_phase(cli_run)
@@ -1479,6 +1679,12 @@ def main() -> int:
           f"tick thread {cli_run['tick_thread_s']:.2f} s, kernel "
           f"{cli_run['kernel_ms_at_capacities']:.4f} ms at {cli_run['capacities']} ({card})",
           flush=True)
+    print(f"watch ({n_lanes} lanes): {watch['create_to_running_pods_per_s']:.1f} pods/s "
+          f"create->Running, {watch['cuts']} cuts ({watch['cuts_during_flood']} during the flood), "
+          f"resume_s median {watch['resume_s_median']:.4f} max {watch['resume_s_max']:.4f}, "
+          f"relist_s {watch['relist_s']:.3f}, re-lists {watch['relists_after_start']}, "
+          f"bookmarks {watch['bookmarks']:.0f}, stale_rv {watch['stale_rv_rejects']:.0f}, "
+          f"throttle {watch['client_throttle_seconds']:.1f} s ({card})", flush=True)
     print(f"procs ({n_lanes} lane processes): {procs['create_to_running_pods_per_s']:.1f} pods/s "
           f"create->Running, {procs['status_patches_per_s']:.1f} status patches/s, respawn "
           f"{procs['respawn_s']:.2f} s, {procs['kernel_launches']} lane launches, kernel "
@@ -1502,7 +1708,8 @@ def main() -> int:
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
         "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
                      + restart["kernel_launches"] + cli_run["kernel_launches"]
-                     + procs["kernel_launches"] + fed["kernel_launches"]),
+                     + watch["kernel_launches"] + procs["kernel_launches"]
+                     + fed["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],
@@ -1514,8 +1721,13 @@ def main() -> int:
         "launches_by_phase": {
             "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
             "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
+            "watch": watch["kernel_launches"],
             "procs": procs["kernel_launches"], "federation": fed["kernel_launches"],
         },
+        "watch_capacities": watch["capacities"],
+        "watch_ms": watch["kernel_ms_at_capacities"],
+        "watch_plain_ms": watch["plain_ms_at_capacities"],
+        "watch_bound_ms": watch["bound_ms_at_capacities"],
         "stacked_capacities": lanes_run["capacities"],
         "stacked_ms": lanes_run["kernel_ms_at_capacities"],
         "stacked_plain_ms": lanes_run["plain_ms_at_capacities"],

@@ -14,16 +14,26 @@ semantics the engine relies on:
   (``deletionTimestamp``); the kubelet (the engine) strips finalizers and
   deletes with grace 0.
 
-There is no watch cache: a watch that asks to resume from a revision gets
-``WatchExpired`` and its client re-lists.
+The watch cache is ``kwok_tpu.edge.mockserver``'s: the last
+``RV_WINDOW`` events are kept, and a watch that resumes from a revision
+gets the events after it replayed, then goes live with no gap between the
+two. A revision below the window (or below a ``compact()``) raises
+``WatchExpired`` (410 Gone: the client re-lists), one ahead of the store
+``TooLargeResourceVersion``. Watches that opt in get BOOKMARK events
+(``emit_bookmarks``): objects that carry only the store's revision, so a
+quiet watch's resume revision keeps up with compaction.
 
 ``HttpFakeApiserver`` puts an HTTP front on a ``FakeKube``: the routes
 ``edge/httpclient.HttpKubeClient`` uses (``/api/v1/{nodes,pods}`` list
 with ``limit``/``continue``, ``?watch=1`` as a chunked stream of JSON
-lines, get, POST create, PATCH ``/status`` and metadata, DELETE with
-``gracePeriodSeconds``, ``/version`` and ``/healthz``). It is the front of
+lines with ``resourceVersion`` and ``allowWatchBookmarks``, get, POST
+create, PATCH ``/status`` and metadata, DELETE with
+``gracePeriodSeconds``, ``/version``, ``/healthz`` and ``POST
+/compact``), and a timer that sends bookmarks every
+``BOOKMARK_INTERVAL`` seconds. It is the front of
 ``kwok_tpu.edge.mockserver`` cut to those routes: no TLS, audit,
-admission bands, RBAC or flight recorder. Run it alone with
+admission bands, slow-watcher termination, snapshots, RBAC or flight
+recorder. Run it alone with
 
     python3 -m kwok_tpu_torch.edge.mockserver --port 0
 
@@ -35,8 +45,10 @@ from __future__ import annotations
 import base64
 import binascii
 import bisect
+import collections
 import copy
 import json
+import os
 import queue
 import re
 import sys
@@ -46,8 +58,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from kwok_tpu_torch.edge.kubeclient import (
     ADDED,
+    BOOKMARK,
     DELETED,
     MODIFIED,
+    TooLargeResourceVersion,
     WatchEvent,
     WatchExpired,
     match_field_selector,
@@ -57,6 +71,17 @@ from kwok_tpu_torch.edge.render import now_rfc3339
 from kwok_tpu_torch.edge.selectors import parse_selector
 
 KINDS = ("nodes", "pods")
+KIND_SINGULAR = {"nodes": "Node", "pods": "Pod"}
+
+# watch-cache window: how many recent events are kept for watches that
+# resume from a revision. A resume below the window gets 410 Gone (etcd
+# compaction); <= 0 disables the cache, so every resume expires.
+RV_WINDOW = int(os.environ.get("KWOK_TPU_RV_WINDOW", "4096"))
+
+# seconds between BOOKMARK events to the watches that opted in
+# (allowWatchBookmarks=true); <= 0 disables the timer (tests call
+# FakeKube.emit_bookmarks directly)
+BOOKMARK_INTERVAL = float(os.environ.get("KWOK_TPU_BOOKMARK_INTERVAL", "60"))
 
 
 def _dumps(obj) -> bytes:
@@ -69,15 +94,16 @@ class AlreadyExists(Exception):
 
 class _Watch:
     """One open watch: a queue of (type, object JSON) fed by the store's
-    writes. Iterating blocks for the next event and ends when the watch
-    stops."""
+    writes (after the replay of a resume). Iterating blocks for the next
+    event and ends when the watch stops."""
 
     def __init__(self, server: "FakeKube", kind: str, field_selector,
-                 label_selector) -> None:
+                 label_selector, bookmarks: bool = False) -> None:
         self.server = server
         self.kind = kind
         self.field_selector = field_selector
         self.label_selector = parse_selector(label_selector)
+        self.bookmarks = bool(bookmarks)
         self.q: "queue.SimpleQueue" = queue.SimpleQueue()
         self.stopped = False
 
@@ -129,6 +155,11 @@ class FakeKube:
         self._objs: dict[str, dict] = {k: {} for k in KINDS}
         self._rv = 0
         self._watches: list[_Watch] = []
+        # the watch cache: (rv, kind, type, object JSON) of recent events;
+        # every revision at or below _compacted_rv is gone (a resume from
+        # below it gets 410 Gone)
+        self._history: collections.deque = collections.deque()
+        self._compacted_rv = 0
         # objects removed for good (the smoke run checks its deletes)
         self.delete_count = 0
 
@@ -137,11 +168,18 @@ class FakeKube:
         return (namespace or "", name)
 
     def _commit_locked(self, kind: str, obj: dict, type_: str) -> bytes:
-        """Bump the revision, stamp it, and deliver the event (caller
-        holds the lock, so every watch sees writes in revision order)."""
+        """Bump the revision, stamp it, keep the event in the watch cache
+        and deliver it (caller holds the lock, so every watch sees writes
+        in revision order)."""
         self._rv += 1
         obj.setdefault("metadata", {})["resourceVersion"] = str(self._rv)
         data = _dumps(obj)
+        if RV_WINDOW > 0:
+            self._history.append((self._rv, kind, type_, data))
+            while len(self._history) > RV_WINDOW:
+                self._compacted_rv = max(
+                    self._compacted_rv, self._history.popleft()[0]
+                )
         for w in self._watches:
             if w.kind == kind and w.matches(obj):
                 w.q.put((type_, data))
@@ -183,12 +221,22 @@ class FakeKube:
 
     def list_bytes(self, kind: str, *, field_selector=None,
                    label_selector=None, limit: int = 0,
-                   after: "tuple[str, str] | None" = None):
+                   continue_: "str | None" = None):
         """One page of a LIST in key order: the JSON of at most ``limit``
-        (0 = all) matching objects whose key sorts after ``after``, the
-        key to continue after (None on the last page), and the revision."""
+        (0 = all) matching objects whose key sorts after the key of the
+        ``continue_`` token, the token for the next page (None on the
+        last), and the list's revision. Every page of one paginated list
+        carries the first page's revision; a token whose revision is
+        below the compaction floor raises WatchExpired (the apiserver's
+        410 for a continue token too old), a malformed one ValueError."""
         sel = parse_selector(label_selector)
+        tok_rv, after = decode_continue(continue_) if continue_ else (0, None)
         with self._lock:
+            if continue_ and tok_rv < self._compacted_rv:
+                raise WatchExpired(
+                    f"continue token revision {tok_rv} has been compacted"
+                )
+            list_rv = tok_rv if continue_ else self._rv
             store = self._objs[kind]
             keys = sorted(store)
             pos = bisect.bisect_right(keys, after) if after is not None else 0
@@ -208,7 +256,8 @@ class FakeKube:
                 last = key
             else:
                 last = None  # walked to the end: no further page
-            return items, last, self._rv
+            token = encode_continue(list_rv, last) if last is not None else None
+            return items, token, list_rv
 
     def patch_status_bytes(self, kind: str, namespace, name: str, patch):
         if isinstance(patch, (bytes, bytearray, memoryview)):
@@ -267,16 +316,59 @@ class FakeKube:
 
     def watch(self, kind: str, *, field_selector=None, label_selector=None,
               resource_version=None, allow_bookmarks: bool = False) -> _Watch:
-        """A live watch from now on. No watch cache: resuming from a
-        revision raises WatchExpired (the client re-lists)."""
-        if resource_version:
-            raise WatchExpired(
-                f"no watch cache: cannot resume from {resource_version}"
-            )
-        w = _Watch(self, kind, field_selector, label_selector)
+        """A watch from now on, or, with ``resource_version`` > 0, one that
+        resumes strictly after that revision: the cached events after it
+        that match the selectors are queued first, under the same lock as
+        the registration, so nothing falls between the replay and the
+        live events. A revision below the compaction floor (or any, with
+        the cache disabled) raises WatchExpired, one ahead of the store
+        TooLargeResourceVersion, a negative or non-numeric one
+        ValueError (the HTTP front's 400)."""
+        w = _Watch(self, kind, field_selector, label_selector, allow_bookmarks)
+        rv = int(resource_version or 0)
+        if rv < 0:
+            raise ValueError(f"invalid resourceVersion: {rv}")
         with self._lock:
+            if rv:
+                if rv > self._rv:
+                    raise TooLargeResourceVersion(rv, self._rv)
+                if rv < self._compacted_rv or RV_WINDOW <= 0:
+                    raise WatchExpired(f"too old resource version: {rv}")
+                for hrv, hkind, htype, hdata in self._history:
+                    if hrv > rv and hkind == kind and w.matches(json.loads(hdata)):
+                        w.q.put((htype, hdata))
             self._watches.append(w)
         return w
+
+    def compact(self) -> int:
+        """Compact the watch cache now: a watch resuming from below the
+        current revision gets 410 Gone (resuming at exactly it is still
+        gap-free, as after an etcd compaction at that revision), and
+        continue tokens below it expire. Returns the compacted revision."""
+        with self._lock:
+            self._history.clear()
+            self._compacted_rv = self._rv
+            return self._compacted_rv
+
+    def emit_bookmarks(self) -> int:
+        """Queue one BOOKMARK at the store's current revision to every
+        live watch that opted in; the object carries only kind,
+        apiVersion and metadata.resourceVersion. Returns how many watches
+        got one."""
+        sent = 0
+        with self._lock:
+            data = {}
+            for w in self._watches:
+                if not w.bookmarks:
+                    continue
+                if w.kind not in data:
+                    data[w.kind] = _dumps({
+                        "kind": KIND_SINGULAR[w.kind], "apiVersion": "v1",
+                        "metadata": {"resourceVersion": str(self._rv)},
+                    })
+                w.q.put((BOOKMARK, data[w.kind]))
+                sent += 1
+        return sent
 
     def patch_status(self, kind: str, namespace, name: str, patch):
         data = self.patch_status_bytes(kind, namespace, name, patch)
@@ -338,6 +430,19 @@ def _status(code: int, reason: str = "", message: str = "") -> dict:
     }
 
 
+def _too_large_rv_status(e: TooLargeResourceVersion) -> dict:
+    """The apiserver's answer to a watch resume ahead of its store: 504
+    reason Timeout with a ResourceVersionTooLarge cause and a
+    retryAfterSeconds hint (retry semantics, not Expired)."""
+    doc = _status(504, "Timeout", str(e))
+    doc["details"] = {
+        "causes": [{"reason": "ResourceVersionTooLarge",
+                    "message": "Too large resource version"}],
+        "retryAfterSeconds": int(e.retry_after),
+    }
+    return doc
+
+
 def encode_continue(rv: int, key: tuple[str, str]) -> str:
     """The opaque continue token: url-safe base64 of ``rv \\0 ns \\0 name``
     (the layout of ``kwok_tpu.edge.mockserver``'s)."""
@@ -346,8 +451,9 @@ def encode_continue(rv: int, key: tuple[str, str]) -> str:
     ).decode()
 
 
-def decode_continue(token: str) -> tuple[str, str]:
-    """The key a continue token resumes after; ValueError if malformed."""
+def decode_continue(token: str) -> tuple[int, tuple[str, str]]:
+    """The revision of a continue token and the key it resumes after;
+    ValueError if malformed."""
     try:
         raw = base64.urlsafe_b64decode(token.encode()).decode()
     except (binascii.Error, UnicodeDecodeError) as e:
@@ -356,7 +462,7 @@ def decode_continue(token: str) -> tuple[str, str]:
     ns, sep2, name = rest.partition("\x00")
     if not (sep and sep2 and rv.isdigit()):
         raise ValueError(f"bad continue token {token!r}")
-    return (ns, name)
+    return int(rv), (ns, name)
 
 
 class _Server(ThreadingHTTPServer):
@@ -381,15 +487,36 @@ class HttpFakeApiserver:
         host = "127.0.0.1" if address in ("", "0.0.0.0") else address
         self.url = f"http://{host}:{self.port}"
         self._thread: threading.Thread | None = None
+        self._bookmark_stop = threading.Event()
+        self._bookmark_thread: threading.Thread | None = None
 
     def start(self) -> "HttpFakeApiserver":
         self._thread = threading.Thread(
             target=self.httpd.serve_forever, daemon=True, name="fake-apiserver"
         )
         self._thread.start()
+        self.start_bookmarks()
         return self
 
+    def start_bookmarks(self) -> None:
+        """Send bookmarks to the opted-in watches every
+        ``BOOKMARK_INTERVAL`` seconds (none when it is <= 0)."""
+        if BOOKMARK_INTERVAL <= 0:
+            return
+
+        def loop():
+            while not self._bookmark_stop.wait(BOOKMARK_INTERVAL):
+                self.store.emit_bookmarks()
+
+        self._bookmark_thread = threading.Thread(
+            target=loop, daemon=True, name="bookmark-timer"
+        )
+        self._bookmark_thread.start()
+
     def stop(self) -> None:
+        self._bookmark_stop.set()
+        if self._bookmark_thread is not None:
+            self._bookmark_thread.join(timeout=5)
         self.httpd.shutdown()
         self.httpd.server_close()
         # a stopping apiserver ends its watch streams, so the handler
@@ -464,34 +591,50 @@ class HttpFakeApiserver:
                 ls = (q.get("labelSelector") or [None])[0]
                 if (q.get("watch") or ["false"])[0] in ("true", "1"):
                     self._stream_watch(
-                        kind, fs, ls, (q.get("resourceVersion") or [None])[0]
+                        kind, fs, ls, (q.get("resourceVersion") or [None])[0],
+                        (q.get("allowWatchBookmarks") or ["false"])[0]
+                        in ("true", "1"),
                     )
                     return
-                token = (q.get("continue") or [None])[0]
                 try:
                     limit = int((q.get("limit") or ["0"])[0] or 0)
-                    after = decode_continue(token) if token else None
+                    items, token, rv = store.list_bytes(
+                        kind, field_selector=fs, label_selector=ls,
+                        limit=max(0, limit),
+                        continue_=(q.get("continue") or [None])[0],
+                    )
+                except WatchExpired as e:
+                    # a continue token older than the compaction floor:
+                    # 410 Gone, and the client restarts its list
+                    self._send_json(_status(410, "Expired", str(e)), 410)
+                    return
                 except ValueError as e:
                     self._send_json(_status(400, "BadRequest", str(e)), 400)
                     return
-                items, last, rv = store.list_bytes(
-                    kind, field_selector=fs, label_selector=ls,
-                    limit=max(0, limit), after=after,
-                )
                 meta = b'{"resourceVersion":"%d"' % rv
-                if last is not None:
-                    meta += b',"continue":' + _dumps(encode_continue(rv, last))
+                if token is not None:
+                    meta += b',"continue":' + _dumps(token)
                 self._send_body(
                     b'{"kind":"List","apiVersion":"v1","metadata":' + meta
                     + b'},"items":[' + b",".join(items) + b"]}"
                 )
 
-            def _stream_watch(self, kind, fs, ls, rv) -> None:
+            def _stream_watch(self, kind, fs, ls, rv, bookmarks) -> None:
                 try:
                     w = store.watch(
                         kind, field_selector=fs, label_selector=ls,
-                        resource_version=rv,
+                        resource_version=rv, allow_bookmarks=bookmarks,
                     )
+                except ValueError:
+                    self._send_json(_status(
+                        400, "BadRequest", f"invalid resourceVersion: {rv!r}"
+                    ), 400)
+                    return
+                except TooLargeResourceVersion as e:
+                    # a resume ahead of the store fails the handshake
+                    # (retry semantics), not with a stream ERROR event
+                    self._send_json(_too_large_rv_status(e), 504)
+                    return
                 except WatchExpired as e:
                     # the real apiserver answers an expired resume with
                     # 200 + one ERROR event carrying a 410 Status
@@ -528,6 +671,14 @@ class HttpFakeApiserver:
                 self.close_connection = True
 
             def do_POST(self):  # noqa: N802
+                if urllib.parse.urlparse(self.path).path == "/compact":
+                    # the mock's `etcdctl compact`: expire resumes and
+                    # continue tokens below the current revision now
+                    n = int(self.headers.get("Content-Length") or 0)
+                    if n:
+                        self.rfile.read(n)
+                    self._send_json({"compactedRevision": store.compact()})
+                    return
                 route = self._route()
                 if route is None:
                     return
@@ -607,11 +758,13 @@ def main(argv=None) -> int:
         raise SystemExit(0)
 
     signal.signal(signal.SIGTERM, _term)
+    srv.start_bookmarks()
     try:
         srv.httpd.serve_forever()
     except (KeyboardInterrupt, SystemExit):
         pass
     finally:
+        srv._bookmark_stop.set()
         srv.httpd.server_close()
         srv.store.stop_watches()
     return 0

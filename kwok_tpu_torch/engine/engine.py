@@ -7,8 +7,12 @@ The engine of ``kwok_tpu.engine.engine`` on PyTorch. With one lane:
                                       ▼    │
                                device RowState (resident)
 
-- Watch threads register a watch, list, and queue the snapshot plus a
-  RESYNC marker (watch-then-list), re-watching with backoff on error.
+- Watch threads follow client-go's reflector: register a watch, list and
+  queue the snapshot plus a RESYNC marker (watch-then-list), then stream;
+  a broken stream resumes from the last revision it saw (bookmarks
+  included) and re-lists only after a 410 or when asked to
+  (``resync_streams``). Replayed MODIFIED/DELETED events older than a
+  row's last ingested revision are dropped (``_stale_dict_event``).
 - The tick thread is the ONLY mutator of engine state: it drains the
   ingest queue into staged row writes, flushes them to the device, runs
   the fused tick (``ops/tick.MultiTickKernel``: the CUDA tick kernel per
@@ -67,9 +71,11 @@ from kwok_tpu_torch.edge.kubeclient import (
     ADDED,
     BOOKMARK,
     DELETED,
-    ERROR,
+    MODIFIED,
     KubeClient,
+    TooLargeResourceVersion,
     TooManyRequests,
+    WatchExpired,
 )
 from kwok_tpu_torch.edge.merge import (
     node_status_patch_needed,
@@ -83,7 +89,7 @@ from kwok_tpu_torch.edge.render import (
     rfc3339,
 )
 from kwok_tpu_torch.edge.selectors import parse_selector
-from kwok_tpu_torch.engine.rowpool import RowPool
+from kwok_tpu_torch.engine.rowpool import RowPool, shard_of
 from kwok_tpu_torch.models import (
     compile_rules,
     default_node_rules,
@@ -117,8 +123,9 @@ from kwok_tpu_torch.ops.updates import (
     update_rows,
 )
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
-from kwok_tpu_torch.resilience.policy import Degradation
+from kwok_tpu_torch.resilience.policy import PATCH_RETRY, WATCH_RECONNECT, Degradation
 from kwok_tpu_torch.resilience.watchdog import Watchdog
+from kwok_tpu_torch.telemetry.errors import wire_reject
 from kwok_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger("kwok_tpu_torch.engine")
@@ -130,10 +137,11 @@ _NODE_OBSERVED = NODE_PHASES.phase_id("Observed")
 
 # the counters ``ClusterEngine.metrics`` always carries
 _COUNTERS = (
-    "watch_events_total", "watch_relists_total", "transitions_total",
+    "watch_events_total", "watch_relists_total", "watch_bookmarks_total",
+    "rv_rewinds_total", "transitions_total",
     "status_patches_total", "heartbeats_total", "deletes_total",
     "patch_errors_total", "dropped_jobs_total", "ticks_total",
-    "epoch_rebases_total",
+    "epoch_rebases_total", "client_throttle_seconds_total",
 )
 
 
@@ -433,6 +441,16 @@ class ClusterEngine:
         self._wire_doubt: set[str] = set()
         self._wire_resync_at = 0.0
         self._wire_timer: "threading.Timer | None" = None
+        # the watch streams' bookkeeping, under _gen_lock: the kinds whose
+        # next reconnect must re-list whatever revision the loop holds
+        # (resync_streams), and each kind's stream generation, bumped
+        # whenever its resume revision dies (_expire_stream)
+        self._gen_lock = threading.Lock()
+        self._resync_req: set[str] = set()
+        self._stream_gen: dict[str, int] = {}
+        # monotonic stamp of the last rewind-triggered resync: bounds the
+        # re-list rate of a store that keeps rewinding (_note_rv_rewind)
+        self._rv_rewind_at = 0.0
         # the threaded lanes (engine/lanes.py) or the process lanes
         # (engine/proclanes.py); lane engines are built with
         # drain_shards=1, so neither recurses
@@ -724,10 +742,12 @@ class ClusterEngine:
 
     def _integrity_resync(self, kind: str) -> None:
         """Corrupt or lost input for ``kind`` (an unparseable routed line,
-        events a lane process could not take): cut that kind's watch
-        stream so its loop re-lists, at most once per
-        ``_WIRE_RESYNC_MIN_S``; a doubt inside the window is deferred to
-        one timer, never dropped. The cut runs off the caller's thread."""
+        events a lane process could not take): the kind's next reconnect
+        re-lists from now on, and its stream is cut so that happens now,
+        at most once per ``_WIRE_RESYNC_MIN_S``; a doubt inside the window
+        is deferred to one timer, never dropped. The cut runs off the
+        caller's thread."""
+        self._request_relist(kind)
         now = time.monotonic()
         with self._ckpt_lock:
             self._wire_doubt.add(kind)
@@ -749,12 +769,7 @@ class ClusterEngine:
             return
         self._inc("watch_integrity_resyncs_total")
         for kind in kinds:
-            w = self._watches.get(kind)
-            if w is not None:
-                try:
-                    w.stop()
-                except Exception:
-                    logger.debug("watch stop for a re-list failed", exc_info=True)
+            self._resync_stream(kind)
 
     def _worker_budget_exhausted(self, name: str) -> None:
         """Watchdog callback: a supervised worker (or a lane process)
@@ -770,16 +785,78 @@ class ClusterEngine:
             self.resync_streams()
 
     def resync_streams(self) -> None:
-        """Force every watch stream through a full list+RESYNC: the watch
-        threads always re-list on reconnect, so cutting the live streams
-        is enough. Safe from any thread."""
-        for w in list(self._watches.values()):
-            try:
-                w.stop()
-            except Exception:
-                # a dying or already replaced handle: the watch loop's
-                # reconnect owns recovery either way
-                logger.debug("watch stop during resync failed", exc_info=True)
+        """Force every watch stream through a full list+RESYNC (a cut
+        stream alone would resume): see ``_resync_stream``. Safe from any
+        thread; the watch threads do the re-listing."""
+        for kind in list(self._watches):
+            self._resync_stream(kind)
+
+    def _resync_stream(self, kind: str) -> None:
+        """One kind's share of resync_streams: expire its resume revision,
+        request the re-list, cut the live stream. The watch loop reads the
+        request at the top of each reconnect AND right after installing a
+        new handle, so a handshake racing this call either has its handle
+        cut here or sees the request after installing it."""
+        self._request_relist(kind)
+        w = self._watches.get(kind)
+        if w is None:
+            return
+        try:
+            w.stop()
+        except Exception:
+            # a dying or already replaced handle: the watch loop's
+            # reconnect owns recovery either way
+            logger.debug("watch stop during resync failed", exc_info=True)
+
+    def _request_relist(self, kind: str) -> None:
+        """The kind's next reconnect re-lists, whatever revision its loop
+        holds."""
+        self._expire_stream(kind)
+        with self._gen_lock:
+            self._resync_req.add(kind)
+
+    def _expire_stream(self, kind: str) -> None:
+        """The kind's resume revision is dead (a 410, or a forced
+        re-list): bump its stream generation."""
+        with self._gen_lock:
+            self._stream_gen[kind] = self._stream_gen.get(kind, 0) + 1
+
+    def _tracked_rv(self, kind: str, obj: dict) -> int:
+        """The revision this engine last ingested for ``obj``'s key (the
+        owning lane's engine under threaded lanes), or 0 when the row is
+        unknown. Read without a lock: a row's rv only moves forward, so a
+        stale read only makes the rewind check more conservative."""
+        meta = obj.get("metadata") or {}
+        name = meta.get("name")
+        if not name:
+            return 0
+        key = (meta.get("namespace") or "default", name) if kind == "pods" else name
+        lanes = self._lanes
+        e = lanes.lanes[shard_of(key, lanes.n)].engine if lanes is not None else self
+        k = e.pods if kind == "pods" else e.nodes
+        idx = k.pool.lookup(key)
+        if idx is None:
+            return 0
+        # meta rv is an int, set from _rv_of at ingest
+        return (k.pool.meta[idx] or {}).get("rv") or 0
+
+    def _note_rv_rewind(self, kind: str, name, listed: int, tracked: int) -> None:
+        """A re-listed object carries a revision below the one this engine
+        already ingested for it: an object's own revision never goes back,
+        so the store was restored from a snapshot. Every stream re-lists
+        (at most once per 5 s), so none keeps resuming against revisions
+        of the old world."""
+        now = time.monotonic()
+        if now - self._rv_rewind_at < 5.0:
+            return
+        self._rv_rewind_at = now
+        self._inc("rv_rewinds_total")
+        logger.warning(
+            "rv rewind on the %s re-list (%s listed at rv %d < ingested rv "
+            "%d): the store was restored; re-listing every stream",
+            kind, name, listed, tracked,
+        )
+        self.resync_streams()
 
     def stop(self) -> None:
         self._running = False
@@ -827,56 +904,182 @@ class ClusterEngine:
         if dropped:
             logger.warning("%d patch jobs dropped during shutdown", dropped)
 
+    # a stream that lived this long before its 410 ends an expiry storm:
+    # the next 410 re-lists at once again
+    _STORM_STREAM_S = 5.0
+    # TooLargeResourceVersion answers to one resume before a re-list
+    _TOO_LARGE_TRIES = 3
+
     def _spawn_watch(self, kind: str, **sel) -> None:
-        """Watch-then-list, forever: register the watch FIRST, then list
-        and queue the snapshot plus a RESYNC marker — events in the
-        register/list gap are covered, and every re-watch after an error
-        resyncs (node_controller.go:121-143 ordering, made gap-proof)."""
+        """client-go's reflector for one kind, forever. Register the watch
+        first; when there is no revision to resume from, list and queue
+        the snapshot plus a RESYNC marker (events in the register/list gap
+        are covered); then stream. Every event's revision, bookmarks
+        included, becomes the resume revision, so a broken stream resumes
+        and the server replays the gap: no re-list. After a 410 the loop
+        re-lists: at once for a lone one, paced by its own backoff when
+        short-lived streams keep expiring. A resume ahead of the server
+        retries after its hint, ``_TOO_LARGE_TRIES`` times, then re-lists.
+        A 429 waits at least its Retry-After (``client_throttle_seconds``);
+        other failures back off under WATCH_RECONNECT, reset by a healthy
+        handshake. ``resync_streams`` forces the re-list."""
         opts = {k: v for k, v in sel.items() if v}
         # process lanes: the router ships each event's raw line to its
         # lane, and a re-list travels as the RESYNC snapshot alone (the
         # lane process applies its objects before the prune)
         proc = self._proc is not None
 
+        def stopping() -> bool:
+            return not self._running
+
         def loop():
-            delay = 0.0
+            resume_rv = 0
+            too_large = 0
+            backoff = WATCH_RECONNECT.session()
+            # the storm pacer has its own session: every 410 is followed
+            # by a healthy re-list handshake, which resets `backoff`, so
+            # a storm is judged by how long each stream lived instead
+            storm = WATCH_RECONNECT.session()
+            expiries = 0
+            stream_t0 = 0.0
+
+            def expired():
+                """Forget the compacted revision; re-list, paced when
+                short-lived streams keep expiring."""
+                nonlocal resume_rv, expiries
+                resume_rv = 0
+                self._expire_stream(kind)
+                if stream_t0 and time.monotonic() - stream_t0 >= self._STORM_STREAM_S:
+                    expiries = 0
+                    storm.reset()
+                expiries += 1
+                if expiries > 1:
+                    storm.sleep(storm.next_delay() or 0.0, stopping)
+
             while self._running:
                 try:
-                    w = self.client.watch(kind, **opts)
+                    with self._gen_lock:
+                        if kind in self._resync_req:
+                            self._resync_req.discard(kind)
+                            resume_rv = 0
+                    old = self._watches.get(kind)
+                    if old is not None:
+                        # a handle left open by a failure after its
+                        # handshake (a failed LIST) must not keep
+                        # collecting events server-side
+                        try:
+                            old.stop()
+                        except Exception:
+                            logger.debug("stale watch stop failed", exc_info=True)
+                    try:
+                        w = self.client.watch(
+                            kind, **opts, allow_bookmarks=True,
+                            **({"resource_version": resume_rv} if resume_rv else {}),
+                        )
+                    except WatchExpired:
+                        logger.warning("watch %s resume rv=%d expired; re-listing",
+                                       kind, resume_rv)
+                        expired()
+                        continue
+                    except TooLargeResourceVersion as e:
+                        # the server's revision is behind ours (it restarted):
+                        # retry the same revision after its hint, bounded
+                        too_large += 1
+                        if too_large >= self._TOO_LARGE_TRIES:
+                            logger.warning(
+                                "watch %s resume rv=%d still ahead of the server "
+                                "(current %d) after %d tries; re-listing",
+                                kind, resume_rv, e.current, too_large)
+                            resume_rv = 0
+                            too_large = 0
+                            continue
+                        wait = min(e.retry_after, 5.0)
+                        logger.warning(
+                            "watch %s resume rv=%d ahead of the server (current "
+                            "%d); retrying in %.1fs", kind, resume_rv, e.current, wait)
+                        backoff.sleep(wait, stopping)
+                        continue
+                    too_large = 0
                     self._watches[kind] = w
-                    objs = self.client.list(kind, **opts)
-                    self._inc("watch_relists_total")
-                    if not proc:
-                        for obj in objs:
-                            self._q.put((kind, ADDED, obj, time.monotonic()))
-                    self._q.put((kind, "RESYNC", objs, time.monotonic()))
-                    delay = 0.0
+                    if resume_rv:
+                        # a resync_streams that raced this handshake (its
+                        # request landed after the check above, its cut
+                        # before this install) must still re-list
+                        with self._gen_lock:
+                            forced = kind in self._resync_req
+                            self._resync_req.discard(kind)
+                        if forced:
+                            w.stop()
+                            resume_rv = 0
+                            continue
+                    backoff.reset()
+                    stream_t0 = time.monotonic()
+                    if not resume_rv:
+                        self._relist(kind, opts, proc)
                     events = w.events_with_raw() if proc else ((ev, None) for ev in w)
                     for ev, raw in events:
+                        rv = _rv_of(ev.object.get("metadata") or {})
+                        if rv:
+                            resume_rv = rv
                         if ev.type == BOOKMARK:
+                            self._inc("watch_bookmarks_total")
                             continue
-                        if ev.type == ERROR:
-                            logger.warning("watch %s error event: %.200r",
-                                           kind, ev.object)
-                            break
                         item = (kind, ev.type, ev.object, time.monotonic())
                         self._q.put(item if raw is None else item + (raw,))
+                    if getattr(w, "expired", False):
+                        logger.warning("watch %s stream expired (410); re-listing", kind)
+                        expired()
+                        continue
                     if not self._running:
                         return
+                except WatchExpired:
+                    expired()
+                except TooManyRequests as e:
+                    # a saturated apiserver: wait at least its hint, riding
+                    # the backoff so a persistent 429 reaches the ceiling
+                    if not self._running:
+                        return
+                    delay = max(backoff.next_delay() or 0.0, e.retry_after)
+                    self._inc("client_throttle_seconds_total", delay)
+                    logger.warning("watch %s throttled (429); retrying in %.2fs",
+                                   kind, delay)
+                    backoff.sleep(delay, stopping)
                 except Exception as e:  # re-watch with backoff
                     if not self._running:
                         return
-                    delay = min(max(2 * delay, 0.1), 5.0)
+                    delay = backoff.next_delay() or 0.0
                     logger.warning(
                         "watch %s failed: %s; retrying in %.2fs", kind, e, delay
                     )
-                    self._stop_evt.wait(delay)
+                    backoff.sleep(delay, stopping)
 
         t = threading.Thread(
             target=loop, name=f"kwok-watch-{kind}{self._worker_suffix}", daemon=True
         )
         t.start()
         self._threads.append(t)
+
+    def _relist(self, kind: str, opts: dict, proc: bool) -> None:
+        """One full LIST of ``kind`` onto the ingest queue: its objects as
+        ADDED events (under process lanes the RESYNC snapshot carries
+        them), then the RESYNC marker that prunes rows the list no longer
+        holds. An object listed below the revision already ingested for
+        it is a store rewind (_note_rv_rewind)."""
+        objs = self.client.list(kind, **opts)
+        self._inc("watch_relists_total")
+        rewind = None
+        for obj in objs:
+            if not proc:
+                self._q.put((kind, ADDED, obj, time.monotonic()))
+            if rewind is None:
+                meta = obj.get("metadata") or {}
+                rv = _rv_of(meta)
+                tracked = self._tracked_rv(kind, obj) if rv else 0
+                if tracked and rv < tracked:
+                    rewind = (meta.get("name"), rv, tracked)
+        self._q.put((kind, "RESYNC", objs, time.monotonic()))
+        if rewind is not None:
+            self._note_rv_rewind(kind, *rewind)
 
     # ---------------------------------------------------------------- ingest
 
@@ -885,9 +1088,13 @@ class ClusterEngine:
         self._apply(kind, type_, obj)
 
     def _apply(self, kind: str, type_: str, obj) -> None:
-        """Apply one watch event (or RESYNC snapshot) to the rows."""
+        """Apply one watch event (or RESYNC snapshot) to the rows. Every
+        topology applies events here (lanes and federation members
+        included), so the stale-revision guard sits here."""
         if type_ == "RESYNC":
             self._resync(kind, obj)
+            return
+        if type_ in (MODIFIED, DELETED) and self._stale_dict_event(kind, obj):
             return
         if kind == "nodes":
             if type_ == DELETED:
@@ -899,6 +1106,21 @@ class ClusterEngine:
                 self._pod_deleted(obj)
             else:
                 self._pod_upsert(obj)
+
+    def _stale_dict_event(self, kind: str, obj: dict) -> bool:
+        """True when this MODIFIED or DELETED event's revision is below
+        the row's last ingested one: a replay (a resumed stream, or an
+        event that raced the re-list snapshot), dropped and counted as
+        ``kwok_wire_rejects_total{reason="stale_rv"}``, with no resync.
+        A replayed DELETED would release a live row of an object deleted
+        and re-created since. ADDED is never guarded: the re-list after a
+        store restore delivers legitimately lower revisions."""
+        rv = _rv_of(obj.get("metadata") or {})
+        seen = self._tracked_rv(kind, obj) if rv else 0
+        if seen and rv < seen:
+            wire_reject("stale_rv")
+            return True
+        return False
 
     def _ingest_safe(self, kind, type_, obj) -> None:
         """One malformed event must not kill the tick thread."""
@@ -1481,34 +1703,46 @@ class ClusterEngine:
 
     @staticmethod
     def _transient(e: Exception) -> bool:
-        """Connection-shaped failures and 429s, worth retrying. HTTP status
-        errors are definitive answers, never retried."""
+        """Connection-shaped failures, worth retrying. HTTP status errors
+        are definitive answers, never retried."""
         import http.client
         import urllib.error
 
         if isinstance(e, urllib.error.HTTPError):
             return False
         return isinstance(
-            e, (ConnectionError, TimeoutError, OSError,
-                http.client.HTTPException, TooManyRequests)
+            e, (ConnectionError, TimeoutError, OSError, http.client.HTTPException)
         )
 
-    # retry schedule for transient patch failures (seconds)
-    _RETRY_DELAYS = (0.05, 0.1, 0.2, 0.4, 0.8, 1.6)
-
     def _safe(self, fn, *args) -> None:
-        """Executor job: run fn, retrying transient failures with backoff
-        so an apiserver blip does not silently eat a patch."""
-        for delay in (*self._RETRY_DELAYS, None):
+        """Executor job: run fn, retrying transport failures and 429s
+        under PATCH_RETRY until its 8 s deadline, so an apiserver restart
+        window does not eat a patch: a lost status patch has no
+        retrigger (the server never echoes the state the engine expects).
+        A 429 waits at least its Retry-After, counted in
+        ``client_throttle_seconds_total``."""
+        backoff = None
+        while True:
             try:
                 fn(*args)
                 return
             except Exception as e:
-                if delay is None or not (self._running and self._transient(e)):
+                throttled = isinstance(e, TooManyRequests)
+                if not (self._running and (throttled or self._transient(e))):
                     self._inc("patch_errors_total")
                     logger.exception("patch job failed")
                     return
-                self._stop_evt.wait(max(delay, getattr(e, "retry_after", 0.0)))
+                if backoff is None:
+                    backoff = PATCH_RETRY.session()
+                delay = backoff.next_delay()
+                if delay is None:  # past the policy's deadline
+                    self._inc("patch_errors_total")
+                    logger.error("patch job failed after retries: %s", e)
+                    return
+                if throttled:
+                    delay = max(delay, e.retry_after)
+                    self._inc("client_throttle_seconds_total", delay)
+                backoff.sleep(delay, lambda: not self._running)
 
     def _emit(self, kind, k, dirty, deleted, hb, now_str) -> None:
         if kind == "nodes":

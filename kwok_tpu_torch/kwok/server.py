@@ -32,6 +32,11 @@ _METRIC_HELP = {
     "watch_events_total": "Watch events ingested",
     "watch_bookmarks_total": "BOOKMARK events consumed (rv advanced, no ingest)",
     "watch_relists_total": "Full re-lists performed by the watch loops",
+    "rv_rewinds_total": "Re-lists that found an object below its ingested "
+    "resourceVersion (a store restore); each re-lists every stream",
+    "client_throttle_seconds_total": "Cumulative seconds this engine slept "
+    "honoring apiserver 429 Retry-After hints (watch/list reconnects and "
+    "patch-executor retries)",
     "ingest_drain_seconds_sum": "Tick-thread seconds applying ingested events",
     "ingest_parse_seconds_sum": "Seconds in the batched C++ line parser (subset of drain)",
     "pump_send_seconds_sum": "Executor seconds inside native pump batches",

@@ -5,7 +5,8 @@ on the port's registry).
 ``RetryPolicy`` is client-go's wait.Backoff with full jitter: attempt
 ``n`` sleeps ``uniform(0, min(cap, base * factor**n))``, optionally
 bounded by a wall-clock deadline. The watchdog paces its restarts with
-it.
+it, the engine's watch loop its reconnects (``WATCH_RECONNECT``) and its
+patch executor its retries (``PATCH_RETRY``).
 
 Named reasons (``lane2_queue``, ``checkpoint``, ``worker_restart_budget``)
 raise the ``kwok_degraded{reason=}`` gauge on the engine's registry and
@@ -72,6 +73,28 @@ class Backoff:
         if p.jitter:
             return p._rng.uniform(0, ceiling)
         return ceiling
+
+    def sleep(self, delay: float, should_stop=None) -> None:
+        """Sleep ``delay`` seconds in short slices so a stopping engine
+        is never blocked behind a full backoff window."""
+        deadline = time.monotonic() + delay
+        while True:
+            if should_stop is not None and should_stop():
+                return
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return
+            time.sleep(min(remaining, 0.1))
+
+
+# The watch loop's reconnect: the first retry well under a second (a
+# one-off stream hiccup must not idle ingest), converging to a 5 s ceiling
+# under a persistent outage.
+WATCH_RECONNECT = RetryPolicy(base=0.2, cap=5.0)
+
+# Patch-job transport retries on the executor (connection-shaped errors
+# and 429s): enough attempts to ride out an apiserver restart window.
+PATCH_RETRY = RetryPolicy(base=0.1, cap=1.0, deadline=8.0)
 
 _DEGRADED_HELP = (
     "Degraded-mode reasons currently active (1 = degraded): queue "

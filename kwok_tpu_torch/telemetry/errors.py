@@ -89,6 +89,11 @@ def wire_reject(reason: str, n: int = 1) -> None:
     _wire_rejects.labels(reason=reason).inc(n)
 
 
+def wire_rejects_total(reason: str) -> float:
+    """kwok_wire_rejects_total{reason=} so far in this process."""
+    return _wire_rejects.labels(reason=reason).value
+
+
 def render_nonempty() -> str:
     """Exposition text of the process registry, or "" when no counter has
     moved yet (labeled families with no children render no series)."""

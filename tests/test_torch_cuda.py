@@ -181,6 +181,49 @@ def test_threaded_engine_on_card(card):
     assert cuda_tick.tick_steps.launches > before
 
 
+def test_engine_resumes_on_card_through_cut_and_compaction(card):
+    """The engine on the card against the port's FakeKube: a cut pods
+    stream resumes (no re-list); after a compaction the next cut re-lists
+    pods once. Every pod reaches Running and the kernel launches."""
+    server = FakeKube()
+    eng = ClusterEngine(server, EngineConfig(manage_all_nodes=True, tick_interval=0.02))
+    before = cuda_tick.tick_steps.launches
+
+    def create_and_wait(first, n):
+        for i in range(first, first + n):
+            server.create("pods", {
+                "metadata": {"name": f"p{i}", "namespace": "default"},
+                "spec": {"nodeName": f"n{i % 10}"}, "status": {"phase": "Pending"},
+            })
+        deadline = time.time() + 60
+        while time.time() < deadline and server.count(
+            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running"
+        ) < first + n:
+            time.sleep(0.05)
+        assert server.count(
+            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running") == first + n
+
+    eng.start()
+    try:
+        for i in range(10):
+            server.create("nodes", {"metadata": {"name": f"n{i}"}})
+        create_and_wait(0, 100)
+        relists = eng.metrics["watch_relists_total"]
+        eng._watches["pods"].stop()
+        create_and_wait(100, 100)
+        assert eng.metrics["watch_relists_total"] == relists
+        # a write the pods stream never sees, then a compaction: the
+        # pods resume is below the floor
+        server.patch_meta("nodes", None, "n0", {"metadata": {"labels": {"a": "b"}}})
+        server.compact()
+        eng._watches["pods"].stop()
+        create_and_wait(200, 100)
+        assert eng.metrics["watch_relists_total"] == relists + 1
+    finally:
+        eng.stop()
+    assert cuda_tick.tick_steps.launches > before
+
+
 def test_stacked_lanes_with_regrow_on_card(card):
     """A stacked state of 4 lanes with ragged occupancy (full, half, one
     row, empty), regrown on the card: the regrow equals the CPU one, the

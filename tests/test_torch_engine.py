@@ -11,16 +11,23 @@ engine end to end against the port's own FakeKube.
 
 from __future__ import annotations
 
+import threading
 import time
 
 import pytest
 
+from kwok_tpu.edge.kubeclient import TooManyRequests as JaxTooManyRequests
 from kwok_tpu.engine import ClusterEngine as JaxEngine
 from kwok_tpu.engine import EngineConfig as JaxConfig
+from kwok_tpu.telemetry.errors import wire_rejects_total as jax_rejects
+from kwok_tpu_torch.edge.kubeclient import TooManyRequests
 from kwok_tpu_torch.edge.mockserver import FakeKube as PortFakeKube
 from kwok_tpu_torch.engine import ClusterEngine as TorchEngine
 from kwok_tpu_torch.engine import EngineConfig as TorchConfig
+from kwok_tpu_torch.engine.rowpool import shard_of
+from kwok_tpu_torch.telemetry.errors import wire_rejects_total as port_rejects
 from tests.fake_apiserver import FakeKube
+from tests.test_lanes import _pump
 
 
 def make_node(name, annotations=None, labels=None, status=None):
@@ -249,6 +256,132 @@ def test_port_engine_matches_jax_engine(name):
     ref = snapshot(*SCENARIOS[name]("jax"))
     got = snapshot(*SCENARIOS[name]("torch"))
     assert got == ref
+
+
+# ----------------------------------------------- faults found against the JAX engine
+
+
+def pod_row(eng, key):
+    """(rv, labels) of a pod's row (the owning lane's under lanes), or
+    None when the pod has no row."""
+    e = eng
+    if eng._lanes is not None:
+        e = eng._lanes.lanes[shard_of(key, eng._lanes.n)].engine
+    idx = e.pods.pool.lookup(key)
+    if idx is None:
+        return None
+    m = e.pods.pool.meta[idx]
+    return m["rv"], ((m.get("obj") or {}).get("metadata") or {}).get("labels")
+
+
+def stale_replay(lib, shards):
+    """ADDED p0 at rv 10, then a MODIFIED at rv 5 and a DELETED at rv 6
+    (a replay older than the row): p0's row and the stale_rv count."""
+    rejects = jax_rejects if lib == "jax" else port_rejects
+    eng = sync_engine(lib, FakeKube(), manage_all_nodes=True, drain_shards=shards)
+    before = rejects("stale_rv")
+    for type_, rv, labels in (("ADDED", 10, {}), ("MODIFIED", 5, {"old": "world"}),
+                              ("DELETED", 6, {})):
+        pod = make_pod("p0")
+        pod["metadata"].update(resourceVersion=str(rv), labels=labels)
+        eng._q.put(("pods", type_, pod))
+    _pump(eng, 1)
+    return pod_row(eng, ("default", "p0")), rejects("stale_rv") - before
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_stale_events_are_dropped_as_in_jax(shards):
+    """A MODIFIED or DELETED below the row's last ingested revision is
+    dropped and counted (kwok_wire_rejects_total{reason="stale_rv"}),
+    directly and through 2 threaded lanes."""
+    ref = stale_replay("jax", shards)
+    assert ref == ((10, {}), 2)
+    assert stale_replay("torch", shards) == ref
+
+
+def test_patch_retries_ride_out_a_5s_outage():
+    """A patch whose apiserver is down for 5 s is retried until it lands
+    (PATCH_RETRY's 8 s deadline), in both packages at once."""
+    got = {}
+
+    def run(lib):
+        eng = sync_engine(lib, FakeKube(), manage_all_nodes=True)
+        eng._running = True
+        t0 = time.monotonic()
+        calls = []
+
+        def patch():
+            calls.append(time.monotonic() - t0)
+            if calls[-1] < 5.0:
+                raise ConnectionRefusedError("apiserver down")
+
+        eng._safe(patch)
+        got[lib] = (eng.metrics["patch_errors_total"], calls[-1] >= 5.0)
+
+    threads = [threading.Thread(target=run, args=(lib,)) for lib in ("jax", "torch")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(15)
+    assert got["jax"] == (0, True)
+    assert got["torch"] == got["jax"]
+
+
+class ThrottledLists:
+    """A FakeKube pass-through whose LISTs answer 429 (Retry-After 1 s)
+    for ``seconds`` from the first; records each LIST's kind and time."""
+
+    def __init__(self, store, too_many, seconds=3.0):
+        self._store = store
+        self._too_many = too_many
+        self._t0 = None
+        self._seconds = seconds
+        self.lists = []
+
+    def list(self, kind, **kw):
+        t = time.monotonic()
+        self.lists.append((kind, t))
+        if self._t0 is None:
+            self._t0 = t
+        if t - self._t0 < self._seconds:
+            raise self._too_many("Too many requests", retry_after=1.0)
+        return self._store.list(kind, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+
+def throttled_relists(lib):
+    """The watch loops against 429-answering LISTs: the seconds between
+    each kind's LISTs and the throttle seconds the engine counted."""
+    too_many = JaxTooManyRequests if lib == "jax" else TooManyRequests
+    client = ThrottledLists(FakeKube(), too_many)
+    eng = (JaxEngine(client, JaxConfig(manage_all_nodes=True)) if lib == "jax"
+           else TorchEngine(client, TorchConfig(manage_all_nodes=True, device="cpu")))
+    eng.start()
+    try:
+        deadline = time.time() + 10
+        while time.time() < deadline and not eng.ready:
+            time.sleep(0.02)
+        assert eng.ready
+    finally:
+        eng.stop()
+    gaps = []
+    for kind in ("nodes", "pods"):
+        ts_ = [t for k, t in client.lists if k == kind]
+        gaps += [b - a for a, b in zip(ts_, ts_[1:])]
+    throttle = (eng.telemetry.client_throttle_seconds if lib == "jax"
+                else eng.metrics["client_throttle_seconds_total"])
+    return gaps, throttle
+
+
+def test_watch_loop_honours_retry_after_as_jax():
+    """A 429 on the LIST sleeps at least its Retry-After (1 s) and counts
+    the sleep in kwok_client_throttle_seconds_total."""
+    for lib in ("jax", "torch"):
+        gaps, throttle = throttled_relists(lib)
+        assert len(gaps) >= 4 and min(gaps) >= 1.0, (lib, gaps)
+        assert throttle >= 2.0, (lib, throttle)
 
 
 def test_threaded_engine_end_to_end_on_port_fakekube():
