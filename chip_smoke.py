@@ -6,7 +6,8 @@ Phases (each raises on failure; the script exits non-zero and prints no
 result line then):
 
 1. Card and build: the card's name and power limit as nvidia-smi reports
-   them, then nvcc builds kwok_tpu_torch/csrc/tick.cu from the checkout
+   them, then g++ builds the native ingest library (kwok_tpu_torch/native)
+   while nvcc builds kwok_tpu_torch/csrc/tick.cu from the checkout
    (build time and the ptxas report are printed).
 2. Kernel: the tick kernel against its plain torch version on the card at
    1,048,576 pod rows + 10,240 node rows, for the constant default rule
@@ -58,6 +59,20 @@ result line then):
    stacked capacities with the Stage rule tables, over two dispatches
    that re-arm half the pod rows through the weighted uniform draw and
    fire them.
+   Every HTTP phase (6, 6b, 7, 8, 9) runs the native ingest
+   (kwok_tpu_torch/native, built with g++ at first use) and fails unless
+   it did: under lanes the events the router partitioned natively
+   (kwok_route_partition_events_total, summed over the shards) must be
+   > 0 and within the phase's kwok_watch_events_total (times the lane
+   count for process lanes, whose node windows go to every lane); in a
+   federation the batched parses (kwok_tick_stage_seconds{stage="parse"})
+   must be > 0. Each reports the kwok process's CPU seconds per 1,000
+   pods over its create->Running window.
+6b. Ingest A/B: the CLI phase's path again, in the same call, under
+   KWOK_TPU_NATIVE=0 (json.loads per event, Python routing): the same
+   checks but a partitioned count of exactly 0; printed beside the CLI
+   phase: create->Running pods/s, the kwok and mock CPU seconds over the
+   window and the lanes' drain seconds.
 7. Process lanes: the same topology, Stage file and mock through main
    with --lane-procs true (auto lane count) and checkpoints every 1 s:
    one spawned lane process per lane, each running its own single-lane
@@ -1050,7 +1065,38 @@ def lane_seconds(m: dict, n_lanes: int) -> dict:
     return lane_s
 
 
-def cli_phase():
+def native_ingest(m: dict, events: float, lanes: int = 0, procs: bool = False,
+                  off: bool = False) -> dict:
+    """The native ingest's share of an HTTP phase from its final
+    /metrics: the events the router partitioned natively (summed over
+    the shards) and the batched parses. Raises when the phase did not run
+    the path it should: under lanes the partitioned events must be > 0
+    and within the phase's ``events`` (times the lane count for process
+    lanes, whose node windows go to every lane), else the parses > 0;
+    with ``off`` (KWOK_TPU_NATIVE=0) the partitioned count must be 0."""
+    routed = summed(m, "kwok_route_partition_events_total")
+    parses = m.get('kwok_tick_stage_seconds_count{stage="parse"}', 0.0)
+    out = {"partitioned_events": routed, "parses": parses, "watch_events": events,
+           "parse_s": m.get('kwok_tick_stage_seconds_sum{stage="parse"}', 0.0),
+           "route_batch_s": m.get("kwok_route_batch_seconds_sum", 0.0)}
+    if off:
+        if routed:
+            raise AssertionError(f"KWOK_TPU_NATIVE=0 still partitioned {routed} events")
+    elif lanes:
+        cap = events * (lanes if procs else 1)
+        if not 0 < routed <= cap:
+            raise AssertionError(f"native routing: {routed} partitioned events for "
+                                 f"{events} watch events: the native path did not run")
+    elif parses <= 0:
+        raise AssertionError("no batched native parse: the native path did not run")
+    return out
+
+
+def per_1000(cpu_s: float, pods: int) -> float:
+    return cpu_s * 1000.0 / pods
+
+
+def cli_phase(native_off: bool = False):
     import torch
 
     from kwok_tpu_torch.config.types import resolve_drain_shards
@@ -1058,11 +1104,18 @@ def cli_phase():
 
     n_lanes = resolve_drain_shards(0, 0)
     cuda_tick.tick_steps.launches = 0
-    run = start_cli([])
+    if native_off:
+        os.environ["KWOK_TPU_NATIVE"] = "0"
+    try:
+        run = start_cli([])
+    finally:
+        os.environ.pop("KWOK_TPU_NATIVE", None)
     try:
         eng = run["engine"]
         if eng._lanes is None or eng._lanes.n != n_lanes:
             raise AssertionError(f"the CLI's default --drain-shards did not run {n_lanes} lanes")
+        if (eng._batch_parser is None) != native_off:
+            raise AssertionError(f"native parser {eng._batch_parser} with native_off={native_off}")
         load = drive_pods(run)
         pods = load["client"].list("pods")
         m = scrape(run)
@@ -1080,9 +1133,13 @@ def cli_phase():
     log(f"kernel at the CLI engine's capacities {caps} with the Stage rules: checked; "
         f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     m_run, m0 = load["m_run"], load["m0"]
+    native = native_ingest(m, m["kwok_watch_events_total"], lanes=n_lanes, off=native_off)
     return {
         "lanes": n_lanes, "lane_drain_s": lane_s["drain"], "lane_emit_s": lane_s["emit"],
         "lane_pods": [len(ln.engine.pods.pool) for ln in eng._lanes.lanes],
+        "native": native, "native_off": native_off,
+        "kwok_cpu_s_per_1000_pods": per_1000(load["report"]["window_kwok_process_cpu_s"],
+                                             load["report"]["pods"]),
         **load["report"],
         "readyz_503_polls": run["readyz"].count(503),
         "status_patches": m["kwok_status_patches_total"],
@@ -1245,8 +1302,11 @@ def watch_phase(cli_run):
     log(f"kernel at the watch phase's capacities {caps} with the Stage rules: checked; "
         f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     resume = sorted(s for s, _ in cuts["pods"] + cuts["nodes"])
+    native = native_ingest(m, m["kwok_watch_events_total"], lanes=n_lanes)
     return {
-        "lanes": n_lanes, **load["report"],
+        "lanes": n_lanes, **load["report"], "native": native,
+        "kwok_cpu_s_per_1000_pods": per_1000(load["report"]["window_kwok_process_cpu_s"],
+                                             WATCH_PODS),
         "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
         "readyz_503_polls": run["readyz"].count(503), "main_to_ready_s": run["main_to_ready_s"],
         "cuts": len(resume), "cuts_during_flood": sum(f for _, f in cuts["pods"] + cuts["nodes"]),
@@ -1413,6 +1473,9 @@ def procs_phase(cli_run):
     if launches <= 0:
         raise AssertionError("the lane processes ran without launching the tick kernel")
     check_final_pods(pods, m)
+    native = native_ingest(m, m["kwok_watch_events_total"], lanes=n_lanes, procs=True)
+    if native["parses"] <= 0:
+        raise AssertionError("the lane processes parsed no routed window natively")
     # the kernel at a lane's starting capacity (ProcLaneSet.capacity) and
     # at the capacities lane 0 grew to, with the Stage rule tables
     start_caps, start_ms, _, _ = engine_shape_check(
@@ -1429,7 +1492,11 @@ def procs_phase(cli_run):
         "lane_pods": [s["pods"] for s in before_kill],
         "lane_launches": [s["launches"] for s in final],
         "lane_drain_s": lane_s["drain"], "lane_emit_s": lane_s["emit"],
-        **load["report"],
+        **load["report"], "native": native,
+        "kwok_cpu_s_per_1000_pods": per_1000(load["report"]["window_kwok_process_cpu_s"],
+                                             CLI_PODS),
+        "lanes_cpu_s_per_1000_pods": per_1000(sum(load["cpu_s"][pid] for pid in pids),
+                                              CLI_PODS),
         "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
         "cli_phase_status_patches_per_s": cli_run["status_patches_per_s"],
         "readyz_503_polls": run["readyz"].count(503), "main_to_ready_s": run["main_to_ready_s"],
@@ -1596,7 +1663,10 @@ def fed_phase(cli_run):
     t_created = max(span[1] for _p, span in creators)
     window = t_patched - t_pods
     total = n * FED_PODS
+    native = native_ingest(m, summed(m, "kwok_watch_events_total"))
+    kwok_cpu = m_run["process_cpu_seconds_total"] - m0["process_cpu_seconds_total"]
     return {
+        "native": native, "kwok_cpu_s_per_1000_pods": per_1000(kwok_cpu, total),
         "members": n, "nodes": n * FED_NODES, "pods": total, "deleted": FED_DELETES,
         "connections_per_member": FED_CONNS, "groups": groups,
         "pod_capacities_start": caps_start,
@@ -1637,12 +1707,28 @@ def main() -> int:
 
     from kwok_tpu_torch.ops import cuda_tick
 
+    from kwok_tpu_torch import native
+
     print(card_line(), flush=True)
+    # g++ (the native ingest library) and nvcc (the tick kernel) at once
     t0 = time.perf_counter()
+    native_build: dict = {}
+
+    def build_native():
+        native_build["lib"] = native.load()
+        native_build["s"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build_native, name="g++")
+    builder.start()
     cuda_tick.tick_steps.library()
     build_s = time.perf_counter() - t0
+    builder.join()
     print(f"build: nvcc {cuda_tick.NVCC_FLAGS[1]} tick.cu in {build_s:.2f} s", flush=True)
     log(cuda_tick.tick_steps.build_log)
+    if native_build.get("lib") is None:
+        raise AssertionError("the native ingest library did not build (see the WARNING above)")
+    print(f"build: g++ {' '.join(native.CXX_FLAGS)} native ingest in {native_build['s']:.2f} s",
+          flush=True)
 
     configs, max_abs_err = kernel_phase(torch, np)
     for c in configs:
@@ -1659,6 +1745,8 @@ def main() -> int:
     print(json.dumps({"restart": restart}), flush=True)
     cli_run = cli_phase()
     print(json.dumps({"cli": cli_run}), flush=True)
+    ab_off = cli_phase(native_off=True)
+    print(json.dumps({"ingest_ab_off": ab_off}), flush=True)
     watch = watch_phase(cli_run)
     print(json.dumps({"watch": watch}), flush=True)
     procs = procs_phase(cli_run)
@@ -1677,24 +1765,36 @@ def main() -> int:
     print(f"cli ({n_lanes} lanes): {cli_run['create_to_running_pods_per_s']:.1f} pods/s create->Running, "
           f"{cli_run['status_patches_per_s']:.1f} status patches/s, "
           f"tick thread {cli_run['tick_thread_s']:.2f} s, kernel "
-          f"{cli_run['kernel_ms_at_capacities']:.4f} ms at {cli_run['capacities']} ({card})",
+          f"{cli_run['kernel_ms_at_capacities']:.4f} ms at {cli_run['capacities']}, "
+          f"kwok CPU {cli_run['kwok_cpu_s_per_1000_pods']:.2f} s per 1,000 pods, "
+          f"{cli_run['native']['partitioned_events']:.0f} events partitioned natively ({card})",
           flush=True)
+    for arm, r in (("native", cli_run), ("KWOK_TPU_NATIVE=0", ab_off)):
+        print(f"ingest A/B, {arm}: {r['create_to_running_pods_per_s']:.1f} pods/s "
+              f"create->Running ({r['pods']} pods), kwok CPU {r['window_kwok_process_cpu_s']:.2f} s "
+              f"({r['kwok_cpu_s_per_1000_pods']:.2f} per 1,000 pods), mock CPU "
+              f"{r['window_mock_cpu_s']:.2f} s, lanes' drain {sum(r['lane_drain_s']):.2f} s, "
+              f"partitioned {r['native']['partitioned_events']:.0f} ({card})", flush=True)
     print(f"watch ({n_lanes} lanes): {watch['create_to_running_pods_per_s']:.1f} pods/s "
           f"create->Running, {watch['cuts']} cuts ({watch['cuts_during_flood']} during the flood), "
           f"resume_s median {watch['resume_s_median']:.4f} max {watch['resume_s_max']:.4f}, "
           f"relist_s {watch['relist_s']:.3f}, re-lists {watch['relists_after_start']}, "
           f"bookmarks {watch['bookmarks']:.0f}, stale_rv {watch['stale_rv_rejects']:.0f}, "
-          f"throttle {watch['client_throttle_seconds']:.1f} s ({card})", flush=True)
+          f"throttle {watch['client_throttle_seconds']:.1f} s, kwok CPU "
+          f"{watch['kwok_cpu_s_per_1000_pods']:.2f} s per 1,000 pods ({card})", flush=True)
     print(f"procs ({n_lanes} lane processes): {procs['create_to_running_pods_per_s']:.1f} pods/s "
           f"create->Running, {procs['status_patches_per_s']:.1f} status patches/s, respawn "
           f"{procs['respawn_s']:.2f} s, {procs['kernel_launches']} lane launches, kernel "
-          f"{procs['kernel_ms_at_capacities']:.4f} ms at {procs['capacities']} ({card})",
+          f"{procs['kernel_ms_at_capacities']:.4f} ms at {procs['capacities']}, kwok CPU "
+          f"{procs['kwok_cpu_s_per_1000_pods']:.2f} s and lanes' CPU "
+          f"{procs['lanes_cpu_s_per_1000_pods']:.2f} s per 1,000 pods ({card})",
           flush=True)
 
     print(f"federation ({FED_MEMBERS} members, {len(fed['groups'])} groups): "
           f"{fed['create_to_running_pods_per_s']:.1f} pods/s create->Running, "
           f"{fed['status_patches_per_s']:.1f} status patches/s, ready "
-          f"{fed['main_to_ready_s']:.2f} s, kwok CPU {fed['window_kwok_process_cpu_s']:.1f} s, "
+          f"{fed['main_to_ready_s']:.2f} s, kwok CPU {fed['window_kwok_process_cpu_s']:.1f} s "
+          f"({fed['kwok_cpu_s_per_1000_pods']:.2f} per 1,000 pods), "
           f"mocks CPU {fed['window_mocks_cpu_s']:.1f} s, "
           + ", ".join(f"group {g['members']}: {g['dispatches']} dispatches at {g['capacities']}, "
                       f"kernel {g['kernel_ms_at_capacities']:.4f} ms" for g in fed["groups"])
@@ -1708,6 +1808,7 @@ def main() -> int:
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
         "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
                      + restart["kernel_launches"] + cli_run["kernel_launches"]
+                     + ab_off["kernel_launches"]
                      + watch["kernel_launches"] + procs["kernel_launches"]
                      + fed["kernel_launches"]),
         "max_abs_err": max_abs_err,
@@ -1721,7 +1822,7 @@ def main() -> int:
         "launches_by_phase": {
             "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
             "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
-            "watch": watch["kernel_launches"],
+            "ingest_ab_off": ab_off["kernel_launches"], "watch": watch["kernel_launches"],
             "procs": procs["kernel_launches"], "federation": fed["kernel_launches"],
         },
         "watch_capacities": watch["capacities"],

@@ -460,13 +460,6 @@ class _HttpWatch:
             raise
 
     def __iter__(self) -> Iterator[WatchEvent]:
-        for ev, _line in self.events_with_raw():
-            yield ev
-
-    def events_with_raw(self) -> Iterator[tuple[WatchEvent, bytes]]:
-        """Each event together with its undecoded JSON line: the
-        process-lane parent routes by the decoded key and ships the line
-        itself to the lane process."""
         try:
             for raw in self._resp:
                 if self._stopped.is_set():
@@ -494,7 +487,7 @@ class _HttpWatch:
                 if type_ in ("ADDED", "MODIFIED", "DELETED", "BOOKMARK"):
                     # BOOKMARK objects carry only metadata.resourceVersion;
                     # callers advance their resume revision and move on
-                    yield WatchEvent(type_, doc.get("object") or {}), line
+                    yield WatchEvent(type_, doc.get("object") or {})
                 elif type_ == "ERROR":
                     obj = doc.get("object") or {}
                     if obj.get("code") == 410:
@@ -509,8 +502,8 @@ class _HttpWatch:
                 swallowed("httpclient.watch_close")
 
     def raw_lines(self) -> Iterator[bytes]:
-        """Undecoded event lines, for a caller that parses them itself
-        instead of json.loads per event."""
+        """Undecoded event lines: the engine parses them in batches with
+        the native parser instead of json.loads per event."""
         try:
             for raw in self._resp:
                 if self._stopped.is_set():
@@ -523,6 +516,47 @@ class _HttpWatch:
                 self._resp.close()
             except Exception:
                 swallowed("httpclient.watch_close")
+
+    def native_reader(self):
+        """Hand the stream to the native batched line reader
+        (``kwok_tpu_torch.native.WatchReader``) after the Python HTTP
+        handshake: plain-HTTP responses on a real socket only. Returns the
+        reader, or None (TLS, ``KWOK_TPU_NATIVE_WATCH=0``, no native
+        library): the caller then reads ``raw_lines()``. Bytes
+        ``http.client`` already read ahead are drained from its buffer
+        without blocking and handed over, so the reader starts exactly
+        where the handshake left off. ``stop()`` still ends a native read:
+        its socket shutdown is the reader's end of stream."""
+        if os.environ.get("KWOK_TPU_NATIVE_WATCH", "1") == "0":
+            return None
+        from kwok_tpu_torch import native
+
+        if not native.available():
+            return None
+        resp = self._resp
+        try:
+            fp = resp.fp
+            sock = fp.raw._sock  # http.client internals (as in stop())
+            if not isinstance(sock, socket.socket) or isinstance(sock, ssl.SSLSocket):
+                return None  # TLS bytes are not readable off the raw fd
+            chunked = bool(getattr(resp, "chunked", False))
+            sock.setblocking(False)
+            buffered = b""
+            try:
+                while True:
+                    try:
+                        part = fp.read1(1 << 20)
+                    except (BlockingIOError, ssl.SSLWantReadError):
+                        break
+                    if not part:
+                        break
+                    buffered += part
+            finally:
+                sock.setblocking(True)
+            return native.WatchReader(sock.fileno(), buffered, chunked)
+        except Exception:
+            logger.debug("native watch reader unavailable", exc_info=True)
+            return None
 
     def stop(self) -> None:
         self._stopped.set()

@@ -13,6 +13,13 @@ The engine of ``kwok_tpu.engine.engine`` on PyTorch. With one lane:
   included) and re-lists only after a 410 or when asked to
   (``resync_streams``). Replayed MODIFIED/DELETED events older than a
   row's last ingested revision are dropped (``_stale_dict_event``).
+- Over HTTP the watch threads queue undecoded lines: packed batches
+  from the native socket reader (``RAWB``) or single lines (``RAW``),
+  plus one ``GEN`` marker per stream. The tick thread parses a whole
+  drain in ONE C call (``kwok_tpu_torch/native``); echoes of rows already
+  processed drop by fingerprint, stale revisions drop by rv, and new
+  Pending pods stage as one columnar block (``_pod_ingest_cols``). The
+  resume revision is then the tick thread's ``_watch_rv``.
 - The tick thread is the ONLY mutator of engine state: it drains the
   ingest queue into staged row writes, flushes them to the device, runs
   the fused tick (``ops/tick.MultiTickKernel``: the CUDA tick kernel per
@@ -44,16 +51,17 @@ slice of a stacked state that the federation's loop ticks.
 
 Names and logic of the ingest, tick and emit methods follow the JAX
 package's engine so each has its counterpart there. The mesh, HA,
-anti-entropy, fault injection, the native codec/pump/ingest, CNI, the
+anti-entropy, fault injection, the native emit and pump, CNI, the
 profiler and the span tracer are not part of this engine; ``metrics`` is
-a plain counters dict, and the lane and degraded-mode families live on
-``registry``.
+a plain counters dict, and the labeled families (stage seconds, lanes,
+degraded mode) live on ``registry``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import logging
 import os
 import queue
@@ -89,6 +97,7 @@ from kwok_tpu_torch.edge.render import (
     rfc3339,
 )
 from kwok_tpu_torch.edge.selectors import parse_selector
+from kwok_tpu_torch import native
 from kwok_tpu_torch.engine.rowpool import RowPool, shard_of
 from kwok_tpu_torch.models import (
     compile_rules,
@@ -126,6 +135,7 @@ from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
 from kwok_tpu_torch.resilience.policy import PATCH_RETRY, WATCH_RECONNECT, Degradation
 from kwok_tpu_torch.resilience.watchdog import Watchdog
 from kwok_tpu_torch.telemetry.errors import wire_reject
+from kwok_tpu_torch.telemetry.lanes import _HELP as _STAGE_HELP
 from kwok_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger("kwok_tpu_torch.engine")
@@ -451,6 +461,30 @@ class ClusterEngine:
         # monotonic stamp of the last rewind-triggered resync: bounds the
         # re-list rate of a store that keeps rewinding (_note_rv_rewind)
         self._rv_rewind_at = 0.0
+        # the native ingest edge (kwok_tpu_torch/native): the draining
+        # thread's batch parser; None under KWOK_TPU_NATIVE=0 or when the
+        # library cannot be built (the loader logs that at WARNING). With
+        # it, HTTP watch streams queue undecoded lines and the drain
+        # parses them (_drain_apply)
+        self._batch_parser = None
+        if native.enabled() and native.available():
+            self._batch_parser = native.EventParser()
+        # pre-partitioned routing: the same C call computes each event's
+        # lane and the per-lane index runs; KWOK_TPU_NATIVE_ROUTE=0 keeps
+        # the per-record Python route (the ordering oracle's other arm)
+        self._native_route = os.environ.get("KWOK_TPU_NATIVE_ROUTE", "1") != "0"
+        # the RAW paths' resume revision per kind (written by the draining
+        # thread as it parses, read by the watch loop on reconnect) and the
+        # stream generation the buffered lines belong to (mirrored from
+        # the GEN markers as they drain); both under _gen_lock
+        self._watch_rv: dict[str, int] = {}
+        self._drain_gen: dict[str, int] = {}
+        # the record path cannot evaluate disregard selectors: they match
+        # labels and annotations a record does not carry
+        self._record_needs_full_path = (
+            self._disregard_annotation is not None
+            or self._disregard_label is not None
+        )
         # the threaded lanes (engine/lanes.py) or the process lanes
         # (engine/proclanes.py); lane engines are built with
         # drain_shards=1, so neither recurses
@@ -817,8 +851,12 @@ class ClusterEngine:
 
     def _expire_stream(self, kind: str) -> None:
         """The kind's resume revision is dead (a 410, or a forced
-        re-list): bump its stream generation."""
+        re-list): drop the RAW paths' revision and bump the stream
+        generation in one step, so a flush committing its batch revision
+        concurrently either lands first (and is dropped here) or sees the
+        new generation (and does not commit)."""
         with self._gen_lock:
+            self._watch_rv.pop(kind, None)
             self._stream_gen[kind] = self._stream_gen.get(kind, 0) + 1
 
     def _tracked_rv(self, kind: str, obj: dict) -> int:
@@ -922,12 +960,20 @@ class ClusterEngine:
         retries after its hint, ``_TOO_LARGE_TRIES`` times, then re-lists.
         A 429 waits at least its Retry-After (``client_throttle_seconds``);
         other failures back off under WATCH_RECONNECT, reset by a healthy
-        handshake. ``resync_streams`` forces the re-list."""
+        handshake. ``resync_streams`` forces the re-list.
+
+        With the native parser, a stream that offers it is handed to the
+        native socket reader (``RAWB`` batches) or read as raw lines
+        (``RAW``), after one ``GEN`` marker; the draining thread parses
+        them and keeps ``_watch_rv``, which is then the resume revision.
+        A client without raw lines (the in-process FakeKube) keeps the
+        decoded-event loop."""
         opts = {k: v for k, v in sel.items() if v}
-        # process lanes: the router ships each event's raw line to its
-        # lane, and a re-list travels as the RESYNC snapshot alone (the
-        # lane process applies its objects before the prune)
+        # process lanes: a re-list travels as the RESYNC snapshot alone
+        # (the lane process applies its objects before the prune); the
+        # router parses the raw lines and ships each lane its own
         proc = self._proc is not None
+        parser = self._batch_parser
 
         def stopping() -> bool:
             return not self._running
@@ -1016,17 +1062,50 @@ class ClusterEngine:
                     stream_t0 = time.monotonic()
                     if not resume_rv:
                         self._relist(kind, opts, proc)
-                    events = w.events_with_raw() if proc else ((ev, None) for ev in w)
-                    for ev, raw in events:
-                        rv = _rv_of(ev.object.get("metadata") or {})
-                        if rv:
-                            resume_rv = rv
-                        if ev.type == BOOKMARK:
-                            self._inc("watch_bookmarks_total")
-                            continue
-                        item = (kind, ev.type, ev.object, time.monotonic())
-                        self._q.put(item if raw is None else item + (raw,))
-                    if getattr(w, "expired", False):
+                    reader = None
+                    if parser is not None:
+                        make_reader = getattr(w, "native_reader", None)
+                        if callable(make_reader):
+                            reader = make_reader()
+                    raw_iter = getattr(w, "raw_lines", None)
+                    if reader is not None:
+                        # the native reader de-chunks the socket and hands
+                        # back packed line batches: one queue item per
+                        # batch, no per-line Python object. The draining
+                        # thread parses them and keeps _watch_rv
+                        gone = self._stream_raw(kind, reader)
+                        resume_rv = self._watch_rv.get(kind, 0)
+                    elif parser is not None and callable(raw_iter):
+                        # undecoded lines, parsed in batches by the
+                        # draining thread; an ERROR line is told by its
+                        # prefix (the servers serialize "type" first)
+                        self._q.put((kind, "GEN", self._stream_gen.get(kind, 0),
+                                     time.monotonic()))
+                        gone = False
+                        for line in raw_iter():
+                            if line.startswith(b'{"type":"ERROR"'):
+                                gone = b'"code":410' in line
+                                logger.warning("watch error event: %.200r", line)
+                                break
+                            self._q.put((kind, "RAW", line, time.monotonic()))
+                        # lines still queued at the stream's end make the
+                        # resume a little early: the server replays them
+                        # and the echo drop absorbs the replay. An absent
+                        # revision (a 410 seen by the drain) re-lists
+                        resume_rv = self._watch_rv.get(kind, 0)
+                    else:
+                        # a client without raw lines (the in-process
+                        # FakeKube), or the native library off
+                        for ev in w:
+                            rv = _rv_of(ev.object.get("metadata") or {})
+                            if rv:
+                                resume_rv = rv
+                            if ev.type == BOOKMARK:
+                                self._inc("watch_bookmarks_total")
+                                continue
+                            self._q.put((kind, ev.type, ev.object, time.monotonic()))
+                        gone = getattr(w, "expired", False)
+                    if gone:
                         logger.warning("watch %s stream expired (410); re-listing", kind)
                         expired()
                         continue
@@ -1059,6 +1138,26 @@ class ClusterEngine:
         t.start()
         self._threads.append(t)
 
+    def _stream_raw(self, kind: str, reader) -> bool:
+        """Queue one stream's packed line batches from the native reader
+        (after its GEN marker) until the stream ends; True when it ended
+        with a 410 ERROR event."""
+        self._q.put((kind, "GEN", self._stream_gen.get(kind, 0), time.monotonic()))
+        try:
+            while self._running:
+                out = reader.read_batch(timeout_s=1.0)
+                if out is None:
+                    return False
+                buf, off = out
+                if len(off) > 1:
+                    self._q.put((kind, "RAWB", (buf, off), time.monotonic()))
+                if reader.error is not None:
+                    logger.warning("watch error event: %.200r", reader.error)
+                    return b'"code":410' in reader.error
+        finally:
+            reader.close()
+        return False
+
     def _relist(self, kind: str, opts: dict, proc: bool) -> None:
         """One full LIST of ``kind`` onto the ingest queue: its objects as
         ADDED events (under process lanes the RESYNC snapshot carries
@@ -1081,16 +1180,279 @@ class ClusterEngine:
         if rewind is not None:
             self._note_rv_rewind(kind, *rewind)
 
+    # ----------------------------------------------------- raw-line drain
+
+    # cap on buffered raw lines per kind before a mid-drain flush: bounds
+    # the batch parse's latency and memory, keeps the amortization
+    _RAW_FLUSH_AT = 8192
+
+    def _observe_stage(self, stage: str, seconds: float) -> None:
+        """One observation of ``kwok_tick_stage_seconds{stage}`` on this
+        engine's registry (a federation member's is the federation's)."""
+        self.registry.histogram(
+            "kwok_tick_stage_seconds", _STAGE_HELP["kwok_tick_stage_seconds"],
+            ("stage",),
+        ).labels(stage=stage).observe(seconds)
+
+    def _drain_apply(
+        self, item, raw_buf: dict, route=None, route_shards: int = 0
+    ) -> None:
+        """Apply one queue item on the draining thread. RAW lines and RAWB
+        batches buffer per kind for ONE batched parse; any other item for
+        a kind flushes that kind's buffer first, so per-kind event order
+        holds (a RESYNC snapshot must not overtake lines queued before
+        it). A GEN marker sets the generation of the lines after it.
+
+        With ``route`` (a lane router), parsed events go to
+        ``route(kind, type_, obj)`` instead of being ingested here; the
+        revision bookkeeping stays on this engine either way.
+        ``route_shards`` is the lane count when ``route`` is a lane set's
+        router (it enables the pre-partitioned batch handoff), else 0."""
+        kind, type_, obj = item[:3]
+        if type_ == "RAW":
+            buf = raw_buf.setdefault(kind, [])
+            buf.append(obj)
+            if len(buf) >= self._RAW_FLUSH_AT:
+                self._drain_flush_kind(kind, raw_buf, route, route_shards)
+            return
+        if type_ == "RAWB":
+            # one packed batch, many lines: the flush bound counts lines
+            buf = raw_buf.setdefault(kind, [])
+            buf.append(obj)
+            if sum(len(o) - 1 for _, o in buf) >= self._RAW_FLUSH_AT:
+                self._drain_flush_kind(kind, raw_buf, route, route_shards)
+            return
+        if kind in raw_buf:
+            self._drain_flush_kind(kind, raw_buf, route, route_shards)
+        if type_ == "GEN":
+            self._drain_gen[kind] = obj
+            return
+        if route is not None:
+            route(kind, type_, obj)
+            return
+        self._ingest_safe(kind, type_, obj)
+
+    def _drain_flush(self, raw_buf: dict, route=None, route_shards: int = 0) -> None:
+        for kind in list(raw_buf):
+            self._drain_flush_kind(kind, raw_buf, route, route_shards)
+
+    def _drain_error_line(self, kind: str, raw: bytes, gen: int) -> None:
+        """An ERROR event that reached the drain (a re-serializing proxy
+        can defeat the watch thread's prefix check) never becomes a
+        record; a 410 from the CURRENT stream drops the kind's resume
+        revision now. One from an older generation changes nothing."""
+        logger.warning("watch error event in drain: %.200r", raw)
+        if b'"code":410' in raw:
+            with self._gen_lock:
+                if gen == self._stream_gen.get(kind, 0):
+                    self._watch_rv.pop(kind, None)
+                    self._stream_gen[kind] = gen + 1
+
+    def _commit_rv(self, kind: str, gen: int, rv: int) -> None:
+        """Advance the kind's resume revision iff its stream is still the
+        live one: one locked commit per flushed batch, atomic against a
+        410 on the watch thread (_expire_stream)."""
+        with self._gen_lock:
+            if gen == self._stream_gen.get(kind, 0):
+                self._watch_rv[kind] = rv
+
+    def _wire_reject(self, kind: str, reason: str, n: int = 1) -> None:
+        """Corrupt wire input: counted (kwok_wire_rejects_total{reason})
+        and integrity doubt, so the bounded-rate re-list re-delivers what
+        the corruption ate."""
+        wire_reject(reason, n)
+        self._integrity_resync(kind)
+
+    def _drain_flush_kind(
+        self, kind: str, raw_buf: dict, route=None, route_shards: int = 0
+    ) -> None:
+        entries = raw_buf.pop(kind, None)
+        if not entries:
+            return
+        # one generation per buffer: a GEN marker flushes before it moves
+        # _drain_gen, so every buffered line shares the marker-time value
+        gen = self._drain_gen.get(kind, 0)
+        # partitioned parse: the lane count when this flush hands batches
+        # to a lane set, 1 when this engine ingests inline (the columnar
+        # path), 0 for any other route callable (per-record walk)
+        part_shards = 0
+        lanes = self._lanes if self._lanes is not None else self._proc
+        if self._native_route:
+            if route is None:
+                part_shards = 1
+            elif route_shards > 1 and lanes is not None and route_shards == lanes.n:
+                part_shards = route_shards
+        parse = self._batch_parser
+        t0 = time.perf_counter()
+        batch = None
+        if any(isinstance(x, tuple) for x in entries):
+            # packed reader batches (stray single lines normalized in
+            # place): one blob and one offset list, parsed straight
+            parts: list[bytes] = []
+            offs: list[int] = [0]
+            base = 0
+            for x in entries:
+                if isinstance(x, tuple):
+                    b, o = x
+                    parts.append(b)
+                    offs.extend(v + base for v in o[1:])
+                    base += o[-1]
+                else:
+                    parts.append(x)
+                    base += len(x)
+                    offs.append(base)
+            blob = b"".join(parts)
+            lines = native._BlobLines(blob, offs)
+            if parse is not None:
+                try:
+                    batch = parse.parse_blob(blob, offs, kind=kind, n_shards=part_shards)
+                except Exception:
+                    logger.exception("batch parse failed; parsing line by line")
+        else:
+            lines = entries
+            if parse is not None:
+                try:
+                    batch = parse.parse_raw_batch(lines, kind=kind, n_shards=part_shards)
+                except Exception:
+                    logger.exception("batch parse failed; parsing line by line")
+        if batch is None:
+            self._drain_lines(kind, lines, gen, route)
+            self._observe_stage("parse", time.perf_counter() - t0)
+            return
+        self._observe_stage("parse", time.perf_counter() - t0)
+        if batch.partitioned:
+            info = batch.route_info
+            if info.first_error < 0 and not info.unrouteable:
+                # the steady state: the revision and bookmark bookkeeping
+                # are scalars of the C parse, and the routable records go
+                # to the lanes as index runs (or columnar into this engine)
+                if info.latest_rv:
+                    self._commit_rv(kind, gen, info.latest_rv)
+                if info.bookmarks:
+                    self._inc("watch_bookmarks_total", info.bookmarks)
+                if info.routable:
+                    self._inc("watch_events_total", info.routable)
+                    if part_shards > 1:
+                        lanes.route_batch(kind, batch)
+                    else:
+                        self._ingest_record_batch(
+                            kind, batch, batch.lane_idx, 0, info.routable
+                        )
+                return
+            # an ERROR or a nameless record (rare): the per-record walk
+            # keeps the exact order and fallback semantics
+            batch.ensure_lists()
+        latest_rv = 0
+        rv_dead = False
+        n_rec = 0
+        bookmarks = 0
+        rvs = batch.rvs
+        type_bytes = batch.type_bytes
+        record = batch.record
+        if route is not None:
+            def ingest_record(kind_, rec_):
+                route(kind_, "REC", rec_)
+        else:
+            ingest_record = self._ingest_record
+        for i in range(batch.n):
+            tb = type_bytes(i)
+            if tb == b"ERROR":
+                self._drain_error_line(kind, record(i).raw, gen)
+                latest_rv = 0
+                rv_dead = True  # nothing after a stream error counts
+                continue
+            rv = rvs[i]
+            if rv and not rv_dead:
+                latest_rv = rv
+            if tb == b"BOOKMARK":
+                bookmarks += 1
+                continue
+            n_rec += 1
+            try:
+                ingest_record(kind, record(i))
+            except Exception:
+                logger.exception("ingest failed for %s REC", kind)
+        if latest_rv:
+            self._commit_rv(kind, gen, latest_rv)
+        if n_rec:
+            self._inc("watch_events_total", n_rec)
+        if bookmarks:
+            self._inc("watch_bookmarks_total", bookmarks)
+
+    def _drain_lines(self, kind: str, lines, gen: int, route) -> None:
+        """The line-by-line fallback of a flush whose batch parse failed,
+        or of an engine without the native library (a lane process whose
+        build failed): each line on its own, skipping only those that
+        cannot be parsed, quarantined as integrity doubt (their revision
+        is unreadable, so nothing after them commits)."""
+        parse = self._batch_parser
+        latest_rv = 0
+        rv_dead = False
+        n_rec = 0
+        for line in lines:
+            line = bytes(line)
+            try:
+                if parse is not None:
+                    rec = parse.parse(line)
+                    type_, rv = rec.type, rec.rv
+                else:
+                    doc = json.loads(line)
+                    type_ = doc.get("type")
+                    rec = doc.get("object")
+                    if not isinstance(rec, dict):
+                        raise ValueError("event without an object")
+                    rv = _rv_of(rec.get("metadata") or {})
+            except (ValueError, AttributeError):
+                logger.warning("unparseable watch line: %.120r", line)
+                self._wire_reject(kind, "unparseable")
+                latest_rv = 0
+                rv_dead = True
+                continue
+            if type_ == "ERROR":
+                self._drain_error_line(kind, line, gen)
+                latest_rv = 0
+                rv_dead = True
+                continue
+            if rv and not rv_dead:
+                latest_rv = rv
+            if type_ == BOOKMARK:
+                self._inc("watch_bookmarks_total")
+                continue
+            if parse is not None:
+                type_ = "REC"
+            elif type_ not in (ADDED, MODIFIED, DELETED):
+                continue
+            n_rec += 1
+            try:
+                if route is not None:
+                    route(kind, type_, rec)
+                else:
+                    self._apply(kind, type_, rec)
+            except Exception:
+                logger.exception("ingest failed for %s %s", kind, type_)
+        if latest_rv:
+            self._commit_rv(kind, gen, latest_rv)
+        if n_rec:
+            self._inc("watch_events_total", n_rec)
+
     # ---------------------------------------------------------------- ingest
 
     def _ingest(self, kind: str, type_: str, obj) -> None:
+        if type_ == "REC":
+            # counted per batch by the flush
+            self._ingest_record(kind, obj)
+            return
         self._inc("watch_events_total")
         self._apply(kind, type_, obj)
 
     def _apply(self, kind: str, type_: str, obj) -> None:
-        """Apply one watch event (or RESYNC snapshot) to the rows. Every
-        topology applies events here (lanes and federation members
-        included), so the stale-revision guard sits here."""
+        """Apply one watch event (or RESYNC snapshot, or native record) to
+        the rows. Every topology applies events here (lanes and
+        federation members included), so the stale-revision guard sits
+        here."""
+        if type_ == "REC":
+            self._ingest_record(kind, obj)
+            return
         if type_ == "RESYNC":
             self._resync(kind, obj)
             return
@@ -1128,6 +1490,323 @@ class ClusterEngine:
             self._ingest(kind, type_, obj)
         except Exception:
             logger.exception("ingest failed for %s %s", kind, type_)
+
+    # ---------------------------------------------------------- record path
+
+    def _ingest_record(self, kind: str, rec) -> None:
+        """The native record path: drop events whose fingerprints prove
+        the render, merge and compare would be a no-op; parse the rest.
+
+        - The stale-rv tier: a MODIFIED whose revision is below the row's
+          last ingested one is a replay, dropped (and counted) before the
+          echo tiers, so old content never overwrites newer meta. ADDED
+          is exempt: a re-list after a store restore delivers lower
+          revisions that must apply.
+        - Pods: a MODIFIED with unchanged meta and spec fingerprints whose
+          status fingerprint equals the last fully processed state (tier
+          1), or the expectation recorded when this engine emitted its own
+          patch (tier 2, ``fp_expect``: the echo of our write).
+        - Nodes: a MODIFIED with an unchanged meta fingerprint and an
+          unchanged status-minus-conditions fingerprint (heartbeat echoes:
+          the conditions are pinned before any compare), or the echo of
+          our own full status patch.
+        - New or Pending pods that need no repair render take
+          ``_pod_upsert_record`` (no json.loads); everything else is
+          parsed once and runs the dict path, with fingerprints seeded."""
+        type_ = rec.type
+        if rec.ok and type_ == MODIFIED:
+            if kind == "pods":
+                key = (rec.namespace or "default", rec.name)
+                k = self.pods
+                idx = k.pool.lookup(key)
+                if idx is not None:
+                    m = k.pool.meta[idx]
+                    if rec.rv and rec.rv < int(m.get("rv") or 0):
+                        wire_reject("stale_rv")
+                        return
+                    if (
+                        not (rec.flags & native.REC_DELETION)
+                        and m.get("fp_meta_sel") == rec.fp_meta_sel
+                        and m.get("fp_spec") == rec.fp_spec
+                    ):
+                        if rec.fp_status == m.get("fp_status_done"):
+                            return  # identical to what was processed
+                        if rec.fp_status == m.get("fp_expect") and rec.phase == m.get(
+                            "expect_phase"
+                        ):
+                            # our own patch landed as rendered: keep the
+                            # fresh raw line for any later render
+                            m["fp_status_done"] = rec.fp_status
+                            m["phase_str"] = rec.phase
+                            m["host_ip"] = rec.host_ip
+                            m["status_scalar"] = bool(
+                                rec.flags & native.REC_STATUS_SCALAR_ONLY
+                            )
+                            m["raw"] = rec.raw
+                            if rec.rv:
+                                # the checkpoint identity tracks our echo
+                                m["rv"] = rec.rv
+                            m.pop("obj", None)
+                            return
+            else:
+                k = self.nodes
+                idx = k.pool.lookup(rec.name)
+                if idx is not None:
+                    m = k.pool.meta[idx]
+                    if rec.rv and rec.rv < int(m.get("rv") or 0):
+                        wire_reject("stale_rv")
+                        return
+                    if m.get("fp_meta_sel") == rec.fp_meta_sel:
+                        if rec.fp_status_nc == m.get("fp_nsc_done"):
+                            return  # heartbeat echo: no observable drift
+                        if rec.fp_status == m.get("fp_expect"):
+                            m["fp_nsc_done"] = rec.fp_status_nc
+                            m["raw"] = rec.raw
+                            if rec.rv:
+                                m["rv"] = rec.rv
+                            m.pop("obj", None)
+                            return
+        if (
+            rec.ok
+            and kind == "pods"
+            and type_ in (ADDED, MODIFIED)
+            and self._pod_upsert_record(rec)
+        ):
+            return
+        # the full path: parse the raw line once, run the dict ingest
+        try:
+            doc = json.loads(rec.raw)
+        except ValueError:  # bad JSON or bad UTF-8 past the C scanner
+            logger.warning("bad watch line: %.120r", rec.raw)
+            self._wire_reject(kind, "unparseable")
+            return
+        obj = doc.get("object") or {}
+        ev_type = doc.get("type") or type_
+        if ev_type == "ERROR":
+            logger.warning("watch error event: %s", obj)
+            return
+        if ev_type not in (ADDED, MODIFIED, DELETED):
+            return
+        if ev_type in (MODIFIED, DELETED) and self._stale_dict_event(kind, obj):
+            return
+        if kind == "pods":
+            if ev_type == DELETED:
+                self._pod_deleted(obj)
+                return
+            self._pod_upsert(obj)
+            idx = self.pods.pool.lookup((rec.namespace or "default", rec.name))
+            if idx is not None and rec.ok:
+                m = self.pods.pool.meta[idx]
+                m["fp_meta_sel"] = rec.fp_meta_sel
+                m["fp_spec"] = rec.fp_spec
+                m["fp_status_done"] = rec.fp_status
+        else:
+            if ev_type == DELETED:
+                self._node_deleted(obj)
+                return
+            self._node_upsert(obj)
+            idx = self.nodes.pool.lookup(rec.name)
+            if idx is not None and rec.ok:
+                m = self.nodes.pool.meta[idx]
+                m["fp_meta_sel"] = rec.fp_meta_sel
+                m["fp_nsc_done"] = rec.fp_status_nc
+
+    def _ingest_record_batch(self, kind, batch, idx, lo: int, hi: int) -> int:
+        """Apply the contiguous partitioned sub-batch ``idx[lo:hi]`` (the
+        unit a lane receives, and the single-lane inline unit): pods take
+        the columnar path, everything else the per-record one. A failed
+        columnar pass replays per record (its fresh rows were released,
+        so the replay stages them from scratch). Returns the events
+        applied."""
+        n = hi - lo
+        if n <= 0:
+            return 0
+        if kind == "pods" and not self._record_needs_full_path:
+            try:
+                self._pod_ingest_cols(batch, idx, lo, hi)
+                return n
+            except Exception:
+                logger.exception("columnar ingest failed; replaying per record")
+        record = batch.record
+        ing = self._ingest_record
+        for i in idx[lo:hi].tolist():
+            try:
+                ing(kind, record(i))
+            except Exception:
+                logger.exception("ingest failed for %s REC", kind)
+        return n
+
+    def _pod_ingest_cols(self, batch, idx, lo: int, hi: int) -> None:
+        """Columnar pod ingest over a partitioned sub-batch: one gather
+        per fixed-width column, the tier-1 echo drop and the stale tier on
+        plain ints, and the new Pending rows as ONE acquire run plus ONE
+        staged block (``UpdateBuffer.stage_init_array``). Per-key order
+        holds: records are scanned in stream order, and a record that
+        cannot join the block flushes it first when its key is already
+        in it, then takes the per-record path."""
+        sub = idx[lo:hi]
+        ids = sub.tolist()
+        flags_l = batch.flags_a[sub].tolist()
+        fp_a = batch.fp_a
+        fp_status = fp_a[0][sub].tolist()
+        fp_spec = fp_a[2][sub].tolist()
+        fp_meta = fp_a[3][sub].tolist()
+        rvs_l = batch.rvs_a[sub].tolist()
+        # 11 string spans per record (type, ns, name, node, phase, podIP,
+        # hostIP, creation, ctrs, ictrs, trueConditions): 12 boundaries
+        base = sub.astype(np.int64) * 11
+        offs = batch.off_a
+        col = [offs[base + j].tolist() for j in range(12)]
+        c1, c2, c3, c4, c5, c6, c7, c8, c9, c10, c11 = col[1:12]
+        buf = batch.buf
+        lines = batch.lines
+        k = self.pods
+        pool = k.pool
+        lookup = pool.lookup
+        meta = pool.meta
+        phase_ids = self._pod_phase_ids
+        node_has = self.node_has
+        bit_managed = (
+            1 << self.pod_bits[SEL_ON_MANAGED_NODE] | 1 << self.pod_bits[SEL_MANAGED]
+        )
+        record = batch.record
+        ing = self._ingest_record
+        pending: set = set()
+        stale_drops = 0
+        cols: list = []  # (key, node, meta, cond_bits, has_del)
+        t_added = native.REC_TYPE_ADDED
+        t_modified = native.REC_TYPE_MODIFIED
+        t_mask = native.REC_TYPE_MASK
+
+        def flush_cols() -> None:
+            if not cols:
+                return
+            rows = []
+            staged = False
+            try:
+                for key, _node, m, _cond, _hd in cols:
+                    if pool.full:
+                        self._grow(k)
+                    row = pool.acquire(key)
+                    meta[row] = m  # fresh rows: the dict replaced whole
+                    rows.append(row)
+                # node->pods index BEFORE the node_has reads below: a
+                # concurrent managed-ness fan-out either sees the pod or
+                # the bits see the flip
+                for key, node, _m, _cond, _hd in cols:
+                    by = self.pods_by_node.get(node)
+                    if by is None:
+                        by = self.pods_by_node[node] = set()
+                    by.add(key)
+                idx_arr = np.fromiter(rows, np.int32, len(rows))
+                cond_arr = np.fromiter((c[3] for c in cols), np.uint32, len(cols))
+                sel_arr = np.fromiter(
+                    (bit_managed if c[1] in node_has else 0 for c in cols),
+                    np.uint32, len(cols),
+                )
+                del_arr = np.fromiter((c[4] for c in cols), bool, len(cols))
+                # mirrors BEFORE the stage call (harmless on a released
+                # row); stage_init_array is the point of no return
+                k.phase_h[idx_arr] = _PENDING
+                k.cond_h[idx_arr] = cond_arr
+                k.buffer.stage_init_array(idx_arr, _PENDING, cond_arr, sel_arr, del_arr)
+                staged = True
+            except BaseException:
+                # rows acquired here but never staged would look like
+                # existing Pending rows to the per-record replay (and drop
+                # its events as echoes): release them, so the replay's
+                # new-row path runs
+                if not staged:
+                    for (key, node, _m, _c, _hd), _row in zip(cols, rows):
+                        pool.release(key)
+                        by = self.pods_by_node.get(node)
+                        if by is not None:
+                            by.discard(key)
+                raise
+            cols.clear()
+            pending.clear()
+
+        for j, i in enumerate(ids):
+            f = flags_l[j]
+            tcode = f & t_mask
+            name = buf[c2[j]:c3[j]].decode("utf-8", "surrogateescape")
+            s, e = c1[j], c2[j]
+            ns = buf[s:e].decode("utf-8", "surrogateescape") if e > s else "default"
+            key = (ns or "default", name)
+            row = lookup(key)
+            if f & 1 and tcode == t_modified and row is not None and key not in pending:
+                m = meta[row]
+                if rvs_l[j] and rvs_l[j] < (m.get("rv") or 0):
+                    stale_drops += 1  # the stale tier (see _ingest_record)
+                    continue
+                if (
+                    not (f & native.REC_DELETION)
+                    and m.get("fp_meta_sel") == fp_meta[j]
+                    and m.get("fp_spec") == fp_spec[j]
+                    and fp_status[j] == m.get("fp_status_done")
+                ):
+                    continue  # identical to what was processed
+            eligible = (
+                f & 1
+                and tcode in (t_added, t_modified)
+                and row is None
+                and key not in pending
+                and c4[j] > c3[j]  # nodeName present
+                and c6[j] == c5[j]  # no podIP (the allocator's path)
+            )
+            if eligible:
+                s, e = c4[j], c5[j]
+                phase_s = buf[s:e].decode("utf-8", "surrogateescape") if e > s else ""
+                if phase_ids.get(phase_s or "Pending", _PENDING) != _PENDING:
+                    eligible = False  # repair render on first sighting
+            if not eligible:
+                if key in pending:
+                    flush_cols()  # an earlier buffered event for this key
+                try:
+                    ing("pods", record(i))
+                except Exception:
+                    logger.exception("ingest failed for pods REC")
+                continue
+            cond = 0
+            s, e = c10[j], c11[j]
+            if e > s:
+                for t_ in buf[s:e].split(b"\x1f"):
+                    tn = t_.decode()
+                    if tn in POD_PHASES.conditions:
+                        cond |= 1 << POD_PHASES.condition_bit(tn)
+            has_del = bool(f & native.REC_DELETION)
+            s, e = c6[j], c7[j]
+            host_ip = buf[s:e].decode("utf-8", "surrogateescape") if e > s else ""
+            s, e = c7[j], c8[j]
+            creation = buf[s:e].decode("utf-8", "surrogateescape") if e > s else ""
+            node = buf[c3[j]:c4[j]].decode("utf-8", "surrogateescape")
+            m = {
+                "name": name,
+                "namespace": key[0],
+                "node": node,
+                "disregard": False,
+                "raw": lines[i],
+                "finalizers": bool(f & native.REC_FINALIZERS),
+                "has_del": has_del,
+                "creation": creation,
+                "ctrs": buf[c8[j]:c9[j]],
+                "ictrs": buf[c9[j]:c10[j]],
+                "rgates": bool(f & native.REC_READINESS_GATES),
+                "phase_str": phase_s,
+                "host_ip": host_ip,
+                "status_scalar": bool(f & native.REC_STATUS_SCALAR_ONLY),
+                "rv": rvs_l[j],  # checkpoint identity; uid read from raw
+                # fingerprints: the echo of the next server state drops
+                # without a parse
+                "fp_meta_sel": fp_meta[j],
+                "fp_spec": fp_spec[j],
+                "fp_status_done": fp_status[j],
+            }
+            pending.add(key)
+            cols.append((key, node, m, cond, has_del))
+        flush_cols()
+        if stale_drops:
+            wire_reject("stale_rv", stale_drops)
 
     def _resync(self, kind: str, objs: list[dict]) -> None:
         """Free rows for objects that vanished while the watch was down."""
@@ -1182,9 +1861,13 @@ class ClusterEngine:
             k.buffer.stage_update(idx, bits, False)
         # checkpoint identity: rv + uid of the last ingested revision (a
         # restore refines timers only for rows whose (uid, rv) still match)
-        k.pool.meta[idx].update(
-            name=name, obj=node, rv=_rv_of(meta), uid=meta.get("uid") or "",
-        )
+        m = k.pool.meta[idx]
+        m.update(name=name, obj=node, rv=_rv_of(meta), uid=meta.get("uid") or "")
+        m.pop("raw", None)
+        # as in _pod_upsert: this dict content may differ from what the
+        # stored fingerprints describe
+        for fp_key in ("fp_meta_sel", "fp_nsc_done", "fp_expect"):
+            m.pop(fp_key, None)
         if need_hb and name not in self.node_has:
             self.node_has.add(name)
             self._update_pods_on_node(name)
@@ -1259,6 +1942,13 @@ class ClusterEngine:
             rv=_rv_of(meta),
             uid=meta.get("uid") or "",
         )
+        m.pop("raw", None)  # the parsed object supersedes any raw line
+        # fingerprints describe the record path's state; this dict event
+        # may carry other content, so they must never justify dropping a
+        # later event (the record path re-seeds them when it has them)
+        for fp_key in ("fp_status_done", "fp_spec", "fp_meta_sel",
+                       "fp_expect", "expect_phase"):
+            m.pop(fp_key, None)
         pod_ip = status.get("podIP")
         if pod_ip:
             with self._alloc_lock:
@@ -1294,6 +1984,126 @@ class ClusterEngine:
             rendered = self._render_pod(idx)
             if rendered is not None and pod_status_patch_needed(status, rendered):
                 self._submit(self._patch_pod_status, key, idx)
+
+    @staticmethod
+    def _lazy_obj(m) -> "dict | None":
+        """The row's parsed object, decoding its raw watch line (and
+        caching the result) for rows whose last event took the record
+        path."""
+        obj = m.get("obj")
+        if obj is None and "raw" in m:
+            try:
+                doc = json.loads(m["raw"])
+            except ValueError:  # a garbled raw line, or bad UTF-8
+                return None
+            obj = doc.get("object") or {}
+            m["obj"] = obj
+        return obj
+
+    def _pod_obj(self, m) -> "dict | None":
+        return self._lazy_obj(m)
+
+    def _pod_upsert_record(self, rec) -> bool:
+        """Row init or update straight from a native record, no json.loads.
+        Returns False when the event needs the full path: a repair render
+        on a row past Pending, a first sighting past Pending, or disregard
+        selectors (they match fields the record does not carry)."""
+        name = rec.name
+        node_name = rec.node_name
+        if not name or not node_name:
+            return True  # the early-outs of _pod_upsert
+        if self._record_needs_full_path:
+            return False
+        ns = rec.namespace or "default"
+        key = (ns, name)
+        k = self.pods
+        idx = k.pool.lookup(key)
+        new_row = idx is None
+        if not new_row and int(k.phase_h[idx]) != _PENDING:
+            return False  # LockPod repair needs the full object
+        if new_row and self._pod_phase_ids.get(rec.phase or "Pending", _PENDING) != _PENDING:
+            return False
+        flags = rec.flags
+        has_del = bool(flags & native.REC_DELETION)
+        # a row acquired but never staged would look tracked (and swallow
+        # its re-delivery as an update): released on any failure before
+        # the stage, never after it (that would orphan the staged init)
+        staged = [not new_row]
+        try:
+            return self._pod_upsert_record_apply(
+                rec, k, key, idx, new_row, flags, has_del, name, ns, node_name, staged,
+            )
+        except BaseException:
+            if not staged[0]:
+                k.pool.release(key)
+                by = self.pods_by_node.get(node_name)
+                if by is not None:
+                    by.discard(key)
+            raise
+
+    def _pod_upsert_record_apply(
+        self, rec, k, key, idx, new_row, flags, has_del, name, ns, node_name, staged,
+    ) -> bool:
+        """The mutation body of _pod_upsert_record. Fingerprints are seeded
+        LAST: an event interrupted before them is re-processed on
+        re-delivery, never dropped as an echo."""
+        fields = {
+            "name": name,
+            "namespace": ns,
+            "node": node_name,
+            "disregard": False,
+            "raw": rec.raw,
+            "finalizers": bool(flags & native.REC_FINALIZERS),
+            "has_del": has_del,
+            "creation": rec.creation,
+            "ctrs": rec.containers,
+            "ictrs": rec.init_containers,
+            "rgates": bool(flags & native.REC_READINESS_GATES),
+            "phase_str": rec.phase,
+            "host_ip": rec.host_ip,
+            "status_scalar": bool(flags & native.REC_STATUS_SCALAR_ONLY),
+            "rv": rec.rv,  # checkpoint identity; uid read from raw on demand
+        }
+        if new_row:
+            if k.pool.full:
+                self._grow(k)
+            idx = k.pool.acquire(key)
+            m = k.pool.meta[idx] = fields
+        else:
+            m = k.pool.meta[idx]
+            m.update(fields)
+            m.pop("obj", None)  # the raw line supersedes any stale object
+            m.pop("uid", None)
+        if rec.pod_ip:
+            with self._alloc_lock:
+                if self.ippool.contains(rec.pod_ip):
+                    self.ippool.use(rec.pod_ip)
+                m["podIP"] = rec.pod_ip
+        by_node = self.pods_by_node.get(node_name)
+        if by_node is None:
+            by_node = self.pods_by_node[node_name] = set()
+        by_node.add(key)  # before the node_has read: see _pod_ingest_cols
+        bits = self._pod_bits(m)
+        if new_row:
+            phase = self._pod_phase_ids.get(rec.phase or "Pending", _PENDING)
+            cond = 0
+            if rec.true_conditions:
+                for t in rec.true_conditions.split(b"\x1f"):
+                    tn = t.decode()
+                    if tn in POD_PHASES.conditions:
+                        cond |= 1 << POD_PHASES.condition_bit(tn)
+            k.phase_h[idx] = phase
+            k.cond_h[idx] = cond
+            k.buffer.stage_init(idx, True, phase, cond, bits, has_del)
+            staged[0] = True
+        else:
+            k.buffer.stage_update(idx, bits, has_del)
+        # no repair: rows here are Pending, where the reference patches on
+        # a transition, never on repair
+        m["fp_meta_sel"] = rec.fp_meta_sel
+        m["fp_spec"] = rec.fp_spec
+        m["fp_status_done"] = rec.fp_status
+        return True
 
     def _pod_deleted(self, pod: dict) -> None:
         meta = pod.get("metadata") or {}
@@ -1370,6 +2180,8 @@ class ClusterEngine:
                         deadline = min(wake, time.monotonic() + self._IDLE_MAX)
                     deadline = self._idle_deadline(deadline)
                 got_event = False
+                raw_buf: dict = {}
+                drain_s = 0.0  # seconds applying items this window
                 # drain ingest until the next tick is due; while ticks are
                 # in flight, wait in short slices so a wire landing
                 # mid-drain is consumed promptly
@@ -1397,7 +2209,8 @@ class ClusterEngine:
                         # an event arriving during an idle sleep must be
                         # ticked within one normal interval
                         deadline = min(deadline, time.monotonic() + interval)
-                    self._ingest_safe(item[0], item[1], item[2])
+                    t_item = time.perf_counter()
+                    self._drain_apply(item, raw_buf)
                     # keep draining whatever is immediately available
                     while True:
                         try:
@@ -1408,7 +2221,16 @@ class ClusterEngine:
                             if not self._running:
                                 return
                             continue
-                        self._ingest_safe(item[0], item[1], item[2])
+                        self._drain_apply(item, raw_buf)
+                    drain_s += time.perf_counter() - t_item
+                # the batched parse of the window's raw lines, before the
+                # flush and dispatch below
+                if raw_buf:
+                    t_item = time.perf_counter()
+                    self._drain_flush(raw_buf)
+                    drain_s += time.perf_counter() - t_item
+                if got_event:
+                    self._observe_stage("drain", drain_s)
                 did_dispatch = False
                 try:
                     # consume every tick whose wire has landed; a full
@@ -1769,7 +2591,7 @@ class ClusterEngine:
         m = k.pool.meta[idx]
         if not m:
             return
-        node = m.get("obj") or {}
+        node = self._lazy_obj(m) or {}
         current = node.get("status") or {}
         rendered = render_node_status(
             node, int(k.cond_h[idx]), self.config.node_ip,
@@ -1791,7 +2613,7 @@ class ClusterEngine:
         name, or None when the row has no object or is Gone."""
         k = self.pods
         m = k.pool.meta[idx]
-        if not m or m.get("obj") is None:
+        if not m or self._pod_obj(m) is None:
             return None
         phase_name = self._pod_phases[int(k.phase_h[idx])]
         if phase_name == "Gone":
@@ -1820,7 +2642,7 @@ class ClusterEngine:
         if ip is None:
             return None
         return render_pod_status(
-            m["obj"], phase_name, int(self.pods.cond_h[idx]),
+            self._pod_obj(m) or {}, phase_name, int(self.pods.cond_h[idx]),
             self.config.node_ip, ip,
         )
 
@@ -1832,7 +2654,7 @@ class ClusterEngine:
         rendered = self._render_pod(idx)
         if rendered is None:
             return
-        current = (m.get("obj") or {}).get("status") or {}
+        current = (self._pod_obj(m) or {}).get("status") or {}
         if not pod_status_patch_needed(current, rendered):
             return
         ns, name = key

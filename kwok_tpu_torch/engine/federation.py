@@ -484,8 +484,11 @@ class FederatedEngine:
         extended idle sleep pulls the deadline back to one normal
         interval; consecutive empty polls back off exponentially, capped
         at 5 ms while group wires are in flight so a wire landing
-        mid-drain is consumed promptly."""
+        mid-drain is consumed promptly. Each member drains through its own
+        ``_drain_apply`` into a raw-line buffer of its own, flushed (one
+        batched native parse per member and kind) when the drain ends."""
         lag: dict[int, float] = {}
+        bufs: dict[int, dict] = {}
         interval = self.config.tick_interval
         idle_sleep = 0.002
         got_event = False
@@ -506,7 +509,7 @@ class FederatedEngine:
                         drained_any = True
                         if len(item) > 3:
                             lag[i] = max(lag.get(i, 0.0), time.monotonic() - item[3])
-                        e._ingest_safe(item[0], item[1], item[2])
+                        e._drain_apply(item, bufs.setdefault(i, {}))
                 if drained_any:
                     idle_sleep = 0.002
                     if not got_event:
@@ -523,6 +526,9 @@ class FederatedEngine:
                     time.sleep(min(remaining, idle_sleep))
                     idle_sleep = min(idle_sleep * 2, cap)
         finally:
+            for i, buf in bufs.items():
+                if buf:
+                    self.engines[i]._drain_flush(buf)
             # each member's own slowest enqueue->processing delay this
             # tick (0 on a quiet one) and queue depth
             for i, e in enumerate(self.engines):

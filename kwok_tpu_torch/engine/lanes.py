@@ -33,14 +33,20 @@ lanes' pods as routed ``XUPD`` items through their own queues.
 
 Each lane is a ``ClusterEngine`` without threads, device state or stream
 (``_LaneEngine``), so the per-event ingest and emit code runs unchanged.
-The JAX package's native pre-partitioned routing (RECB batches) belongs
-with the native bridge, and its worker watchdog with the resilience
-slice; neither is here.
+
+Over HTTP the router parses each window's raw watch lines in ONE native
+call (``ClusterEngine._drain_apply``), which also computes every event's
+lane; each lane then gets its contiguous index run over the shared
+parsed batch as one ``RECB`` item (``route_batch``), instead of one
+hashed and queued event at a time. ``KWOK_TPU_NATIVE_ROUTE=0`` keeps the
+per-record route. The JAX package's worker watchdog belongs with the
+resilience slice and is not here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import queue
 import threading
@@ -62,7 +68,8 @@ from kwok_tpu_torch.ops.tick import (
 )
 from kwok_tpu_torch.ops.updates import UpdateBuffer, refine_flush
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
-from kwok_tpu_torch.telemetry.lanes import LaneTelemetry
+from kwok_tpu_torch.telemetry.lanes import _HELP, LaneTelemetry
+from kwok_tpu_torch.telemetry.errors import swallowed
 from kwok_tpu_torch.workers import spawn_worker
 
 logger = logging.getLogger("kwok_tpu_torch.lanes")
@@ -169,9 +176,14 @@ class ShardLane:
     _BURST = 4096
 
     def _apply_item(self, item) -> int:
-        """Apply one routed queue item; returns the event count it
-        carried."""
+        """Apply one routed queue item; returns the event count it carried
+        (a RECB sub-batch weighs its record count, so the stage_lock hold
+        stays bounded as on the per-event path)."""
         e = self.engine
+        if item[1] == "RECB":
+            # this lane's contiguous index run over a shared parsed batch
+            batch, idx, lo, hi = item[2]
+            return e._ingest_record_batch(item[0], batch, idx, lo, hi)
         if item[1] == "XUPD":
             # managed-ness re-evaluation for pods this lane owns, routed
             # from a sibling lane's node event
@@ -191,9 +203,38 @@ class ShardLane:
             )
         return 1
 
+    def _apply_locked(self, item) -> int:
+        """Apply one routed item under the stage_lock. A RECB run longer
+        than _BURST (a reconnect flood can put a whole window in one lane)
+        goes in _BURST slices, each under a hold of its own, so the
+        coordinator's buffer swap waits no longer than on the per-event
+        path; per-key order is the slice order."""
+        if item[1] == "RECB":
+            batch, idx, lo, hi = item[2]
+            e = self.engine
+            n = 0
+            while lo < hi:
+                end = min(lo + self._BURST, hi)
+                with self.stage_lock:
+                    n += e._ingest_record_batch(item[0], batch, idx, lo, end)
+                lo = end
+            return n
+        with self.stage_lock:
+            return self._apply_item(item)
+
+    _EMPTY = object()  # drain_loop's sentinel: the queue is momentarily dry
+
     def drain_loop(self) -> None:
         q = self.q
         tel = self.telemetry
+        empty = self._EMPTY
+
+        def next_item():
+            try:
+                return q.get_nowait()
+            except queue.Empty:
+                return empty
+
         while True:
             item = q.get()
             if item is None:
@@ -201,19 +242,31 @@ class ShardLane:
             stop = False
             t0 = time.perf_counter()
             n = 0
-            # consecutive items share ONE stage_lock hold (bounded by _BURST)
-            with self.stage_lock:
-                while True:
-                    n += self._apply_item(item)
+            while item is not empty and not stop:
+                if item[1] == "RECB":
+                    # sub-batches take their own (sliced) holds; a RECB
+                    # ends a burst hold, so its holds never nest in one
+                    n += self._apply_locked(item)
                     if n >= self._BURST:
-                        break
-                    try:
-                        item = q.get_nowait()
-                    except queue.Empty:
-                        break
-                    if item is None:
-                        stop = True
-                        break
+                        item = empty
+                    else:
+                        item = next_item()
+                        stop = item is None
+                    continue
+                # consecutive per-event items share ONE stage_lock hold
+                # (bounded by _BURST)
+                with self.stage_lock:
+                    while True:
+                        n += self._apply_item(item)
+                        if n >= self._BURST:
+                            item = empty
+                            break
+                        item = next_item()
+                        if item is None:
+                            stop = True
+                            break
+                        if item is empty or item[1] == "RECB":
+                            break
             tel.observe_stage("drain", time.perf_counter() - t0)
             depth = q.qsize()
             tel.set_queue_depth(depth)
@@ -331,6 +384,9 @@ class LaneSet:
         # bumped by the router per routed event; the tick loop's
         # got-an-event gate (plain int: one writer)
         self.events_routed = 0
+        self._route_batch_hist = parent.registry.histogram(
+            "kwok_route_batch_seconds", _HELP["kwok_route_batch_seconds"],
+        ).child
 
     # ------------------------------------------------------------ lifecycle
 
@@ -378,10 +434,14 @@ class LaneSet:
     # --------------------------------------------------------------- router
 
     def route_loop(self) -> None:
-        """Drain the parent's ingest queue and hand each event to its key's
-        lane."""
+        """Drain the parent's ingest queue in windows of half a tick: raw
+        watch lines buffer for one batched native parse per window (which
+        partitions them), parsed events go to their key's lane. The
+        revision bookkeeping stays on the parent, as on one lane."""
         parent = self.parent
         q = parent._q
+        window = max(0.002, parent.config.tick_interval / 2)
+        raw_buf: dict = {}
         try:
             while True:
                 try:
@@ -394,19 +454,43 @@ class LaneSet:
                     if not parent._running:
                         return
                     continue
-                self._route_item(item)
+                self._route_item(item, raw_buf)
+                window_end = time.monotonic() + window
+                while True:
+                    timeout = window_end - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        item = q.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if item is None:
+                        if not parent._running:
+                            break
+                        continue
+                    self._route_item(item, raw_buf)
+                if raw_buf:
+                    parent._drain_flush(raw_buf, self.route, self.n)
                 parent._set("ingest_queue_depth", q.qsize())
+                if not parent._running:
+                    return
         finally:
-            # the gauge as the router leaves the queue (the last routed
-            # item saw the stop sentinel still queued), then let every
-            # lane drain worker exit
-            parent._set("ingest_queue_depth", q.qsize())
-            for lane in self.lanes:
-                lane.q.put(None)
+            # straggler lines, the gauge as the router leaves the queue,
+            # then let every lane drain worker exit
+            try:
+                if raw_buf:
+                    parent._drain_flush(raw_buf, self.route, self.n)
+            finally:
+                parent._set("ingest_queue_depth", q.qsize())
+                for lane in self.lanes:
+                    lane.q.put(None)
 
-    def _route_item(self, item) -> None:
-        self.parent._inc("watch_events_total")
-        self.route(item[0], item[1], item[2])
+    def _route_item(self, item, raw_buf: dict) -> None:
+        """One parent-queue item into the drain: raw lines are counted by
+        the flush that parses them, every other event here."""
+        if item[1] not in ("RAW", "RAWB", "GEN"):
+            self.parent._inc("watch_events_total")
+        self.parent._drain_apply(item, raw_buf, self.route, self.n)
 
     def route(self, kind: str, type_: str, obj) -> None:
         """Partition one parsed event to its key's lane. RESYNC snapshots
@@ -417,7 +501,7 @@ class LaneSet:
                 lane.q.put((kind, type_, obj, t))
             self.events_routed += 1
             return
-        key = self._key_of(kind, obj)
+        key = self._key_of(kind, type_, obj)
         if key is None:
             return
         lane = self.lanes[shard_of(key, self.n)]
@@ -426,6 +510,25 @@ class LaneSet:
             return
         self.events_routed += 1
         lane.q.put((kind, type_, obj, t))
+
+    def route_batch(self, kind: str, batch) -> None:
+        """Hand a pre-partitioned parsed batch to the lanes: one zero-copy
+        (batch, index run) item per lane with work, so the router's cost
+        is n_lanes queue puts per window whatever the event rate. The C
+        side computes the lane as ``rowpool.shard_of`` does."""
+        t0 = time.perf_counter()
+        t = time.monotonic()
+        routed = 0
+        for li, count, item in iter_recb_items(kind, batch, t):
+            lane = self.lanes[li]
+            if lane._shed_depth and lane.q.qsize() > lane._shed_depth:
+                self._shed(lane, count)
+                continue
+            lane.q.put(item)
+            lane.telemetry.inc_routed(count)
+            routed += count
+        self.events_routed += routed
+        self._route_batch_hist.observe(time.perf_counter() - t0)
 
     def _shed(self, lane: ShardLane, n: int) -> None:
         """Graceful degradation: a lane whose queue is past the configured
@@ -445,16 +548,31 @@ class LaneSet:
             )
 
     @staticmethod
-    def _key_of(kind: str, obj):
+    def _key_of(kind: str, type_: str, obj):
         """The routing key — identical to the lane pool's key, so a key's
-        row can only ever live in the lane its events are routed to."""
-        if not isinstance(obj, dict):
+        row can only ever live in the lane its events are routed to. A
+        record without a usable name is routed by its raw line's
+        metadata; one that cannot be decoded is dropped and counted."""
+        if type_ == "REC":
+            name = obj.name
+            ns = obj.namespace or "default"
+            if not name:
+                try:
+                    meta = (json.loads(obj.raw).get("object") or {}).get("metadata") or {}
+                except Exception:
+                    swallowed("lanes.unrouteable_event")
+                    return None
+                name = meta.get("name") or ""
+                ns = meta.get("namespace") or "default"
+        elif isinstance(obj, dict):
+            meta = obj.get("metadata") or {}
+            name = meta.get("name") or ""
+            ns = meta.get("namespace") or "default"
+        else:
             return None
-        meta = obj.get("metadata") or {}
-        name = meta.get("name") or ""
         if not name:
             return None
-        return (meta.get("namespace") or "default", name) if kind == "pods" else name
+        return (ns, name) if kind == "pods" else name
 
     def route_pod_updates(self, node_name: str) -> None:
         """Fan a node's managed-ness change out to the lanes owning its
@@ -806,12 +924,14 @@ class LaneSet:
             self._consume(p, deque(), inline=True)
 
     def drain_inline(self) -> None:
-        """Route the parent queue and apply every lane queue to quiescence
-        (XUPD fan-outs re-enqueue, hence the outer loop)."""
+        """Route the parent queue (its raw lines in one batched parse) and
+        apply every lane queue to quiescence (XUPD fan-outs re-enqueue,
+        hence the outer loop)."""
         parent = self.parent
         progressed = True
         while progressed:
             progressed = False
+            raw_buf: dict = {}
             while True:
                 try:
                     item = parent._q.get_nowait()
@@ -819,8 +939,10 @@ class LaneSet:
                     break
                 if item is None:
                     continue
-                self._route_item(item)
+                self._route_item(item, raw_buf)
                 progressed = True
+            if raw_buf:
+                parent._drain_flush(raw_buf, self.route, self.n)
             for lane in self.lanes:
                 while True:
                     try:
@@ -829,6 +951,18 @@ class LaneSet:
                         break
                     if item is None:
                         continue
-                    with lane.stage_lock:
-                        lane._apply_item(item)
+                    lane._apply_locked(item)
                     progressed = True
+
+
+def iter_recb_items(kind: str, batch, t: float):
+    """Yield ``(lane_index, n_events, item)`` per non-empty lane of a
+    pre-partitioned parsed batch: the routed item
+    ``(kind, "RECB", (batch, lane_idx, lo, hi), t)`` a ShardLane applies."""
+    lane_off = batch.lane_off
+    lane_idx = batch.lane_idx
+    for li in range(len(lane_off) - 1):
+        lo = lane_off[li]
+        hi = lane_off[li + 1]
+        if hi > lo:
+            yield li, hi - lo, (kind, "RECB", (batch, lane_idx, lo, hi), t)

@@ -1,7 +1,8 @@
 """Process lanes: each lane a spawned process running the single-lane
 engine (the port of ``kwok_tpu.engine.proclanes``).
 
-  parent: watch threads ──> router thread (hash by key) ──> per-lane
+  parent: watch threads ──> router thread (one batched native parse per
+          window, which computes each event's lane) ──> per-lane
           shared-memory RawRing (raw watch lines written once) + a
           descriptor pipe; a supervisor; a status coordinator
   child i: the single-lane ClusterEngine over shard i — ingest, its own
@@ -38,9 +39,10 @@ as a test harness does), and a fork would clone held locks into the
 child. Off by default (``--lane-procs``, ``KWOK_LANE_PROCS``); with it off
 no arena, pipe or process exists.
 
-Not here yet: the native pre-partitioned routing (ROADMAP item 10), the
-fault plane and the drift mirror (item 13), per-lane trace dumps
-(item 15).
+A lane process parses each routed window (``RAWB``) in one native call
+on its own core, and ingests it through the single-lane engine's record
+path. Not here yet: the fault plane and the drift mirror (item 13),
+per-lane trace dumps (item 15).
 """
 
 from __future__ import annotations
@@ -56,12 +58,13 @@ import signal
 import threading
 import time
 
+from kwok_tpu_torch import native
 from kwok_tpu_torch.engine import shm as shm_mod
 from kwok_tpu_torch.engine.rowpool import shard_of
+from kwok_tpu_torch.telemetry.lanes import _HELP as _LANE_HELP
 from kwok_tpu_torch.telemetry.errors import (
     PROCESS_REGISTRY,
     swallowed,
-    wire_reject,
     worker_crashed,
     worker_restarted,
 )
@@ -220,10 +223,7 @@ def make_proc_lane_engine_class():
     """The lane process's engine class, built lazily so importing this
     module does not import the engine (the spawn pickle carries only a
     module path)."""
-    from kwok_tpu_torch.edge.kubeclient import ADDED, DELETED, MODIFIED
     from kwok_tpu_torch.engine.engine import ClusterEngine
-
-    event_types = (ADDED, MODIFIED, DELETED)
 
     class _ProcLaneEngine(ClusterEngine):
         """The single-lane engine plus the node topology tap: node events
@@ -241,9 +241,6 @@ def make_proc_lane_engine_class():
         _lane_index = 0
         _lane_n = 1
         _proc_integ: "dict | None" = None
-        # kwok_tick_stage_seconds children by stage (set by
-        # _make_lane_engine)
-        _stage_hists: "dict | None" = None
 
         def _integrity_resync(self, kind: str) -> None:
             d = self._proc_integ
@@ -318,31 +315,17 @@ def make_proc_lane_engine_class():
                     self._update_pods_on_node(name)
             super()._resync(kind, objs)
 
-        def _observe_stage(self, stage: str, seconds: float) -> None:
-            hists = self._stage_hists
-            if hists is not None:
-                hists[stage].observe(seconds)
-
         def _ingest_safe(self, kind, type_, obj) -> None:
             if type_ != "RAWB":
                 super()._ingest_safe(kind, type_, obj)
                 return
-            # one routed window: raw watch lines, parsed on this core
-            t0 = time.perf_counter()
-            blob, bounds = obj
-            for i in range(len(bounds) - 1):
-                try:
-                    doc = json.loads(blob[bounds[i]:bounds[i + 1]])
-                    ev_type, ev_obj = doc.get("type"), doc.get("object")
-                except (ValueError, AttributeError):
-                    # corrupt routed bytes: quarantined, and the parent
-                    # re-lists the kind (the upcall in the status row)
-                    wire_reject("unparseable")
-                    self._integrity_resync(kind)
-                    continue
-                if ev_type in event_types and isinstance(ev_obj, dict):
-                    super()._ingest_safe(kind, ev_type, ev_obj)
-            self._observe_stage("drain", time.perf_counter() - t0)
+            # one routed window on its own (the tick loop drains windows
+            # through _drain_apply): one batched parse on this core;
+            # corrupt routed bytes are quarantined and upcalled
+            # (_integrity_resync above) by the record path
+            raw_buf: dict = {}
+            self._drain_apply((kind, type_, obj, time.monotonic()), raw_buf)
+            self._drain_flush(raw_buf)
 
         def _tick_consume(self, p) -> None:
             t0 = time.perf_counter()
@@ -358,7 +341,6 @@ def _make_lane_engine(spec: dict):
     process exits, the supervisor charges the restart budget); it never
     carries on on the CPU."""
     from kwok_tpu_torch.edge.httpclient import HttpKubeClient
-    from kwok_tpu_torch.telemetry.lanes import _HELP
 
     index = spec["index"]
     n = spec["n"]
@@ -375,10 +357,12 @@ def _make_lane_engine(spec: dict):
     e._lane_n = n
     e._proc_integ = {"nodes": 0, "pods": 0, "rewind": 0}
     e._ckpt_name = f"lane{index}"
+    # the lane's stage series exist from its first metrics snapshot
     fam = e.registry.histogram(
-        "kwok_tick_stage_seconds", _HELP["kwok_tick_stage_seconds"], ("stage",)
+        "kwok_tick_stage_seconds", _LANE_HELP["kwok_tick_stage_seconds"], ("stage",)
     )
-    e._stage_hists = {s: fam.labels(stage=s) for s in ("drain", "emit")}
+    for stage in ("parse", "drain", "emit"):
+        fam.labels(stage=stage)
     # disjoint per-lane sub-ranges of the pod CIDR: no cross-process
     # allocator lock, and a respawn re-derives the same range (IPs pinned
     # by re-listed pods still ride IPPool.use)
@@ -629,6 +613,16 @@ class ProcLaneSet:
             "metrics = per-lane metrics slabs).",
             ("pool",),
         )
+        # the router is the native partitioned parse's consumer here, so
+        # it owns the per-lane routed-event counter of the threaded lanes
+        routed = r.counter(
+            "kwok_route_partition_events_total",
+            _LANE_HELP["kwok_route_partition_events_total"], ("shard",),
+        )
+        self._m_routed = [routed.labels(shard=str(i)) for i in range(self.n)]
+        self._m_route_batch = r.histogram(
+            "kwok_route_batch_seconds", _LANE_HELP["kwok_route_batch_seconds"],
+        ).child
 
     # ------------------------------------------------------------ lifecycle
 
@@ -645,6 +639,8 @@ class ProcLaneSet:
             from kwok_tpu_torch.ops.cuda_tick import build_library
 
             build_library()
+        if native.enabled():
+            native.load()  # g++ once here too: the lanes only load it
         self._ctx = mp.get_context("spawn")
         tag = str(os.getpid())
         made: list = []
@@ -782,12 +778,15 @@ class ProcLaneSet:
     # --------------------------------------------------------------- router
 
     def route_loop(self) -> None:
-        """Drain the parent's ingest queue in windows of half a tick;
-        buffer each event's raw line per (lane, kind) and ship every
-        buffered slice at the window's end as one ring blob."""
+        """Drain the parent's ingest queue in windows of half a tick: the
+        window's raw watch lines are parsed in one native call that also
+        partitions them (``route_batch``), each lane's lines buffer per
+        (lane, kind), and every buffered slice ships at the window's end
+        as one ring blob. The revision bookkeeping stays on the parent."""
         parent = self.parent
         q = parent._q
         window = max(0.002, parent.config.tick_interval / 2)
+        raw_buf: dict = {}
         try:
             while True:
                 try:
@@ -800,7 +799,7 @@ class ProcLaneSet:
                     if not parent._running:
                         return
                     continue
-                self._route_item(item)
+                self._route_item(item, raw_buf)
                 window_end = time.monotonic() + window
                 while True:
                     timeout = window_end - time.monotonic()
@@ -814,27 +813,34 @@ class ProcLaneSet:
                         if not parent._running:
                             break
                         continue
-                    self._route_item(item)
+                    self._route_item(item, raw_buf)
+                if raw_buf:
+                    parent._drain_flush(raw_buf, self.route, self.n)
                 self.flush_lanes()
                 if not parent._running:
                     return
         finally:
             try:
+                if raw_buf:
+                    parent._drain_flush(raw_buf, self.route, self.n)
                 self.flush_lanes()
             except Exception:
                 logger.exception("final router flush failed")
 
-    def _route_item(self, item) -> None:
-        kind, type_, obj = item[0], item[1], item[2]
-        if type_ != "RESYNC":
+    def _route_item(self, item, raw_buf: dict) -> None:
+        """One parent-queue item into the drain: raw lines are counted by
+        the flush that parses them, other events (re-lists aside) here."""
+        if item[1] not in ("RESYNC", "RAW", "RAWB", "GEN"):
             self.parent._inc("watch_events_total")
-        self.route(kind, type_, obj, item[4] if len(item) > 4 else None)
+        self.parent._drain_apply(item, raw_buf, self.route, self.n)
 
-    def route(self, kind: str, type_: str, obj, raw: "bytes | None" = None) -> None:
-        """Route one event. A raw line buffers per (lane, kind) until the
-        window flushes; a RESYNC snapshot goes over the pipe (nodes to
-        every lane, pods each to its own); an event without its raw line
-        goes pickled over the pipe. Node events broadcast."""
+    def route(self, kind: str, type_: str, obj) -> None:
+        """Route one event (the per-record path: KWOK_TPU_NATIVE_ROUTE=0,
+        or a window with an ERROR or a nameless record). A record's raw
+        line buffers per (lane, kind) until the window flushes; a RESYNC
+        snapshot goes over the pipe (nodes to every lane, pods each to its
+        own); a decoded event goes pickled over the pipe. Node events
+        broadcast."""
         if type_ == "RESYNC":
             for lane in self.lanes:
                 objs = obj if kind == "nodes" else [
@@ -843,6 +849,15 @@ class ProcLaneSet:
                 ]
                 self._flush_buf(lane, kind)
                 self._send(lane, ("RESYNC", kind, objs))
+            return
+        if type_ == "REC":
+            if kind == "nodes":
+                for lane in self.lanes:
+                    self._buf.setdefault((lane.index, kind), []).append(obj.raw)
+                return
+            key = self._rec_key(obj)
+            if key is not None:
+                self._buf.setdefault((shard_of(key, self.n), kind), []).append(obj.raw)
             return
         if not isinstance(obj, dict):
             return
@@ -854,13 +869,52 @@ class ProcLaneSet:
                 return
             targets = (self.lanes[shard_of(key, self.n)],)
         for lane in targets:
-            if raw is not None:
-                self._buf.setdefault((lane.index, kind), []).append(raw)
-                continue
             if self._shed_check(lane, 1):
                 continue
             self._flush_buf(lane, kind)
             self._send(lane, ("EV", kind, type_, obj))
+
+    @staticmethod
+    def _rec_key(rec):
+        """A pod record's routing key; a record without a usable name is
+        routed by its raw line's metadata, or dropped (and counted) when
+        that cannot be decoded."""
+        if rec.name:
+            return (rec.namespace or "default", rec.name)
+        try:
+            meta = (json.loads(rec.raw).get("object") or {}).get("metadata") or {}
+        except Exception:
+            swallowed("proclanes.unrouteable_event")
+            return None
+        if not meta.get("name"):
+            return None
+        return (meta.get("namespace") or "default", meta["name"])
+
+    def route_batch(self, kind: str, batch) -> None:
+        """The pre-partitioned handoff: each lane's raw lines, gathered
+        from its index run, ship as ONE ring blob. A node batch goes whole
+        to every lane (the tap needs the whole node stream)."""
+        t0 = time.perf_counter()
+        lines = batch.lines
+        if kind == "nodes":
+            parts = [lines[i] for i in batch.lane_idx[: batch.route_info.routable].tolist()]
+            for lane in self.lanes:
+                self._flush_buf(lane, kind)
+                self._ship(lane, kind, parts)
+                self._m_routed[lane.index].inc(len(parts))
+        else:
+            lane_off = batch.lane_off
+            lane_idx = batch.lane_idx
+            for li in range(len(lane_off) - 1):
+                lo, hi = lane_off[li], lane_off[li + 1]
+                if hi <= lo:
+                    continue
+                lane = self.lanes[li]
+                parts = [lines[i] for i in lane_idx[lo:hi].tolist()]
+                self._flush_buf(lane, kind)
+                self._ship(lane, kind, parts)
+                self._m_routed[li].inc(len(parts))
+        self._m_route_batch.observe(time.perf_counter() - t0)
 
     def flush_lanes(self) -> None:
         """Window end: ship every buffered (lane, kind) slice."""

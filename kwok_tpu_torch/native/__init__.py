@@ -1,0 +1,655 @@
+"""The native ingest edge: C++ watch-line reader, batch event parser and
+canonical fingerprints, bound through ctypes (the ingest half of
+``kwok_tpu.native``).
+
+``codec.cc``, ``pump.cc`` and ``ingest.cc`` are copies of the JAX
+package's sources. They are built together, at first use, with
+``g++ -O2 -std=c++17 -pthread -shared -fPIC`` into
+``kwok_tpu_torch/_build/libkwok_native-<hash>.so``, named by a hash of
+the three sources and the flags; nothing is written next to them.
+
+Bound here: ``kwok_parse_events`` (one C call parses a whole drain of
+watch lines into fingerprints, flags, revisions and string offsets, and
+with ``n_shards`` computes each event's lane as ``rowpool.shard_of``
+does), ``kwok_fingerprint_statuses`` and the watch IO
+(``kwok_watch_open``/``read``/``close``: the batched, de-chunking socket
+reader). The emit renderers and the pump are in the same library and
+are bound by the emit slice.
+
+A build or load failure is logged at WARNING with the compiler's
+output; callers then keep the Python path. The engine's opt-outs are
+environment variables: ``KWOK_TPU_NATIVE=0`` (no native ingest at all),
+``KWOK_TPU_NATIVE_WATCH=0`` (no socket reader: raw lines from Python's
+HTTP client, still parsed natively) and ``KWOK_TPU_NATIVE_ROUTE=0`` (no
+pre-partitioned routing: per-record Python route loop).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+logger = logging.getLogger("kwok_tpu_torch.native")
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+SOURCES = tuple(os.path.join(_DIR, f) for f in ("codec.cc", "pump.cc", "ingest.cc"))
+BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
+CXX_FLAGS = ("-O2", "-std=c++17", "-pthread", "-shared", "-fPIC")
+ABI_VERSION = 9
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_tried = False
+#: the compiler's output of the build this process made ("" when the
+#: library was already built)
+build_log = ""
+
+
+def enabled() -> bool:
+    """False under ``KWOK_TPU_NATIVE=0``."""
+    return os.environ.get("KWOK_TPU_NATIVE", "1") != "0"
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libkwok_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> bool:
+    """Compile the three sources into ``path`` (atomic rename)."""
+    global build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp, *SOURCES]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=180)
+    except (OSError, subprocess.SubprocessError) as e:
+        logger.warning("native ingest build failed to run %s: %s", cmd[0], e)
+        return False
+    if proc.returncode != 0:
+        logger.warning(
+            "native ingest build failed (%d): %s\n%s",
+            proc.returncode, " ".join(cmd), (proc.stdout + proc.stderr).strip(),
+        )
+        return False
+    os.replace(tmp, path)
+    build_log = (proc.stdout + proc.stderr).strip()
+    return True
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.kwok_codec_abi_version.restype = ctypes.c_int32
+    lib.kwok_codec_abi_version.argtypes = []
+    lib.kwok_parse_events.restype = ctypes.c_int64
+    lib.kwok_parse_events.argtypes = [
+        ctypes.c_char_p, i64p, ctypes.c_int32,
+        u64p, u64p, u64p, u64p, u8p, i64p,
+        ctypes.c_char_p, ctypes.c_int64, i64p,
+        # pre-partitioned routing: kind_is_pods, n_shards, shard_out,
+        # lane_idx, lane_off, route_info (null when n_shards=0)
+        ctypes.c_int32, ctypes.c_int32, i32p, i32p, i64p, i64p,
+    ]
+    lib.kwok_fingerprint_statuses.restype = None
+    lib.kwok_fingerprint_statuses.argtypes = [
+        ctypes.c_char_p, i64p, ctypes.c_int32, u64p,
+    ]
+    lib.kwok_watch_open.restype = ctypes.c_void_p
+    lib.kwok_watch_open.argtypes = [
+        ctypes.c_int32, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+    ]
+    lib.kwok_watch_read.restype = ctypes.c_int64
+    lib.kwok_watch_read.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_char_p, ctypes.c_int64,
+        i64p, ctypes.c_int64, i32p, i64p,
+    ]
+    lib.kwok_watch_close.restype = None
+    lib.kwok_watch_close.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def load() -> ctypes.CDLL | None:
+    """The native library, building it at first use; None when it cannot
+    be built or loaded (logged at WARNING once)."""
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        try:
+            path = library_path()
+        except OSError as e:
+            logger.warning("native ingest sources unreadable: %s", e)
+            return None
+        if not os.path.exists(path) and not _build(path):
+            return None
+        try:
+            lib = _bind(ctypes.CDLL(path))
+        except (OSError, AttributeError) as e:
+            logger.warning("native ingest library %s failed to load: %s", path, e)
+            return None
+        abi = lib.kwok_codec_abi_version()
+        if abi != ABI_VERSION:
+            logger.warning(
+                "native ingest library %s has ABI %d, the loader binds %d",
+                path, abi, ABI_VERSION,
+            )
+            return None
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+#: string fields per EventRecord (ingest.cc kwok_parse_events)
+_REC_STRINGS = 11  # type, ns, name, nodeName, phase, podIP, hostIP,
+#                    creation, containers, initContainers, trueConditions
+
+# flags bits (ingest.cc)
+REC_OK = 1
+REC_DELETION = 2
+REC_FINALIZERS = 4
+REC_READINESS_GATES = 8
+REC_STATUS_SCALAR_ONLY = 16
+# bits 5-6: event type code, so batch consumers classify without the
+# type string
+REC_TYPE_MASK = 0x60
+REC_TYPE_ADDED = 0x20
+REC_TYPE_MODIFIED = 0x40
+REC_TYPE_DELETED = 0x60
+
+# shard sentinel codes of a partitioned parse
+SHARD_UNROUTABLE = -1  # nameless, or escapes in ns/name (Python routes it)
+SHARD_ERROR = -2
+SHARD_BOOKMARK = -3
+
+
+class EventRecord:
+    """Compact parse of one watch line: routing strings, flags, canonical
+    fingerprints and pre-formatted container/condition blobs. ``raw``
+    keeps the original line for the full-parse fallback."""
+
+    __slots__ = (
+        "type", "namespace", "name", "node_name", "phase", "pod_ip",
+        "host_ip", "creation", "containers", "init_containers",
+        "true_conditions", "flags", "fp_status", "fp_status_nc",
+        "fp_spec", "fp_meta_sel", "rv", "raw",
+    )
+
+    def __init__(self, type_, ns, name, node, phase, pod_ip, host_ip,
+                 creation, ctrs, ictrs, conds, flags, fp_s, fp_nc, fp_spec,
+                 fp_meta, rv, raw):
+        self.type = type_
+        self.namespace = ns
+        self.name = name
+        self.node_name = node
+        self.phase = phase
+        self.pod_ip = pod_ip
+        self.host_ip = host_ip
+        self.creation = creation
+        self.containers = ctrs
+        self.init_containers = ictrs
+        self.true_conditions = conds
+        self.flags = flags
+        self.fp_status = fp_s
+        self.fp_status_nc = fp_nc
+        self.fp_spec = fp_spec
+        self.fp_meta_sel = fp_meta
+        #: metadata.resourceVersion, parsed at metadata's own depth; 0
+        #: when absent or not a number
+        self.rv = rv
+        self.raw = raw
+
+    @property
+    def ok(self) -> bool:
+        return bool(self.flags & REC_OK)
+
+
+class RouteInfo:
+    """Scalar summary of one partitioned parse. ``latest_rv`` is the
+    resume revision a full Python walk would commit: 0 whenever the batch
+    carries an ERROR event."""
+
+    __slots__ = ("latest_rv", "first_error", "bookmarks", "routable",
+                 "unrouteable")
+
+    def __init__(self, latest_rv, first_error, bookmarks, routable,
+                 unrouteable):
+        self.latest_rv = latest_rv
+        self.first_error = first_error
+        self.bookmarks = bookmarks
+        self.routable = routable
+        self.unrouteable = unrouteable
+
+
+class ParsedBatch:
+    """One batched parse; ``record(i)`` is a lazy view over the arrays
+    (the attribute surface of EventRecord).
+
+    The numpy outputs (``off_a``/``fp_a``/``flags_a``/``rvs_a``) feed the
+    columnar ingest directly; the per-record list mirrors
+    (``off``/``fp``/``flags_arr``/``rvs``) are built eagerly, except on a
+    partitioned parse, where the first lane that needs them converts
+    once under ``_lists_lock``. A partitioned parse also carries
+    ``shard`` (each event's lane code), ``lane_idx``/``lane_off`` (each
+    lane's contiguous index run over the routable records) and
+    ``route_info``."""
+
+    __slots__ = (
+        "lines", "buf", "n", "off_a", "fp_a", "flags_a", "rvs_a",
+        "off", "fp", "flags_arr", "rvs",
+        "shard", "lane_idx", "lane_off", "route_info", "_lists_lock",
+    )
+
+    def __init__(self, lines, buf, off_a, fp_a, flags_a, rvs_a,
+                 lazy=False, partition=None):
+        self.lines = lines
+        self.buf = buf
+        self.n = len(lines)
+        self.off_a = off_a
+        self.fp_a = fp_a
+        self.flags_a = flags_a
+        self.rvs_a = rvs_a
+        if partition is not None:
+            self.shard, self.lane_idx, self.lane_off, self.route_info = partition
+        else:
+            self.shard = self.lane_idx = self.lane_off = None
+            self.route_info = None
+        self._lists_lock = threading.Lock()
+        if lazy:
+            self.off = self.fp = self.flags_arr = self.rvs = None
+        else:
+            self._build_lists()
+
+    @property
+    def partitioned(self) -> bool:
+        return self.lane_off is not None
+
+    def _build_lists(self) -> None:
+        # list indexing is ~10x a numpy scalar read, and lazy records read
+        # per field: one tolist per batch
+        self.fp = [row.tolist() for row in self.fp_a]
+        self.flags_arr = self.flags_a.tolist()
+        self.rvs = self.rvs_a.tolist()
+        self.off = self.off_a.tolist()  # set LAST: the presence gate
+
+    def ensure_lists(self) -> None:
+        """Idempotent lazy list conversion, safe from concurrent lane
+        drain workers."""
+        if self.off is not None:
+            return
+        with self._lists_lock:
+            if self.off is None:
+                self._build_lists()
+
+    def rv(self, i: int) -> int:
+        if self.off is None:
+            self.ensure_lists()
+        return self.rvs[i]
+
+    def type_bytes(self, i: int) -> bytes:
+        if self.off is None:
+            self.ensure_lists()
+        base = i * _REC_STRINGS
+        return self.buf[self.off[base]: self.off[base + 1]]
+
+    def record(self, i: int) -> "_LazyRecord":
+        if self.off is None:
+            self.ensure_lists()
+        return _LazyRecord(self, i)
+
+
+class _LazyRecord:
+    """EventRecord-compatible lazy view into a ParsedBatch; fields cache as
+    instance attributes on first access. flags, the fingerprints, rv and
+    the identity strings (type, namespace, name, nodeName) resolve one by
+    one, so a dropped echo touches only those; any other field
+    materializes them all in one pass."""
+
+    def __init__(self, batch: ParsedBatch, i: int):
+        self._b = batch
+        self._i = i
+
+    _STR_FIELDS = (
+        "type", "namespace", "name", "node_name", "phase", "pod_ip",
+        "host_ip", "creation",
+    )
+    # decoded one by one: the echo drop and the record upsert's first
+    # checks read only these, so an echo that takes the full path never
+    # pays the whole pass
+    _CHEAP_STR = {"type": 0, "namespace": 1, "name": 2, "node_name": 3}
+    _FP_FIELDS = ("fp_status", "fp_status_nc", "fp_spec", "fp_meta_sel")
+
+    def _materialize(self) -> None:
+        b = self._b
+        i = self._i
+        base = i * _REC_STRINGS
+        off = b.off
+        buf = b.buf
+        d = self.__dict__
+        for j, fname in enumerate(self._STR_FIELDS):
+            d[fname] = buf[off[base + j]: off[base + j + 1]].decode(
+                "utf-8", "surrogateescape"
+            )
+        d["containers"] = buf[off[base + 8]: off[base + 9]]
+        d["init_containers"] = buf[off[base + 9]: off[base + 10]]
+        d["true_conditions"] = buf[off[base + 10]: off[base + 11]]
+        flag = b.flags_arr[i]
+        d["flags"] = flag
+        d["ok"] = bool(flag & REC_OK)
+        fp = b.fp
+        d["fp_status"] = fp[0][i]
+        d["fp_status_nc"] = fp[1][i]
+        d["fp_spec"] = fp[2][i]
+        d["fp_meta_sel"] = fp[3][i]
+        d["rv"] = b.rvs[i]
+
+    def __getattr__(self, name: str):
+        b = self._b
+        i = self._i
+        d = self.__dict__
+        if name == "flags":
+            d["flags"] = v = b.flags_arr[i]
+            return v
+        if name == "ok":
+            d["ok"] = v = bool(b.flags_arr[i] & REC_OK)
+            return v
+        j = self._CHEAP_STR.get(name)
+        if j is not None:
+            base = i * _REC_STRINGS
+            d[name] = v = b.buf[b.off[base + j]: b.off[base + j + 1]].decode(
+                "utf-8", "surrogateescape"
+            )
+            return v
+        if name in self._FP_FIELDS:
+            fp = b.fp
+            d["fp_status"] = fp[0][i]
+            d["fp_status_nc"] = fp[1][i]
+            d["fp_spec"] = fp[2][i]
+            d["fp_meta_sel"] = fp[3][i]
+            return d[name]
+        if name == "rv":
+            d["rv"] = v = b.rvs[i]
+            return v
+        if name == "raw":
+            d["raw"] = v = bytes(b.lines[i])
+            return v
+        if name.startswith("_"):
+            raise AttributeError(name)
+        self._materialize()
+        try:
+            return d[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+
+class _BlobLines:
+    """Sequence view over lines packed as (buf, off): the raw backing a
+    ParsedBatch needs for ``.raw`` without per-line bytes objects."""
+
+    __slots__ = ("bbuf", "boff")
+
+    def __init__(self, buf: bytes, off) -> None:
+        self.bbuf = buf
+        self.boff = off
+
+    def __len__(self) -> int:
+        return len(self.boff) - 1
+
+    def __getitem__(self, i: int) -> bytes:
+        return self.bbuf[self.boff[i]: self.boff[i + 1]]
+
+
+class WatchReader:
+    """Batched native watch-line reader over a socket fd handed off after
+    the Python HTTP handshake. ``read_batch()`` returns the packed
+    (buf, off) lines ``EventParser.parse_blob`` consumes, or None at the
+    end of the stream. A batch cut short by an ERROR event line carries
+    that line in ``error`` (it is not in the batch)."""
+
+    def __init__(self, fd: int, initial: bytes = b"",
+                 chunked: bool = True) -> None:
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._h = lib.kwok_watch_open(
+            int(fd), bytes(initial), len(initial), 0 if chunked else 1
+        )
+        self._cap = 1 << 20
+        self._buf = ctypes.create_string_buffer(self._cap)
+        self._max_lines = 16384
+        self._off = np.zeros(self._max_lines + 1, np.int64)
+        self._err = np.zeros(1, np.int32)
+        self._need = np.zeros(1, np.int64)
+        self.error: bytes | None = None
+
+    def read_batch(self, timeout_s: float = 1.0):
+        """(buf, off) with len(off)-1 >= 0 lines (0: the poll timed out,
+        call again), or None when the stream is over."""
+        self.error = None
+        errp = self._err.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        while True:
+            n = self._lib.kwok_watch_read(
+                self._h, 1000 if timeout_s is None
+                else max(0, int(timeout_s * 1000)),
+                self._buf, self._cap,
+                _i64p(self._off), self._max_lines, errp, _i64p(self._need),
+            )
+            if n == -2:  # one line larger than the buffer: grow, retry
+                self._cap = max(self._cap * 2, int(self._need[0]) + 4096)
+                self._buf = ctypes.create_string_buffer(self._cap)
+                continue
+            break
+        if n < 0:
+            return None
+        n = int(n)
+        off = self._off[: n + 1].tolist()
+        # slice the ctypes array: ._buf.raw would copy the whole capacity
+        buf = self._buf[: off[-1]] if n else b""
+        if self._err[0] and n:
+            # the last line is the stream-ending ERROR event
+            self.error = buf[off[n - 1]: off[n]]
+            off = off[:n]
+            buf = buf[: off[-1]] if n > 1 else b""
+        return buf, off
+
+    def close(self) -> None:
+        h, self._h = self._h, None
+        if h:
+            self._lib.kwok_watch_close(h)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # interpreter shutdown: the fd dies with us
+            pass
+
+
+class EventParser:
+    """The batch parser (one C call per drain) and a single-line parse
+    with preallocated buffers."""
+
+    def __init__(self) -> None:
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._fp = np.zeros(4, np.uint64)  # status, status_nc, spec, meta
+        self._flags = np.zeros(1, np.uint8)
+        self._rv = np.zeros(1, np.int64)
+        self._str_off = np.zeros(_REC_STRINGS + 1, np.int64)
+        self._off = np.zeros(2, np.int64)
+        self._cap = 4096
+        self._buf = bytearray(self._cap)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        self._fp_ptrs = tuple(
+            self._fp[i:].ctypes.data_as(u64p) for i in range(4)
+        )
+        self._flags_p = self._flags.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        self._rv_p = _i64p(self._rv)
+        self._off_p = _i64p(self._off)
+        self._str_off_p = _i64p(self._str_off)
+
+    def parse_raw_batch(
+        self, lines: list, kind: "str | None" = None, n_shards: int = 0
+    ) -> "ParsedBatch | None":
+        """Parse N watch lines in ONE C call; records come back as lazy
+        views. With ``kind`` and ``n_shards`` >= 1 the same call computes
+        each event's lane (crc32, as ``rowpool.shard_of``) and the
+        per-lane index runs."""
+        n = len(lines)
+        if n == 0:
+            return None
+        blob, off = _blob([bytes(x) for x in lines])
+        return self._parse_packed(lines, blob, off, n, kind, n_shards)
+
+    def parse_blob(
+        self, blob: bytes, off, kind: "str | None" = None, n_shards: int = 0,
+    ) -> "ParsedBatch | None":
+        """``parse_raw_batch`` over lines already packed as (blob, offsets),
+        the WatchReader's form; ``.raw`` slices the blob lazily."""
+        n = len(off) - 1
+        if n <= 0:
+            return None
+        off_arr = np.ascontiguousarray(off, np.int64)
+        return self._parse_packed(
+            _BlobLines(blob, off), blob, off_arr, n, kind, n_shards
+        )
+
+    def _parse_packed(self, lines, blob: bytes, off: np.ndarray, n: int,
+                      kind: "str | None" = None, n_shards: int = 0):
+        fp = np.zeros((4, n), np.uint64)
+        flags = np.zeros(n, np.uint8)
+        rvs = np.zeros(n, np.int64)
+        str_off = np.zeros(_REC_STRINGS * n + 1, np.int64)
+        cap = max(4096, len(blob))
+        buf = bytearray(cap)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        ns_arg = int(n_shards) if (n_shards and kind is not None) else 0
+        if ns_arg:
+            shard = np.zeros(n, np.int32)
+            lane_idx = np.zeros(n, np.int32)
+            lane_off = np.zeros(ns_arg + 1, np.int64)
+            route_info = np.zeros(6, np.int64)
+            part_args = (
+                1 if kind == "pods" else 0, ns_arg,
+                shard.ctypes.data_as(i32p), lane_idx.ctypes.data_as(i32p),
+                _i64p(lane_off), _i64p(route_info),
+            )
+        else:
+            part_args = (0, 0, None, None, None, None)
+        for _ in range(2):
+            need = self._lib.kwok_parse_events(
+                blob, _i64p(off), n,
+                fp[0].ctypes.data_as(u64p), fp[1].ctypes.data_as(u64p),
+                fp[2].ctypes.data_as(u64p), fp[3].ctypes.data_as(u64p),
+                flags.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                _i64p(rvs),
+                (ctypes.c_char * cap).from_buffer(buf), cap, _i64p(str_off),
+                *part_args,
+            )
+            if need <= cap:
+                break
+            cap = int(need) + 1024
+            buf = bytearray(cap)
+        partition = None
+        if ns_arg:
+            partition = (
+                shard, lane_idx, lane_off.tolist(),
+                RouteInfo(*route_info.tolist()[:5]),
+            )
+        return ParsedBatch(
+            lines, bytes(buf[:min(cap, int(need))]), str_off,
+            fp, flags, rvs, lazy=bool(ns_arg), partition=partition,
+        )
+
+    def parse_batch(self, lines: list) -> "list[EventRecord]":
+        """Eager variant of parse_raw_batch (small batches, tests)."""
+        b = self.parse_raw_batch(lines)
+        return [] if b is None else [b.record(i) for i in range(b.n)]
+
+    def parse(self, line: bytes) -> EventRecord:
+        self._off[1] = len(line)
+        fp = self._fp
+        p0, p1, p2, p3 = self._fp_ptrs
+        for _ in range(2):
+            need = self._lib.kwok_parse_events(
+                line, self._off_p, 1,
+                p0, p1, p2, p3,
+                self._flags_p, self._rv_p,
+                (ctypes.c_char * self._cap).from_buffer(self._buf),
+                self._cap, self._str_off_p,
+                0, 0, None, None, None, None,
+            )
+            if need <= self._cap:
+                break
+            self._cap = int(need) + 1024
+            self._buf = bytearray(self._cap)
+        off = self._str_off
+        buf = self._buf
+        flags = int(self._flags[0])
+
+        def s(i: int) -> str:
+            return bytes(buf[off[i]: off[i + 1]]).decode("utf-8", "surrogateescape")
+
+        def blob(i: int) -> bytes:
+            return bytes(buf[off[i]: off[i + 1]])
+
+        return EventRecord(
+            s(0), s(1), s(2), s(3), s(4), s(5), s(6), s(7),
+            blob(8), blob(9), blob(10),
+            flags, int(fp[0]), int(fp[1]), int(fp[2]), int(fp[3]),
+            int(self._rv[0]), line,
+        )
+
+
+def fingerprint_statuses(bodies: list) -> "np.ndarray | None":
+    """Canonical fingerprint of the ``status`` subtree of each rendered
+    patch body, by the algorithm the event parser applies to incoming
+    objects: equal fingerprints mean the merged status will echo back
+    exactly this document."""
+    lib = load()
+    if lib is None:
+        return None
+    blob, off = _blob([bytes(b) for b in bodies])
+    out = np.zeros(len(bodies), np.uint64)
+    lib.kwok_fingerprint_statuses(
+        blob, _i64p(off), len(bodies),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+    )
+    return out
+
+
+def _blob(items: list[bytes]) -> tuple[bytes, np.ndarray]:
+    n = len(items)
+    off = np.zeros(n + 1, np.int64)
+    if n:
+        np.cumsum(np.fromiter(map(len, items), np.int64, count=n), out=off[1:])
+    return b"".join(items), off
+
+
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _split(buf: bytearray, off: np.ndarray) -> list[memoryview]:
+    """Zero-copy per-row views into one output buffer."""
+    mv = memoryview(buf)
+    off_l = off.tolist()
+    return [mv[off_l[i]: off_l[i + 1]] for i in range(len(off_l) - 1)]

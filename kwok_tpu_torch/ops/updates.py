@@ -169,19 +169,34 @@ def refine_flush(
     ))
 
 
+class _InitBlock(NamedTuple):
+    """A columnar run of ACTIVE row inits (``stage_init_array``)."""
+
+    idx: np.ndarray  # int32
+    phase: np.ndarray  # int32
+    cond_bits: np.ndarray  # uint32
+    sel_bits: np.ndarray  # uint32
+    has_deletion: np.ndarray  # bool
+
+
 class UpdateBuffer:
     """Host-side accumulator that flushes staged row writes to the device.
 
-    The per-row staging API of ``kwok_tpu.ops.updates.UpdateBuffer``
-    (``stage_init``/``stage_update``). The flush differs in shape only:
-    torch needs no static batch widths, so every staged init goes out as
-    ONE ``init_rows`` batch in staging order, then every staged update as
-    one ``update_rows`` batch. Last-writer-wins inside a batch makes that
-    equal to applying the entries one by one: a row released then
-    re-acquired in one window ends in its later write."""
+    The staging API of ``kwok_tpu.ops.updates.UpdateBuffer``: per-row
+    ``stage_init``/``stage_update`` and the columnar
+    ``stage_init_array`` (the native ingest's block of new Pending rows).
+    Tuples and blocks are kept in one list in STAGING ORDER. The flush
+    differs in shape only: torch needs no static batch widths, so every
+    staged init, tuple or block, goes out as ONE ``init_rows`` batch in
+    staging order, then every staged update as one ``update_rows`` batch.
+    Last-writer-wins inside a batch makes that equal to applying the
+    entries one by one: a row released then re-acquired in one window
+    ends in its later write, whichever of the two was a block."""
 
     def __init__(self) -> None:
-        self._init: list[tuple[int, bool, int, int, int, bool]] = []
+        # per-row tuples and _InitBlock runs, in staging order
+        self._init: list = []
+        self._n_init = 0  # staged init ROWS (a block counts its length)
         self._upd: list[tuple[int, int, bool]] = []
 
     def stage_init(
@@ -194,22 +209,87 @@ class UpdateBuffer:
         has_deletion: bool = False,
     ) -> None:
         self._init.append((idx, active, phase, cond_bits, sel_bits, has_deletion))
+        self._n_init += 1
+
+    def stage_init_array(
+        self,
+        idx: np.ndarray,
+        phase,
+        cond_bits: np.ndarray,
+        sel_bits: np.ndarray,
+        has_deletion: np.ndarray,
+    ) -> None:
+        """Stage a columnar run of ACTIVE row inits. ``phase`` may be a
+        scalar (every new row of the native ingest starts Pending)."""
+        n = int(idx.shape[0])
+        if not n:
+            return
+        ph = np.asarray(phase, np.int32)
+        if ph.ndim == 0:
+            ph = np.full(n, ph, np.int32)
+        self._init.append(_InitBlock(
+            idx=np.ascontiguousarray(idx, np.int32),
+            phase=ph,
+            cond_bits=np.ascontiguousarray(cond_bits, np.uint32),
+            sel_bits=np.ascontiguousarray(sel_bits, np.uint32),
+            has_deletion=np.ascontiguousarray(has_deletion, bool),
+        ))
+        self._n_init += n
 
     def stage_update(self, idx: int, sel_bits: int, has_deletion: bool) -> None:
         self._upd.append((idx, sel_bits, has_deletion))
 
     def staged_rows(self) -> frozenset:
-        """Row indices with a staged-but-unflushed INIT. The checkpoint
-        gather and restore refine skip these: their device slots still
-        describe a previous occupant (or nothing) until the init
-        flushes. Updates are excluded on purpose: they only touch
-        matching inputs, and the kernel's re-arm supersedes any refine on
-        such rows at the next tick."""
-        return frozenset(c[0] for c in self._init)
+        """Row indices with a staged-but-unflushed INIT, block rows
+        included. The checkpoint gather and restore refine skip these:
+        their device slots still describe a previous occupant (or
+        nothing) until the init flushes. Updates are excluded on purpose:
+        they only touch matching inputs, and the kernel's re-arm
+        supersedes any refine on such rows at the next tick."""
+        out: set = set()
+        for entry in self._init:
+            if isinstance(entry, _InitBlock):
+                out.update(entry.idx.tolist())
+            else:
+                out.add(entry[0])
+        return frozenset(out)
 
     @property
     def pending(self) -> int:
-        return len(self._init) + len(self._upd)
+        return self._n_init + len(self._upd)
+
+    def _init_batch(self) -> InitBatch:
+        """Every staged init, tuples and blocks, as one batch in staging
+        order."""
+        parts = []
+        run: list = []
+
+        def close_run() -> None:
+            if run:
+                n = len(run)
+                parts.append((
+                    np.fromiter((c[0] for c in run), np.int64, n),
+                    np.fromiter((c[1] for c in run), bool, n),
+                    np.fromiter((c[2] for c in run), np.int32, n),
+                    np.fromiter((c[3] for c in run), np.uint32, n),
+                    np.fromiter((c[4] for c in run), np.uint32, n),
+                    np.fromiter((c[5] for c in run), bool, n),
+                ))
+                run.clear()
+
+        for entry in self._init:
+            if isinstance(entry, _InitBlock):
+                close_run()
+                parts.append((
+                    entry.idx.astype(np.int64), np.ones(entry.idx.shape[0], bool),
+                    entry.phase, entry.cond_bits, entry.sel_bits,
+                    entry.has_deletion,
+                ))
+            else:
+                run.append(entry)
+        close_run()
+        cols = [np.concatenate([p[j] for p in parts]) for j in range(6)]
+        return InitBatch(*cols)
 
     def flush(
         self, state: RowState, offset: int = 0, rows: "int | None" = None,
@@ -217,20 +297,16 @@ class UpdateBuffer:
         """Apply staged writes to ``state`` in place and return it. With
         ``offset``/``rows`` the staged indices are slice-local (a lane of
         a stacked state): those outside ``[0, rows)`` are dropped, the
-        rest shifted by ``offset``. Staged entries are cleared only after
-        the writes went out."""
+        rest shifted by ``offset``. Staged entries are cleared only once
+        their writes went out: a flush that raises keeps its unapplied
+        tail (the inits when ``init_rows`` raised, else the updates), and
+        the next flush re-applies it; a row init is an idempotent
+        overwrite."""
         if self._init:
-            init = self._init
-            n = len(init)
-            state = init_rows(state, InitBatch(
-                idx=_shift(np.fromiter((c[0] for c in init), np.int64, n),
-                           offset, rows),
-                active=np.fromiter((c[1] for c in init), bool, n),
-                phase=np.fromiter((c[2] for c in init), np.int32, n),
-                cond_bits=np.fromiter((c[3] for c in init), np.uint32, n),
-                sel_bits=np.fromiter((c[4] for c in init), np.uint32, n),
-                has_deletion=np.fromiter((c[5] for c in init), bool, n),
-            ))
+            b = self._init_batch()
+            state = init_rows(state, b._replace(idx=_shift(b.idx, offset, rows)))
+            self._init = []
+            self._n_init = 0
         if self._upd:
             upd = self._upd
             n = len(upd)
@@ -240,6 +316,5 @@ class UpdateBuffer:
                 sel_bits=np.fromiter((c[1] for c in upd), np.uint32, n),
                 has_deletion=np.fromiter((c[2] for c in upd), bool, n),
             ))
-        self._init = []
-        self._upd = []
+            self._upd = []
         return state

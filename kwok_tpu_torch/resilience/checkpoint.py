@@ -78,13 +78,27 @@ def checkpoint_path(directory: str, name: str) -> str:
 
 
 def row_uid(m: dict) -> str:
-    """The row's object uid, read from its object's metadata and cached in
-    the meta dict ("" when it has none: the restore then matches on rv
-    alone)."""
+    """The row's object uid, extracted lazily and cached in the meta dict
+    ("" when it has none: the restore then matches on rv alone).
+
+    Dict-path rows carry a parsed object; native-record rows carry only
+    the raw watch line, where a byte search finds the first ``"uid":"``
+    without a JSON parse. An ownerReferences uid serialized before
+    metadata.uid could shadow it; a wrong uid only makes the restore MORE
+    conservative (the (uid, rv) match fails and the row re-arms fresh)."""
     uid = m.get("uid")
     if uid is None:
-        obj = m.get("obj") or {}
-        uid = (obj.get("metadata") or {}).get("uid") or ""
+        obj = m.get("obj")
+        if obj is not None:
+            uid = (obj.get("metadata") or {}).get("uid") or ""
+        else:
+            raw = m.get("raw") or b""
+            i = raw.find(b'"uid":"')
+            if i >= 0:
+                j = raw.find(b'"', i + 7)
+                uid = raw[i + 7: j].decode("utf-8", "replace") if j > 0 else ""
+            else:
+                uid = ""
         m["uid"] = uid
     return uid
 

@@ -6,7 +6,15 @@ registry:
   worker spent applying routed events (``stage="drain"``) and its emit
   worker spent on wire slices (``stage="emit"``), as histograms;
 - ``kwok_lane_queue_depth{shard}``: routed events waiting in the lane's
-  ingest queue.
+  ingest queue;
+- ``kwok_route_partition_events_total{shard}``: events the router handed
+  the lane through the native pre-partitioned parse (``RECB`` runs);
+  the process lanes' router counts the same family per lane.
+
+The engine-wide ``kwok_tick_stage_seconds{stage}`` (``stage="parse"``:
+the batched native parse of raw watch lines, on whichever thread drains
+them) and ``kwok_route_batch_seconds`` (the router's per-batch handoff)
+take their help texts from here too.
 
 ``kwok_degraded{reason}`` lives with its ledger in
 ``resilience/policy.py``. Every other engine counter stays on the flat
@@ -31,9 +39,15 @@ _HELP = {
     "emit=patch fan-out)",
     "kwok_lane_queue_depth": "Routed events waiting in a lane's ingest "
     "queue (shard=lane index)",
-    "kwok_tick_stage_seconds": "Wall seconds by stage of a process lane's "
-    "single-lane engine (drain=ingest of routed events, emit=consume of a "
-    "tick's wire)",
+    "kwok_tick_stage_seconds": "Wall seconds by stage: parse=the batched "
+    "native parse of raw watch lines (the router's under lanes); in a "
+    "process lane's single-lane engine also drain=ingest of routed events "
+    "and emit=consume of a tick's wire",
+    "kwok_route_batch_seconds": "Wall seconds per native pre-partitioned "
+    "route handoff (the router's per-batch lane enqueue; the parse that "
+    "computed the partition is kwok_tick_stage_seconds{stage=parse})",
+    "kwok_route_partition_events_total": "Events routed to each lane via "
+    "the native pre-partitioned parse (shard=lane index)",
 }
 
 
@@ -53,12 +67,19 @@ class LaneTelemetry:
             "kwok_lane_queue_depth", _HELP["kwok_lane_queue_depth"],
             ("shard",),
         ).labels(shard=shard)
+        self._routed = registry.counter(
+            "kwok_route_partition_events_total",
+            _HELP["kwok_route_partition_events_total"], ("shard",),
+        ).labels(shard=shard)
 
     def observe_stage(self, stage: str, seconds: float) -> None:
         self.stage_hists[stage].observe(seconds)
 
     def set_queue_depth(self, depth: int) -> None:
         self._depth.set(depth)
+
+    def inc_routed(self, n: int) -> None:
+        self._routed.inc(n)
 
     @property
     def stage_sums(self) -> dict:

@@ -382,3 +382,55 @@ def test_federation_on_card(card, tmp_path):
                 assert torch.equal(getattr(ks, f), getattr(ps, f)), f
             for a, b in zip(k, p):
                 assert torch.equal(a, b)
+
+
+def test_cli_over_http_on_card_routes_natively(card, tmp_path):
+    """The kwok entry point on the card over the port's HTTP mock with 2
+    threaded lanes: the watches queue raw lines, the router partitions
+    them natively (kwok_route_partition_events_total > 0), every pod
+    reaches Running and the kernel launches."""
+    import socket
+    import threading
+    import urllib.request
+
+    from kwok_tpu_torch.edge.mockserver import HttpFakeApiserver
+    from kwok_tpu_torch.kwok import cli
+
+    srv = HttpFakeApiserver(store=FakeKube()).start()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    stop, rc = threading.Event(), []
+    argv = ["--master", srv.url, "--kubeconfig", str(tmp_path / "none"),
+            "--manage-all-nodes", "true", "--tick-interval", "0.02",
+            "--drain-shards", "2", "--server-address", f"127.0.0.1:{port}",
+            "--config", str(tmp_path / "absent.yaml")]
+    before = cuda_tick.tick_steps.launches
+    t = threading.Thread(target=lambda: rc.append(cli.main(argv, stop_event=stop)))
+    t.start()
+    try:
+        for i in range(4):
+            srv.store.create("nodes", {"metadata": {"name": f"hn{i}"}})
+        for i in range(200):
+            srv.store.create("pods", {
+                "metadata": {"name": f"hp{i}", "namespace": "default"},
+                "spec": {"nodeName": f"hn{i % 4}"}, "status": {"phase": "Pending"},
+            })
+        deadline = time.time() + 60
+        while time.time() < deadline and srv.store.count(
+            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running"
+        ) < 200:
+            time.sleep(0.05)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            text = r.read().decode()
+    finally:
+        stop.set()
+        t.join(60)
+        srv.stop()
+    assert rc == [0]
+    assert srv.store.count(
+        "pods", lambda p: (p.get("status") or {}).get("phase") == "Running") == 200
+    routed = sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                 if ln.startswith("kwok_route_partition_events_total{"))
+    assert routed > 0
+    assert cuda_tick.tick_steps.launches > before

@@ -411,6 +411,37 @@ def test_threaded_federation_end_to_end():
     assert text.count("# TYPE kwok_status_patches_total counter") == 1
 
 
+def test_federation_over_http_converges_on_the_native_drain():
+    """Two members over the port's HTTP mocks: the watches queue raw
+    lines, each member's drain parses them natively (the parse stage
+    moves), and every pod converges."""
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+    from kwok_tpu_torch.edge.mockserver import HttpFakeApiserver
+
+    srvs = [HttpFakeApiserver(store=PortFakeKube()).start() for _ in range(2)]
+    fed = federation("torch", [HttpKubeClient(s.url) for s in srvs], tick_interval=0.02)
+    assert all(e._batch_parser is not None for e in fed.engines)
+    fed.start()
+    try:
+        assert wait_for(lambda: fed.ready)
+        for c, s in enumerate(srvs):
+            s.store.create("nodes", make_node(f"h{c}-n0"))
+            for i in range(15):
+                s.store.create("pods", make_pod(f"h{c}-p{i}", node=f"h{c}-n0"))
+        assert wait_for(lambda: all(
+            s.store.count("pods", lambda p: p["status"].get("phase") == "Running") == 15
+            for s in srvs))
+        text = render_metrics(fed)
+    finally:
+        fed.stop()
+        for s in srvs:
+            s.stop()
+    parse = [ln for ln in text.splitlines()
+             if ln.startswith('kwok_tick_stage_seconds_count{stage="parse"}')]
+    assert parse and float(parse[0].rsplit(" ", 1)[1]) > 0
+    assert fed.metrics["patch_errors_total"] == 0
+
+
 def test_idle_federation_stops_dispatching():
     """Once every object has settled and the next device timer is an hour
     away, the loop's gate stops dispatching."""

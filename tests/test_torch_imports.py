@@ -78,3 +78,20 @@ def test_cuda_engine_without_card_raises(monkeypatch):
     assert EngineConfig(manage_all_nodes=True).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         ClusterEngine(FakeKube(), EngineConfig(manage_all_nodes=True))
+
+
+@pytest.mark.parametrize("src", ["codec.cc", "pump.cc", "ingest.cc"])
+def test_native_package_is_walked_and_its_sources_are_copies(src):
+    """kwok_tpu_torch/native/ is in the walk above and imports alone; its
+    C++ sources are byte-identical copies of kwok_tpu/native/'s, built into
+    the port's own _build/ directory (nothing next to the sources)."""
+    import importlib
+
+    from kwok_tpu_torch import native
+
+    assert ROOT / "kwok_tpu_torch" / "native" / "__init__.py" in PORT_FILES
+    importlib.import_module("kwok_tpu_torch.native")
+    port = ROOT / "kwok_tpu_torch" / "native" / src
+    assert port.read_bytes() == (ROOT / "kwok_tpu" / "native" / src).read_bytes()
+    assert str(port) in native.SOURCES
+    assert pathlib.Path(native.library_path()).parent == ROOT / "kwok_tpu_torch" / "_build"

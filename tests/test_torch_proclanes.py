@@ -345,6 +345,7 @@ def test_two_process_lanes_converge_respawn_and_match_reference(tmp_path):
             sum(shard_of(("default", n), 2) == i for n in names) for i in (0, 1)]
         # node + 12 pods, once both lanes have published their counters
         assert _wait(lambda: eng.metrics["status_patches_total"] >= 13, 10)
+        relists0 = eng.metrics["watch_relists_total"]
         crashes0, restarts0 = worker_crash_ledger().get("kwok-lane0", (0, 0))
         lane = eng._proc.lanes[0]
         old_pid = lane.proc.pid
@@ -359,8 +360,16 @@ def test_two_process_lanes_converge_respawn_and_match_reference(tmp_path):
         assert not eng.degraded
         # the crash and the respawn, both in the worker ledger
         assert worker_crash_ledger()["kwok-lane0"] == (crashes0 + 1, restarts0 + 1)
+        # the respawn still re-lists both kinds
+        assert eng.metrics["watch_relists_total"] >= relists0 + 2
         text = eng.metrics_text()
         assert 'kwok_lane_proc_restarts_total{shard="0"} 1' in text
+        # the router handed the lanes pre-partitioned windows, and the lanes
+        # parsed them natively
+        series = _series(text)
+        assert sum(v for k, v in series.items()
+                   if k.startswith("kwok_route_partition_events_total{")) > 0
+        assert series['kwok_tick_stage_seconds_count{stage="parse"}'] > 0
         for shard in ("0", "1"):
             assert f'kwok_lane_stage_seconds_count{{shard="{shard}",stage="drain"}}' in text
         # the killed incarnation's published counters stay in the sum
@@ -373,6 +382,43 @@ def test_two_process_lanes_converge_respawn_and_match_reference(tmp_path):
     node, ref = _reference_statuses(names, late)
     assert masked(store.get("nodes", None, "pe-n0")["status"]) == node
     assert _statuses(store, names + [late]) == ref
+
+
+def _series(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def test_two_process_lanes_converge_with_native_ingest_off(monkeypatch):
+    """Under KWOK_TPU_NATIVE=0 the parent routes decoded events (pickled
+    over the pipe) and nothing is partitioned natively; the lanes still
+    converge."""
+    monkeypatch.setenv("KWOK_TPU_NATIVE", "0")
+    names = [f"po-p{i}" for i in range(8)]
+    srv = HttpFakeApiserver(store=PortFakeKube()).start()
+    store = srv.store
+    eng = ClusterEngine(HttpKubeClient(srv.url), EngineConfig(
+        manage_all_nodes=True, tick_interval=0.05, drain_shards=2,
+        lane_procs=True, device="cpu",
+    ))
+    assert eng._batch_parser is None
+    try:
+        eng.start()
+        assert _wait(lambda: eng.ready, 60), "startup gate never closed"
+        store.create("nodes", make_node("po-n0"))
+        for n in names:
+            store.create("pods", make_pod(n, node="po-n0"))
+        assert _wait(lambda: all(_pod_phase(store, n) == "Running" for n in names), 30)
+        series = _series(eng.metrics_text())
+    finally:
+        eng.stop()
+        srv.stop()
+    assert sum(v for k, v in series.items()
+               if k.startswith("kwok_route_partition_events_total{")) == 0
 
 
 def test_cuda_lane_without_card_degrades_and_never_runs_on_cpu():
