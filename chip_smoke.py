@@ -6,7 +6,7 @@ Phases (each raises on failure; the script exits non-zero and prints no
 result line then):
 
 1. Card and build: the card's name and power limit as nvidia-smi reports
-   them, then g++ builds the native ingest library (kwok_tpu_torch/native)
+   them, then g++ builds the native library (kwok_tpu_torch/native)
    while nvcc builds kwok_tpu_torch/csrc/tick.cu from the checkout
    (build time and the ptxas report are printed).
 2. Kernel: the tick kernel against its plain torch version on the card at
@@ -59,20 +59,25 @@ result line then):
    stacked capacities with the Stage rule tables, over two dispatches
    that re-arm half the pod rows through the weighted uniform draw and
    fire them.
-   Every HTTP phase (6, 6b, 7, 8, 9) runs the native ingest
+   Every HTTP phase (6, 7, 8, 9) runs the native edge
    (kwok_tpu_torch/native, built with g++ at first use) and fails unless
-   it did: under lanes the events the router partitioned natively
+   it did: the requests the native pump shipped
+   (kwok_pump_requests_total, summed over the lane processes or the
+   shard series) must be > 0; under lanes the events the router
+   partitioned natively
    (kwok_route_partition_events_total, summed over the shards) must be
    > 0 and within the phase's kwok_watch_events_total (times the lane
    count for process lanes, whose node windows go to every lane); in a
    federation the batched parses (kwok_tick_stage_seconds{stage="parse"})
    must be > 0. Each reports the kwok process's CPU seconds per 1,000
    pods over its create->Running window.
-6b. Ingest A/B: the CLI phase's path again, in the same call, under
-   KWOK_TPU_NATIVE=0 (json.loads per event, Python routing): the same
-   checks but a partitioned count of exactly 0; printed beside the CLI
-   phase: create->Running pods/s, the kwok and mock CPU seconds over the
-   window and the lanes' drain seconds.
+6b. Native A/B: the CLI phase's path again, in the same call, under
+   KWOK_TPU_NATIVE=0 (json.loads per event, Python routing, one executor
+   job per patch): the same checks but a partitioned count and pumped
+   requests of exactly 0; printed beside the CLI phase: create->Running
+   pods/s, the kwok CPU seconds per 1,000 pods and the mock's CPU seconds
+   over the window, the lanes' summed drain and emit seconds, the pump's
+   requests and kwok_pump_send_seconds_sum.
 7. Process lanes: the same topology, Stage file and mock through main
    with --lane-procs true (auto lane count) and checkpoints every 1 s:
    one spawned lane process per lane, each running its own single-lane
@@ -108,7 +113,8 @@ result line then):
 9. Watch (the reflector: resume, 410, bookmarks): the CLI phase again
    (auto threaded lanes, 10,000 nodes, the same Stage file) with 10,000
    pods, its mock sending bookmarks every second
-   (KWOK_TPU_BOOKMARK_INTERVAL=1).
+   (KWOK_TPU_BOOKMARK_INTERVAL=1) and keeping WATCH_RV_WINDOW events
+   (KWOK_TPU_RV_WINDOW).
    /readyz 503 then 200. During the create flood the engine's live pods
    watch connection is dropped (stop() on its handle) every 3 s, 5 times,
    and the nodes one once; each time the seconds until a new handle is
@@ -171,6 +177,10 @@ WATCH_PODS = 10_000
 WATCH_POD_CUTS = 5  # dropped pods connections during the flood
 WATCH_CUT_EVERY_S = 3.0
 WATCH_BOOKMARK_WAIT_S = 3.0  # quiet time after the flood before the bookmark check
+# the mock's watch cache in events: about 15 s of the H100 flood's
+# ~2,200 writes/s, where 4,096 held under 2 s, two bookmark intervals (an
+# apiserver's watch cache keeps at least 75 s)
+WATCH_RV_WINDOW = 32_768
 PROCS_MORE_PODS = 1_000  # created after the SIGKILL of lane 0
 PROCS_RESPAWN_S = 60.0
 FED_MEMBERS = 8  # BASELINE config 5: 8 kwok apiservers, federated
@@ -1065,24 +1075,35 @@ def lane_seconds(m: dict, n_lanes: int) -> dict:
     return lane_s
 
 
-def native_ingest(m: dict, events: float, lanes: int = 0, procs: bool = False,
-                  off: bool = False) -> dict:
-    """The native ingest's share of an HTTP phase from its final
-    /metrics: the events the router partitioned natively (summed over
-    the shards) and the batched parses. Raises when the phase did not run
-    the path it should: under lanes the partitioned events must be > 0
+def native_edge(m: dict, events: float, lanes: int = 0, procs: bool = False,
+                off: bool = False) -> dict:
+    """The native edge's share of an HTTP phase from its final /metrics:
+    the events the router partitioned natively (summed over the shards),
+    the batched parses, and the requests the native pump shipped with its
+    send seconds (summed over the lane processes or the shard series).
+    Raises when the phase did not run the path it should: the pump must
+    have shipped requests; under lanes the partitioned events must be > 0
     and within the phase's ``events`` (times the lane count for process
     lanes, whose node windows go to every lane), else the parses > 0;
-    with ``off`` (KWOK_TPU_NATIVE=0) the partitioned count must be 0."""
+    with ``off`` (KWOK_TPU_NATIVE=0) the partitioned count and the pump's
+    requests must be 0."""
     routed = summed(m, "kwok_route_partition_events_total")
     parses = m.get('kwok_tick_stage_seconds_count{stage="parse"}', 0.0)
+    pumped = summed(m, "kwok_pump_requests_total")
     out = {"partitioned_events": routed, "parses": parses, "watch_events": events,
            "parse_s": m.get('kwok_tick_stage_seconds_sum{stage="parse"}', 0.0),
-           "route_batch_s": m.get("kwok_route_batch_seconds_sum", 0.0)}
+           "route_batch_s": m.get("kwok_route_batch_seconds_sum", 0.0),
+           "pump_requests": pumped,
+           "pump_send_s": summed(m, "kwok_pump_send_seconds_sum"),
+           "pump_batches": summed(m, "kwok_pump_send_seconds_count")}
     if off:
-        if routed:
-            raise AssertionError(f"KWOK_TPU_NATIVE=0 still partitioned {routed} events")
-    elif lanes:
+        if routed or pumped:
+            raise AssertionError(f"KWOK_TPU_NATIVE=0 still partitioned {routed} events "
+                                 f"and pumped {pumped} requests")
+        return out
+    if pumped <= 0:
+        raise AssertionError("no request went through the native pump: the native emit did not run")
+    if lanes:
         cap = events * (lanes if procs else 1)
         if not 0 < routed <= cap:
             raise AssertionError(f"native routing: {routed} partitioned events for "
@@ -1114,8 +1135,9 @@ def cli_phase(native_off: bool = False):
         eng = run["engine"]
         if eng._lanes is None or eng._lanes.n != n_lanes:
             raise AssertionError(f"the CLI's default --drain-shards did not run {n_lanes} lanes")
-        if (eng._batch_parser is None) != native_off:
-            raise AssertionError(f"native parser {eng._batch_parser} with native_off={native_off}")
+        if (eng._batch_parser is None) != native_off or (eng._emit_tpl is None) != native_off:
+            raise AssertionError(f"native parser {eng._batch_parser}, emit templates "
+                                 f"{eng._emit_tpl} with native_off={native_off}")
         load = drive_pods(run)
         pods = load["client"].list("pods")
         m = scrape(run)
@@ -1133,7 +1155,7 @@ def cli_phase(native_off: bool = False):
     log(f"kernel at the CLI engine's capacities {caps} with the Stage rules: checked; "
         f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     m_run, m0 = load["m_run"], load["m0"]
-    native = native_ingest(m, m["kwok_watch_events_total"], lanes=n_lanes, off=native_off)
+    native = native_edge(m, m["kwok_watch_events_total"], lanes=n_lanes, off=native_off)
     return {
         "lanes": n_lanes, "lane_drain_s": lane_s["drain"], "lane_emit_s": lane_s["emit"],
         "lane_pods": [len(ln.engine.pods.pool) for ln in eng._lanes.lanes],
@@ -1166,6 +1188,10 @@ def cut_stream(eng, kind: str, deadline: float) -> float:
     old.stop()
     while eng._watches.get(kind) is old:
         if time.monotonic() > deadline:
+            # where every thread is, for the post-mortem
+            import faulthandler
+
+            faulthandler.dump_traceback(all_threads=True)
             raise AssertionError(f"the {kind} watch never reconnected")
         time.sleep(0.001)
     return time.monotonic() - t
@@ -1189,7 +1215,8 @@ def watch_phase(cli_run):
 
     n_lanes = resolve_drain_shards(0, 0)
     cuda_tick.tick_steps.launches = 0
-    run = start_cli([], mock_env={"KWOK_TPU_BOOKMARK_INTERVAL": "1"})
+    run = start_cli([], mock_env={"KWOK_TPU_BOOKMARK_INTERVAL": "1",
+                                  "KWOK_TPU_RV_WINDOW": str(WATCH_RV_WINDOW)})
     cuts = {"pods": [], "nodes": []}
     info: dict = {}
     try:
@@ -1212,14 +1239,39 @@ def watch_phase(cli_run):
         flood_over = threading.Event()
 
         def compaction_relist():
-            # a write the pods stream never sees puts its revision below
-            # the floor, so this resume must get the 410 and re-list
-            client.patch_meta("nodes", None, "node-0",
-                              {"metadata": {"labels": {"kwok-smoke": "compact"}}})
-            info["compacted_mid_flood"] = post_compact(run["url"])
+            # the pods stream resumes from the last revision it received,
+            # and pod writes go on under the flood: its next handshake is
+            # held until the stream is over (its resume revision fixed),
+            # a node write the pods stream never sees has landed above
+            # that revision, and the store is compacted there, so this
+            # resume must get the 410 and re-list
+            entered, release = threading.Event(), threading.Event()
+            held: dict = {}
+            watch = eng.client.watch
+
+            def held_watch(kind, **kw):
+                if kind == "pods" and not entered.is_set():
+                    held["resume_rv"] = kw.get("resource_version", 0)
+                    entered.set()
+                    release.wait(max(1.0, deadline - time.monotonic()))
+                return watch(kind, **kw)
+
             gen, n0 = eng._stream_gen.get("pods", 0), len(resyncs)
-            t = time.monotonic()
-            eng._watches["pods"].stop()
+            eng.client.watch = held_watch
+            try:
+                t = time.monotonic()
+                eng._watches["pods"].stop()
+                if not entered.wait(max(1.0, deadline - time.monotonic())):
+                    raise AssertionError("the cut pods stream never came back to its handshake")
+                client.patch_meta("nodes", None, "node-0",
+                                  {"metadata": {"labels": {"kwok-smoke": "compact"}}})
+                info["compacted_mid_flood"] = post_compact(run["url"])
+                if not 0 < held["resume_rv"] < info["compacted_mid_flood"]:
+                    raise AssertionError(f"pods resume {held['resume_rv']} not below the "
+                                         f"compaction at {info['compacted_mid_flood']}")
+            finally:
+                release.set()
+                del eng.client.watch
             while {ln for k, ln, _ in resyncs[n0:] if k == "pods"} != set(range(n_lanes)):
                 if time.monotonic() > deadline:
                     raise AssertionError("the re-list after the 410 never reached every lane")
@@ -1254,6 +1306,8 @@ def watch_phase(cli_run):
             cut_thread.join(max(1.0, deadline - time.monotonic()))
             if errors:
                 raise errors[0]
+            if cut_thread.is_alive():
+                raise AssertionError("the cuts during the flood did not finish by the deadline")
             time.sleep(WATCH_BOOKMARK_WAIT_S)
             m = scrape(run)
             info["bookmarks_before_compact"] = m["kwok_watch_bookmarks_total"]
@@ -1302,7 +1356,7 @@ def watch_phase(cli_run):
     log(f"kernel at the watch phase's capacities {caps} with the Stage rules: checked; "
         f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     resume = sorted(s for s, _ in cuts["pods"] + cuts["nodes"])
-    native = native_ingest(m, m["kwok_watch_events_total"], lanes=n_lanes)
+    native = native_edge(m, m["kwok_watch_events_total"], lanes=n_lanes)
     return {
         "lanes": n_lanes, **load["report"], "native": native,
         "kwok_cpu_s_per_1000_pods": per_1000(load["report"]["window_kwok_process_cpu_s"],
@@ -1473,7 +1527,7 @@ def procs_phase(cli_run):
     if launches <= 0:
         raise AssertionError("the lane processes ran without launching the tick kernel")
     check_final_pods(pods, m)
-    native = native_ingest(m, m["kwok_watch_events_total"], lanes=n_lanes, procs=True)
+    native = native_edge(m, m["kwok_watch_events_total"], lanes=n_lanes, procs=True)
     if native["parses"] <= 0:
         raise AssertionError("the lane processes parsed no routed window natively")
     # the kernel at a lane's starting capacity (ProcLaneSet.capacity) and
@@ -1663,7 +1717,7 @@ def fed_phase(cli_run):
     t_created = max(span[1] for _p, span in creators)
     window = t_patched - t_pods
     total = n * FED_PODS
-    native = native_ingest(m, summed(m, "kwok_watch_events_total"))
+    native = native_edge(m, summed(m, "kwok_watch_events_total"))
     kwok_cpu = m_run["process_cpu_seconds_total"] - m0["process_cpu_seconds_total"]
     return {
         "native": native, "kwok_cpu_s_per_1000_pods": per_1000(kwok_cpu, total),
@@ -1710,7 +1764,7 @@ def main() -> int:
     from kwok_tpu_torch import native
 
     print(card_line(), flush=True)
-    # g++ (the native ingest library) and nvcc (the tick kernel) at once
+    # g++ (the native library) and nvcc (the tick kernel) at once
     t0 = time.perf_counter()
     native_build: dict = {}
 
@@ -1726,8 +1780,8 @@ def main() -> int:
     print(f"build: nvcc {cuda_tick.NVCC_FLAGS[1]} tick.cu in {build_s:.2f} s", flush=True)
     log(cuda_tick.tick_steps.build_log)
     if native_build.get("lib") is None:
-        raise AssertionError("the native ingest library did not build (see the WARNING above)")
-    print(f"build: g++ {' '.join(native.CXX_FLAGS)} native ingest in {native_build['s']:.2f} s",
+        raise AssertionError("the native library did not build (see the WARNING above)")
+    print(f"build: g++ {' '.join(native.CXX_FLAGS)} native library in {native_build['s']:.2f} s",
           flush=True)
 
     configs, max_abs_err = kernel_phase(torch, np)
@@ -1767,14 +1821,18 @@ def main() -> int:
           f"tick thread {cli_run['tick_thread_s']:.2f} s, kernel "
           f"{cli_run['kernel_ms_at_capacities']:.4f} ms at {cli_run['capacities']}, "
           f"kwok CPU {cli_run['kwok_cpu_s_per_1000_pods']:.2f} s per 1,000 pods, "
-          f"{cli_run['native']['partitioned_events']:.0f} events partitioned natively ({card})",
+          f"{cli_run['native']['partitioned_events']:.0f} events partitioned natively, "
+          f"{cli_run['native']['pump_requests']:.0f} requests pumped ({card})",
           flush=True)
     for arm, r in (("native", cli_run), ("KWOK_TPU_NATIVE=0", ab_off)):
-        print(f"ingest A/B, {arm}: {r['create_to_running_pods_per_s']:.1f} pods/s "
+        print(f"native A/B, {arm}: {r['create_to_running_pods_per_s']:.1f} pods/s "
               f"create->Running ({r['pods']} pods), kwok CPU {r['window_kwok_process_cpu_s']:.2f} s "
               f"({r['kwok_cpu_s_per_1000_pods']:.2f} per 1,000 pods), mock CPU "
               f"{r['window_mock_cpu_s']:.2f} s, lanes' drain {sum(r['lane_drain_s']):.2f} s, "
-              f"partitioned {r['native']['partitioned_events']:.0f} ({card})", flush=True)
+              f"emit {sum(r['lane_emit_s']):.2f} s, "
+              f"partitioned {r['native']['partitioned_events']:.0f}, pump requests "
+              f"{r['native']['pump_requests']:.0f}, pump_send_seconds_sum "
+              f"{r['native']['pump_send_s']:.3f} ({card})", flush=True)
     print(f"watch ({n_lanes} lanes): {watch['create_to_running_pods_per_s']:.1f} pods/s "
           f"create->Running, {watch['cuts']} cuts ({watch['cuts_during_flood']} during the flood), "
           f"resume_s median {watch['resume_s_median']:.4f} max {watch['resume_s_max']:.4f}, "

@@ -391,6 +391,8 @@ class _HttpWatch:
                  allow_bookmarks=False):
         self.client = client
         self._stopped = threading.Event()
+        #: the native reader's dup of the socket (native_reader), or None
+        self._reader_sock = None
         #: set when the stream ended with an ERROR event carrying a 410
         #: Status — the resume revision was compacted; caller must re-list
         self.expired = False
@@ -525,8 +527,13 @@ class _HttpWatch:
         library): the caller then reads ``raw_lines()``. Bytes
         ``http.client`` already read ahead are drained from its buffer
         without blocking and handed over, so the reader starts exactly
-        where the handshake left off. ``stop()`` still ends a native read:
-        its socket shutdown is the reader's end of stream."""
+        where the handshake left off. The reader reads a dup of the
+        socket that it owns and closes itself, so no close of the
+        response's socket (``stop()`` falls back to one when the
+        shutdown fails) can free the fd number it reads while it reads.
+        ``stop()`` still ends a native read: it shuts the connection down
+        through both descriptors, and that is the reader's end of
+        stream."""
         if os.environ.get("KWOK_TPU_NATIVE_WATCH", "1") == "0":
             return None
         from kwok_tpu_torch import native
@@ -553,13 +560,27 @@ class _HttpWatch:
                     buffered += part
             finally:
                 sock.setblocking(True)
-            return native.WatchReader(sock.fileno(), buffered, chunked)
+            own = sock.dup()
+            self._reader_sock = own
+            if self._stopped.is_set():
+                # a stop() that ran before the dup existed reached only
+                # the response's socket
+                own.shutdown(socket.SHUT_RDWR)
+            return native.WatchReader(own.fileno(), buffered, chunked, owner=own)
         except Exception:
             logger.debug("native watch reader unavailable", exc_info=True)
             return None
 
     def stop(self) -> None:
         self._stopped.set()
+        # the native reader's own descriptor: its shutdown ends the read
+        # even when the response's socket is already closed
+        own = self._reader_sock
+        if own is not None:
+            try:
+                own.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # the reader is done and closed it, or the peer went
         # Closing the response would block on the buffer lock held by a
         # reader mid-readline; shutting the socket down unblocks the reader
         # with EOF instead.

@@ -18,8 +18,9 @@ The engine of ``kwok_tpu.engine.engine`` on PyTorch. With one lane:
   plus one ``GEN`` marker per stream. The tick thread parses a whole
   drain in ONE C call (``kwok_tpu_torch/native``); echoes of rows already
   processed drop by fingerprint, stale revisions drop by rv, and new
-  Pending pods stage as one columnar block (``_pod_ingest_cols``). The
-  resume revision is then the tick thread's ``_watch_rv``.
+  Pending pods stage as one columnar block (``_pod_ingest_cols``). A
+  broken stream resumes from the last revision it received (its last
+  line's), as client-go does, never from behind the drain's backlog.
 - The tick thread is the ONLY mutator of engine state: it drains the
   ingest queue into staged row writes, flushes them to the device, runs
   the fused tick (``ops/tick.MultiTickKernel``: the CUDA tick kernel per
@@ -27,7 +28,19 @@ The engine of ``kwok_tpu.engine.engine`` on PyTorch. With one lane:
   All of its device work runs on one CUDA stream of its own; up to
   ``pipeline_depth`` dispatches are in flight, each with its own pinned
   host wire.
-- The executor bounds API fan-out (default 16).
+- Egress leaves in batches. Over plain ``http://`` a tick's dirty pods
+  become ONE executor job: their status patches are spliced into the
+  byte templates compiled from the rules and pipelined over keep-alive
+  connections in one C call (``_emit_pods_tpl``, the native ``Pump``);
+  heartbeats, node patches and deletes go out as pump batches too. Each
+  pod patch whose server-side status is scalar-only seeds ``fp_expect``,
+  so its watch echo drops at tier 2 without a parse. Requests whose
+  connection died are resent as whole frames under ``PUMP_RESEND``;
+  past its deadline the engine degrades (reason ``pump``) and sheds;
+  other failures fall back to the per-object Python path. Without the
+  native library (``KWOK_TPU_NATIVE=0``), over TLS or in process, the
+  executor sends one job per object. The executor bounds API fan-out
+  (default 16).
 
 With ``drain_shards`` above one (the CLI's auto default) the engine runs
 the threaded lanes of ``engine/lanes.py`` instead: a router, a drain and
@@ -51,10 +64,10 @@ slice of a stacked state that the federation's loop ticks.
 
 Names and logic of the ingest, tick and emit methods follow the JAX
 package's engine so each has its counterpart there. The mesh, HA,
-anti-entropy, fault injection, the native emit and pump, CNI, the
-profiler and the span tracer are not part of this engine; ``metrics`` is
-a plain counters dict, and the labeled families (stage seconds, lanes,
-degraded mode) live on ``registry``.
+anti-entropy, fault injection, CNI, the profiler and the span tracer are
+not part of this engine; ``metrics`` is a plain counters dict, and the
+labeled families (stage seconds, pump seconds, lanes, degraded mode)
+live on ``registry``.
 """
 
 from __future__ import annotations
@@ -69,6 +82,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from urllib.parse import quote as _quote
 
 import numpy as np
 import torch
@@ -90,6 +104,7 @@ from kwok_tpu_torch.edge.merge import (
     pod_status_patch_needed,
 )
 from kwok_tpu_torch.edge.render import (
+    _NODE_CONDITION_META,
     now_rfc3339,
     render_node_heartbeat,
     render_node_status,
@@ -98,8 +113,15 @@ from kwok_tpu_torch.edge.render import (
 )
 from kwok_tpu_torch.edge.selectors import parse_selector
 from kwok_tpu_torch import native
-from kwok_tpu_torch.engine.rowpool import RowPool, shard_of
+from kwok_tpu_torch.engine.rowpool import (
+    EF_RENDER,
+    EF_RGATES,
+    EF_SCALAR,
+    RowPool,
+    shard_of,
+)
 from kwok_tpu_torch.models import (
+    compile_emit_templates,
     compile_rules,
     default_node_rules,
     default_pod_rules,
@@ -132,7 +154,12 @@ from kwok_tpu_torch.ops.updates import (
     update_rows,
 )
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
-from kwok_tpu_torch.resilience.policy import PATCH_RETRY, WATCH_RECONNECT, Degradation
+from kwok_tpu_torch.resilience.policy import (
+    PATCH_RETRY,
+    PUMP_RESEND,
+    WATCH_RECONNECT,
+    Degradation,
+)
 from kwok_tpu_torch.resilience.watchdog import Watchdog
 from kwok_tpu_torch.telemetry.errors import wire_reject
 from kwok_tpu_torch.telemetry.lanes import _HELP as _STAGE_HELP
@@ -141,6 +168,9 @@ from kwok_tpu_torch.telemetry.registry import MetricsRegistry
 logger = logging.getLogger("kwok_tpu_torch.engine")
 
 _NODE_READY_BITS = 1 << NODE_PHASES.condition_bit("Ready")
+# status keys whose strategic merge is plain replacement: when the current
+# status has only these, merge(current, rendered) == rendered exactly
+_SCALAR_STATUS_KEYS = frozenset({"phase", "hostIP", "podIP", "startTime"})
 _PENDING = POD_PHASES.phase_id("Pending")
 _NODE_READY = NODE_PHASES.phase_id("Ready")
 _NODE_OBSERVED = NODE_PHASES.phase_id("Observed")
@@ -152,6 +182,7 @@ _COUNTERS = (
     "status_patches_total", "heartbeats_total", "deletes_total",
     "patch_errors_total", "dropped_jobs_total", "ticks_total",
     "epoch_rebases_total", "client_throttle_seconds_total",
+    "pump_requests_total", "pump_send_seconds_sum",
 )
 
 
@@ -162,6 +193,17 @@ def _rv_of(meta: dict) -> int:
         return int(meta.get("resourceVersion") or 0)
     except (TypeError, ValueError):
         return 0
+
+
+def _ctr_blob(containers) -> bytes:
+    """A container list in the native renderers' form: "name\\x1fimage"
+    records joined by \\x1e."""
+    if not containers:
+        return b""
+    return b"\x1e".join(
+        f"{c.get('name') or ''}\x1f{c.get('image') or ''}".encode()
+        for c in containers
+    )
 
 
 @dataclasses.dataclass
@@ -249,6 +291,70 @@ class _PendingTick:
     now: float  # engine time of the dispatch (idle-wake arithmetic)
     mono: float  # monotonic clock at dispatch (idle-wake anchor)
     host_s: float  # host seconds spent in the dispatch half
+
+
+class _PumpGroup:
+    """Several native pump connection groups, each behind its own lock: a
+    sender claims the first free group (a non-blocking probe from a
+    round-robin start) and blocks only when every group is busy, so two
+    executor jobs with ready batches ride two groups instead of queueing
+    on one lock."""
+
+    def __init__(self, pumps) -> None:
+        self._pumps = [(p, threading.Lock()) for p in pumps]
+        self._next = 0  # racy round-robin hint; exactness does not matter
+
+    def __len__(self) -> int:
+        return len(self._pumps)
+
+    def _on_claimed_group(self, fn):
+        """fn(pump) on the first free group, blocking on the start group
+        only when every group is busy: the one claim discipline of
+        ``send`` and the fused emit."""
+        n = len(self._pumps)
+        self._next += 1
+        start = self._next % n
+        for i in range(n):
+            p, lock = self._pumps[(start + i) % n]
+            if lock.acquire(blocking=False):
+                try:
+                    # fn blocks on the wire by design: this leaf lock only
+                    # serializes sends on one connection group
+                    return fn(p)
+                finally:
+                    lock.release()
+        p, lock = self._pumps[start]
+        with lock:
+            return fn(p)
+
+    def send(self, reqs):
+        return self._on_claimed_group(lambda p: p.send(reqs))
+
+    def emit_spliced(self, native_mod, kw: dict):
+        """The fused template render and send on one claimed group. None
+        when the pumps are not plain native pumps (the process-lane slot
+        guard, test stubs): the caller then renders and sends as two
+        calls through ``send``, so a wrapper sees every request and a
+        fused call never tunnels past it."""
+        if not isinstance(self._pumps[0][0], native_mod.Pump):
+            return None
+        return self._on_claimed_group(
+            lambda p: native_mod.emit_pods(pump=p, **kw)
+        )
+
+    def send_ordered(self, batches):
+        """Several batches back to back on ONE group (a finalizer strip
+        must be answered before its delete is sent); their statuses."""
+        n = len(self._pumps)
+        self._next += 1
+        p, lock = self._pumps[self._next % n]
+        with lock:
+            return [p.send(reqs) for reqs in batches]
+
+    def close(self) -> None:
+        for p, lock in self._pumps:
+            with lock:
+                p.close()
 
 
 class _Kind:
@@ -461,14 +567,57 @@ class ClusterEngine:
         # monotonic stamp of the last rewind-triggered resync: bounds the
         # re-list rate of a store that keeps rewinding (_note_rv_rewind)
         self._rv_rewind_at = 0.0
-        # the native ingest edge (kwok_tpu_torch/native): the draining
-        # thread's batch parser; None under KWOK_TPU_NATIVE=0 or when the
-        # library cannot be built (the loader logs that at WARNING). With
-        # it, HTTP watch streams queue undecoded lines and the drain
-        # parses them (_drain_apply)
-        self._batch_parser = None
-        if native.enabled() and native.available():
-            self._batch_parser = native.EventParser()
+        # the native edge (kwok_tpu_torch/native); None under
+        # KWOK_TPU_NATIVE=0 or when the library cannot be built (the
+        # loader logs that at WARNING). With it, HTTP watch streams queue
+        # undecoded lines that the drain parses (_drain_apply), and
+        # egress leaves in pump batches (_emit)
+        self._codec = native if native.enabled() and native.available() else None
+        # the draining thread's batch parser
+        self._batch_parser = (
+            native.EventParser() if self._codec is not None else None
+        )
+        # the pod status patches as byte templates, one per target phase:
+        # the emit splices each batch's columns in C and ships it in the
+        # same call. KWOK_TPU_NATIVE_EMIT=0 keeps the generic native
+        # render (per-row meta gather + render_pod_statuses) and stages
+        # no columns at ingest
+        self._emit_tpl = None
+        if self._codec is not None and os.environ.get(
+            "KWOK_TPU_NATIVE_EMIT", "1"
+        ) != "0":
+            try:
+                self._emit_tpl = self._codec.EmitTable(
+                    compile_emit_templates(ptab)
+                )
+            except Exception:
+                logger.warning(
+                    "emit templates unavailable; the generic native "
+                    "emit stays active", exc_info=True,
+                )
+        #: ingest stages the emit byte columns only when the template
+        #: path reads them
+        self._emit_cols = self._emit_tpl is not None
+        self._node_ip_b = (config.node_ip or "").encode()
+        self._gone_id = self._pod_phase_ids.get("Gone", -1)
+        # the batched pipelined egress (native/pump.cc) to a plain-HTTP
+        # apiserver, built at first emit as a _PumpGroup (_get_pump):
+        # several connection groups with a lock each, so concurrent emit
+        # jobs never serialize on one lock. KWOK_TPU_PUMP_GROUPS groups of
+        # _pump_nconn connections (a lane takes 2 groups)
+        self._pump = None
+        self._pump_tried = False
+        self._pump_base = ""
+        self._pump_base_b = b""
+        # the outermost pump wrapper: a process lane parks its emit frames
+        # in its shared-memory replay slot here; None costs nothing
+        self._pump_wrap = None
+        self._pump_groups = max(1, int(os.environ.get("KWOK_TPU_PUMP_GROUPS", "4")))
+        self._pump_nconn = 2
+        self._hb_cond_meta = [
+            (name, *_NODE_CONDITION_META.get(name, ("KwokRule", name)))
+            for name in NODE_PHASES.conditions
+        ]
         # pre-partitioned routing: the same C call computes each event's
         # lane and the per-lane index runs; KWOK_TPU_NATIVE_ROUTE=0 keeps
         # the per-record Python route (the ordering oracle's other arm)
@@ -927,8 +1076,11 @@ class ClusterEngine:
             ))
         if self._executor is not None:
             self._executor.shutdown(wait=True)
+        if self._pump is not None:
+            self._pump.close()
+            self._pump = None
         if self._lanes is not None:
-            self._lanes.close()
+            self._lanes.close()  # the lanes' pump groups
         if self._proc is not None:
             # STOP every lane process: each drains its patches and writes
             # its final checkpoint before it exits
@@ -965,7 +1117,9 @@ class ClusterEngine:
         With the native parser, a stream that offers it is handed to the
         native socket reader (``RAWB`` batches) or read as raw lines
         (``RAW``), after one ``GEN`` marker; the draining thread parses
-        them and keeps ``_watch_rv``, which is then the resume revision.
+        them and keeps ``_watch_rv``; a broken stream resumes from the last
+        revision it received, or ``_watch_rv`` where that is later
+        (``_resume_rv``).
         A client without raw lines (the in-process FakeKube) keeps the
         decoded-event loop."""
         opts = {k: v for k, v in sel.items() if v}
@@ -974,6 +1128,9 @@ class ClusterEngine:
         # router parses the raw lines and ships each lane its own
         proc = self._proc is not None
         parser = self._batch_parser
+        # this thread's own single-line parser: the resume revision is
+        # read off the stream's last line (_resume_rv)
+        tail_parser = native.EventParser() if parser is not None else None
 
         def stopping() -> bool:
             return not self._running
@@ -1060,39 +1217,39 @@ class ClusterEngine:
                             continue
                     backoff.reset()
                     stream_t0 = time.monotonic()
-                    if not resume_rv:
-                        self._relist(kind, opts, proc)
+                    # the native reader takes the socket over before the
+                    # LIST: the events of the list gap wait in the socket
                     reader = None
                     if parser is not None:
                         make_reader = getattr(w, "native_reader", None)
                         if callable(make_reader):
                             reader = make_reader()
+                    if not resume_rv:
+                        self._relist(kind, opts, proc)
                     raw_iter = getattr(w, "raw_lines", None)
                     if reader is not None:
                         # the native reader de-chunks the socket and hands
                         # back packed line batches: one queue item per
                         # batch, no per-line Python object. The draining
                         # thread parses them and keeps _watch_rv
-                        gone = self._stream_raw(kind, reader)
-                        resume_rv = self._watch_rv.get(kind, 0)
+                        gone, last = self._stream_raw(
+                            kind, reader, getattr(w, "_stopped", None))
+                        resume_rv = self._resume_rv(kind, last, tail_parser)
                     elif parser is not None and callable(raw_iter):
                         # undecoded lines, parsed in batches by the
                         # draining thread; an ERROR line is told by its
                         # prefix (the servers serialize "type" first)
                         self._q.put((kind, "GEN", self._stream_gen.get(kind, 0),
                                      time.monotonic()))
-                        gone = False
+                        gone, last = False, b""
                         for line in raw_iter():
                             if line.startswith(b'{"type":"ERROR"'):
                                 gone = b'"code":410' in line
                                 logger.warning("watch error event: %.200r", line)
                                 break
                             self._q.put((kind, "RAW", line, time.monotonic()))
-                        # lines still queued at the stream's end make the
-                        # resume a little early: the server replays them
-                        # and the echo drop absorbs the replay. An absent
-                        # revision (a 410 seen by the drain) re-lists
-                        resume_rv = self._watch_rv.get(kind, 0)
+                            last = line
+                        resume_rv = self._resume_rv(kind, last, tail_parser)
                     else:
                         # a client without raw lines (the in-process
                         # FakeKube), or the native library off
@@ -1138,25 +1295,47 @@ class ClusterEngine:
         t.start()
         self._threads.append(t)
 
-    def _stream_raw(self, kind: str, reader) -> bool:
+    def _stream_raw(self, kind: str, reader, stopped=None) -> tuple:
         """Queue one stream's packed line batches from the native reader
-        (after its GEN marker) until the stream ends; True when it ended
-        with a 410 ERROR event."""
+        (after its GEN marker) until the stream ends or its handle is
+        stopped (``stopped``, the handle's event: a stop ends the read
+        within one poll even if no end of stream reaches the reader).
+        Returns (gone, last): gone is True when it ended with a 410 ERROR
+        event; last is its last event line (b"" when none came)."""
         self._q.put((kind, "GEN", self._stream_gen.get(kind, 0), time.monotonic()))
+        tail = None  # the last batch with lines
+        gone = False
         try:
-            while self._running:
+            while self._running and not (stopped is not None and stopped.is_set()):
                 out = reader.read_batch(timeout_s=1.0)
                 if out is None:
-                    return False
+                    break
                 buf, off = out
                 if len(off) > 1:
                     self._q.put((kind, "RAWB", (buf, off), time.monotonic()))
+                    tail = out
                 if reader.error is not None:
                     logger.warning("watch error event: %.200r", reader.error)
-                    return b'"code":410' in reader.error
+                    gone = b'"code":410' in reader.error
+                    break
         finally:
             reader.close()
-        return False
+        last = tail[0][tail[1][-2]:tail[1][-1]] if tail is not None else b""
+        return gone, last
+
+    def _resume_rv(self, kind: str, last: bytes, parser) -> int:
+        """The revision a RAW or RAWB stream resumes from: the last one it
+        received (its last line's, a bookmark's included), as client-go's
+        reflector resumes, or the drained one (_watch_rv) where that is
+        later. Lines still queued drain before the next stream's, so none
+        is lost; resuming from the drained revision alone lags the store
+        by the drain's backlog, which under a flood can outrun the
+        server's watch window (a 410 and a needless re-list). 0 (re-list)
+        when the drain dropped the kind's revision: a 410 it saw."""
+        drained = self._watch_rv.get(kind, 0)
+        if not drained:
+            return 0
+        return max(drained, parser.parse(bytes(last)).rv if last else 0)
 
     def _relist(self, kind: str, opts: dict, proc: bool) -> None:
         """One full LIST of ``kind`` onto the ingest queue: its objects as
@@ -1539,9 +1718,20 @@ class ClusterEngine:
                             m["fp_status_done"] = rec.fp_status
                             m["phase_str"] = rec.phase
                             m["host_ip"] = rec.host_ip
-                            m["status_scalar"] = bool(
-                                rec.flags & native.REC_STATUS_SCALAR_ONLY
-                            )
+                            scalar = bool(rec.flags & native.REC_STATUS_SCALAR_ONLY)
+                            m["status_scalar"] = scalar
+                            if self._emit_cols:
+                                # the emit columns track the same server
+                                # facts as the meta mirror
+                                pool = k.pool
+                                pool.srv_phase[idx] = self._pod_phase_ids.get(rec.phase, -1)
+                                pool.host_b[idx] = (
+                                    rec.host_ip.encode() if rec.host_ip else None
+                                )
+                                if scalar:
+                                    pool.eflags[idx] |= EF_SCALAR
+                                else:
+                                    pool.eflags[idx] &= ~EF_SCALAR
                             m["raw"] = rec.raw
                             if rec.rv:
                                 # the checkpoint identity tracks our echo
@@ -1683,12 +1873,15 @@ class ClusterEngine:
                 return
             rows = []
             staged = False
+            stage_ecols = self._stage_pod_ecols if self._emit_cols else None
             try:
                 for key, _node, m, _cond, _hd in cols:
                     if pool.full:
                         self._grow(k)
                     row = pool.acquire(key)
                     meta[row] = m  # fresh rows: the dict replaced whole
+                    if stage_ecols is not None:
+                        stage_ecols(pool, row, m)
                     rows.append(row)
                 # node->pods index BEFORE the node_has reads below: a
                 # concurrent managed-ness fan-out either sees the pod or
@@ -1931,6 +2124,7 @@ class ClusterEngine:
             idx = k.pool.acquire(key)
         m = k.pool.meta[idx]
         status = pod.get("status") or {}
+        spec = pod.get("spec") or {}
         m.update(
             name=name,
             namespace=ns,
@@ -1939,6 +2133,15 @@ class ClusterEngine:
             obj=pod,
             finalizers=bool(meta.get("finalizers")),
             has_del="deletionTimestamp" in meta,
+            # the fields the batch emit reads (rows from native records
+            # carry them without a parsed object)
+            creation=meta.get("creationTimestamp") or "",
+            ctrs=_ctr_blob(spec.get("containers")),
+            ictrs=_ctr_blob(spec.get("initContainers")),
+            rgates=bool(spec.get("readinessGates")),
+            phase_str=status.get("phase") or "",
+            host_ip=status.get("hostIP") or "",
+            status_scalar=set(status) <= _SCALAR_STATUS_KEYS,
             rv=_rv_of(meta),
             uid=meta.get("uid") or "",
         )
@@ -1957,6 +2160,8 @@ class ClusterEngine:
                     # neither reassigns them nor hands them to another pod
                     self.ippool.use(pod_ip)
                 m["podIP"] = pod_ip
+        if self._emit_cols:
+            self._stage_pod_ecols(k.pool, idx, m)
         has_del = m["has_del"]
         self.pods_by_node.setdefault(node_name, set()).add(key)
         bits = self._pod_bits(m)
@@ -1984,6 +2189,33 @@ class ClusterEngine:
             rendered = self._render_pod(idx)
             if rendered is not None and pod_status_patch_needed(status, rendered):
                 self._submit(self._patch_pod_status, key, idx)
+
+    def _stage_pod_ecols(self, pool, idx: int, m: dict) -> None:
+        """The row's emit inputs as byte columns, encoded ONCE at upsert,
+        so a template emit batch never walks the meta dicts. Callers gate
+        on ``_emit_cols`` and call once the meta dict (any podIP pin
+        included) is final."""
+        f = EF_RENDER
+        if m.get("rgates"):
+            f |= EF_RGATES
+        if m.get("status_scalar"):
+            f |= EF_SCALAR
+        pool.eflags[idx] = f
+        pool.srv_phase[idx] = self._pod_phase_ids.get(m.get("phase_str") or "", -1)
+        h = m.get("host_ip")
+        pool.host_b[idx] = h.encode() if h else None
+        c = m.get("creation")
+        pool.start_b[idx] = c.encode() if c else b""
+        pool.ctr_b[idx] = m.get("ctrs") or b""
+        pool.ictr_b[idx] = m.get("ictrs") or b""
+        ip = m.get("podIP")
+        if ip:
+            pool.ip_b[idx] = ip.encode()
+        if pool.path_b[idx] is None:
+            pool.path_b[idx] = (
+                f"/api/v1/namespaces/{_quote(m.get('namespace') or 'default')}"
+                f"/pods/{_quote(m['name'])}"
+            ).encode()
 
     @staticmethod
     def _lazy_obj(m) -> "dict | None":
@@ -2079,6 +2311,8 @@ class ClusterEngine:
                 if self.ippool.contains(rec.pod_ip):
                     self.ippool.use(rec.pod_ip)
                 m["podIP"] = rec.pod_ip
+        if self._emit_cols:
+            self._stage_pod_ecols(k.pool, idx, m)
         by_node = self.pods_by_node.get(node_name)
         if by_node is None:
             by_node = self.pods_by_node[node_name] = set()
@@ -2566,25 +2800,497 @@ class ClusterEngine:
                     self._inc("client_throttle_seconds_total", delay)
                 backoff.sleep(delay, lambda: not self._running)
 
+    def _get_pump(self):
+        """The native pump group bound to the client's plain-HTTP
+        endpoint, built once; None under ``KWOK_TPU_NATIVE=0``, for a TLS
+        or in-process client, or when the pump cannot be built (logged at
+        WARNING): those keep the executor's one job per object. The fault
+        plane's and the HA fence's wraps (ROADMAP items 13 and 12) would
+        go inside ``_pump_wrap``; the CLI refuses both."""
+        if self._pump_tried:
+            return self._pump
+        self._pump_tried = True
+        if self._codec is None:
+            return None
+        server = getattr(self.client, "server", "")
+        if not isinstance(server, str) or not server.startswith("http://"):
+            return None
+        host = getattr(self.client, "_host", None)
+        port = getattr(self.client, "_port", None)
+        base = getattr(self.client, "_base_path", "") or ""
+        if not host or not port:
+            return None
+        token = getattr(self.client, "token", None)
+        extra = f"Authorization: Bearer {token}\r\n" if token else ""
+        try:
+            pumps = [
+                self._codec.Pump(host, int(port), nconn=self._pump_nconn,
+                                 header_extra=extra)
+                for _ in range(self._pump_groups)
+            ]
+            if self._pump_wrap is not None:
+                # outermost: a process lane's replay slot must see exactly
+                # the frames that go on the wire
+                pumps = [self._pump_wrap(p) for p in pumps]
+            self._pump = _PumpGroup(pumps)
+            self._pump_base = base
+            self._pump_base_b = base.encode()
+        except Exception:
+            logger.warning("native pump unavailable; executor egress", exc_info=True)
+            self._pump = None
+        return self._pump
+
+    def _node_path_b(self, pool, idx: int, name: str) -> bytes:
+        """The node's URL-quoted path, cached in the pool's path column at
+        first emit (node upserts are too rare to stage it eagerly)."""
+        pb = pool.path_b[idx]
+        if pb is None:
+            pb = pool.path_b[idx] = f"/api/v1/nodes/{_quote(name)}".encode()
+        return pb
+
     def _emit(self, kind, k, dirty, deleted, hb, now_str) -> None:
+        """A tick's masks as patches: pump batches when the native pump
+        is up (more than one row), else one executor job per object."""
         if kind == "nodes":
-            for idx in np.nonzero(dirty)[0]:
-                name = k.pool.key_of(int(idx))
+            node_rows = [int(i) for i in np.nonzero(dirty)[0]]
+            if len(node_rows) > 1 and self._get_pump() is not None:
+                self._emit_nodes_native(k, node_rows)
+                node_rows = []
+            for idx in node_rows:
+                name = k.pool.key_of(idx)
                 if name is not None:
-                    self._submit(self._patch_node_status, name, int(idx))
-            for idx in np.nonzero(hb)[0]:
-                name = k.pool.key_of(int(idx))
-                if name is not None:
-                    self._submit(self._heartbeat_node, name, int(idx), now_str)
+                    self._submit(self._patch_node_status, name, idx)
+            hb_rows = [
+                (name, int(idx))
+                for idx in np.nonzero(hb)[0]
+                if (name := k.pool.key_of(int(idx))) is not None
+            ]
+            if self._codec is not None and len(hb_rows) > 1:
+                self._emit_heartbeats_native(k, hb_rows, now_str)
+            else:
+                for name, idx in hb_rows:
+                    self._submit(self._heartbeat_node, name, idx, now_str)
         else:
-            for idx in np.nonzero(dirty)[0]:
-                key = k.pool.key_of(int(idx))
+            dirty_rows = [int(i) for i in np.nonzero(dirty)[0]]
+            if len(dirty_rows) > 1 and self._get_pump() is not None:
+                dirty_rows = self._emit_pods_native(k, dirty_rows)
+            for idx in dirty_rows:
+                key = k.pool.key_of(idx)
                 if key is not None:
-                    self._submit(self._patch_pod_status, key, int(idx))
-            for idx in np.nonzero(deleted)[0]:
-                key = k.pool.key_of(int(idx))
+                    self._submit(self._patch_pod_status, key, idx)
+            del_rows = [
+                (key, int(idx))
+                for idx in np.nonzero(deleted)[0]
+                if (key := k.pool.key_of(int(idx))) is not None
+            ]
+            if len(del_rows) > 1 and self._get_pump() is not None:
+                self._emit_deletes_native(k, del_rows)
+            else:
+                for key, idx in del_rows:
+                    self._submit(self._delete_pod, key, idx)
+
+    _EMIT_CTYPE = "application/strategic-merge-patch+json"
+
+    def _emit_nodes_native(self, k, idxs: list[int]) -> None:
+        """Node status patches rendered in Python (node transitions are
+        rare next to pods) and shipped as ONE pump batch. A node whose
+        current status is scalar-only seeds ``fp_expect``."""
+        now = now_rfc3339()
+        base = self._pump_base_b
+        reqs, sent = [], []
+        for idx in idxs:
+            name = k.pool.key_of(idx)
+            m = k.pool.meta[idx]
+            if name is None or not m:
+                continue
+            node = self._lazy_obj(m) or {}
+            current = node.get("status") or {}
+            rendered = render_node_status(
+                node, int(k.cond_h[idx]), self.config.node_ip, now,
+                self.start_time,
+            )
+            if not node_status_patch_needed(current, rendered):
+                continue
+            body = json.dumps({"status": rendered}, separators=(",", ":")).encode()
+            reqs.append((
+                "PATCH", base + self._node_path_b(k.pool, idx, name) + b"/status",
+                body, self._EMIT_CTYPE,
+            ))
+            # a scalar-only current status: the merged echo is exactly
+            # this document, so ingest may drop it by fingerprint
+            sent.append((idx, m if set(current) <= _SCALAR_STATUS_KEYS else None))
+        if reqs:
+            fps = self._codec.fingerprint_statuses([r[2] for r in reqs])
+            for (_idx, m2), fp in zip(sent, fps.tolist()):
+                if m2 is not None:
+                    m2["fp_expect"] = fp
+            self._submit(self._pump_send, reqs, [i for i, _ in sent], "nodes")
+
+    _POD_KIND = {"Running": 0, "Succeeded": 1, "Failed": 2}
+
+    def _emit_pods_native(self, k, idxs: list[int]) -> list[int]:
+        """The batch path for a tick's pod patches: with templates (the
+        default) a columnar gather and ONE fused render-and-send job
+        (``_emit_pods_tpl``); under ``KWOK_TPU_NATIVE_EMIT=0`` a per-row
+        meta gather, the generic native render and a pump send. Returns
+        the rows that take the Python path: readiness gates, rows whose
+        target phase is already on the server (the no-op merge check)
+        and rows without state. Runs on the thread that owns the rows, so
+        none vanishes mid-batch."""
+        if self._emit_tpl is not None:
+            return self._emit_pods_tpl(k, idxs)
+        slow: list[int] = []
+        sent_idx: list[int] = []
+        kinds_l: list[int] = []
+        conds_l: list[int] = []
+        phases: list[bytes] = []
+        hosts: list[bytes] = []
+        ips: list[bytes] = []
+        starts: list[bytes] = []
+        ctrs: list[bytes] = []
+        ictrs: list[bytes] = []
+        paths: list[str] = []
+        phase_names: list[str] = []
+        base = self._pump_base
+        node_ip = self.config.node_ip
+        pod_kind = self._POD_KIND
+        meta = k.pool.meta
+        for idx in idxs:
+            key = k.pool.key_of(idx)
+            m = meta[idx]
+            if key is None or not m or ("obj" not in m and "raw" not in m):
+                continue
+            phase_name = self._pod_phases[int(k.phase_h[idx])]
+            if phase_name == "Gone":
+                continue
+            if m.get("rgates") or m.get("phase_str") == phase_name:
+                slow.append(idx)
+                continue
+            ip = m.get("podIP")
+            if not ip:
+                with self._alloc_lock:
+                    ip = m.get("podIP")
+                    if not ip:
+                        ip = m["podIP"] = self.ippool.get()
+            ns, name = key
+            sent_idx.append(idx)
+            kinds_l.append(pod_kind.get(phase_name, 0))
+            conds_l.append(int(k.cond_h[idx]))
+            phases.append(phase_name.encode())
+            phase_names.append(phase_name)
+            hosts.append((m.get("host_ip") or node_ip).encode())
+            ips.append(ip.encode())
+            starts.append((m.get("creation") or now_rfc3339()).encode())
+            ctrs.append(m.get("ctrs") or b"")
+            ictrs.append(m.get("ictrs") or b"")
+            paths.append(
+                f"{base}/api/v1/namespaces/{_quote(ns)}/pods/{_quote(name)}/status"
+            )
+        if not sent_idx:
+            return slow
+        bodies = self._codec.render_pod_statuses(
+            np.array(kinds_l, np.uint8), np.array(conds_l, np.uint32), phases,
+            list(POD_PHASES.conditions[:3]), hosts, ips, starts, ctrs, ictrs,
+        )
+        # the echo of a patch onto a scalar-only status is exactly the
+        # rendered document: ingest drops it by fingerprint
+        fps = self._codec.fingerprint_statuses(bodies)
+        for idx, pn, fp in zip(sent_idx, phase_names, fps.tolist()):
+            m = meta[idx]
+            if m.get("status_scalar"):
+                m["fp_expect"] = fp
+                m["expect_phase"] = pn
+        reqs = [("PATCH", path, body, self._EMIT_CTYPE)
+                for path, body in zip(paths, bodies)]
+        self._submit(self._pump_send, reqs, sent_idx, "pods")
+        return slow
+
+    def _emit_pods_tpl(self, k, idxs: list[int]) -> list[int]:
+        """The template emit gather: classify rows off the staged byte
+        columns (no meta walk, no per-row encode, one ``now`` per batch)
+        and hand ONE job to the executor whose body is a single render
+        and send C call. The slow-path rows are ``_emit_pods_native``'s.
+        (Rows of a live CNI provider would take the slow path too; the
+        port has no CNI, ROADMAP item 14.)"""
+        pool = k.pool
+        ef = pool.eflags
+        srv = pool.srv_phase
+        ipc = pool.ip_b
+        pathc = pool.path_b
+        tgt = k.phase_h[idxs].tolist()
+        tpl_of = self._emit_tpl.phase_tpl
+        n_tpl = len(tpl_of)
+        gone = self._gone_id
+        slow: list[int] = []
+        sel: list[int] = []
+        tpls: list[int] = []
+        for pos, idx in enumerate(idxs):
+            f = ef[idx]
+            if not f & EF_RENDER:
+                continue  # released row, or no renderable state
+            pid = tgt[pos]
+            if pid == gone:
+                continue
+            if f & EF_RGATES or srv[idx] == pid:
+                slow.append(idx)
+                continue
+            t = tpl_of[pid] if 0 <= pid < n_tpl else -1
+            if t < 0 or pathc[idx] is None:
+                slow.append(idx)
+                continue
+            sel.append(pos)
+            tpls.append(t)
+        if not sel:
+            return slow
+        rows = [idxs[p] for p in sel]
+        nipb = self._node_ip_b
+        conds = k.cond_h[idxs][sel]
+        pids = [tgt[p] for p in sel]
+        hosts = [pool.host_b[i] or nipb for i in rows]
+        ips = [ipc[i] for i in rows]
+        starts = [pool.start_b[i] or b"" for i in rows]
+        ctrs = [pool.ctr_b[i] or b"" for i in rows]
+        ictrs = [pool.ictr_b[i] or b"" for i in rows]
+        paths = [pathc[i] for i in rows]
+        scalars = [ef[i] & EF_SCALAR for i in rows]
+        # IPs still to allocate: first transitions come in bulk, so the
+        # whole batch takes ONE _alloc_lock hold
+        need_ip = [(ri, rows[ri]) for ri, ip in enumerate(ips) if ip is None]
+        if need_ip:
+            meta = pool.meta
+            dropped = 0
+            with self._alloc_lock:
+                missing: list[tuple[int, int, dict]] = []
+                for ri, idx in need_ip:
+                    m = meta[idx]
+                    if m is None:
+                        dropped += 1  # the row vanished: pruned below
+                        continue
+                    ip_s = m.get("podIP")
+                    if ip_s:
+                        ips[ri] = ipc[idx] = ip_s.encode()
+                    else:
+                        missing.append((ri, idx, m))
+                if missing:
+                    fresh = self.ippool.get_many(len(missing))
+                    for (ri, idx, m), ip_s in zip(missing, fresh):
+                        m["podIP"] = ip_s
+                        ips[ri] = ipc[idx] = ip_s.encode()
+            if dropped:
+                keep = [i for i, ip in enumerate(ips) if ip]
+                conds = conds[keep]
+                for col in (rows, tpls, hosts, ips, starts, ctrs, ictrs,
+                            paths, pids, scalars):
+                    col[:] = [col[i] for i in keep]
+        if rows:
+            self._submit(
+                self._emit_send_pods, rows, np.asarray(tpls, np.int32), conds,
+                hosts, ips, starts, ctrs, ictrs, paths, pids, scalars,
+                now_rfc3339().encode(),
+            )
+        return slow
+
+    def _emit_send_pods(
+        self, rows, tpls, conds, hosts, ips, starts, ctrs, ictrs, paths,
+        pids, scalars, now_b,
+    ) -> None:
+        """One executor job for a template batch: splice the bodies and
+        ship them in one GIL-free C call on a plain pump group, or render
+        and then send through a wrapped pump (the process-lane slot
+        guard), which so sees every request. Resend, degradation,
+        shedding and the per-object fallback are ``_pump_send``'s; each
+        sent patch onto a scalar-only status seeds ``fp_expect``."""
+        t0 = time.perf_counter()
+        codec = self._codec
+        kw = dict(
+            tpl=self._emit_tpl, tpl_ids=tpls, cond_bits=conds, hosts=hosts,
+            ips=ips, starts=starts, ctrs=ctrs, ictrs=ictrs, now=now_b,
+            base=self._pump_base_b,
+        )
+        res = self._pump.emit_spliced(codec, {**kw, "paths": paths})
+        fused = res is not None
+        if not fused:
+            res = codec.emit_pods(**kw)  # render only; the frames carry paths
+        bodies, fps, status, _need = res
+        base = self._pump_base_b
+        if fused and not (status == 0).any():
+            self._pump_note_outcome(len(rows), status)
+        else:
+            reqs = [("PATCH", base + p + b"/status", body, self._EMIT_CTYPE)
+                    for p, body in zip(paths, bodies)]
+            if fused:
+                # connection deaths: resend those requests' whole frames
+                status = self._pump_resend_frames(reqs, status)
+            else:
+                status = self._pump_send_frames(reqs)
+        # seeded after the send returns: the echo waits for the drain's
+        # parse window (ms) while this takes µs, and a missed seed only
+        # costs the echo one full parse
+        meta = self.pods.pool.meta
+        phases = self._pod_phases
+        fps_l = fps.tolist()
+        st_l = status.tolist()
+        for i, idx in enumerate(rows):
+            if scalars[i] and 200 <= st_l[i] < 300:
+                m = meta[idx]
+                if m is not None:
+                    m["fp_expect"] = fps_l[i]
+                    m["expect_phase"] = phases[pids[i]]
+        self._pump_send_tail(status, rows, "pods", len(rows), t0)
+
+    def _pump_send_frames(self, reqs):
+        """Send one batch, resending the whole frames of requests whose
+        connection died (status 0): ``pump.cc`` answers a dead
+        connection's unsent or unread suffix with 0 and dials again on
+        the next call."""
+        return self._pump_resend_frames(reqs, self._pump.send(reqs))
+
+    def _pump_resend_frames(self, reqs, status):
+        """The resend half, from a status array a first send produced:
+        the failed requests go again under ``PUMP_RESEND`` until they have
+        answers or its deadline passes."""
+        if (status == 0).any():
+            backoff = PUMP_RESEND.session()
+            while self._running:
+                delay = backoff.next_delay()
+                if delay is None:
+                    break  # the policy's deadline
+                backoff.sleep(delay, lambda: not self._running)
+                fail = np.nonzero(status == 0)[0]
+                status[fail] = self._pump.send([reqs[i] for i in fail.tolist()])
+                if not (status == 0).any():
+                    break
+        self._pump_note_outcome(len(reqs), status)
+        return status
+
+    def _pump_note_outcome(self, n, status) -> None:
+        """A batch with no answer at all past the resend deadline means
+        the target is down: degrade (reason ``pump``); any answer heals."""
+        if n and (status == 0).all():
+            if self._degradation.set("pump"):
+                logger.error("engine degraded: pump egress down past the "
+                             "resend deadline (shedding batches)")
+        elif (status != 0).any():
+            if self._degradation.clear("pump"):
+                logger.info("pump egress recovered; shedding stops")
+
+    def _pump_send(self, reqs, idxs, kind) -> None:
+        """Executor job: send a whole batch (with the whole-frame resend),
+        then ``_pump_send_tail``."""
+        t0 = time.perf_counter()
+        status = self._pump_send_frames(reqs)
+        self._pump_send_tail(status, idxs, kind, len(reqs), t0)
+
+    def _pump_count(self, n: int, t0: float) -> None:
+        """A pump batch of ``n`` requests sent since ``t0``: the
+        ``kwok_pump_send_seconds`` histogram and the flat counters."""
+        dt = time.perf_counter() - t0
+        self.registry.histogram(
+            "kwok_pump_send_seconds", _STAGE_HELP["kwok_pump_send_seconds"],
+        ).child.observe(dt)
+        self._inc("pump_requests_total", n)
+        self._inc("pump_send_seconds_sum", dt)
+
+    def _pump_send_tail(self, status, idxs, kind, n, t0) -> None:
+        """Counters, shedding and the per-object fallback of every pump
+        batch. A batch the down target never answered is shed (counted in
+        ``dropped_jobs_total``) instead of turning into thousands of
+        doomed per-object jobs; other failed rows take the Python path
+        (under ``_safe``: ``PATCH_RETRY`` and Retry-After). A 404 is a
+        deleted object, a no-op as on that path. (The reference's sampled
+        trace spans here wait for the tracer, ROADMAP item 15.)"""
+        self._pump_count(n, t0)
+        if n and (status == 0).all() and "pump" in self._degradation.reasons:
+            self._inc("dropped_jobs_total", n)
+            return
+        ok = int(((status >= 200) & (status < 300)).sum())
+        self._inc("heartbeats_total" if kind == "heartbeat" else "status_patches_total", ok)
+        for st, idx in zip(status.tolist(), idxs):
+            if 200 <= st < 300 or st == 404:
+                continue
+            if kind == "pods":
+                key = self.pods.pool.key_of(idx)
                 if key is not None:
-                    self._submit(self._delete_pod, key, int(idx))
+                    self._submit(self._patch_pod_status, key, idx)
+                continue
+            name = self.nodes.pool.key_of(idx)
+            if name is None:
+                continue
+            if kind == "nodes":
+                self._submit(self._patch_node_status, name, idx)
+            else:
+                # a freshly rendered heartbeat is always valid
+                self._submit(self._heartbeat_node, name, idx, now_rfc3339())
+
+    def _emit_heartbeats_native(self, k, hb_rows, now_str: str) -> None:
+        """Every due heartbeat rendered in ONE C call, then one pump batch
+        (or, without a pump, one executor job per body)."""
+        idxs = np.array([i for _, i in hb_rows], np.int64)
+        start = self.start_time.encode()
+        bodies = self._codec.render_heartbeats(
+            k.cond_h[idxs], self._hb_cond_meta, now_str, [start] * len(hb_rows)
+        )
+        if self._get_pump() is not None:
+            base = self._pump_base_b
+            npb = self._node_path_b
+            reqs = [
+                ("PATCH", base + npb(k.pool, idx, name) + b"/status", body,
+                 self._EMIT_CTYPE)
+                for (name, idx), body in zip(hb_rows, bodies)
+            ]
+            self._submit(self._pump_send, reqs, [i for _, i in hb_rows], "heartbeat")
+            return
+        for (name, _idx), body in zip(hb_rows, bodies):
+            self._submit(self._send_heartbeat_bytes, name, body)
+
+    def _send_heartbeat_bytes(self, name: str, body) -> None:
+        self.client.patch_status("nodes", None, name, body)
+        self._inc("heartbeats_total")
+
+    def _emit_deletes_native(self, k, del_rows) -> None:
+        """The DeletePod flow as two pump batches: every finalizer strip,
+        then every grace-0 delete, on one connection group, so each pod's
+        strip is answered before its delete goes out. Deletes share the
+        staged path column with the status patches."""
+        strips, strip_rows, deletes = [], [], []
+        base = self._pump_base_b
+        for (ns, name), idx in del_rows:
+            m = k.pool.meta[idx]
+            pb = k.pool.path_b[idx]
+            if pb is None:  # column not staged (KWOK_TPU_NATIVE_EMIT=0)
+                pb = k.pool.path_b[idx] = (
+                    f"/api/v1/namespaces/{_quote(ns)}/pods/{_quote(name)}"
+                ).encode()
+            path = base + pb
+            if m and m.get("finalizers"):
+                strips.append(("PATCH", path, b'{"metadata":{"finalizers":null}}',
+                               "application/merge-patch+json"))
+                strip_rows.append(((ns, name), idx))
+            deletes.append(("DELETE", path, b'{"gracePeriodSeconds":0}',
+                            "application/json"))
+        self._submit(self._pump_send_deletes, strips, strip_rows, deletes, del_rows)
+
+    def _pump_send_deletes(self, strips, strip_rows, deletes, del_rows) -> None:
+        t0 = time.perf_counter()
+        retry: set[int] = set()
+        if strips:
+            strip_status, status = self._pump.send_ordered([strips, deletes])
+            # a failed strip leaves the finalizers on: its grace-0 delete
+            # became a graceful mark, so the row takes the per-object
+            # strip and delete
+            for st, (_key, idx) in zip(strip_status.tolist(), strip_rows):
+                if not (200 <= st < 300 or st == 404):
+                    retry.add(idx)
+        else:
+            status = self._pump.send(deletes)
+        self._pump_count(len(strips) + len(deletes), t0)
+        # 404: gone already; the per-object path counts every issued
+        # delete, and so does the batch
+        ok = int((((status >= 200) & (status < 300)) | (status == 404)).sum())
+        self._inc("deletes_total", ok)
+        for st, (key, idx) in zip(status.tolist(), del_rows):
+            if idx in retry or not (200 <= st < 300 or st == 404):
+                self._submit(self._delete_pod, key, idx)
 
     def _patch_node_status(self, name: str, idx: int) -> None:
         k = self.nodes

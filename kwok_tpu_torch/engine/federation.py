@@ -10,7 +10,8 @@ port of ``kwok_tpu.engine.federation``; BASELINE config 5).
              member c of the group owning rows [c*r, (c+1)*r)
 
 Each member is a ``ClusterEngine`` with its own apiserver client, watch
-streams, row pools, IP pool, patch executor and checkpoint file, started
+streams, row pools, IP pool, patch executor, native pump group (to its
+own apiserver, through its own client) and checkpoint file, started
 with ``run_tick_loop=False`` (no tick thread, no stream, no device rows
 of its own). One federated tick thread drains every member's queue
 round-robin, flushes each member's staged writes into its slice of its
@@ -352,6 +353,9 @@ class FederatedEngine:
             self._warm_ticks()
         for e in self.engines:
             e.start(run_tick_loop=False)
+            # each member's pump group to its own apiserver, built now
+            # rather than inside the first tick's emit (its stop closes it)
+            e._get_pump()
         self._thread = spawn_worker(self._tick_loop, name="kwok-fed-tick")
 
     @property

@@ -33,6 +33,9 @@ lanes' pods as routed ``XUPD`` items through their own queues.
 
 Each lane is a ``ClusterEngine`` without threads, device state or stream
 (``_LaneEngine``), so the per-event ingest and emit code runs unchanged.
+Each lane's emit has a native pump group of its own (two connection
+groups, built in ``prepare`` outside every lock) and shares the parent's
+compiled emit templates.
 
 Over HTTP the router parses each window's raw watch lines in ONE native
 call (``ClusterEngine._drain_apply``), which also computes every event's
@@ -124,6 +127,14 @@ class _LaneEngine(ClusterEngine):
         self.registry = parent.registry
         self._degradation = parent._degradation
         self._stop_evt = parent._stop_evt
+        # ONE compiled template table per engine (the lanes' rules are
+        # the parent's), shared read-only by every emit worker
+        self._codec = parent._codec
+        self._emit_tpl = parent._emit_tpl
+        self._emit_cols = parent._emit_cols
+        # each lane's emit has its own, smaller pump connection group:
+        # emit workers never share a pump lock
+        self._pump_groups = 2
 
     def _update_pods_on_node(self, node_name: str) -> None:
         # pods on this node live in OTHER lanes' pools: one XUPD batch per
@@ -395,8 +406,14 @@ class LaneSet:
         state on the device and warm the scatters and the tick at the
         stacked shapes. Runs on the engine's stream."""
         for lane in self.lanes:
-            lane.engine._executor = executor
-            lane.engine._running = True
+            e = lane.engine
+            e._executor = executor
+            e._running = True
+            # the pump now, outside every lock: the emit worker runs
+            # _process_emit under the lane's stage_lock, where a lazy
+            # build would open its connections while the drain worker
+            # waits on the lock
+            e._get_pump()
         self._ensure_stacked()
         self._warm_scatters()
         self._warm_tick()
@@ -428,8 +445,14 @@ class LaneSet:
             threads.append(spawn_worker(lane.emit_loop, name=f"kwok-emit{lane.index}"))
 
     def close(self) -> None:
+        """Stop the lanes and close their pump groups (the client and
+        the executor are the parent's)."""
         for lane in self.lanes:
-            lane.engine._running = False
+            e = lane.engine
+            e._running = False
+            if e._pump is not None:
+                e._pump.close()
+                e._pump = None
 
     # --------------------------------------------------------------- router
 

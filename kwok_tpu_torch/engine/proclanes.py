@@ -31,8 +31,9 @@ Robustness follows the reference:
 - each lane checkpoints its shard to ``lane<i>.ckpt.json``; a respawn
   reconciles against it after the re-list the respawn triggers;
 - the emit crash-replay slot is a shared-memory ``InflightSlot``: the
-  child parks every patch in flight before sending it, and the parent
-  replays whatever the slot holds before the respawn.
+  child parks every patch in flight before sending it (one object's
+  request from the executor, or a whole pump batch's frames), and the
+  parent replays whatever the slot holds before the respawn.
 
 ``spawn`` only: the parent is thread-rich (and may hold a CUDA context,
 as a test harness does), and a fork would clone held locks into the
@@ -47,6 +48,7 @@ per-lane trace dumps (item 15).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -57,6 +59,8 @@ import queue
 import signal
 import threading
 import time
+
+import numpy as np
 
 from kwok_tpu_torch import native
 from kwok_tpu_torch.engine import shm as shm_mod
@@ -139,6 +143,11 @@ def _desc_check(kind, off, ln, bounds, cap: int, published: int):
     return None
 
 
+def _frames_bytes(requests: list) -> int:
+    """About what ``requests`` take in the slot's pickle."""
+    return sum(len(r[1]) + len(r[2]) + 64 for r in requests)
+
+
 class _SlotGuardClient:
     """The lane process's apiserver client, guarding its emit: every
     status patch, finalizer strip and delete is parked in the lane's
@@ -147,15 +156,24 @@ class _SlotGuardClient:
     thus loses no owed status: the parent replays what the slot holds
     before the respawn, and the respawn's re-list covers the rest.
 
-    The patch executor sends from several threads, so the slot holds
-    every request in flight, rewritten under one lock on each change."""
+    The patch executor sends from several threads and the pump groups
+    (``_SlotGuardPump``) park their batches here too, so the slot holds
+    every request in flight, rewritten under one lock on each change.
+    A status batch is sent in chunks of at most ``budget`` bytes of
+    frames (an eighth of the slot), so the chunks of every pump group fit
+    in it beside the single requests; should the union still overflow,
+    the largest entries leave it first."""
 
     def __init__(self, slot: shm_mod.InflightSlot, inner) -> None:
         self._slot = slot
         self._inner = inner
         self._lock = threading.Lock()
-        self._inflight: dict[int, tuple] = {}
+        self._inflight: dict[int, list] = {}
         self._seq = 0
+        self.budget = slot.cap // 8
+        # per sending thread: the token of the pump batch whose resend
+        # scope is open (pump_scope), or None
+        self._scope = threading.local()
 
     def _path(self, kind, namespace, name, subresource=None) -> str:
         c = self._inner
@@ -165,37 +183,92 @@ class _SlotGuardClient:
     def _publish(self) -> None:
         # caller holds _lock
         try:
-            if self._inflight and self._slot.arm(
-                pickle.dumps(list(self._inflight.values()), protocol=4)
-            ):
-                return
-            # nothing in flight, or more than the slot holds: an empty
-            # slot, never a stale one
+            # smallest first: what does not fit leaves largest first, so
+            # an oversized union still keeps the single requests
+            entries = sorted(self._inflight.values(), key=_frames_bytes)
+            while entries:
+                if self._slot.arm(pickle.dumps(
+                    [r for reqs in entries for r in reqs], protocol=4,
+                )):
+                    return
+                entries.pop()
+            # nothing in flight: an empty slot, never a stale one
             self._slot.clear()
         except Exception:
             # the slot is belt and braces over the re-list: losing it
             # must never block the send
             swallowed("proclanes.slot_arm")
 
-    def _guarded(self, request: tuple, send):
+    def _token(self) -> int:
         with self._lock:
             self._seq += 1
-            token = self._seq
-            self._inflight[token] = request
+            return self._seq
+
+    def _park(self, token: int, requests: list) -> None:
+        """``requests`` under ``token`` in the slot (none: out of it)."""
+        with self._lock:
+            if requests:
+                self._inflight[token] = requests
+            elif self._inflight.pop(token, None) is None:
+                return
             self._publish()
+
+    def _guarded(self, requests: list, send):
+        """send() with ``requests`` parked in the slot until it returns."""
+        token = self._token()
+        self._park(token, requests)
         try:
             return send()
         finally:
-            with self._lock:
-                del self._inflight[token]
-                self._publish()
+            self._park(token, [])
+
+    @contextlib.contextmanager
+    def pump_scope(self):
+        """One status batch's first send and its whole-frame resends on
+        this thread: between the sends, through the resend backoff, the
+        frames still owed (status 0) stay parked; they leave the slot
+        when the scope ends (answered, shed, or handed to the per-object
+        path, whose requests park themselves)."""
+        token = self._token()
+        self._scope.token = token
+        try:
+            yield
+        finally:
+            self._scope.token = None
+            self._park(token, [])
+
+    def pump_send(self, frames: list, send):
+        """send() of a pump batch's ``frames``: parked for the call, or,
+        inside ``pump_scope``, until each has an answer."""
+        token = getattr(self._scope, "token", None)
+        if token is None:
+            return self._guarded(frames, send)
+        self._park(token, frames)
+        status = send()
+        self._park(token, [f for f, st in zip(frames, status.tolist()) if st == 0])
+        return status
+
+    def chunks(self, reqs: list) -> list:
+        """``reqs`` cut into runs whose frames take at most ``budget``
+        bytes (each run at least one request)."""
+        out, run, size = [], [], 0
+        for r in reqs:
+            n = _frames_bytes([r])
+            if run and size + n > self.budget:
+                out.append(run)
+                run, size = [], 0
+            run.append(r)
+            size += n
+        if run:
+            out.append(run)
+        return out
 
     def patch_status(self, kind, namespace, name, patch):
         body = json.dumps(patch).encode()
         req = ("PATCH", self._path(kind, namespace, name, "status"), body,
                "application/strategic-merge-patch+json")
         return self._guarded(
-            req, lambda: self._inner.patch_status(kind, namespace, name, body)
+            [req], lambda: self._inner.patch_status(kind, namespace, name, body)
         )
 
     def patch_meta(self, kind, namespace, name, patch):
@@ -203,7 +276,7 @@ class _SlotGuardClient:
         req = ("PATCH", self._path(kind, namespace, name), body,
                "application/merge-patch+json")
         return self._guarded(
-            req, lambda: self._inner.patch_meta(kind, namespace, name, body)
+            [req], lambda: self._inner.patch_meta(kind, namespace, name, body)
         )
 
     def delete(self, kind, namespace, name, grace_seconds=0):
@@ -212,11 +285,37 @@ class _SlotGuardClient:
         req = ("DELETE", self._path(kind, namespace, name), body,
                "application/json")
         return self._guarded(
-            req, lambda: self._inner.delete(kind, namespace, name, grace_seconds)
+            [req], lambda: self._inner.delete(kind, namespace, name, grace_seconds)
         )
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
+
+
+class _SlotGuardPump:
+    """One pump connection group of the lane process, guarded like its
+    client: each batch is parked in the lane's slot (through the client
+    guard's ledger, as whole frames the parent's replay sends) before it
+    goes on the wire. It leaves the slot once the send returns, or,
+    inside the guard's ``pump_scope`` (a status batch and its
+    whole-frame resends), once every frame has an answer. Not a plain
+    ``native.Pump``, so the fused template emit renders first and sends
+    through here: a fused call never tunnels past the slot."""
+
+    def __init__(self, guard: _SlotGuardClient, inner) -> None:
+        self._guard = guard
+        self._inner = inner
+
+    def send(self, requests):
+        frames = [
+            (r[0], r[1].decode() if isinstance(r[1], (bytes, bytearray)) else r[1],
+             bytes(r[2]), r[3] if len(r) > 3 else "application/json")
+            for r in requests
+        ]
+        return self._guard.pump_send(frames, lambda: self._inner.send(requests))
+
+    def close(self) -> None:
+        self._inner.close()
 
 
 def make_proc_lane_engine_class():
@@ -241,6 +340,21 @@ def make_proc_lane_engine_class():
         _lane_index = 0
         _lane_n = 1
         _proc_integ: "dict | None" = None
+        #: the lane's _SlotGuardClient (None: no slot, as in a test)
+        _slot_guard = None
+
+        def _pump_send_frames(self, reqs):
+            """A status batch in chunks that fit the lane's slot, each
+            sent with its whole-frame resends inside one ``pump_scope``:
+            the frames still owed stay parked through the backoff."""
+            guard = self._slot_guard
+            if guard is None or not reqs:
+                return super()._pump_send_frames(reqs)
+            parts = []
+            for run in guard.chunks(reqs):
+                with guard.pump_scope():
+                    parts.append(super()._pump_send_frames(run))
+            return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
         def _integrity_resync(self, kind: str) -> None:
             d = self._proc_integ
@@ -389,7 +503,8 @@ def lane_proc_main(spec: dict, conn) -> None:
     row[shm_mod.BANK_PID] = os.getpid()
     row[shm_mod.BANK_ALIVE_NS] = time.monotonic_ns()
     e = _make_lane_engine(spec)
-    e.client = _SlotGuardClient(slot, e.client)
+    guard = e.client = e._slot_guard = _SlotGuardClient(slot, e.client)
+    e._pump_wrap = lambda p: _SlotGuardPump(guard, p)
     received = 0
     stop_status = threading.Event()
 

@@ -417,7 +417,8 @@ def main(argv=None, stop_event: threading.Event | None = None) -> int:
     if args.server_address:
         server = EngineServer(engine, args.server_address)
         server.start()
-        logger.info("serving healthz/metrics on %s", args.server_address)
+        # the bound port: --server-address HOST:0 takes a free one
+        logger.info("serving healthz/metrics on %s (port %d)", args.server_address, server.port)
 
     engine.start()
     logger.info("engine started on %s (managing %s)", engine.device,

@@ -12,7 +12,12 @@ from kwok_tpu_torch.models.lifecycle import (
     ResourceKind,
     StatusEffect,
 )
-from kwok_tpu_torch.models.compiler import CompiledRules, compile_rules
+from kwok_tpu_torch.models.compiler import (
+    CompiledRules,
+    EmitTemplates,
+    compile_emit_templates,
+    compile_rules,
+)
 from kwok_tpu_torch.models.defaults import (
     default_node_rules,
     default_pod_rules,
@@ -26,6 +31,8 @@ __all__ = [
     "ResourceKind",
     "StatusEffect",
     "CompiledRules",
+    "EmitTemplates",
+    "compile_emit_templates",
     "compile_rules",
     "default_node_rules",
     "default_pod_rules",

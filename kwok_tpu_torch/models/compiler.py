@@ -7,8 +7,9 @@ arrays the tick kernel broadcasts against. Rendering of the full status
 document happens only at the API boundary for dirty rows.
 
 The compiled form is deliberately framework-agnostic numpy;
-kwok_tpu_torch.ops.cuda_tick packs it into the tick kernel's rule table.
-The native emit's byte templates are not part of this package yet.
+kwok_tpu_torch.ops.cuda_tick packs it into the tick kernel's rule table,
+and ``compile_emit_templates`` lowers each reachable pod status patch to
+the byte template the native emit splices (native/codec.cc).
 """
 
 from __future__ import annotations
@@ -26,6 +27,165 @@ from kwok_tpu_torch.models.lifecycle import (
 )
 
 NO_RULE = np.int32(-1)
+
+# --- patch-body templates ------------------------------------------------
+#
+# Segment codes for EmitTemplates: a compiled Stage rule's status-patch body
+# lowered to literal byte runs plus typed holes the native codec splices
+# per-row values into (codec.cc kwok_emit_pods). The JSON *shape* — key
+# order, punctuation, the rule's target phase, condition types — is fixed
+# here at compile time; only genuinely per-row values stay holes.
+EMIT_LIT = 0     # literal bytes: seg_a = offset into lit_blob, seg_b = len
+EMIT_START = 1   # row start/creation timestamp (batch "now" when empty)
+EMIT_HOST = 2    # row hostIP
+EMIT_POD = 3     # row podIP
+EMIT_CTRS = 4    # containerStatuses records ("name\x1fimage\x1e...")
+EMIT_ICTRS = 5   # initContainerStatuses records
+EMIT_COND = 6    # '"True"'/'"False"' from row condition bit seg_a
+
+# The three pod conditions the reference template asserts
+# (pod.status.tpl; edge/render.py render_pod_status).
+_POD_EMIT_CONDITIONS = ("Initialized", "Ready", "ContainersReady")
+
+
+def _esc_json(s: str) -> bytes:
+    """JSON string-content escaping, byte-identical to codec.cc Buf::esc
+    (raw UTF-8 for printable text, \\u00xx for control chars) — baked
+    literals must match what the runtime splicer would have written."""
+    out = bytearray()
+    for ch in s.encode():
+        if ch == 0x22:
+            out += b'\\"'
+        elif ch == 0x5C:
+            out += b"\\\\"
+        elif ch == 0x0A:
+            out += b"\\n"
+        elif ch == 0x0D:
+            out += b"\\r"
+        elif ch == 0x09:
+            out += b"\\t"
+        elif ch < 0x20:
+            out += b"\\u%04x" % ch
+        else:
+            out.append(ch)
+    return bytes(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class EmitTemplates:
+    """Pod status-patch bodies as byte templates, one per target phase.
+
+    The tick wire hands emit a row's post-transition phase id and
+    condition bits; everything else in the patch body is either fixed by
+    the phase (the template) or a per-row column (the holes). Every
+    rule's compile-time ``to_phase`` is a phase id, so "each rule's
+    patch body" dedups to one template per distinct target phase and
+    ``phase_tpl`` is the whole mapping the splicer needs.
+
+    The arrays are the form codec.cc reads directly:
+    ``seg_code``/``seg_a``/``seg_b`` are the concatenated segment tables
+    of all templates, template t spanning ``tpl_off[t]:tpl_off[t+1]``.
+    """
+
+    lit_blob: bytes
+    seg_code: np.ndarray  # int32, EMIT_* per segment
+    seg_a: np.ndarray  # int64: literal offset / condition bit
+    seg_b: np.ndarray  # int64: literal length
+    tpl_off: np.ndarray  # int64 [T+1]
+    tpl_kind: np.ndarray  # uint8: 0 running-like / 1 terminated-ok / 2 -err
+    # uint8: containers render ready:true only in phase Running, as
+    # edge/render.py does (the generic renderer's tpl_kind==0 would mark
+    # Pending, Terminating and custom phases ready too)
+    tpl_ready: np.ndarray
+    phase_tpl: np.ndarray  # int32: phase id -> template id (-1 = slow path)
+    phase_names: tuple[str, ...]  # template id -> phase name
+
+
+class _TplBuilder:
+    def __init__(self) -> None:
+        self.lit = bytearray()
+        self.code: list[int] = []
+        self.a: list[int] = []
+        self.b: list[int] = []
+        self.off: list[int] = [0]
+
+    def text(self, data: bytes) -> None:
+        # merge adjacent literals so each template is a handful of segs
+        if self.code and len(self.code) > self.off[-1] and (
+            self.code[-1] == EMIT_LIT
+            and self.a[-1] + self.b[-1] == len(self.lit)
+        ):
+            self.b[-1] += len(data)
+        else:
+            self.code.append(EMIT_LIT)
+            self.a.append(len(self.lit))
+            self.b.append(len(data))
+        self.lit += data
+
+    def hole(self, code: int, param: int = 0) -> None:
+        self.code.append(code)
+        self.a.append(param)
+        self.b.append(0)
+
+    def end_template(self) -> None:
+        self.off.append(len(self.code))
+
+
+def compile_emit_templates(table: CompiledRules) -> EmitTemplates:
+    """Lower every reachable pod status-patch body to a byte template.
+
+    One template per phase in the table's (possibly Stage-extended)
+    phase space, except the terminal "Gone" (those rows never emit).
+    Raises KeyError when the space lacks the canonical pod conditions:
+    callers then keep the generic renderer.
+    """
+    space = table.space
+    cond_bits = [space.condition_bit(c) for c in _POD_EMIT_CONDITIONS]
+    b = _TplBuilder()
+    kinds: list[int] = []
+    readys: list[int] = []
+    names: list[str] = []
+    phase_tpl = np.full(len(space.phases), -1, np.int32)
+    for pid, phase in enumerate(space.phases):
+        if phase == "Gone":
+            continue
+        phase_tpl[pid] = len(names)
+        names.append(phase)
+        kinds.append(1 if phase == "Succeeded" else 2 if phase == "Failed" else 0)
+        readys.append(1 if phase == "Running" else 0)
+        b.text(b'{"status":{"conditions":[')
+        for j, (cname, bit) in enumerate(zip(_POD_EMIT_CONDITIONS, cond_bits)):
+            if j:
+                b.text(b",")
+            b.text(b'{"lastTransitionTime":"')
+            b.hole(EMIT_START)
+            b.text(b'","status":')
+            b.hole(EMIT_COND, bit)
+            b.text(b',"type":"' + _esc_json(cname) + b'"}')
+        b.text(b'],"containerStatuses":[')
+        b.hole(EMIT_CTRS)
+        b.text(b'],"initContainerStatuses":[')
+        b.hole(EMIT_ICTRS)
+        b.text(b'],"hostIP":"')
+        b.hole(EMIT_HOST)
+        b.text(b'","podIP":"')
+        b.hole(EMIT_POD)
+        b.text(b'","phase":"' + _esc_json(phase) + b'","startTime":"')
+        b.hole(EMIT_START)
+        b.text(b'"}}')
+        b.end_template()
+    return EmitTemplates(
+        lit_blob=bytes(b.lit),
+        seg_code=np.asarray(b.code, np.int32),
+        seg_a=np.asarray(b.a, np.int64),
+        seg_b=np.asarray(b.b, np.int64),
+        tpl_off=np.asarray(b.off, np.int64),
+        tpl_kind=np.asarray(kinds, np.uint8),
+        tpl_ready=np.asarray(readys, np.uint8),
+        phase_tpl=phase_tpl,
+        phase_names=tuple(names),
+    )
+
 
 
 @dataclasses.dataclass(frozen=True)

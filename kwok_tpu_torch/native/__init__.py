@@ -1,6 +1,6 @@
-"""The native ingest edge: C++ watch-line reader, batch event parser and
-canonical fingerprints, bound through ctypes (the ingest half of
-``kwok_tpu.native``).
+"""The native edge: C++ watch-line reader, batch event parser, canonical
+fingerprints, the emit renderers and the HTTP pump, bound through ctypes
+(the port of ``kwok_tpu.native``).
 
 ``codec.cc``, ``pump.cc`` and ``ingest.cc`` are copies of the JAX
 package's sources. They are built together, at first use, with
@@ -8,20 +8,29 @@ package's sources. They are built together, at first use, with
 ``kwok_tpu_torch/_build/libkwok_native-<hash>.so``, named by a hash of
 the three sources and the flags; nothing is written next to them.
 
-Bound here: ``kwok_parse_events`` (one C call parses a whole drain of
-watch lines into fingerprints, flags, revisions and string offsets, and
-with ``n_shards`` computes each event's lane as ``rowpool.shard_of``
-does), ``kwok_fingerprint_statuses`` and the watch IO
+Ingest: ``kwok_parse_events`` (one C call parses a whole drain of watch
+lines into fingerprints, flags, revisions and string offsets, and with
+``n_shards`` computes each event's lane as ``rowpool.shard_of`` does),
+``kwok_fingerprint_statuses`` and the watch IO
 (``kwok_watch_open``/``read``/``close``: the batched, de-chunking socket
-reader). The emit renderers and the pump are in the same library and
-are bound by the emit slice.
+reader).
+
+Emit: ``kwok_emit_pods`` splices a batch of pod status patches into the
+byte templates compiled from the rules (``EmitTable``) and, given a
+``Pump``, ships the batch in the same call; ``kwok_render_heartbeats``
+and ``kwok_render_pod_statuses`` render node heartbeats and generic pod
+patches; ``Pump`` pipelines whole request batches over keep-alive
+connections (``kwok_pump_open``/``send``/``send2``/``stats``/``close``).
 
 A build or load failure is logged at WARNING with the compiler's
 output; callers then keep the Python path. The engine's opt-outs are
-environment variables: ``KWOK_TPU_NATIVE=0`` (no native ingest at all),
-``KWOK_TPU_NATIVE_WATCH=0`` (no socket reader: raw lines from Python's
-HTTP client, still parsed natively) and ``KWOK_TPU_NATIVE_ROUTE=0`` (no
-pre-partitioned routing: per-record Python route loop).
+environment variables: ``KWOK_TPU_NATIVE=0`` (no native edge at all: the
+``json.loads`` ingest and one executor job per patch),
+``KWOK_TPU_NATIVE_EMIT=0`` (no templates: the generic renderer plus the
+pump), ``KWOK_TPU_NATIVE_WATCH=0`` (no socket reader: raw lines from
+Python's HTTP client, still parsed natively) and
+``KWOK_TPU_NATIVE_ROUTE=0`` (no pre-partitioned routing: per-record
+Python route loop).
 """
 
 from __future__ import annotations
@@ -73,11 +82,11 @@ def _build(path: str) -> bool:
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=180)
     except (OSError, subprocess.SubprocessError) as e:
-        logger.warning("native ingest build failed to run %s: %s", cmd[0], e)
+        logger.warning("native library build failed to run %s: %s", cmd[0], e)
         return False
     if proc.returncode != 0:
         logger.warning(
-            "native ingest build failed (%d): %s\n%s",
+            "native library build failed (%d): %s\n%s",
             proc.returncode, " ".join(cmd), (proc.stdout + proc.stderr).strip(),
         )
         return False
@@ -117,6 +126,79 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.kwok_watch_close.restype = None
     lib.kwok_watch_close.argtypes = [ctypes.c_void_p]
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.kwok_render_heartbeats.restype = ctypes.c_int64
+    lib.kwok_render_heartbeats.argtypes = [
+        ctypes.c_int32, u32p, ctypes.c_int32,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, ctypes.c_int32,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, ctypes.c_int64, i64p,
+    ]
+    lib.kwok_render_pod_statuses.restype = ctypes.c_int64
+    lib.kwok_render_pod_statuses.argtypes = [
+        ctypes.c_int32, u8p, u32p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_int32, ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, ctypes.c_int64, i64p,
+    ]
+    lib.kwok_pump_open.restype = ctypes.c_int64
+    lib.kwok_pump_open.argtypes = [
+        ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
+    ]
+    lib.kwok_pump_send.restype = ctypes.c_int64
+    lib.kwok_pump_send.argtypes = [
+        ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        i32p,
+    ]
+    lib.kwok_pump_send2.restype = ctypes.c_int64
+    lib.kwok_pump_send2.argtypes = [
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_char_p, i64p,
+        i32p,
+    ]
+    lib.kwok_pump_close.restype = None
+    lib.kwok_pump_close.argtypes = [ctypes.c_int64]
+    lib.kwok_pump_stats.restype = None
+    lib.kwok_pump_stats.argtypes = [
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.kwok_emit_pods.restype = ctypes.c_int64
+    lib.kwok_emit_pods.argtypes = [
+        ctypes.c_int64, ctypes.c_int32,
+        i32p, u32p,
+        # template table: lit_blob, seg_code, seg_a, seg_b, tpl_off,
+        # tpl_kind, tpl_ready
+        ctypes.c_char_p, i32p, i64p, i64p, i64p, u8p, u8p,
+        # columns: host, pod, start, ctrs, ictrs
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, ctypes.c_int32,  # now
+        ctypes.c_char_p, ctypes.c_int64, i64p,  # out slab
+        u64p,  # fingerprints
+        # send half: base, paths, suffix, ctype, status
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64,
+        i32p,
+    ]
     return lib
 
 
@@ -131,19 +213,19 @@ def load() -> ctypes.CDLL | None:
         try:
             path = library_path()
         except OSError as e:
-            logger.warning("native ingest sources unreadable: %s", e)
+            logger.warning("native library sources unreadable: %s", e)
             return None
         if not os.path.exists(path) and not _build(path):
             return None
         try:
             lib = _bind(ctypes.CDLL(path))
         except (OSError, AttributeError) as e:
-            logger.warning("native ingest library %s failed to load: %s", path, e)
+            logger.warning("native library %s failed to load: %s", path, e)
             return None
         abi = lib.kwok_codec_abi_version()
         if abi != ABI_VERSION:
             logger.warning(
-                "native ingest library %s has ABI %d, the loader binds %d",
+                "native library %s has ABI %d, the loader binds %d",
                 path, abi, ABI_VERSION,
             )
             return None
@@ -419,14 +501,20 @@ class WatchReader:
     the Python HTTP handshake. ``read_batch()`` returns the packed
     (buf, off) lines ``EventParser.parse_blob`` consumes, or None at the
     end of the stream. A batch cut short by an ERROR event line carries
-    that line in ``error`` (it is not in the batch)."""
+    that line in ``error`` (it is not in the batch).
+
+    ``owner``, when given, is the socket object that owns ``fd`` (a dup
+    made for this reader): it is closed with the reader, never before, so
+    the fd number the C side reads can never be closed under it and
+    handed to another connection."""
 
     def __init__(self, fd: int, initial: bytes = b"",
-                 chunked: bool = True) -> None:
+                 chunked: bool = True, owner=None) -> None:
         lib = load()
         if lib is None:
             raise RuntimeError("native library unavailable")
         self._lib = lib
+        self._owner = owner
         self._h = lib.kwok_watch_open(
             int(fd), bytes(initial), len(initial), 0 if chunked else 1
         )
@@ -472,6 +560,9 @@ class WatchReader:
         h, self._h = self._h, None
         if h:
             self._lib.kwok_watch_close(h)
+        owner, self._owner = self._owner, None
+        if owner is not None:
+            owner.close()
 
     def __del__(self):
         try:
@@ -653,3 +744,281 @@ def _split(buf: bytearray, off: np.ndarray) -> list[memoryview]:
     mv = memoryview(buf)
     off_l = off.tolist()
     return [mv[off_l[i]: off_l[i + 1]] for i in range(len(off_l) - 1)]
+
+
+class Pump:
+    """Batched pipelined HTTP client over a fixed pool of keep-alive
+    connections (``pump.cc``). ``send()`` blocks outside the GIL while the
+    whole batch is written and read, so thousands of requests cost one
+    Python call. Response bodies are discarded: the engine learns state
+    from the watch echo, callers only get status codes back."""
+
+    def __init__(
+        self, host: str, port: int, nconn: int = 4, header_extra: str = ""
+    ) -> None:
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._handle = lib.kwok_pump_open(
+            host.encode(), port, nconn, header_extra.encode()
+        )
+
+    @property
+    def handle(self) -> int:
+        """The raw pump id for the fused ``emit_pods`` call. Wrappers are
+        told apart by ``isinstance``, never by this attribute, so a fused
+        call never tunnels past one."""
+        return self._handle
+
+    def send(self, requests: list[tuple]) -> "np.ndarray":
+        """``requests``: (method, path, body[, content_type]) tuples; the
+        content type defaults to application/json. Returns each request's
+        HTTP status (0 = the connection died before its answer; the
+        caller may resend)."""
+        n = len(requests)
+        status = np.zeros(n, np.int32)
+        if n == 0:
+            return status
+        m_blob, m_off = _blob([r[0].encode() for r in requests])
+        p_blob, p_off = _blob([
+            r[1].encode() if isinstance(r[1], str) else bytes(r[1])
+            for r in requests
+        ])
+        b_blob, b_off = _blob([bytes(r[2]) for r in requests])
+        c_blob, c_off = _blob(
+            [(r[3].encode() if len(r) > 3 else b"") for r in requests]
+        )
+        self._lib.kwok_pump_send(
+            self._handle, n,
+            m_blob, _i64p(m_off),
+            p_blob, _i64p(p_off),
+            c_blob, _i64p(c_off),
+            b_blob, _i64p(b_off),
+            status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+        return status
+
+    def stats(self) -> dict:
+        """Send-path totals since open (``pump.cc``): batches, requests,
+        batch wall seconds, and the write/read seconds summed over the
+        pool's connection threads."""
+        out = (ctypes.c_double * 5)()
+        if self._handle:
+            self._lib.kwok_pump_stats(self._handle, out)
+        return {
+            "batches": int(out[0]),
+            "requests": int(out[1]),
+            "batch_s": out[2],
+            "write_s": out[3],
+            "read_s": out[4],
+        }
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.kwok_pump_close(self._handle)
+            self._handle = 0
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # interpreter shutdown: the fds die with us
+            pass
+
+
+def render_heartbeats(
+    cond_bits: np.ndarray,
+    cond_meta: list[tuple[str, str, str]],
+    now: str,
+    start_times: list[bytes],
+) -> "list[memoryview] | None":
+    """Render a batch of node heartbeat status patches, one body per row.
+    ``cond_meta``: (type, reason, message) per condition bit, in bit
+    order. None when the library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    n = len(start_times)
+    bits = np.ascontiguousarray(cond_bits, np.uint32)
+    meta_blob, meta_off = _blob([s.encode() for t in cond_meta for s in t])
+    start_blob, start_off = _blob(start_times)
+    now_b = now.encode()
+    out_off = np.zeros(n + 1, np.int64)
+    # a first guess: ~128 literal bytes per condition plus its strings
+    per_cond = 128 + len(now_b) + len(meta_blob) // max(1, len(cond_meta))
+    cap = max(1024, n * (len(cond_meta) * per_cond + 32)
+              + len(start_blob) * len(cond_meta))
+    for _ in range(2):
+        out = bytearray(cap)
+        need = lib.kwok_render_heartbeats(
+            n,
+            bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            len(cond_meta),
+            meta_blob, _i64p(meta_off),
+            now_b, len(now_b),
+            start_blob, _i64p(start_off),
+            (ctypes.c_char * len(out)).from_buffer(out), cap, _i64p(out_off),
+        )
+        if need <= cap:
+            return _split(out, out_off)
+        cap = need  # the exact size: the second pass fits
+    raise AssertionError("heartbeat buffer sizing did not converge")
+
+
+class EmitTable:
+    """A compiled ``EmitTemplates`` table (``models/compiler.py``) pinned
+    in the contiguous form ``kwok_emit_pods`` reads: built once per
+    engine, shared read-only by every lane's emit."""
+
+    __slots__ = (
+        "lit_blob", "seg_code", "seg_a", "seg_b", "tpl_off", "tpl_kind",
+        "tpl_ready", "phase_tpl", "phase_names",
+    )
+
+    def __init__(self, tpl) -> None:
+        if load() is None:
+            raise RuntimeError("native library unavailable")
+        self.lit_blob = bytes(tpl.lit_blob)
+        self.seg_code = np.ascontiguousarray(tpl.seg_code, np.int32)
+        self.seg_a = np.ascontiguousarray(tpl.seg_a, np.int64)
+        self.seg_b = np.ascontiguousarray(tpl.seg_b, np.int64)
+        self.tpl_off = np.ascontiguousarray(tpl.tpl_off, np.int64)
+        self.tpl_kind = np.ascontiguousarray(tpl.tpl_kind, np.uint8)
+        self.tpl_ready = np.ascontiguousarray(tpl.tpl_ready, np.uint8)
+        #: phase id -> template id, a list: the emit gather indexes it
+        #: per row, where a numpy scalar read costs ~10x
+        self.phase_tpl = np.asarray(tpl.phase_tpl, np.int32).tolist()
+        self.phase_names = tpl.phase_names
+
+
+def emit_pods(
+    tpl: EmitTable,
+    tpl_ids: np.ndarray,
+    cond_bits: np.ndarray,
+    hosts: list[bytes],
+    ips: list[bytes],
+    starts: list[bytes],
+    ctrs: list[bytes],
+    ictrs: list[bytes],
+    now: bytes,
+    *,
+    pump: "Pump | None" = None,
+    base: bytes = b"",
+    paths: "list[bytes] | None" = None,
+    suffix: bytes = b"/status",
+    ctype: bytes = b"application/strategic-merge-patch+json",
+):
+    """Splice each row's values into its template and, given a ``pump``,
+    ship the batch in the same C call (render, fingerprint and send under
+    one GIL release).
+
+    Returns ``(bodies, fps, status, need)``: per-row body views into one
+    slab, each body's status fingerprint (the echo-drop seeds), each
+    request's HTTP status (zeros without a pump) and the slab's size in
+    bytes; None when the library is unavailable. A first guess that is
+    too small re-renders into the exact size: the C side fingerprints
+    and sends only a batch that fit, so the send happens once."""
+    lib = load()
+    if lib is None:
+        return None
+    n = len(hosts)
+    ids = np.ascontiguousarray(tpl_ids, np.int32)
+    bits = np.ascontiguousarray(cond_bits, np.uint32)
+    host_blob, host_off = _blob(hosts)
+    pod_blob, pod_off = _blob(ips)
+    start_blob, start_off = _blob(starts)
+    ctr_blob, ctr_off = _blob(ctrs)
+    ictr_blob, ictr_off = _blob(ictrs)
+    if paths is not None:
+        path_blob, path_off = _blob(paths)
+    else:
+        path_blob, path_off = b"", np.zeros(n + 1, np.int64)
+    out_off = np.zeros(n + 1, np.int64)
+    fps = np.zeros(n, np.uint64)
+    status = np.zeros(n, np.int32)
+    handle = pump.handle if pump is not None else 0
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    cap = max(2048, n * 512 + len(ctr_blob) * 4 + len(ictr_blob) * 4
+              + len(start_blob) * 8)
+    for _ in range(2):
+        out = bytearray(cap)
+        need = lib.kwok_emit_pods(
+            handle, n,
+            ids.ctypes.data_as(i32p),
+            bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            tpl.lit_blob,
+            tpl.seg_code.ctypes.data_as(i32p),
+            _i64p(tpl.seg_a), _i64p(tpl.seg_b), _i64p(tpl.tpl_off),
+            tpl.tpl_kind.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            tpl.tpl_ready.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            host_blob, _i64p(host_off),
+            pod_blob, _i64p(pod_off),
+            start_blob, _i64p(start_off),
+            ctr_blob, _i64p(ctr_off),
+            ictr_blob, _i64p(ictr_off),
+            now, len(now),
+            (ctypes.c_char * len(out)).from_buffer(out), cap,
+            _i64p(out_off),
+            fps.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            base, len(base),
+            path_blob, _i64p(path_off),
+            suffix, len(suffix),
+            ctype, len(ctype),
+            status.ctypes.data_as(i32p),
+        )
+        if need <= cap:
+            return _split(out, out_off), fps, status, int(need)
+        cap = need
+    raise AssertionError("emit buffer sizing did not converge")
+
+
+def render_pod_statuses(
+    phase_kind: np.ndarray,
+    cond_bits: np.ndarray,
+    phase_names: list[bytes],
+    cond_names: list[str],
+    host_ips: list[bytes],
+    pod_ips: list[bytes],
+    start_times: list[bytes],
+    containers: list[bytes],
+    init_containers: list[bytes],
+) -> "list[memoryview] | None":
+    """Render a batch of pod status patches without templates (the
+    ``KWOK_TPU_NATIVE_EMIT=0`` path). ``phase_kind`` per row: 0
+    running-like, 1 terminated-ok, 2 terminated-error; containers are
+    records ``"name\\x1fimage"`` joined by ``\\x1e``."""
+    lib = load()
+    if lib is None:
+        return None
+    n = len(phase_names)
+    pk = np.ascontiguousarray(phase_kind, np.uint8)
+    bits = np.ascontiguousarray(cond_bits, np.uint32)
+    phase_blob, phase_off = _blob(phase_names)
+    cname_blob, cname_off = _blob([c.encode() for c in cond_names])
+    host_blob, host_off = _blob(host_ips)
+    pod_blob, pod_off = _blob(pod_ips)
+    start_blob, start_off = _blob(start_times)
+    ctr_blob, ctr_off = _blob(containers)
+    ictr_blob, ictr_off = _blob(init_containers)
+    out_off = np.zeros(n + 1, np.int64)
+    cap = max(2048, n * 512 + len(ctr_blob) * 4 + len(ictr_blob) * 4
+              + len(start_blob) * 8)
+    for _ in range(2):
+        out = bytearray(cap)
+        need = lib.kwok_render_pod_statuses(
+            n,
+            pk.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            phase_blob, _i64p(phase_off),
+            len(cond_names), cname_blob, _i64p(cname_off),
+            host_blob, _i64p(host_off),
+            pod_blob, _i64p(pod_off),
+            start_blob, _i64p(start_off),
+            ctr_blob, _i64p(ctr_off),
+            ictr_blob, _i64p(ictr_off),
+            (ctypes.c_char * len(out)).from_buffer(out), cap, _i64p(out_off),
+        )
+        if need <= cap:
+            return _split(out, out_off)
+        cap = need
+    raise AssertionError("pod status buffer sizing did not converge")

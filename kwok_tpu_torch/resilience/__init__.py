@@ -2,8 +2,9 @@
 
 - ``policy``: the ``Degradation`` ledger behind ``kwok_degraded{reason=}``
   and the ``/readyz`` 503 (lane queue shedding, a checkpoint writer that
-  cannot reach its disk, a spent restart budget), ``RetryPolicy`` and
-  the shared ``WATCH_RECONNECT``/``PATCH_RETRY`` policies.
+  cannot reach its disk, a spent restart budget, a pump target down past
+  its resend deadline), ``RetryPolicy`` and the shared
+  ``WATCH_RECONNECT``/``PATCH_RETRY``/``PUMP_RESEND`` policies.
 - ``watchdog``: supervised workers and the restart budget that the
   process-lane supervisor charges for every lane respawn.
 - ``checkpoint``: the periodic atomic-rename checkpoint of the device

@@ -5,10 +5,12 @@ on the port's registry).
 ``RetryPolicy`` is client-go's wait.Backoff with full jitter: attempt
 ``n`` sleeps ``uniform(0, min(cap, base * factor**n))``, optionally
 bounded by a wall-clock deadline. The watchdog paces its restarts with
-it, the engine's watch loop its reconnects (``WATCH_RECONNECT``) and its
-patch executor its retries (``PATCH_RETRY``).
+it, the engine's watch loop its reconnects (``WATCH_RECONNECT``), its
+patch executor its retries (``PATCH_RETRY``) and its pump the resend of
+frames whose connection died (``PUMP_RESEND``).
 
-Named reasons (``lane2_queue``, ``checkpoint``, ``worker_restart_budget``)
+Named reasons (``lane2_queue``, ``checkpoint``, ``worker_restart_budget``,
+``pump``)
 raise the ``kwok_degraded{reason=}`` gauge on the engine's registry and
 flip the engine's ``degraded`` property, which ``/readyz`` reflects with
 a 503: load balancers and rigs stop sending work to an engine that is
@@ -95,6 +97,12 @@ WATCH_RECONNECT = RetryPolicy(base=0.2, cap=5.0)
 # Patch-job transport retries on the executor (connection-shaped errors
 # and 429s): enough attempts to ride out an apiserver restart window.
 PATCH_RETRY = RetryPolicy(base=0.1, cap=1.0, deadline=8.0)
+
+# Whole-frame resend of a pump batch's requests whose connection died
+# (status 0): short steps, and a deadline after which the target counts
+# as down (degradation reason "pump": the batch is shed, not retried per
+# object).
+PUMP_RESEND = RetryPolicy(base=0.05, cap=0.5, deadline=5.0)
 
 _DEGRADED_HELP = (
     "Degraded-mode reasons currently active (1 = degraded): queue "

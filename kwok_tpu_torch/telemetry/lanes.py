@@ -14,7 +14,8 @@ registry:
 The engine-wide ``kwok_tick_stage_seconds{stage}`` (``stage="parse"``:
 the batched native parse of raw watch lines, on whichever thread drains
 them) and ``kwok_route_batch_seconds`` (the router's per-batch handoff)
-take their help texts from here too.
+take their help texts from here too, as does ``kwok_pump_send_seconds``
+(the wall seconds of each native pump batch send).
 
 ``kwok_degraded{reason}`` lives with its ledger in
 ``resilience/policy.py``. Every other engine counter stays on the flat
@@ -48,6 +49,7 @@ _HELP = {
     "computed the partition is kwok_tick_stage_seconds{stage=parse})",
     "kwok_route_partition_events_total": "Events routed to each lane via "
     "the native pre-partitioned parse (shard=lane index)",
+    "kwok_pump_send_seconds": "Wall seconds per native pump batch send",
 }
 
 

@@ -16,13 +16,17 @@
   count.
 - ``/readyz`` answers 503 until the first re-list is ingested, and
   ``/metrics`` carries the ``kwok_`` counters.
+
+The HTTP tests own their ports: the CLI binds ``--server-address
+127.0.0.1:0`` and the test reads the bound port off the server it built.
+Their gates release only when the test says so, and a GET that times out
+under load is retried, never read as an answer.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import threading
@@ -417,7 +421,8 @@ def test_module_entry_point_exits_nonzero_without_card(tmp_path):
 
 class GatedStore(PortFakeKube):
     """A store whose LISTs after the first (the CLI's apiserver probe)
-    wait for ``gate``: the engine's first re-list is held back."""
+    wait for ``gate``: the engine's first re-list is held back until the
+    test sets it (its ``finally`` always does)."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -427,24 +432,46 @@ class GatedStore(PortFakeKube):
     def list_bytes(self, kind, **kw):
         self.lists += 1
         if self.lists > 1:
-            self.gate.wait(30)
+            self.gate.wait()
         return super().list_bytes(kind, **kw)
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def record_servers(monkeypatch) -> list:
+    """The EngineServers the CLI builds, so a test that passes
+    ``--server-address 127.0.0.1:0`` reads the port the server bound."""
+    from kwok_tpu_torch.kwok import server as server_mod
+
+    servers = []
+
+    class Recorded(server_mod.EngineServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    monkeypatch.setattr(server_mod, "EngineServer", Recorded)
+    return servers
 
 
-def get(url):
-    try:
-        with urllib.request.urlopen(url, timeout=5) as r:
-            return r.status, r.read().decode()
-    except urllib.error.HTTPError as e:
-        return e.code, e.reason
-    except OSError:
-        return None, ""
+def serving_base(servers) -> str:
+    assert wait_for(lambda: servers), "the CLI built no EngineServer"
+    return f"http://127.0.0.1:{servers[0].port}"
+
+
+def get(url, deadline_s: float = 60.0):
+    """(status, reason or body) of a GET. A timeout or a refused
+    connection is retried until ``deadline_s``, then fails the test:
+    under load a slow answer is never read as a wrong one."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.reason
+        except OSError as e:
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"GET {url}: no answer in {deadline_s} s ({e})") from e
+            time.sleep(0.05)
 
 
 def test_readyz_503_until_first_relist_and_metrics(tmp_path, monkeypatch):
@@ -453,11 +480,11 @@ def test_readyz_503_until_first_relist_and_metrics(tmp_path, monkeypatch):
     store.create("nodes", make_node("n0"))
     store.create("pods", make_pod("p0", node="n0"))
     srv = PortServer(store=store).start()
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
+    servers = record_servers(monkeypatch)
     stop, t, rc = run_cli(tcli.main, base_args(tmp_path, srv.url) + [
-        "--server-address", f"127.0.0.1:{port}"])
+        "--server-address", "127.0.0.1:0"])
     try:
+        base = serving_base(servers)
         assert wait_for(lambda: get(base + "/healthz")[0] == 200)
         assert wait_for(lambda: store.lists > 1)  # the engine's re-list waits
         assert get(base + "/readyz") == (503, "startup_resync")
@@ -527,13 +554,13 @@ def test_two_master_federation_over_http(tmp_path, monkeypatch):
         srv.store.create("nodes", make_node(f"n{c}"))
         for i in range(3):
             srv.store.create("pods", make_pod(f"p{c}-{i}", node=f"n{c}"))
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
+    servers = record_servers(monkeypatch)
     argv = base_args(tmp_path, f"{srvs[0].url},{srvs[1].url}", stage_file(tmp_path)) + [
-        "--server-address", f"127.0.0.1:{port}",
+        "--server-address", "127.0.0.1:0",
         "--member-config", "", "--member-config", str(member)]
     stop, t, rc = run_cli(tcli.main, argv)
     try:
+        base = serving_base(servers)
         assert wait_for(lambda: get(base + "/healthz")[0] == 200)
         assert wait_for(lambda: gated.lists > 1)  # member 1's re-list waits
         assert wait_for(lambda: all(running(p) for p in srvs[0].store.list("pods")))

@@ -384,53 +384,84 @@ def test_federation_on_card(card, tmp_path):
                 assert torch.equal(a, b)
 
 
-def test_cli_over_http_on_card_routes_natively(card, tmp_path):
+def _cli_on_card(tmp_path, monkeypatch, n_pods=200):
     """The kwok entry point on the card over the port's HTTP mock with 2
-    threaded lanes: the watches queue raw lines, the router partitions
-    them natively (kwok_route_partition_events_total > 0), every pod
-    reaches Running and the kernel launches."""
-    import socket
+    threaded lanes and 4 nodes: returns its /metrics text once all
+    ``n_pods`` pods are Running, the Running count and the kernel's
+    launches during the run. The server binds port 0; the port is read
+    off the server the CLI built."""
     import threading
     import urllib.request
 
     from kwok_tpu_torch.edge.mockserver import HttpFakeApiserver
     from kwok_tpu_torch.kwok import cli
+    from kwok_tpu_torch.kwok import server as server_mod
 
+    servers = []
+
+    class Recorded(server_mod.EngineServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    monkeypatch.setattr(server_mod, "EngineServer", Recorded)
     srv = HttpFakeApiserver(store=FakeKube()).start()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     stop, rc = threading.Event(), []
     argv = ["--master", srv.url, "--kubeconfig", str(tmp_path / "none"),
             "--manage-all-nodes", "true", "--tick-interval", "0.02",
-            "--drain-shards", "2", "--server-address", f"127.0.0.1:{port}",
+            "--drain-shards", "2", "--server-address", "127.0.0.1:0",
             "--config", str(tmp_path / "absent.yaml")]
     before = cuda_tick.tick_steps.launches
     t = threading.Thread(target=lambda: rc.append(cli.main(argv, stop_event=stop)))
     t.start()
+
+    def running():
+        return srv.store.count(
+            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running")
+
     try:
         for i in range(4):
             srv.store.create("nodes", {"metadata": {"name": f"hn{i}"}})
-        for i in range(200):
+        for i in range(n_pods):
             srv.store.create("pods", {
                 "metadata": {"name": f"hp{i}", "namespace": "default"},
                 "spec": {"nodeName": f"hn{i % 4}"}, "status": {"phase": "Pending"},
             })
         deadline = time.time() + 60
-        while time.time() < deadline and srv.store.count(
-            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running"
-        ) < 200:
+        while time.time() < deadline and (not servers or running() < n_pods):
             time.sleep(0.05)
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        assert servers, "the CLI built no EngineServer"
+        url = f"http://127.0.0.1:{servers[0].port}/metrics"
+        with urllib.request.urlopen(url, timeout=10) as r:
             text = r.read().decode()
     finally:
         stop.set()
         t.join(60)
         srv.stop()
     assert rc == [0]
-    assert srv.store.count(
-        "pods", lambda p: (p.get("status") or {}).get("phase") == "Running") == 200
-    routed = sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
-                 if ln.startswith("kwok_route_partition_events_total{"))
-    assert routed > 0
-    assert cuda_tick.tick_steps.launches > before
+    return text, running(), cuda_tick.tick_steps.launches - before
+
+
+def _sum_series(text: str, prefix: str) -> float:
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith(prefix))
+
+
+def test_cli_over_http_on_card_routes_natively(card, tmp_path, monkeypatch):
+    """The watches queue raw lines, the router partitions them natively
+    (kwok_route_partition_events_total > 0), every pod reaches Running
+    and the kernel launches."""
+    text, running, launches = _cli_on_card(tmp_path, monkeypatch)
+    assert running == 200
+    assert _sum_series(text, "kwok_route_partition_events_total{") > 0
+    assert launches > 0
+
+
+def test_cli_over_http_on_card_ships_through_the_pump(card, tmp_path, monkeypatch):
+    """Egress leaves in native pump batches (kwok_pump_requests_total > 0,
+    at least one per pod) and every pod reaches Running."""
+    text, running, launches = _cli_on_card(tmp_path, monkeypatch)
+    assert running == 200
+    assert _sum_series(text, "kwok_pump_requests_total ") >= 200
+    assert _sum_series(text, "kwok_pump_send_seconds_count ") > 0
+    assert launches > 0

@@ -480,6 +480,46 @@ def test_native_reader_over_the_port_http_mock():
         srv.stop()
 
 
+def test_native_reader_owns_its_descriptor():
+    """The reader reads a descriptor of its own: when the response's
+    socket is closed under it (stop() falls back to that when its
+    shutdown fails) and a new connection takes the freed number, the
+    reader neither reads that connection nor loses its stream, and
+    stop() still ends it."""
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+    from kwok_tpu_torch.edge.mockserver import FakeKube as PortFakeKube
+    from kwok_tpu_torch.edge.mockserver import HttpFakeApiserver
+
+    srv = HttpFakeApiserver(store=PortFakeKube()).start()
+    a = b = None
+    try:
+        client = HttpKubeClient(srv.url)
+        w = client.watch("pods", field_selector="spec.nodeName!=")
+        reader = w.native_reader()
+        assert reader is not None
+        freed = w._resp.fp.raw._sock.fileno()
+        w._resp.close()
+        a, b = socket.socketpair()  # the lowest free numbers: the freed one first
+        assert freed in (a.fileno(), b.fileno())
+        peer = b if a.fileno() == freed else a
+        peer.sendall(ev_line("ADDED", {"kind": "Pod", "metadata": {"name": "stray"}}) + b"\n")
+        srv.store.create("pods", make_pod("own-0", node="n0"))
+        got = _read_all(reader, 1)
+        batch = native.EventParser().parse_raw_batch(got)
+        assert [batch.record(i).name for i in range(batch.n)] == ["own-0"]
+        t0 = time.monotonic()
+        w.stop()
+        while reader.read_batch(timeout_s=0.2) is not None:
+            assert time.monotonic() - t0 < 5, "stop() did not end the native read"
+        reader.close()
+        client.close()
+    finally:
+        for sk in (a, b):
+            if sk is not None:
+                sk.close()
+        srv.stop()
+
+
 def test_native_reader_opt_out(monkeypatch):
     from kwok_tpu_torch.edge.httpclient import _HttpWatch
 

@@ -25,6 +25,9 @@
   re-list counts held against the JAX single-lane engine's on the same
   scenario; a lane respawn still re-lists) and a 2-member federation
   (both packages; each member resumes on its own).
+- The port's native stream resumes from the last revision it received
+  while its drain lags (a window smaller than the backlog would 410 a
+  resume from the drained revision, as ``kwok_tpu``'s native path does).
 """
 
 from __future__ import annotations
@@ -685,3 +688,71 @@ def test_federation_members_resume_on_their_own():
     got = {lib: fed_scenario(lib) for lib in LIBS}
     assert got["jax"] == [{"nodes": 0, "pods": 0}, {"nodes": 1, "pods": 1}]
     assert got["torch"] == got["jax"]
+
+
+def test_native_resume_rides_the_received_revision_past_a_stalled_drain(monkeypatch):
+    """A pods stream cut while the drain holds 40 unread events resumes at
+    the last revision it received: a 16-event window would 410 a resume
+    from the drained revision (a re-list); this one replays nothing and
+    re-lists nothing, and every pod still goes Running."""
+    monkeypatch.setattr(tmock, "RV_WINDOW", 16)
+    srv = tmock.HttpFakeApiserver().start()
+    store = srv.store
+    resumes = []
+    watch = store.watch
+
+    def recording_watch(kind, **kw):
+        if kind == "pods" and kw.get("resource_version"):
+            resumes.append(int(kw["resource_version"]))
+        return watch(kind, **kw)
+
+    store.watch = recording_watch
+    store.create("nodes", make_node("n0"))
+    eng = TorchEngine(PortClient(srv.url), TorchConfig(
+        manage_all_nodes=True, device="cpu", tick_interval=0.02, drain_shards=1))
+
+    def running(name):
+        return ((store.get("pods", "default", name) or {}).get("status") or {}).get(
+            "phase") == "Running"
+
+    def wait(pred, timeout=15.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline and not pred():
+            time.sleep(0.02)
+        return pred()
+
+    eng.start()
+    gate = threading.Event()
+    try:
+        assert wait(lambda: eng.ready)
+        store.create("pods", make_pod("p-first", node="n0"))  # a drained revision
+        assert wait(lambda: running("p-first") and eng._watch_rv.get("pods"))
+        relists0 = eng.metrics["watch_relists_total"]
+        drain = eng._drain_apply
+
+        def stalled(*a, **kw):
+            gate.wait(15)
+            return drain(*a, **kw)
+
+        eng._drain_apply = stalled
+        for i in range(40):
+            store.create("pods", make_pod(f"p{i}", node="n0"))
+        last = max(int(p["metadata"]["resourceVersion"]) for p in store.list("pods"))
+        # the server has written every event; the reader takes it off the
+        # socket while the drain waits
+        assert wait(lambda: all(w.q.empty() for w in store._watches))
+        time.sleep(0.3)
+        drained = eng._watch_rv["pods"]
+        assert drained < last - 16  # a resume from it would be past the window
+        old = eng._watches["pods"]
+        old.stop()
+        assert wait(lambda: eng._watches["pods"] is not old)
+        assert resumes == [last]
+        gate.set()
+        eng._drain_apply = drain
+        assert wait(lambda: all(running(f"p{i}") for i in range(40)))
+        assert eng.metrics["watch_relists_total"] == relists0
+    finally:
+        gate.set()
+        eng.stop()
+        srv.stop()
