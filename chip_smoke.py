@@ -6,9 +6,11 @@ Phases (each raises on failure; the script exits non-zero and prints no
 result line then):
 
 1. Card and build: the card's name and power limit as nvidia-smi reports
-   them, then g++ builds the native library (kwok_tpu_torch/native)
-   while nvcc builds kwok_tpu_torch/csrc/tick.cu from the checkout
-   (build time and the ptxas report are printed).
+   them, then g++ builds the native library and the native mock
+   apiserver (kwok_tpu_torch/native, apiserver.cc) while nvcc builds
+   kwok_tpu_torch/csrc/tick.cu from the checkout, all at once (build
+   times and the ptxas report are printed). A native server that does
+   not build fails the run: no phase falls back to the Python mock.
 2. Kernel: the tick kernel against its plain torch version on the card at
    1,048,576 pod rows + 10,240 node rows, for the constant default rule
    set and the exponential chaos set, at K=1 and K=16 substeps (dt=0.05).
@@ -41,8 +43,9 @@ result line then):
    within 10 s after it (its host mirror, polled), and every pod must
    reach Running in the store.
 6. CLI: the real entry point, kwok_tpu_torch.kwok.cli.main, on a thread of
-   this script, against the port's HTTP mock apiserver in a subprocess of
-   its own (python3 -m kwok_tpu_torch.edge.mockserver --port 0), with a
+   this script, against the port's native mock apiserver in a subprocess
+   of its own (the binary apiserver.cc builds, --port 0; it must answer
+   GET /metrics with kwok_apiserver_inflight, or the phase fails), with a
    Stage file of JSON documents: the default pod-delete stage and two
    weighted Pending->Running stages (weights 3 and 1, uniform 0.1-0.5 s
    and 0.5-1.0 s). 10,000 nodes exist before the CLI starts; /readyz must
@@ -59,7 +62,7 @@ result line then):
    stacked capacities with the Stage rule tables, over two dispatches
    that re-arm half the pod rows through the weighted uniform draw and
    fire them.
-   Every HTTP phase (6, 7, 8, 9) runs the native edge
+   Every HTTP phase (6, 6b, 6c, 7, 8, 9) runs the native edge
    (kwok_tpu_torch/native, built with g++ at first use) and fails unless
    it did: the requests the native pump shipped
    (kwok_pump_requests_total, summed over the lane processes or the
@@ -70,16 +73,24 @@ result line then):
    count for process lanes, whose node windows go to every lane); in a
    federation the batched parses (kwok_tick_stage_seconds{stage="parse"})
    must be > 0. Each reports the kwok process's CPU seconds per 1,000
-   pods over its create->Running window.
+   pods over its create->Running window, and the mock's CPU seconds per
+   1,000 pods, the creator's seconds for its pods,
+   kwok_watch_terminations_total{reason} from the native mocks' /metrics
+   and kwok_watch_relists_total from kwok's.
 6b. Native A/B: the CLI phase's path again, in the same call, under
    KWOK_TPU_NATIVE=0 (json.loads per event, Python routing, one executor
-   job per patch): the same checks but a partitioned count and pumped
-   requests of exactly 0; printed beside the CLI phase: create->Running
-   pods/s, the kwok CPU seconds per 1,000 pods and the mock's CPU seconds
-   over the window, the lanes' summed drain and emit seconds, the pump's
-   requests and kwok_pump_send_seconds_sum.
-7. Process lanes: the same topology, Stage file and mock through main
-   with --lane-procs true (auto lane count) and checkpoints every 1 s:
+   job per patch) against the native mock: the same checks but a
+   partitioned count and pumped requests of exactly 0; printed beside the
+   CLI phase: create->Running pods/s, the kwok CPU seconds per 1,000 pods
+   and the mock's CPU seconds over the window, the lanes' summed drain
+   and emit seconds, the pump's requests and kwok_pump_send_seconds_sum.
+6c. Python mock (cli_python_mock, run between 6 and 6b): the CLI phase
+   again, in the same call, against the port's Python mock (python3 -m
+   kwok_tpu_torch.edge.mockserver --port 0; it must have no /metrics),
+   the apiserver of every HTTP phase before the native one: the numbers
+   that compare with earlier runs. The same checks.
+7. Process lanes: the same topology, Stage file and native mock through
+   main with --lane-procs true (auto lane count) and checkpoints every 1 s:
    one spawned lane process per lane, each running its own single-lane
    engine and tick kernel on the card. /readyz 503 then 200; every node
    Ready, every pod Running with a distinct pod IP in the CIDR, the
@@ -93,9 +104,9 @@ result line then):
    lane process and no shared-memory arena left. The kernel is then held
    bit-exact against its plain version at a lane's capacities with the
    Stage rule tables. The free bytes of /dev/shm are printed first.
-8. Federation (BASELINE config 5, 8 kwok apiservers federated): 8 port
-   HTTP mocks, each in a subprocess of its own, 1,250 nodes in each, then
-   main with --master naming all 8, checkpoints every 1 s, members 0-5 on
+8. Federation (BASELINE config 5, 8 kwok apiservers federated): 8 native
+   mock apiservers, each in a subprocess of its own, 1,250 nodes in each,
+   then main with --master naming all 8, checkpoints every 1 s, members 0-5 on
    the CLI phase's Stage file and members 6 and 7 on a --member-config of
    pod-delete plus one constant 1 s Pending->Running stage: two rule-set
    groups, each one stacked state per kind on the card. /readyz 503 until
@@ -112,7 +123,7 @@ result line then):
    dispatch and a fire dispatch).
 9. Watch (the reflector: resume, 410, bookmarks): the CLI phase again
    (auto threaded lanes, 10,000 nodes, the same Stage file) with 10,000
-   pods, its mock sending bookmarks every second
+   pods, its native mock sending bookmarks every second
    (KWOK_TPU_BOOKMARK_INTERVAL=1) and keeping WATCH_RV_WINDOW events
    (KWOK_TPU_RV_WINDOW).
    /readyz 503 then 200. During the create flood the engine's live pods
@@ -195,6 +206,10 @@ RESTART_DELAY_S = 30.0
 RESTART_EXTRA_S = 5.0  # run on after the file covers every armed pod
 RESTART_DEADLINE_S = 300.0
 DEVICE = "cuda"
+# the native mock apiserver's binary (kwok_tpu_torch/native/apiserver.cc),
+# built once by main(); every HTTP phase but the cli_python_mock arm runs it
+APISERVER: "str | None" = None
+MOCK_START_S = 30.0  # a mock apiserver's start until its "listening on" line
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # bytes a row moves per dispatch: reads 2x1 B bools + 7x4 B fields,
@@ -857,17 +872,93 @@ def running(p) -> bool:
     return st.get("phase") == "Running" and bool(st.get("podIP"))
 
 
+def mock_command(mock: str) -> list:
+    """The command line of a mock apiserver: ``native``, the port's native
+    server (APISERVER, built by main()), or ``python``, the port's Python
+    mock."""
+    if mock == "python":
+        return [sys.executable, "-m", "kwok_tpu_torch.edge.mockserver", "--port", "0"]
+    if mock != "native" or APISERVER is None:
+        raise AssertionError(f"no {mock} mock apiserver (APISERVER {APISERVER})")
+    return [APISERVER, "--port", "0"]
+
+
+LISTENING = "mock apiserver listening on "
+
+
+def mock_url(proc) -> str:
+    """The URL on a mock's "listening on" line; the lines before it are
+    skipped (the native server prints "restored store from ..." first
+    when given --data-file). A reader thread hands the lines over, so a
+    mock that prints nothing fails after MOCK_START_S too."""
+    import queue
+
+    lines: queue.Queue = queue.Queue()
+
+    def read() -> None:
+        for line in proc.stdout:
+            lines.put(line)
+            if line.startswith(LISTENING):
+                return
+        lines.put(None)  # end of output
+
+    threading.Thread(target=read, name="mock-stdout", daemon=True).start()
+    deadline = time.monotonic() + MOCK_START_S
+    seen = []
+    while True:
+        try:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+        except queue.Empty:
+            break
+        if line is None:
+            break
+        if line.startswith(LISTENING):
+            return line.split()[-1]
+        seen.append(line)
+    raise AssertionError(f"mock apiserver {proc.args[0]} printed no URL in {MOCK_START_S} s "
+                         f"(exit code {proc.poll()}): {seen!r}")
+
+
+def check_mock(url: str, mock: str) -> None:
+    """Fail unless the server at ``url`` is the mock asked for: the native
+    server answers GET /metrics with the kwok_apiserver_inflight family,
+    the Python mock has no /metrics (404)."""
+    code, text = http_get(url + "/metrics")
+    want = (200, True) if mock == "native" else (404, False)
+    if (code, "kwok_apiserver_inflight{" in text) != want:
+        raise AssertionError(f"{url} is not the {mock} mock apiserver: GET /metrics {code}")
+
+
+def mock_terminations(run: dict) -> "dict | None":
+    """kwok_watch_terminations_total{reason} from the native mocks'
+    /metrics, summed over the mocks; None for the Python mock (it has no
+    /metrics and no slow-watcher cap)."""
+    if run["mock_kind"] != "native":
+        return None
+    out: dict = {}
+    for url in run["urls"]:
+        code, text = http_get(url + "/metrics")
+        if code != 200:
+            raise AssertionError(f"{url}/metrics answered {code}")
+        for series, v in parse_metrics(text).items():
+            if series.startswith("kwok_watch_terminations_total{"):
+                reason = series.split('reason="', 1)[1].split('"', 1)[0]
+                out[reason] = out.get(reason, 0.0) + v
+    return out
+
+
 def start_cli(extra_argv: list, members: int = 1, nodes: "int | None" = None,
-              mock_env: "dict | None" = None) -> dict:
-    """The kwok entry point as a user runs it: ``members`` port HTTP mock
-    apiservers, each in a subprocess of its own (``mock_env`` added to
-    their environment), ``nodes`` nodes (CLI_NODES by default) created in
-    each by a spawned process, then kwok_tpu_torch.kwok.cli.main on a
-    thread of this script with --master naming every mock, the phase's
-    Stage file and ``extra_argv``. /readyz must answer 503 until the first
-    re-list is ingested (every member's, for several) and 200 after.
-    Returns the run's handles (the engine main built among them);
-    stop_cli ends it."""
+              mock_env: "dict | None" = None, mock: str = "native") -> dict:
+    """The kwok entry point as a user runs it: ``members`` mock
+    apiservers (``mock``: the native server, or ``python``), each in a
+    subprocess of its own (``mock_env`` added to their environment) and
+    each checked to be that mock, ``nodes`` nodes (CLI_NODES by default)
+    created in each by a spawned process, then
+    kwok_tpu_torch.kwok.cli.main on a thread of this script with --master
+    naming every mock, the phase's Stage file and ``extra_argv``. /readyz
+    must answer 503 until the first re-list is ingested (every member's,
+    for several) and 200 after. Returns the run's handles (the engine
+    main built among them); stop_cli ends it."""
     import kwok_tpu_torch.engine as engine_mod
     from kwok_tpu_torch.kwok import cli
 
@@ -875,12 +966,7 @@ def start_cli(extra_argv: list, members: int = 1, nodes: "int | None" = None,
     nodes = CLI_NODES if nodes is None else nodes
     run = {"stop": threading.Event(), "engines": [], "rc": [], "thread": None,
            "real_engines": (engine_mod.ClusterEngine, engine_mod.FederatedEngine),
-           "workdir": tempfile.mkdtemp(prefix="kwok-smoke-")}
-    run["mocks"] = [subprocess.Popen(
-        [sys.executable, "-m", "kwok_tpu_torch.edge.mockserver", "--port", "0"],
-        cwd=here, stdout=subprocess.PIPE, text=True, env={**os.environ, **(mock_env or {})},
-    ) for _ in range(members)]
-    run["mock"] = run["mocks"][0]
+           "workdir": tempfile.mkdtemp(prefix="kwok-smoke-"), "mock_kind": mock, "mocks": []}
     engines = run["engines"]
 
     def recorded(real):
@@ -894,12 +980,15 @@ def start_cli(extra_argv: list, members: int = 1, nodes: "int | None" = None,
         return Recorded
 
     try:
-        urls = run["urls"] = []
-        for mock in run["mocks"]:
-            line = mock.stdout.readline()
-            if not line.startswith("mock apiserver listening on "):
-                raise AssertionError(f"mock apiserver did not start: {line!r}")
-            urls.append(line.split()[-1])
+        cmd = mock_command(mock)
+        for _ in range(members):
+            run["mocks"].append(subprocess.Popen(
+                cmd, cwd=here, stdout=subprocess.PIPE, text=True,
+                env={**os.environ, **(mock_env or {})}))
+        run["mock"] = run["mocks"][0]
+        urls = run["urls"] = [mock_url(p) for p in run["mocks"]]
+        for u in urls:
+            check_mock(u, mock)
         url = run["url"] = urls[0]
         deadline = run["deadline"] = time.monotonic() + CLI_DEADLINE_S
         creators = [spawn_creator(u, "nodes", nodes, nodes=nodes) for u in urls]
@@ -986,8 +1075,9 @@ def drive_pods(run: dict, pids=(), after_running=None, pods: "int | None" = None
     full LIST), every node Ready,
     ``after_running()`` when given, then CLI_DELETES graceful deletes
     until they are gone. Returns the times, the /metrics at the start and
-    at the end of the create->Running window, and the CPU seconds over
-    that window of the mock and of ``pids``."""
+    at the end of the create->Running window, the CPU seconds over that
+    window of the mock and of ``pids``, and the mock's watch
+    terminations."""
     from kwok_tpu_torch.edge.httpclient import HttpKubeClient
 
     url, deadline, mock = run["url"], run["deadline"], run["mock"]
@@ -1029,6 +1119,7 @@ def drive_pods(run: dict, pids=(), after_running=None, pods: "int | None" = None
     t_deleted = time.time()
     t_pods, t_created = span[0], span[1]
     window = t_patched - t_pods
+    mock_cpu = cpu_run[mock.pid] - cpu0[mock.pid]
     return {
         "client": client, "m0": m0, "m_run": m_run,
         "cpu_s": {pid: cpu_run[pid] - cpu0[pid] for pid in cpu0},
@@ -1044,9 +1135,12 @@ def drive_pods(run: dict, pids=(), after_running=None, pods: "int | None" = None
                                      - m0["kwok_status_patches_total"]) / window,
             # CPU seconds from the first pod create until all were Running:
             # the mock apiserver's process and this process (engine + checks)
-            "window_mock_cpu_s": cpu_run[mock.pid] - cpu0[mock.pid],
+            "window_mock_cpu_s": mock_cpu,
             "window_kwok_process_cpu_s": (m_run["process_cpu_seconds_total"]
                                           - m0["process_cpu_seconds_total"]),
+            "mock": run["mock_kind"],
+            "mock_cpu_s_per_1000_pods": per_1000(mock_cpu, pods),
+            "watch_terminations": mock_terminations(run),
         },
     }
 
@@ -1117,7 +1211,9 @@ def per_1000(cpu_s: float, pods: int) -> float:
     return cpu_s * 1000.0 / pods
 
 
-def cli_phase(native_off: bool = False):
+def cli_phase(native_off: bool = False, mock: str = "native"):
+    """The CLI phase against ``mock`` (see the module docstring, phases 6,
+    6b and 6c)."""
     import torch
 
     from kwok_tpu_torch.config.types import resolve_drain_shards
@@ -1128,7 +1224,7 @@ def cli_phase(native_off: bool = False):
     if native_off:
         os.environ["KWOK_TPU_NATIVE"] = "0"
     try:
-        run = start_cli([])
+        run = start_cli([], mock=mock)
     finally:
         os.environ.pop("KWOK_TPU_NATIVE", None)
     try:
@@ -1164,6 +1260,7 @@ def cli_phase(native_off: bool = False):
                                              load["report"]["pods"]),
         **load["report"],
         "readyz_503_polls": run["readyz"].count(503),
+        "watch_relists": m["kwok_watch_relists_total"],
         "status_patches": m["kwok_status_patches_total"],
         "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
         "transitions": m["kwok_transitions_total"],
@@ -1367,7 +1464,8 @@ def watch_phase(cli_run):
         "pods_resume_s": [s for s, _ in cuts["pods"]], "nodes_resume_s": [s for s, _ in cuts["nodes"]],
         "resume_s_median": resume[len(resume) // 2], "resume_s_max": resume[-1],
         **info,
-        "relists_after_start": relists, "bookmarks": m["kwok_watch_bookmarks_total"],
+        "relists_after_start": relists, "watch_relists": m["kwok_watch_relists_total"],
+        "bookmarks": m["kwok_watch_bookmarks_total"],
         "stale_rv_rejects": m.get('kwok_wire_rejects_total{reason="stale_rv"}', 0.0),
         "client_throttle_seconds": m["kwok_client_throttle_seconds_total"],
         "status_patches": m["kwok_status_patches_total"],
@@ -1556,6 +1654,7 @@ def procs_phase(cli_run):
         "readyz_503_polls": run["readyz"].count(503), "main_to_ready_s": run["main_to_ready_s"],
         "status_patches": m["kwok_status_patches_total"],
         "respawn_s": respawn_s, "stop_s": run["stop_s"], "more_pods": PROCS_MORE_PODS,
+        "watch_relists": m.get("kwok_watch_relists_total", 0.0),
         "more_pods_on_lane0": on_lane0, "more_pods_running_s": more_s,
         "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
         "transitions": m["kwok_transitions_total"],
@@ -1679,6 +1778,7 @@ def fed_phase(cli_run):
         t_deleted = time.time()
         for c in clients:
             c.close()
+        terminations = mock_terminations(run)
     finally:
         stop_cli(run)
     launches = cuda_tick.tick_steps.launches
@@ -1719,8 +1819,12 @@ def fed_phase(cli_run):
     total = n * FED_PODS
     native = native_edge(m, summed(m, "kwok_watch_events_total"))
     kwok_cpu = m_run["process_cpu_seconds_total"] - m0["process_cpu_seconds_total"]
+    mocks_cpu = sum(cpu_run[pid] - cpu0[pid] for pid in cpu0)
     return {
         "native": native, "kwok_cpu_s_per_1000_pods": per_1000(kwok_cpu, total),
+        "mock": run["mock_kind"], "mock_cpu_s_per_1000_pods": per_1000(mocks_cpu, total),
+        "watch_terminations": terminations,
+        "watch_relists": summed(m, "kwok_watch_relists_total"),
         "members": n, "nodes": n * FED_NODES, "pods": total, "deleted": FED_DELETES,
         "connections_per_member": FED_CONNS, "groups": groups,
         "pod_capacities_start": caps_start,
@@ -1731,7 +1835,7 @@ def fed_phase(cli_run):
                                  - summed(m0, "kwok_status_patches_total")) / window,
         "window_kwok_process_cpu_s": (m_run["process_cpu_seconds_total"]
                                       - m0["process_cpu_seconds_total"]),
-        "window_mocks_cpu_s": sum(cpu_run[pid] - cpu0[pid] for pid in cpu0),
+        "window_mocks_cpu_s": mocks_cpu,
         "window_mock_cpu_s": [cpu_run[pid] - cpu0[pid] for pid in cpu0],
         "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
         "cli_phase_status_patches_per_s": cli_run["status_patches_per_s"],
@@ -1763,26 +1867,41 @@ def main() -> int:
 
     from kwok_tpu_torch import native
 
+    global APISERVER
+
     print(card_line(), flush=True)
-    # g++ (the native library) and nvcc (the tick kernel) at once
+    # g++ (the native library, the native mock apiserver) and nvcc (the
+    # tick kernel), all at once
     t0 = time.perf_counter()
     native_build: dict = {}
 
-    def build_native():
-        native_build["lib"] = native.load()
-        native_build["s"] = time.perf_counter() - t0
+    def build(key, fn):
+        native_build[key] = fn()
+        native_build[key + "_s"] = time.perf_counter() - t0
 
-    builder = threading.Thread(target=build_native, name="g++")
-    builder.start()
+    builders = [threading.Thread(target=build, args=("lib", native.load), name="g++ library"),
+                threading.Thread(target=build, args=("apiserver", native.apiserver_binary),
+                                 name="g++ apiserver")]
+    for b in builders:
+        b.start()
     cuda_tick.tick_steps.library()
     build_s = time.perf_counter() - t0
-    builder.join()
+    for b in builders:
+        b.join()
     print(f"build: nvcc {cuda_tick.NVCC_FLAGS[1]} tick.cu in {build_s:.2f} s", flush=True)
     log(cuda_tick.tick_steps.build_log)
     if native_build.get("lib") is None:
         raise AssertionError("the native library did not build (see the WARNING above)")
-    print(f"build: g++ {' '.join(native.CXX_FLAGS)} native library in {native_build['s']:.2f} s",
+    print(f"build: g++ {' '.join(native.CXX_FLAGS)} native library in {native_build['lib_s']:.2f} s",
           flush=True)
+    # no fallback to the Python mock: a phase that should measure kwok
+    # against the native server must not quietly run another one
+    APISERVER = native_build.get("apiserver")
+    if APISERVER is None:
+        log(native.apiserver_build_log)
+        raise AssertionError("the native mock apiserver did not build (see the WARNING above)")
+    print(f"build: g++ {' '.join(native.APISERVER_FLAGS)} native apiserver in "
+          f"{native_build['apiserver_s']:.2f} s", flush=True)
 
     configs, max_abs_err = kernel_phase(torch, np)
     for c in configs:
@@ -1799,6 +1918,8 @@ def main() -> int:
     print(json.dumps({"restart": restart}), flush=True)
     cli_run = cli_phase()
     print(json.dumps({"cli": cli_run}), flush=True)
+    py_mock = cli_phase(mock="python")
+    print(json.dumps({"cli_python_mock": py_mock}), flush=True)
     ab_off = cli_phase(native_off=True)
     print(json.dumps({"ingest_ab_off": ab_off}), flush=True)
     watch = watch_phase(cli_run)
@@ -1824,6 +1945,19 @@ def main() -> int:
           f"{cli_run['native']['partitioned_events']:.0f} events partitioned natively, "
           f"{cli_run['native']['pump_requests']:.0f} requests pumped ({card})",
           flush=True)
+    http_phases = (("cli", cli_run), ("cli_python_mock", py_mock), ("ingest_ab_off", ab_off),
+                   ("watch", watch), ("procs", procs), ("federation", fed))
+    for name, r in http_phases:
+        print(f"{name}: {r['mock']} mock, {r['create_to_running_pods_per_s']:.1f} pods/s "
+              f"create->Running ({r['pods']} pods), creator {r['pod_create_s']:.2f} s, kwok CPU "
+              f"{r['kwok_cpu_s_per_1000_pods']:.3f} s and mock CPU "
+              f"{r['mock_cpu_s_per_1000_pods']:.3f} s per 1,000 pods, watch terminations "
+              f"{r['watch_terminations']}, kwok_watch_relists_total {r['watch_relists']:.0f} "
+              f"({card})", flush=True)
+    print(f"cli, native mock against the Python mock: "
+          f"{cli_run['create_to_running_pods_per_s'] / py_mock['create_to_running_pods_per_s']:.3f}x "
+          f"the pods/s, mock CPU {cli_run['mock_cpu_s_per_1000_pods']:.3f} against "
+          f"{py_mock['mock_cpu_s_per_1000_pods']:.3f} s per 1,000 pods ({card})", flush=True)
     for arm, r in (("native", cli_run), ("KWOK_TPU_NATIVE=0", ab_off)):
         print(f"native A/B, {arm}: {r['create_to_running_pods_per_s']:.1f} pods/s "
               f"create->Running ({r['pods']} pods), kwok CPU {r['window_kwok_process_cpu_s']:.2f} s "
@@ -1866,7 +2000,7 @@ def main() -> int:
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
         "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
                      + restart["kernel_launches"] + cli_run["kernel_launches"]
-                     + ab_off["kernel_launches"]
+                     + py_mock["kernel_launches"] + ab_off["kernel_launches"]
                      + watch["kernel_launches"] + procs["kernel_launches"]
                      + fed["kernel_launches"]),
         "max_abs_err": max_abs_err,
@@ -1880,6 +2014,7 @@ def main() -> int:
         "launches_by_phase": {
             "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
             "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
+            "cli_python_mock": py_mock["kernel_launches"],
             "ingest_ab_off": ab_off["kernel_launches"], "watch": watch["kernel_launches"],
             "procs": procs["kernel_launches"], "federation": fed["kernel_launches"],
         },

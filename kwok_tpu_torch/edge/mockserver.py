@@ -12,7 +12,8 @@ semantics the engine relies on:
 - status patches are strategic-merged (``edge/merge.py``);
 - deleting a pod with a grace period or finalizers only marks it
   (``deletionTimestamp``); the kubelet (the engine) strips finalizers and
-  deletes with grace 0.
+  deletes with grace 0. With no grace given a pod gets its
+  ``spec.terminationGracePeriodSeconds``, or 30.
 
 The watch cache is ``kwok_tpu.edge.mockserver``'s: the last
 ``RV_WINDOW`` events are kept, and a watch that resumes from a revision
@@ -22,6 +23,12 @@ two. A revision below the window (or below a ``compact()``) raises
 ``TooLargeResourceVersion``. Watches that opt in get BOOKMARK events
 (``emit_bookmarks``): objects that carry only the store's revision, so a
 quiet watch's resume revision keeps up with compaction.
+
+A paginated LIST is a consistent snapshot, as etcd's MVCC read is: every
+page carries the first page's revision and shows the store as it was
+then, rolled back through an undo log kept over the same window (a key
+created later is hidden and earns no continue token). The first page of
+a ``limit`` list reports ``remainingItemCount``.
 
 ``HttpFakeApiserver`` puts an HTTP front on a ``FakeKube``: the routes
 ``edge/httpclient.HttpKubeClient`` uses (``/api/v1/{nodes,pods}`` list
@@ -33,7 +40,10 @@ create, PATCH ``/status`` and metadata, DELETE with
 ``BOOKMARK_INTERVAL`` seconds. It is the front of
 ``kwok_tpu.edge.mockserver`` cut to those routes: no TLS, audit,
 admission bands, slow-watcher termination, snapshots, RBAC or flight
-recorder. Run it alone with
+recorder. On those routes it answers as the native mock apiserver
+(``kwok_tpu_torch/native/apiserver.cc``) does, status bodies included
+(``tests/test_torch_apiserver.py`` holds the two to each other). Run it
+alone with
 
     python3 -m kwok_tpu_torch.edge.mockserver --port 0
 
@@ -43,7 +53,6 @@ which prints ``mock apiserver listening on URL``.
 from __future__ import annotations
 
 import base64
-import binascii
 import bisect
 import collections
 import copy
@@ -160,6 +169,11 @@ class FakeKube:
         # below it gets 410 Gone)
         self._history: collections.deque = collections.deque()
         self._compacted_rv = 0
+        # each object's JSON as last committed, and the undo log over the
+        # watch cache's window: (rv, kind, key, the key's JSON before that
+        # event or None), which rolls a paginated LIST back to its revision
+        self._bytes: dict[str, dict] = {k: {} for k in KINDS}
+        self._undo: collections.deque = collections.deque()
         # objects removed for good (the smoke run checks its deletes)
         self.delete_count = 0
 
@@ -167,19 +181,29 @@ class FakeKube:
     def _key(namespace, name) -> tuple[str, str]:
         return (namespace or "", name)
 
-    def _commit_locked(self, kind: str, obj: dict, type_: str) -> bytes:
+    def _commit_locked(self, kind: str, key, obj: dict, type_: str) -> bytes:
         """Bump the revision, stamp it, keep the event in the watch cache
-        and deliver it (caller holds the lock, so every watch sees writes
-        in revision order)."""
+        (and the key's previous JSON in the undo log) and deliver it
+        (caller holds the lock, so every watch sees writes in revision
+        order)."""
         self._rv += 1
         obj.setdefault("metadata", {})["resourceVersion"] = str(self._rv)
         data = _dumps(obj)
+        current = self._bytes[kind]
+        prev = current.get(key)
+        if type_ == DELETED:
+            current.pop(key, None)
+        else:
+            current[key] = data
         if RV_WINDOW > 0:
             self._history.append((self._rv, kind, type_, data))
+            self._undo.append((self._rv, kind, key, prev))
             while len(self._history) > RV_WINDOW:
                 self._compacted_rv = max(
                     self._compacted_rv, self._history.popleft()[0]
                 )
+            while self._undo and self._undo[0][0] <= self._compacted_rv:
+                self._undo.popleft()
         for w in self._watches:
             if w.kind == kind and w.matches(obj):
                 w.q.put((type_, data))
@@ -212,52 +236,79 @@ class FakeKube:
             meta.setdefault("creationTimestamp", now_rfc3339())
             meta.setdefault("uid", f"uid-{self._rv + 1}")
             store[key] = obj
-            return self._commit_locked(kind, obj, ADDED)
+            return self._commit_locked(kind, key, obj, ADDED)
 
     def get_bytes(self, kind: str, namespace, name: str) -> bytes | None:
         with self._lock:
-            obj = self._objs[kind].get(self._key(namespace, name))
-            return _dumps(obj) if obj is not None else None
+            return self._bytes[kind].get(self._key(namespace, name))
 
     def list_bytes(self, kind: str, *, field_selector=None,
                    label_selector=None, limit: int = 0,
                    continue_: "str | None" = None):
-        """One page of a LIST in key order: the JSON of at most ``limit``
-        (0 = all) matching objects whose key sorts after the key of the
-        ``continue_`` token, the token for the next page (None on the
-        last), and the list's revision. Every page of one paginated list
-        carries the first page's revision; a token whose revision is
-        below the compaction floor raises WatchExpired (the apiserver's
-        410 for a continue token too old), a malformed one ValueError."""
+        """One page of a LIST in key order, as the native server answers
+        it: the JSON of at most ``limit`` (0 = all; a negative limit
+        emits nothing) matching objects whose key sorts after the key of
+        the ``continue_`` token, the token for the next page (None on the
+        last), the list's revision, and on a first page with a limit the
+        count of matches past the page (``remainingItemCount``), else 0.
+        A first page carries a token only if that count is > 0, a later
+        one whenever a key is left. Every page shows the store as of the
+        first page's revision; a token whose revision is below the
+        compaction floor raises WatchExpired (the apiserver's 410 for a
+        continue token too old), a malformed one ValueError."""
         sel = parse_selector(label_selector)
         tok_rv, after = decode_continue(continue_) if continue_ else (0, None)
+        first_page = not continue_
+
+        def matches(obj) -> bool:
+            return match_field_selector(obj, field_selector) and (
+                sel is None
+                or sel.matches((obj.get("metadata") or {}).get("labels") or {})
+            )
+
         with self._lock:
-            if continue_ and tok_rv < self._compacted_rv:
-                raise WatchExpired(
-                    f"continue token revision {tok_rv} has been compacted"
-                )
-            list_rv = tok_rv if continue_ else self._rv
-            store = self._objs[kind]
-            keys = sorted(store)
+            if not first_page and tok_rv < self._compacted_rv:
+                raise WatchExpired("the provided continue parameter is too old")
+            list_rv = self._rv if first_page else tok_rv
+            live = self._objs[kind]
+            # the keys' JSON at list_rv where a later event changed them
+            # (None: absent then); newest first, so a key keeps the state
+            # before its earliest event after list_rv
+            rolled: dict = {}
+            for rv, k, key, prev in reversed(self._undo):
+                if rv <= list_rv:
+                    break
+                if k == kind:
+                    rolled[key] = prev
+            # gathered in insertion order, whose sorted runs the sort
+            # reuses (a set's order would make each page's sort a full one)
+            keys = [k for k in live if rolled.get(k, b"") is not None]
+            keys += [k for k, v in rolled.items() if v is not None and k not in live]
+            keys.sort()
             pos = bisect.bisect_right(keys, after) if after is not None else 0
             items: list[bytes] = []
-            last = None
-            for key in keys[pos:]:
-                obj = store[key]
-                if not match_field_selector(obj, field_selector):
+            token = None
+            rest = 0
+            for i in range(pos, len(keys)):
+                key = keys[i]
+                if key in rolled:
+                    data = rolled[key]
+                    obj = json.loads(data)
+                else:
+                    obj, data = live[key], None
+                if limit and len(items) >= limit:
+                    if not first_page:
+                        break  # later pages stop at the cut
+                    rest += matches(obj)
                     continue
-                if sel is not None and not sel.matches(
-                    (obj.get("metadata") or {}).get("labels") or {}
-                ):
+                if not matches(obj):
                     continue
-                if limit and len(items) == limit:
-                    break
-                items.append(_dumps(obj))
-                last = key
-            else:
-                last = None  # walked to the end: no further page
-            token = encode_continue(list_rv, last) if last is not None else None
-            return items, token, list_rv
+                items.append(data if data is not None else self._bytes[kind][key])
+                if limit and len(items) >= limit and i + 1 < len(keys):
+                    token = encode_continue(list_rv, key)
+            if first_page and not rest:
+                token = None
+            return items, token, list_rv, rest
 
     def patch_status_bytes(self, kind: str, namespace, name: str, patch):
         if isinstance(patch, (bytes, bytearray, memoryview)):
@@ -269,7 +320,7 @@ class FakeKube:
             obj["status"] = strategic_merge(
                 obj.get("status") or {}, patch.get("status", patch)
             )
-            return self._commit_locked(kind, obj, MODIFIED)
+            return self._commit_locked(kind, self._key(namespace, name), obj, MODIFIED)
 
     def patch_meta_bytes(self, kind: str, namespace, name: str, patch: dict):
         """Merge-patch metadata (and spec); a None value removes a key."""
@@ -287,7 +338,7 @@ class FakeKube:
                         sec.pop(k, None)
                     else:
                         sec[k] = copy.deepcopy(v)
-            return self._commit_locked(kind, obj, MODIFIED)
+            return self._commit_locked(kind, self._key(namespace, name), obj, MODIFIED)
 
     # -- KubeClient protocol ------------------------------------------------
 
@@ -347,6 +398,7 @@ class FakeKube:
         continue tokens below it expire. Returns the compacted revision."""
         with self._lock:
             self._history.clear()
+            self._undo.clear()
             self._compacted_rv = self._rv
             return self._compacted_rv
 
@@ -380,24 +432,28 @@ class FakeKube:
 
     def delete(self, kind: str, namespace, name: str,
                grace_seconds: int | None = 0) -> None:
-        """grace_seconds=None applies the pod default (30 s)."""
+        """grace_seconds=None applies the pod default: its
+        ``spec.terminationGracePeriodSeconds``, or 30 s."""
         key = self._key(namespace, name)
         with self._lock:
             obj = self._objs[kind].get(key)
             if obj is None:
                 return
             if grace_seconds is None:
-                grace_seconds = 30 if kind == "pods" else 0
+                grace_seconds = 0
+                if kind == "pods":
+                    tgps = (obj.get("spec") or {}).get("terminationGracePeriodSeconds")
+                    grace_seconds = 30 if tgps is None else int(tgps)
             meta = obj.setdefault("metadata", {})
             if kind == "pods" and (grace_seconds > 0 or meta.get("finalizers")):
                 # graceful: mark, and wait for the kubelet to force-delete
                 meta.setdefault("deletionTimestamp", now_rfc3339())
                 meta["deletionGracePeriodSeconds"] = grace_seconds
-                self._commit_locked(kind, obj, MODIFIED)
+                self._commit_locked(kind, key, obj, MODIFIED)
                 return
             del self._objs[kind][key]
             self.delete_count += 1
-            self._commit_locked(kind, obj, DELETED)
+            self._commit_locked(kind, key, obj, DELETED)
 
     def count(self, kind: str, where=None) -> int:
         """Objects of ``kind`` (those for which ``where(obj)`` is true,
@@ -417,9 +473,13 @@ _PATHS = re.compile(
 )
 
 VERSION = {
-    "major": "1", "minor": "26", "gitVersion": "v1.26.0-kwok-tpu-torch",
+    "major": "1", "minor": "26", "gitVersion": "v1.26.0-kwok-tpu",
     "platform": "linux/amd64",
 }
+
+# the native server's bare Status answers
+NOT_FOUND = b'{"kind":"Status","code":404}'
+BAD_REQUEST = b'{"kind":"Status","code":400}'
 
 
 def _status(code: int, reason: str = "", message: str = "") -> dict:
@@ -435,12 +495,21 @@ def _too_large_rv_status(e: TooLargeResourceVersion) -> dict:
     reason Timeout with a ResourceVersionTooLarge cause and a
     retryAfterSeconds hint (retry semantics, not Expired)."""
     doc = _status(504, "Timeout", str(e))
+    code = doc.pop("code")
     doc["details"] = {
         "causes": [{"reason": "ResourceVersionTooLarge",
                     "message": "Too large resource version"}],
         "retryAfterSeconds": int(e.retry_after),
     }
+    doc["code"] = code  # last, as the native server writes it
     return doc
+
+
+def leading_int(text: str) -> int:
+    """C's ``atol``: optional blanks and sign, then the leading digits (0
+    when there are none), as the native server reads ``limit``."""
+    m = re.match(r"\s*([-+]?\d+)", text)
+    return int(m.group(1)) if m else 0
 
 
 def encode_continue(rv: int, key: tuple[str, str]) -> str:
@@ -452,16 +521,21 @@ def encode_continue(rv: int, key: tuple[str, str]) -> str:
 
 
 def decode_continue(token: str) -> tuple[int, tuple[str, str]]:
-    """The revision of a continue token and the key it resumes after;
-    ValueError if malformed."""
-    try:
-        raw = base64.urlsafe_b64decode(token.encode()).decode()
-    except (binascii.Error, UnicodeDecodeError) as e:
-        raise ValueError(str(e)) from e
+    """The revision of a continue token and the key it resumes after, read
+    as the native server reads it (padding optional, a missing name
+    empty); ValueError if malformed."""
+    data = token.split("=", 1)[0]
+    if not re.fullmatch(r"[A-Za-z0-9_-]*", data):
+        raise ValueError("continue key is not valid")
+    if len(data) % 4 == 1:
+        data = data[:-1]  # six bits that make no byte
+    raw = base64.urlsafe_b64decode(data + "=" * (-len(data) % 4)).decode(
+        "utf-8", "surrogateescape"
+    )
     rv, sep, rest = raw.partition("\x00")
-    ns, sep2, name = rest.partition("\x00")
-    if not (sep and sep2 and rv.isdigit()):
-        raise ValueError(f"bad continue token {token!r}")
+    if not (sep and rv.isdigit() and rv.isascii()):
+        raise ValueError("continue key is not valid")
+    ns, _, name = rest.partition("\x00")
     return int(rv), (ns, name)
 
 
@@ -553,17 +627,28 @@ class HttpFakeApiserver:
                 n = int(self.headers.get("Content-Length") or 0)
                 return json.loads(self.rfile.read(n) or b"null") if n else None
 
-            def _route(self):
-                """(match, query) for a resource path, else None after
-                answering 404 (the request body is drained first, so
-                the keep-alive connection stays parseable)."""
+            def _drain_body(self) -> None:
+                n = int(self.headers.get("Content-Length") or 0)
+                if n:
+                    self.rfile.read(n)
+
+            def _route(self, named: bool = True):
+                """(match, query) for a resource path of the verb's
+                shape, else None after answering 404 as the native server
+                does (the request body is drained first, so the
+                keep-alive connection stays parseable). ``named``: True
+                for a verb on one object (PATCH, DELETE), False for one on
+                a collection (POST: no name, no subresource), None for
+                either (GET)."""
                 parsed = urllib.parse.urlparse(self.path)
                 m = _PATHS.match(parsed.path)
+                if m is not None and named is not None and (
+                    bool(m.group("name")) != named or (not named and m.group("sub"))
+                ):
+                    m = None
                 if m is None:
-                    n = int(self.headers.get("Content-Length") or 0)
-                    if n:
-                        self.rfile.read(n)
-                    self._send_json(_status(404, "NotFound"), 404)
+                    self._drain_body()
+                    self._send_body(NOT_FOUND, 404)
                     return None
                 return m, urllib.parse.parse_qs(parsed.query)
 
@@ -575,7 +660,7 @@ class HttpFakeApiserver:
                 if path == "/version":
                     self._send_json(VERSION)
                     return
-                route = self._route()
+                route = self._route(named=None)
                 if route is None:
                     return
                 m, q = route
@@ -583,7 +668,7 @@ class HttpFakeApiserver:
                 if name:
                     body = store.get_bytes(kind, ns, name)
                     if body is None:
-                        self._send_json(_status(404, "NotFound"), 404)
+                        self._send_body(NOT_FOUND, 404)
                     else:
                         self._send_body(body)
                     return
@@ -597,10 +682,9 @@ class HttpFakeApiserver:
                     )
                     return
                 try:
-                    limit = int((q.get("limit") or ["0"])[0] or 0)
-                    items, token, rv = store.list_bytes(
+                    items, token, rv, remaining = store.list_bytes(
                         kind, field_selector=fs, label_selector=ls,
-                        limit=max(0, limit),
+                        limit=leading_int((q.get("limit") or ["0"])[0]),
                         continue_=(q.get("continue") or [None])[0],
                     )
                 except WatchExpired as e:
@@ -614,6 +698,8 @@ class HttpFakeApiserver:
                 meta = b'{"resourceVersion":"%d"' % rv
                 if token is not None:
                     meta += b',"continue":' + _dumps(token)
+                if remaining:
+                    meta += b',"remainingItemCount":%d' % remaining
                 self._send_body(
                     b'{"kind":"List","apiVersion":"v1","metadata":' + meta
                     + b'},"items":[' + b",".join(items) + b"]}"
@@ -626,9 +712,9 @@ class HttpFakeApiserver:
                         resource_version=rv, allow_bookmarks=bookmarks,
                     )
                 except ValueError:
-                    self._send_json(_status(
-                        400, "BadRequest", f"invalid resourceVersion: {rv!r}"
-                    ), 400)
+                    self._send_json(
+                        _status(400, "BadRequest", "invalid resourceVersion"), 400
+                    )
                     return
                 except TooLargeResourceVersion as e:
                     # a resume ahead of the store fails the handshake
@@ -679,18 +765,18 @@ class HttpFakeApiserver:
                         self.rfile.read(n)
                     self._send_json({"compactedRevision": store.compact()})
                     return
-                route = self._route()
+                route = self._route(named=False)
                 if route is None:
                     return
                 m, _q = route
                 obj = self._body()
-                if m.group("name") or m.group("sub") or not isinstance(obj, dict):
-                    self._send_json(_status(400, "BadRequest"), 400)
+                if not isinstance(obj, dict):
+                    self._send_body(BAD_REQUEST, 400)
                     return
                 if m.group("ns"):
                     obj.setdefault("metadata", {})["namespace"] = m.group("ns")
                 if not (obj.get("metadata") or {}).get("name"):
-                    self._send_json(_status(400, "BadRequest", "name required"), 400)
+                    self._send_body(BAD_REQUEST, 400)
                     return
                 try:
                     body = store.create_bytes(m.group("kind"), obj)
@@ -706,15 +792,15 @@ class HttpFakeApiserver:
                 m, _q = route
                 patch = self._body()
                 kind, ns, name = m.group("kind"), m.group("ns"), m.group("name")
-                if not name or not isinstance(patch, dict):
-                    self._send_json(_status(400, "BadRequest"), 400)
+                if not isinstance(patch, dict):
+                    self._send_body(BAD_REQUEST, 400)
                     return
                 if m.group("sub") == "status":
                     body = store.patch_status_bytes(kind, ns, name, patch)
                 else:
                     body = store.patch_meta_bytes(kind, ns, name, patch)
                 if body is None:
-                    self._send_json(_status(404, "NotFound"), 404)
+                    self._send_body(NOT_FOUND, 404)
                 else:
                     self._send_body(body)
 
@@ -723,16 +809,18 @@ class HttpFakeApiserver:
                 if route is None:
                     return
                 m, _q = route
-                opts = self._body() or {}
-                if not m.group("name") or m.group("sub"):
-                    self._send_json(_status(400, "BadRequest"), 400)
-                    return
-                grace = opts.get("gracePeriodSeconds")
+                opts = self._body()
+                grace = opts.get("gracePeriodSeconds") if isinstance(opts, dict) else None
                 store.delete(
                     m.group("kind"), m.group("ns"), m.group("name"),
                     grace_seconds=None if grace is None else int(grace),
                 )
                 self._send_json({"kind": "Status", "status": "Success"})
+
+            def do_PUT(self):  # noqa: N802
+                # no update verb: the native server's 404
+                self._drain_body()
+                self._send_body(NOT_FOUND, 404)
 
         return Handler
 

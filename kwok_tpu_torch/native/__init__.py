@@ -23,12 +23,23 @@ patches; ``Pump`` pipelines whole request batches over keep-alive
 connections (``kwok_pump_open``/``send``/``send2``/``stats``/``close``).
 
 A build or load failure is logged at WARNING with the compiler's
-output; callers then keep the Python path. The engine's opt-outs are
-environment variables: ``KWOK_TPU_NATIVE=0`` (no native edge at all: the
-``json.loads`` ingest and one executor job per patch),
-``KWOK_TPU_NATIVE_EMIT=0`` (no templates: the generic renderer plus the
-pump), ``KWOK_TPU_NATIVE_WATCH=0`` (no socket reader: raw lines from
-Python's HTTP client, still parsed natively) and
+output; callers then keep the Python path.
+
+``apiserver.cc`` is the fourth source, a copy of the JAX package's native
+mock kube-apiserver: a program of its own (it has ``main``), so it is not
+in ``SOURCES`` and not in the library. ``apiserver_binary()`` builds it at
+first use with ``g++ -O2 -std=c++17 -pthread`` into
+``kwok_tpu_torch/_build/kwok-mock-apiserver-<hash>`` (the hash covers the
+source and the flags) and returns its path, or None when it cannot be
+built (logged at WARNING) or under ``KWOK_TPU_NATIVE=0``. Run it as
+``<path> --port 0``: it prints ``mock apiserver listening on URL`` and
+speaks the wire protocol of ``edge/mockserver.py``, at native speed.
+
+The engine's opt-outs are environment variables: ``KWOK_TPU_NATIVE=0``
+(no native edge at all: the ``json.loads`` ingest and one executor job
+per patch), ``KWOK_TPU_NATIVE_EMIT=0`` (no templates: the generic
+renderer plus the pump), ``KWOK_TPU_NATIVE_WATCH=0`` (no socket reader:
+raw lines from Python's HTTP client, still parsed natively) and
 ``KWOK_TPU_NATIVE_ROUTE=0`` (no pre-partitioned routing: per-record
 Python route loop).
 """
@@ -51,6 +62,8 @@ SOURCES = tuple(os.path.join(_DIR, f) for f in ("codec.cc", "pump.cc", "ingest.c
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 CXX_FLAGS = ("-O2", "-std=c++17", "-pthread", "-shared", "-fPIC")
 ABI_VERSION = 9
+APISERVER_SOURCE = os.path.join(_DIR, "apiserver.cc")
+APISERVER_FLAGS = ("-O2", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -59,40 +72,92 @@ _tried = False
 #: library was already built)
 build_log = ""
 
+_apiserver_lock = threading.Lock()
+_apiserver_path: str | None = None
+_apiserver_tried = False
+#: the compiler's output of the apiserver build this process made, failed
+#: or not ("" when the binary was already built)
+apiserver_build_log = ""
+
 
 def enabled() -> bool:
     """False under ``KWOK_TPU_NATIVE=0``."""
     return os.environ.get("KWOK_TPU_NATIVE", "1") != "0"
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for src in SOURCES:
+def _hashed_path(name: str, flags, sources, suffix: str = "") -> str:
+    """``BUILD_DIR/<name>-<hash><suffix>``, the hash over the flags and the
+    sources' bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libkwok_native-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}{suffix}")
 
 
-def _build(path: str) -> bool:
-    """Compile the three sources into ``path`` (atomic rename)."""
-    global build_log
+def library_path() -> str:
+    return _hashed_path("libkwok_native", CXX_FLAGS, SOURCES, ".so")
+
+
+def apiserver_path() -> str:
+    return _hashed_path("kwok-mock-apiserver", APISERVER_FLAGS, (APISERVER_SOURCE,))
+
+
+def _compile(what: str, flags, sources, path: str) -> tuple[bool, str]:
+    """Compile ``sources`` into ``path`` through a per-process temporary
+    file and an atomic rename, so concurrent builders never tear it;
+    (built, the compiler's output), a failure logged at WARNING."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp, *SOURCES]
+    cmd = [os.environ.get("CXX", "g++"), *flags, "-o", tmp, *sources]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=180)
     except (OSError, subprocess.SubprocessError) as e:
-        logger.warning("native library build failed to run %s: %s", cmd[0], e)
-        return False
+        logger.warning("%s build failed to run %s: %s", what, cmd[0], e)
+        return False, str(e)
+    out = (proc.stdout + proc.stderr).strip()
     if proc.returncode != 0:
         logger.warning(
-            "native library build failed (%d): %s\n%s",
-            proc.returncode, " ".join(cmd), (proc.stdout + proc.stderr).strip(),
+            "%s build failed (%d): %s\n%s", what, proc.returncode, " ".join(cmd), out
         )
-        return False
+        return False, out
     os.replace(tmp, path)
-    build_log = (proc.stdout + proc.stderr).strip()
-    return True
+    return True, out
+
+
+def _build(path: str) -> bool:
+    """Compile the three sources into ``path``."""
+    global build_log
+    ok, out = _compile("native library", CXX_FLAGS, SOURCES, path)
+    if ok:
+        build_log = out
+    return ok
+
+
+def apiserver_binary() -> str | None:
+    """Path to the native mock kube-apiserver, building it at first use;
+    None under ``KWOK_TPU_NATIVE=0`` or when it cannot be built (logged at
+    WARNING once, the output kept in ``apiserver_build_log``)."""
+    global _apiserver_path, _apiserver_tried, apiserver_build_log
+    if not enabled():
+        return None
+    with _apiserver_lock:
+        if _apiserver_path is not None or _apiserver_tried:
+            return _apiserver_path
+        _apiserver_tried = True
+        try:
+            path = apiserver_path()
+        except OSError as e:
+            logger.warning("native apiserver source unreadable: %s", e)
+            return None
+        if not os.path.exists(path):
+            ok, apiserver_build_log = _compile(
+                "native apiserver", APISERVER_FLAGS, (APISERVER_SOURCE,), path
+            )
+            if not ok:
+                return None
+        _apiserver_path = path
+        return path
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -465,3 +465,72 @@ def test_cli_over_http_on_card_ships_through_the_pump(card, tmp_path, monkeypatc
     assert _sum_series(text, "kwok_pump_requests_total ") >= 200
     assert _sum_series(text, "kwok_pump_send_seconds_count ") > 0
     assert launches > 0
+
+
+def test_engine_on_card_against_native_server(card):
+    """The single-lane engine on the card against the port's native mock
+    apiserver: every node Ready and every pod Running with a pod IP, the
+    kernel launched, then held bit-exact against its plain version at the
+    engine's capacities, on the rows the run left."""
+    import signal
+    import subprocess
+
+    from kwok_tpu_torch import native
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+
+    binary = native.apiserver_binary()
+    assert binary is not None, native.apiserver_build_log
+    proc = subprocess.Popen([binary, "--port", "0"], stdout=subprocess.PIPE, text=True)
+    eng = None
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("mock apiserver listening on "), line
+        url = line.split()[-1]
+        client = HttpKubeClient(url)
+        for i in range(20):
+            client.create("nodes", {"metadata": {"name": f"n{i}"}})
+        for i in range(300):
+            client.create("pods", {
+                "metadata": {"name": f"p{i}", "namespace": "default"},
+                "spec": {"nodeName": f"n{i % 20}", "containers": [{"name": "c", "image": "b"}]},
+                "status": {"phase": "Pending"},
+            })
+        eng = ClusterEngine(HttpKubeClient(url), EngineConfig(
+            manage_all_nodes=True, tick_interval=0.02, drain_shards=1))
+        assert eng.nodes.state.device.type == "cuda"
+        before = cuda_tick.tick_steps.launches
+        eng.start()
+
+        def running():
+            return sum((p.get("status") or {}).get("phase") == "Running"
+                       and bool(p["status"].get("podIP")) for p in client.list("pods"))
+
+        deadline = time.time() + 60
+        while time.time() < deadline and running() < 300:
+            time.sleep(0.1)
+        assert running() == 300
+        assert all(any(c["type"] == "Ready" and c["status"] == "True"
+                       for c in n["status"]["conditions"]) for n in client.list("nodes"))
+        eng.stop()
+        eng, stopped = None, eng
+        assert cuda_tick.tick_steps.launches > before
+        fused = stopped._get_fused()
+        now = stopped._now()
+        for spec, state in zip(fused.specs, (stopped.nodes.state, stopped.pods.state)):
+            k_state = ts.RowState(*(x.clone() for x in state))
+            p_state = ts.RowState(*(x.clone() for x in state))
+            k = cuda_tick.tick_steps(k_state, spec, now, cuda_tick.SEED_BASE, fused.steps, fused.dt)
+            p = cuda_tick.tick_steps_plain(p_state, spec, now, cuda_tick.SEED_BASE,
+                                           fused.steps, fused.dt)
+            torch.cuda.synchronize()
+            for f in ts.RowState._fields:
+                assert torch.equal(getattr(k_state, f), getattr(p_state, f)), f
+            for a, b in zip(k[:3], p[:3]):
+                assert torch.equal(a, b)
+            assert torch.equal(k[3], p[3])
+        client.close()
+    finally:
+        if eng is not None:
+            eng.stop()
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(10)

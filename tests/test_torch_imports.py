@@ -1,5 +1,5 @@
 """The port stands alone: no module of kwok_tpu_torch/ and no line of
-chip_smoke.py imports jax (or any jax* package) or kwok_tpu, and a "cuda"
+chip_smoke.py or mock_ab.py imports jax (or any jax* package) or kwok_tpu, and a "cuda"
 engine on a host without a card raises instead of running on the CPU."""
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "kwok_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "kwok_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "mock_ab.py"]
 
 
 def imported_modules(path: pathlib.Path) -> list[str]:
@@ -80,11 +80,13 @@ def test_cuda_engine_without_card_raises(monkeypatch):
         ClusterEngine(FakeKube(), EngineConfig(manage_all_nodes=True))
 
 
-@pytest.mark.parametrize("src", ["codec.cc", "pump.cc", "ingest.cc"])
+@pytest.mark.parametrize("src", ["codec.cc", "pump.cc", "ingest.cc", "apiserver.cc"])
 def test_native_package_is_walked_and_its_sources_are_copies(src):
     """kwok_tpu_torch/native/ is in the walk above and imports alone; its
     C++ sources are byte-identical copies of kwok_tpu/native/'s, built into
-    the port's own _build/ directory (nothing next to the sources)."""
+    the port's own _build/ directory (nothing next to the sources): the
+    library's three, and the mock apiserver, a program of its own that is
+    not in the library's sources."""
     import importlib
 
     from kwok_tpu_torch import native
@@ -93,5 +95,10 @@ def test_native_package_is_walked_and_its_sources_are_copies(src):
     importlib.import_module("kwok_tpu_torch.native")
     port = ROOT / "kwok_tpu_torch" / "native" / src
     assert port.read_bytes() == (ROOT / "kwok_tpu" / "native" / src).read_bytes()
-    assert str(port) in native.SOURCES
-    assert pathlib.Path(native.library_path()).parent == ROOT / "kwok_tpu_torch" / "_build"
+    build = ROOT / "kwok_tpu_torch" / "_build"
+    if src == "apiserver.cc":
+        assert str(port) not in native.SOURCES and native.APISERVER_SOURCE == str(port)
+        assert pathlib.Path(native.apiserver_path()).parent == build
+    else:
+        assert str(port) in native.SOURCES
+    assert pathlib.Path(native.library_path()).parent == build

@@ -230,7 +230,7 @@ def test_continue_token_expires_after_compact():
             token = json.loads(st.list_bytes("pods", limit=2))["metadata"]["continue"]
             page = lambda: json.loads(st.list_bytes("pods", limit=2, continue_=token))["items"]  # noqa: E731
         else:
-            _items, token, _rv = st.list_bytes("pods", limit=2)
+            _items, token, _rv, _n = st.list_bytes("pods", limit=2)
             page = lambda: st.list_bytes("pods", limit=2, continue_=token)[0]  # noqa: E731
         assert len(page()) == 2
         st.create("pods", make_pod("extra"))  # moves the floor past the token
