@@ -44,8 +44,8 @@ result line then):
    reach Running in the store.
 6. CLI: the real entry point, kwok_tpu_torch.kwok.cli.main, on a thread of
    this script, against the port's native mock apiserver in a subprocess
-   of its own (the binary apiserver.cc builds, --port 0; it must answer
-   GET /metrics with kwok_apiserver_inflight, or the phase fails), with a
+   of its own (the binary apiserver.cc builds, --port 0; its GET
+   /debug/flight must name the server "native", or the phase fails), with a
    Stage file of JSON documents: the default pod-delete stage and two
    weighted Pending->Running stages (weights 3 and 1, uniform 0.1-0.5 s
    and 0.5-1.0 s). 10,000 nodes exist before the CLI starts; /readyz must
@@ -75,8 +75,27 @@ result line then):
    must be > 0. Each reports the kwok process's CPU seconds per 1,000
    pods over its create->Running window, and the mock's CPU seconds per
    1,000 pods, the creator's seconds for its pods,
-   kwok_watch_terminations_total{reason} from the native mocks' /metrics
+   kwok_watch_terminations_total{reason} from the mocks' /metrics
    and kwok_watch_relists_total from kwok's.
+6a. Trace (run between 6 and 6c): the CLI phase's path and size on the
+   native mock with --profile-dir, --trace-dump, --trace-sample-every 256
+   and KWOK_TPU_FLIGHT_DIR under a temporary directory. Each of these
+   fails the run: /debug/trace must answer 200 during the flood with a
+   document that passes the Chrome trace-event check and holds
+   tick.dispatch, tick.emit, pump.send and at least one sampled
+   pod.ingest_to_patch span; a fresh degradation (set, then cleared)
+   must save the mock's /debug/flight into the flight directory; after
+   stop the trace dump must exist and parse, the mock's /debug/flight
+   must pass check_flight, and merge_timeline of the two must hold the
+   engine's pid 0 and the apiserver's pid 1; the torch.profiler window
+   (ticks [2, 102) on the coordinator's tick thread) must hold one
+   tick_kernel event per launch its sidecar recorded; and the kernel is
+   held bit-exact at the engine's capacities. Reported on a line before
+   the kernels line: the device busy and idle share over the profiled
+   window (the union of the GPU kernel, memcpy and memset intervals over
+   the window's wall time), tick_kernel events with their summed and
+   median µs, the profile's bytes, the spans recorded, and the phase's
+   pods/s against the CLI phase's (the cost of tracing).
 6b. Native A/B: the CLI phase's path again, in the same call, under
    KWOK_TPU_NATIVE=0 (json.loads per event, Python routing, one executor
    job per patch) against the native mock: the same checks but a
@@ -86,7 +105,8 @@ result line then):
    and emit seconds, the pump's requests and kwok_pump_send_seconds_sum.
 6c. Python mock (cli_python_mock, run between 6 and 6b): the CLI phase
    again, in the same call, against the port's Python mock (python3 -m
-   kwok_tpu_torch.edge.mockserver --port 0; it must have no /metrics),
+   kwok_tpu_torch.edge.mockserver --port 0; its /debug/flight must
+   name the server "mock"),
    the apiserver of every HTTP phase before the native one: the numbers
    that compare with earlier runs. The same checks.
 7. Process lanes: the same topology, Stage file and native mock through
@@ -95,7 +115,8 @@ result line then):
    engine and tick kernel on the card. /readyz 503 then 200; every node
    Ready, every pod Running with a distinct pod IP in the CIDR, the
    deleted pods gone; every lane process on cuda with kernel launches,
-   every lane<i>.ckpt.json written; /metrics with
+   every lane<i>.ckpt.json written, the parent's --trace-dump and
+   every lane process's <dump>.lane<i> written and parsed; /metrics with
    kwok_status_patches_total >= 35,000 summed over the lanes and lane
    stage seconds for at least 2 shards. Lane 0 is then SIGKILLed: it
    must be back within 60 s, kwok_lane_proc_restarts_total{shard="0"}
@@ -117,7 +138,9 @@ result line then):
    30 s must be gone. /metrics must parse with kwok_status_patches_total
    >= 60,000 summed over the shard series, both
    kwok_group_dispatches_total{group} > 0 and kwok_fed_pods_managed at
-   49,500; every member<i>.ckpt.json written; launches > 0; main returns 0.
+   49,500; every member<i>.ckpt.json written; /debug/trace one document
+   under the labels federation and shard0..shard7; launches > 0; main
+   returns 0.
    The kernel is then held bit-exact against its plain version at each
    group's stacked capacities with that group's rule tables (a re-arm
    dispatch and a fire dispatch).
@@ -562,7 +585,7 @@ def engine_phase(drain_shards: int = 1):
         "status_patches": m["status_patches_total"],
         "heartbeats": m["heartbeats_total"],
         "watch_events": m["watch_events_total"],
-        "tick_thread_s": m["tick_seconds_total"],
+        "tick_thread_s": m["tick_seconds_sum"],
         "capacities": caps, "kernel_ms_at_capacities": shape_ms,
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
@@ -920,21 +943,21 @@ def mock_url(proc) -> str:
 
 
 def check_mock(url: str, mock: str) -> None:
-    """Fail unless the server at ``url`` is the mock asked for: the native
-    server answers GET /metrics with the kwok_apiserver_inflight family,
-    the Python mock has no /metrics (404)."""
-    code, text = http_get(url + "/metrics")
-    want = (200, True) if mock == "native" else (404, False)
-    if (code, "kwok_apiserver_inflight{" in text) != want:
-        raise AssertionError(f"{url} is not the {mock} mock apiserver: GET /metrics {code}")
+    """Fail unless the server at ``url`` is the mock asked for: GET
+    /debug/flight names its server, "native" for the native server and
+    "mock" for the Python mock."""
+    code, text = http_get(url + "/debug/flight")
+    want = {"native": "native", "python": "mock"}[mock]
+    server = json.loads(text).get("server") if code == 200 else None
+    if server != want:
+        raise AssertionError(f"{url} is not the {mock} mock apiserver: GET /debug/flight "
+                             f"{code}, server {server!r}")
 
 
-def mock_terminations(run: dict) -> "dict | None":
-    """kwok_watch_terminations_total{reason} from the native mocks'
-    /metrics, summed over the mocks; None for the Python mock (it has no
-    /metrics and no slow-watcher cap)."""
-    if run["mock_kind"] != "native":
-        return None
+def mock_terminations(run: dict) -> dict:
+    """kwok_watch_terminations_total{reason} from the mocks' /metrics,
+    summed over the mocks (the Python mock has no slow-watcher cap: its
+    slow closes read 0)."""
     out: dict = {}
     for url in run["urls"]:
         code, text = http_get(url + "/metrics")
@@ -1068,11 +1091,13 @@ def scrape(run: dict) -> dict:
     return parse_metrics(text)
 
 
-def drive_pods(run: dict, pids=(), after_running=None, pods: "int | None" = None) -> dict:
+def drive_pods(run: dict, pids=(), after_running=None, pods: "int | None" = None,
+               during=None) -> dict:
     """``pods`` pods (CLI_PODS by default) from a spawned creator over
     CLI_CONNS connections until every pod is Running with a pod IP
     (progress from the engine's counters, each crossing confirmed by one
-    full LIST), every node Ready,
+    full LIST; ``during()``, when given, at each progress poll until it
+    returns true), every node Ready,
     ``after_running()`` when given, then CLI_DELETES graceful deletes
     until they are gone. Returns the times, the /metrics at the start and
     at the end of the create->Running window, the CPU seconds over that
@@ -1089,6 +1114,8 @@ def drive_pods(run: dict, pids=(), after_running=None, pods: "int | None" = None
     client = HttpKubeClient(url)
     while True:
         m_run = scrape(run)
+        if during is not None and during():
+            during = None
         if m_run["kwok_status_patches_total"] >= CLI_NODES + pods:
             t_patched = time.time()
             cpu_run = {pid: cpu_seconds(pid) for pid in cpu0}
@@ -1122,6 +1149,8 @@ def drive_pods(run: dict, pids=(), after_running=None, pods: "int | None" = None
     mock_cpu = cpu_run[mock.pid] - cpu0[mock.pid]
     return {
         "client": client, "m0": m0, "m_run": m_run,
+        # the create->Running window on the wall clock
+        "t_flood": (t_pods, t_patched),
         "cpu_s": {pid: cpu_run[pid] - cpu0[pid] for pid in cpu0},
         "report": {
             "nodes": CLI_NODES, "pods": pods, "deleted": CLI_DELETES,
@@ -1182,11 +1211,11 @@ def native_edge(m: dict, events: float, lanes: int = 0, procs: bool = False,
     with ``off`` (KWOK_TPU_NATIVE=0) the partitioned count and the pump's
     requests must be 0."""
     routed = summed(m, "kwok_route_partition_events_total")
-    parses = m.get('kwok_tick_stage_seconds_count{stage="parse"}', 0.0)
+    parses = stage_sum(m, "kwok_tick_stage_seconds_count", "parse")
     pumped = summed(m, "kwok_pump_requests_total")
     out = {"partitioned_events": routed, "parses": parses, "watch_events": events,
-           "parse_s": m.get('kwok_tick_stage_seconds_sum{stage="parse"}', 0.0),
-           "route_batch_s": m.get("kwok_route_batch_seconds_sum", 0.0),
+           "parse_s": stage_sum(m, "kwok_tick_stage_seconds_sum", "parse"),
+           "route_batch_s": summed(m, "kwok_route_batch_seconds_sum"),
            "pump_requests": pumped,
            "pump_send_s": summed(m, "kwok_pump_send_seconds_sum"),
            "pump_batches": summed(m, "kwok_pump_send_seconds_count")}
@@ -1209,6 +1238,33 @@ def native_edge(m: dict, events: float, lanes: int = 0, procs: bool = False,
 
 def per_1000(cpu_s: float, pods: int) -> float:
     return cpu_s * 1000.0 / pods
+
+
+def dispatch_stats(doc: dict, t0: float, t1: float) -> dict:
+    """The ``tick.dispatch`` spans of a Chrome trace document that start
+    in [t0, t1) (wall-clock seconds): how many, per second, when the
+    first one starts (seconds after t0), the gaps between consecutive
+    starts (median, largest, and where the largest begins, in seconds
+    after t0) and the spans' own lengths."""
+    ep = doc["otherData"]["epoch_unix"]
+    inside = sorted(
+        (ep + e["ts"] / 1e6, e["dur"] / 1e6) for e in doc["traceEvents"]
+        if e["ph"] == "X" and e["name"] == "tick.dispatch"
+        and t0 <= ep + e["ts"] / 1e6 < t1)
+    starts = [a for a, _ in inside]
+    gaps = [(b - a, a) for a, b in zip(starts, starts[1:])]
+    durs = sorted(d for _, d in inside)
+    big = max(gaps) if gaps else (None, None)
+    return {
+        "dispatches": len(inside),
+        "per_s": len(inside) / (t1 - t0) if t1 > t0 else 0.0,
+        "first_at_s": starts[0] - t0 if starts else None,
+        "gap_median_s": sorted(gaps)[len(gaps) // 2][0] if gaps else None,
+        "gap_max_s": big[0],
+        "gap_max_at_s": None if big[1] is None else big[1] - t0,
+        "dispatch_median_ms": durs[len(durs) // 2] * 1e3 if durs else None,
+        "dispatch_max_ms": durs[-1] * 1e3 if durs else None,
+    }
 
 
 def cli_phase(native_off: bool = False, mock: str = "native"):
@@ -1235,6 +1291,7 @@ def cli_phase(native_off: bool = False, mock: str = "native"):
             raise AssertionError(f"native parser {eng._batch_parser}, emit templates "
                                  f"{eng._emit_tpl} with native_off={native_off}")
         load = drive_pods(run)
+        flood = dispatch_stats(eng.trace_chrome(), *load["t_flood"])
         pods = load["client"].list("pods")
         m = scrape(run)
     finally:
@@ -1251,7 +1308,7 @@ def cli_phase(native_off: bool = False, mock: str = "native"):
     log(f"kernel at the CLI engine's capacities {caps} with the Stage rules: checked; "
         f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     m_run, m0 = load["m_run"], load["m0"]
-    native = native_edge(m, m["kwok_watch_events_total"], lanes=n_lanes, off=native_off)
+    native = native_edge(m, summed(m, "kwok_watch_events_total"), lanes=n_lanes, off=native_off)
     return {
         "lanes": n_lanes, "lane_drain_s": lane_s["drain"], "lane_emit_s": lane_s["emit"],
         "lane_pods": [len(ln.engine.pods.pool) for ln in eng._lanes.lanes],
@@ -1263,16 +1320,158 @@ def cli_phase(native_off: bool = False, mock: str = "native"):
         "watch_relists": m["kwok_watch_relists_total"],
         "status_patches": m["kwok_status_patches_total"],
         "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
-        "transitions": m["kwok_transitions_total"],
+        # the coordinator's dispatches in the create->Running window
+        "flood_dispatches": flood,
+        "transitions": summed(m, "kwok_transitions_total"),
         "heartbeats": m["kwok_heartbeats_total"],
-        "watch_events": m["kwok_watch_events_total"],
-        "tick_thread_s": m["kwok_tick_seconds_total"],
+        "watch_events": summed(m, "kwok_watch_events_total"),
+        "tick_thread_s": m["kwok_tick_seconds_sum"],
         # the tick thread's host seconds over the create->Running window
-        "window_tick_thread_s": (m_run["kwok_tick_seconds_total"]
-                                 - m0["kwok_tick_seconds_total"]),
+        "window_tick_thread_s": (m_run["kwok_tick_seconds_sum"]
+                                 - m0["kwok_tick_seconds_sum"]),
         "capacities": caps, "kernel_ms_at_capacities": shape_ms,
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
+    }
+
+
+TRACE_SAMPLE_EVERY = 256  # the trace phase's --trace-sample-every
+
+
+def trace_names(doc: dict) -> set:
+    """The span names of a Chrome trace document."""
+    return {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+
+
+def trace_phase(cli_run):
+    """The CLI phase's path with the engine's tracing on (see the module
+    docstring, phase 6a)."""
+    import torch
+
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.profiling import profile_summary
+    from kwok_tpu_torch.telemetry.timeline import check_flight, merge_timeline
+    from kwok_tpu_torch.telemetry.trace import check_chrome_trace
+
+    n_lanes = resolve_drain_shards(0, 0)
+    tdir = tempfile.mkdtemp(prefix="kwok-trace-")
+    prof_dir = os.path.join(tdir, "profile")
+    trace_path = os.path.join(tdir, "trace.json")
+    flight_dir = os.path.join(tdir, "flight")
+    live: dict = {}
+    cuda_tick.tick_steps.launches = 0
+    os.environ["KWOK_TPU_FLIGHT_DIR"] = flight_dir
+    try:
+        run = start_cli(["--profile-dir", prof_dir, "--trace-dump", trace_path,
+                         "--trace-sample-every", str(TRACE_SAMPLE_EVERY)])
+        try:
+            eng = run["engine"]
+            if eng._lanes is None or eng._profiler is None:
+                raise AssertionError("the trace phase's engine runs no lanes or no profiler")
+
+            def poll_trace() -> bool:
+                # /debug/trace while pods are still being patched: the
+                # last answer that carries a sampled ingest->patch span
+                code, text = http_get(run["base"] + "/debug/trace")
+                if code != 200:
+                    raise AssertionError(f"/debug/trace answered {code} during the flood")
+                doc = json.loads(text)
+                check_chrome_trace(doc)
+                live["polls"] = live.get("polls", 0) + 1
+                live["doc"] = doc
+                return "pod.ingest_to_patch" in trace_names(doc)
+
+            load = drive_pods(run, during=poll_trace)
+            pods = load["client"].list("pods")
+            # a fresh degradation edge saves the mock's flight recorder
+            # into KWOK_TPU_FLIGHT_DIR; the reason is cleared again
+            eng._degradation.set("smoke_probe")
+            t_wait = time.monotonic() + 10.0
+            while not (os.path.isdir(flight_dir) and any(
+                    f.endswith(".json") for f in os.listdir(flight_dir))):
+                if time.monotonic() > t_wait:
+                    raise AssertionError(f"no flight dump in {flight_dir} after a degradation")
+                time.sleep(0.05)
+            eng._degradation.clear("smoke_probe")
+            code, text = http_get(run["url"] + "/debug/flight")
+            if code != 200:
+                raise AssertionError(f"the mock's /debug/flight answered {code}")
+            flight = json.loads(text)
+            m = scrape(run)
+        finally:
+            stop_cli(run)
+    finally:
+        os.environ.pop("KWOK_TPU_FLIGHT_DIR", None)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the trace phase ran without launching the tick kernel")
+    check_final_pods(pods, m)
+    want = {"tick.dispatch", "tick.emit", "pump.send", "pod.ingest_to_patch"}
+    if "doc" not in live or not want <= trace_names(live["doc"]):
+        raise AssertionError(f"/debug/trace during the flood: spans "
+                             f"{sorted(trace_names(live.get('doc', {'traceEvents': []})))}")
+    with open(trace_path) as f:
+        trace = json.load(f)
+    check_chrome_trace(trace)
+    dumps = sorted(f for f in os.listdir(flight_dir) if f.endswith(".json"))
+    with open(os.path.join(flight_dir, dumps[0])) as f:
+        check_flight(json.load(f))
+    check_flight(flight)
+    if flight.get("server") != "native":
+        raise AssertionError(f"flight dump from {flight.get('server')!r}, not the native mock")
+    merged = merge_timeline(trace, flight)
+    pids = {e["pid"] for e in merged["traceEvents"] if e["ph"] == "X"}
+    if not {0, 1} <= pids:
+        raise AssertionError(f"merged timeline pids {sorted(pids)}: want the engine's 0 "
+                             "and the apiserver's 1")
+    prof = profile_summary(prof_dir)
+    meta = prof["meta"]
+    if meta["thread"] != "kwok-tick" or meta["ticks"][0] != 2 or meta["launches"] <= 0:
+        raise AssertionError(f"profile window {meta}")
+    if prof["kernel_events"] != meta["launches"]:
+        raise AssertionError(f"the profile holds {prof['kernel_events']} tick_kernel events "
+                             f"for {meta['launches']} launches in its window")
+    # where the profiled window lay in the flood, and how often the
+    # coordinator dispatched before and inside it (the CLI phase, the same
+    # load without the profiler, for comparison)
+    f0, f1 = load["t_flood"]
+    w0, w1 = meta["start_unix"], meta["stop_unix"]
+    placement = {
+        "flood_s": f1 - f0, "start_after_first_create_s": w0 - f0,
+        "stop_after_first_create_s": w1 - f0,
+        "overlap_with_flood_s": max(0.0, min(w1, f1) - max(w0, f0)),
+        "start_call_s": meta["start_call_s"], "stop_export_s": meta["stop_export_s"],
+        "flood": dispatch_stats(trace, f0, f1),
+        "flood_before_window": dispatch_stats(trace, f0, max(f0, min(w0, f1))),
+        "window": dispatch_stats(trace, w0, w1),
+        "cli_phase_flood": cli_run["flood_dispatches"],
+    }
+    caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng, rearm=True)
+    log(f"kernel at the trace phase engine's capacities {caps}: checked; kernel "
+        f"{shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms")
+    sampled = sum(1 for e in trace["traceEvents"] if e["name"] == "pod.ingest_to_patch")
+    report = load["report"]
+    return {
+        "lanes": n_lanes, **report, "kernel_launches": launches,
+        "kwok_cpu_s_per_1000_pods": per_1000(report["window_kwok_process_cpu_s"],
+                                             report["pods"]),
+        "watch_relists": m["kwok_watch_relists_total"],
+        "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
+        "pods_per_s_vs_cli": (report["create_to_running_pods_per_s"]
+                              / cli_run["create_to_running_pods_per_s"]),
+        "debug_trace_polls": live["polls"],
+        "spans_recorded": trace["otherData"]["spans_recorded"],
+        "spans_in_dump": sum(1 for e in trace["traceEvents"] if e["ph"] == "X"),
+        "sampled_ingest_to_patch": sampled, "trace_sample_every": TRACE_SAMPLE_EVERY,
+        "kwok_trace_spans_total": m["kwok_trace_spans_total"],
+        "trace_dump_bytes": os.path.getsize(trace_path),
+        "flight_records": len(flight["records"]), "flight_dumps": len(dumps),
+        "merged_events": len(merged["traceEvents"]),
+        "profile": {k: v for k, v in prof.items() if k != "meta"},
+        "profile_window": meta, "window_placement": placement,
+        "capacities": caps, "kernel_ms_at_capacities": shape_ms,
+        "plain_ms_at_capacities": shape_plain_ms,
     }
 
 
@@ -1453,7 +1652,7 @@ def watch_phase(cli_run):
     log(f"kernel at the watch phase's capacities {caps} with the Stage rules: checked; "
         f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     resume = sorted(s for s, _ in cuts["pods"] + cuts["nodes"])
-    native = native_edge(m, m["kwok_watch_events_total"], lanes=n_lanes)
+    native = native_edge(m, summed(m, "kwok_watch_events_total"), lanes=n_lanes)
     return {
         "lanes": n_lanes, **load["report"], "native": native,
         "kwok_cpu_s_per_1000_pods": per_1000(load["report"]["window_kwok_process_cpu_s"],
@@ -1470,7 +1669,7 @@ def watch_phase(cli_run):
         "client_throttle_seconds": m["kwok_client_throttle_seconds_total"],
         "status_patches": m["kwok_status_patches_total"],
         "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
-        "watch_events": m["kwok_watch_events_total"],
+        "watch_events": summed(m, "kwok_watch_events_total"),
         "capacities": caps, "kernel_ms_at_capacities": shape_ms,
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
@@ -1538,10 +1737,13 @@ def procs_phase(cli_run):
 
     shm_free = shm_free_bytes()
     print(f"procs: /dev/shm free {shm_free} B", flush=True)
+    from kwok_tpu_torch.telemetry.trace import check_chrome_trace
+
     n_lanes = resolve_drain_shards(0, 0)
     ckpt_dir = tempfile.mkdtemp(prefix="kwok-procs-ckpt-")
+    trace_path = os.path.join(ckpt_dir, "trace.json")
     run = start_cli(["--lane-procs", "true", "--checkpoint-dir", ckpt_dir,
-                     "--checkpoint-interval", "1"])
+                     "--checkpoint-interval", "1", "--trace-dump", trace_path])
     arenas: list = []
     try:
         eng = run["engine"]
@@ -1621,11 +1823,20 @@ def procs_phase(cli_run):
     left = [a for a in arenas if os.path.exists(f"/dev/shm/{a}")]
     if left:
         raise AssertionError(f"shared-memory arenas left after stop: {left}")
+    # the parent's span trace and one per lane process, each its own file
+    lane_spans = []
+    for path in [trace_path] + [f"{trace_path}.lane{i}" for i in range(n_lanes)]:
+        if not os.path.exists(path):
+            raise AssertionError(f"no trace dump {path} after stop")
+        with open(path) as f:
+            doc = json.load(f)
+        check_chrome_trace(doc)
+        lane_spans.append(doc["otherData"]["spans_recorded"])
     launches = sum(s["launches"] for s in final)
     if launches <= 0:
         raise AssertionError("the lane processes ran without launching the tick kernel")
     check_final_pods(pods, m)
-    native = native_edge(m, m["kwok_watch_events_total"], lanes=n_lanes, procs=True)
+    native = native_edge(m, summed(m, "kwok_watch_events_total"), lanes=n_lanes, procs=True)
     if native["parses"] <= 0:
         raise AssertionError("the lane processes parsed no routed window natively")
     # the kernel at a lane's starting capacity (ProcLaneSet.capacity) and
@@ -1657,9 +1868,9 @@ def procs_phase(cli_run):
         "watch_relists": m.get("kwok_watch_relists_total", 0.0),
         "more_pods_on_lane0": on_lane0, "more_pods_running_s": more_s,
         "ticks": m["kwok_ticks_total"], "kernel_launches": launches,
-        "transitions": m["kwok_transitions_total"],
-        "watch_events": m["kwok_watch_events_total"],
-        "lane_tick_thread_s": m["kwok_tick_seconds_total"],
+        "transitions": summed(m, "kwok_transitions_total"),
+        "watch_events": summed(m, "kwok_watch_events_total"),
+        "lane_tick_thread_s": m["kwok_tick_seconds_sum"],
         # CPU seconds of each lane process over the create->Running window
         "window_lane_cpu_s": [load["cpu_s"][pid] for pid in pids],
         "start_capacities": start_caps, "kernel_ms_at_start_capacities": start_ms,
@@ -1667,6 +1878,7 @@ def procs_phase(cli_run):
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
         "bound_ms_at_capacities": byte_bound_ms(caps),
+        "trace_spans_parent_and_lanes": lane_spans,
     }
 
 
@@ -1698,8 +1910,14 @@ class GroupView:
 
 def summed(m: dict, name: str) -> float:
     """The sum of a family's series over its labels (a federation's
-    per-shard counters)."""
+    per-shard counters, the kind-labeled counters)."""
     return sum(v for k, v in m.items() if k == name or k.startswith(name + "{"))
+
+
+def stage_sum(m: dict, name: str, stage: str) -> float:
+    """``summed`` over the series of one ``stage`` label value."""
+    return sum(v for k, v in m.items()
+               if k.startswith(name + "{") and f'stage="{stage}"' in k)
 
 
 def fed_phase(cli_run):
@@ -1710,6 +1928,7 @@ def fed_phase(cli_run):
 
     from kwok_tpu_torch.edge.httpclient import HttpKubeClient
     from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.telemetry.trace import check_chrome_trace
 
     n = FED_MEMBERS
     ckpt_dir = tempfile.mkdtemp(prefix="kwok-fed-ckpt-")
@@ -1756,6 +1975,17 @@ def fed_phase(cli_run):
                 for nd in client.list("nodes"))
             if n_ready != FED_NODES:
                 raise AssertionError(f"member {c}: {n_ready} of {FED_NODES} nodes Ready")
+        # one merged span trace: the federated loop's and every member's
+        code, text = http_get(run["base"] + "/debug/trace")
+        if code != 200:
+            raise AssertionError(f"/debug/trace answered {code}")
+        trace = json.loads(text)
+        check_chrome_trace(trace)
+        labels = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                        if e["name"] == "process_name")
+        if labels != sorted(["federation"] + [f"shard{c}" for c in range(n)]):
+            raise AssertionError(f"/debug/trace process labels {labels}")
+        trace_spans = trace_names(trace)
         # the graceful deletes, spread over the members
         per = [FED_DELETES // n + (c < FED_DELETES % n) for c in range(n)]
         t_del = time.time()
@@ -1845,9 +2075,10 @@ def fed_phase(cli_run):
         "ticks": summed(m, "kwok_ticks_total") / n, "kernel_launches": launches,
         "transitions": summed(m, "kwok_transitions_total"),
         "watch_events": summed(m, "kwok_watch_events_total"),
-        "tick_thread_s": summed(m, "kwok_tick_seconds_total") / n,
-        "window_tick_thread_s": (summed(m_run, "kwok_tick_seconds_total")
-                                 - summed(m0, "kwok_tick_seconds_total")) / n,
+        "tick_thread_s": summed(m, "kwok_tick_seconds_sum") / n,
+        "window_tick_thread_s": (summed(m_run, "kwok_tick_seconds_sum")
+                                 - summed(m0, "kwok_tick_seconds_sum")) / n,
+        "trace_labels": labels, "trace_span_names": sorted(trace_spans),
     }
 
 
@@ -1918,6 +2149,8 @@ def main() -> int:
     print(json.dumps({"restart": restart}), flush=True)
     cli_run = cli_phase()
     print(json.dumps({"cli": cli_run}), flush=True)
+    traced = trace_phase(cli_run)
+    print(json.dumps({"trace": traced}), flush=True)
     py_mock = cli_phase(mock="python")
     print(json.dumps({"cli_python_mock": py_mock}), flush=True)
     ab_off = cli_phase(native_off=True)
@@ -1945,8 +2178,9 @@ def main() -> int:
           f"{cli_run['native']['partitioned_events']:.0f} events partitioned natively, "
           f"{cli_run['native']['pump_requests']:.0f} requests pumped ({card})",
           flush=True)
-    http_phases = (("cli", cli_run), ("cli_python_mock", py_mock), ("ingest_ab_off", ab_off),
-                   ("watch", watch), ("procs", procs), ("federation", fed))
+    http_phases = (("cli", cli_run), ("trace", traced), ("cli_python_mock", py_mock),
+                   ("ingest_ab_off", ab_off), ("watch", watch), ("procs", procs),
+                   ("federation", fed))
     for name, r in http_phases:
         print(f"{name}: {r['mock']} mock, {r['create_to_running_pods_per_s']:.1f} pods/s "
               f"create->Running ({r['pods']} pods), creator {r['pod_create_s']:.2f} s, kwok CPU "
@@ -1992,6 +2226,33 @@ def main() -> int:
                       f"kernel {g['kernel_ms_at_capacities']:.4f} ms" for g in fed["groups"])
           + f" ({card})", flush=True)
 
+    tp, tw = traced["profile"], traced["profile_window"]
+    print(f"trace ({n_lanes} lanes, profiled ticks {tw['ticks'][0]}-{tw['ticks'][1]} on "
+          f"{tw['thread']}, {tw['wall_s']:.3f} s): device busy share {tp['busy_share']:.6f}, "
+          f"idle share {tp['idle_share']:.6f} ({tp['device_events']} device events, "
+          f"{tp['device_busy_us']:.1f} us busy); tick_kernel events {tp['kernel_events']} for "
+          f"{tw['launches']} launches, sum {tp['kernel_us_sum']:.1f} us, median "
+          f"{tp['kernel_us_median']:.3f} us; profile {tp['trace_bytes']} B; spans recorded "
+          f"{traced['spans_recorded']} ({traced['sampled_ingest_to_patch']} sampled "
+          f"ingest->patch in the dump); {traced['create_to_running_pods_per_s']:.1f} pods/s "
+          f"against the cli phase's {traced['cli_phase_pods_per_s']:.1f} "
+          f"({traced['pods_per_s_vs_cli']:.3f}x) ({card})", flush=True)
+    wp = traced["window_placement"]
+
+    def rate(d: dict) -> str:
+        return (f"{d['dispatches']} dispatches, {d['per_s']:.2f}/s, first at "
+                f"+{d['first_at_s'] or 0.0:.3f} s, largest gap {d['gap_max_s'] or 0.0:.3f} s "
+                f"at +{d['gap_max_at_s'] or 0.0:.3f} s")
+
+    print(f"trace window: profiled from +{wp['start_after_first_create_s']:.3f} s to "
+          f"+{wp['stop_after_first_create_s']:.3f} s after the first pod create, in a "
+          f"{wp['flood_s']:.3f} s create->Running window ({wp['overlap_with_flood_s']:.3f} s "
+          f"shared); profiler start {wp['start_call_s']:.3f} s and stop+export "
+          f"{wp['stop_export_s']:.3f} s on the tick thread; flood: trace phase "
+          f"{rate(wp['flood'])} (before the window {rate(wp['flood_before_window'])}; "
+          f"in it {rate(wp['window'])}), cli phase {rate(wp['cli_phase_flood'])} ({card})",
+          flush=True)
+
     main_cfg = next(c for c in configs if c["rules"] == "default" and c["substeps"] == 1)
     kernels = {"kernels": [{
         "name": "tick",
@@ -2000,6 +2261,7 @@ def main() -> int:
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
         "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
                      + restart["kernel_launches"] + cli_run["kernel_launches"]
+                     + traced["kernel_launches"]
                      + py_mock["kernel_launches"] + ab_off["kernel_launches"]
                      + watch["kernel_launches"] + procs["kernel_launches"]
                      + fed["kernel_launches"]),
@@ -2014,6 +2276,7 @@ def main() -> int:
         "launches_by_phase": {
             "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
             "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
+            "trace": traced["kernel_launches"],
             "cli_python_mock": py_mock["kernel_launches"],
             "ingest_ab_off": ab_off["kernel_launches"], "watch": watch["kernel_launches"],
             "procs": procs["kernel_launches"], "federation": fed["kernel_launches"],

@@ -36,11 +36,17 @@ with ``limit``/``continue``, ``?watch=1`` as a chunked stream of JSON
 lines with ``resourceVersion`` and ``allowWatchBookmarks``, get, POST
 create, PATCH ``/status`` and metadata, DELETE with
 ``gracePeriodSeconds``, ``/version``, ``/healthz`` and ``POST
-/compact``), and a timer that sends bookmarks every
-``BOOKMARK_INTERVAL`` seconds. It is the front of
-``kwok_tpu.edge.mockserver`` cut to those routes: no TLS, audit,
-admission bands, slow-watcher termination, snapshots, RBAC or flight
-recorder. On those routes it answers as the native mock apiserver
+/compact``), a timer that sends bookmarks every ``BOOKMARK_INTERVAL``
+seconds, and the observability routes of the native server: ``GET
+/metrics`` (``telemetry/apiserver_metrics``: inflight and rejected per
+band, both 0, and watch terminations, then the per-phase request timing
+families) and ``GET /debug/flight`` (the ring of recent request records,
+``"server": "mock"``); ``KWOK_TPU_APISERVER_TIMING=0`` turns the clock
+stamps off. It is the front of ``kwok_tpu.edge.mockserver`` cut to
+those routes: no TLS, audit, admission bands, slow-watcher termination,
+snapshots or RBAC (ROADMAP item 13 and later). A watch's backlog is
+the events queued for it and not yet written (the reference measures
+its broadcast ring's cursor lag). On those routes it answers as the native mock apiserver
 (``kwok_tpu_torch/native/apiserver.cc``) does, status bodies included
 (``tests/test_torch_apiserver.py`` holds the two to each other). Run it
 alone with
@@ -62,6 +68,7 @@ import queue
 import re
 import sys
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -78,6 +85,12 @@ from kwok_tpu_torch.edge.kubeclient import (
 from kwok_tpu_torch.edge.merge import strategic_merge
 from kwok_tpu_torch.edge.render import now_rfc3339
 from kwok_tpu_torch.edge.selectors import parse_selector
+from kwok_tpu_torch.telemetry.apiserver_metrics import (
+    ApiserverTiming,
+    LagHist,
+    render_apiserver_metrics,
+    render_timing_metrics,
+)
 
 KINDS = ("nodes", "pods")
 KIND_SINGULAR = {"nodes": "Node", "pods": "Pod"}
@@ -176,6 +189,14 @@ class FakeKube:
         self._undo: collections.deque = collections.deque()
         # objects removed for good (the smoke run checks its deletes)
         self.delete_count = 0
+        # the observability surface of GET /metrics and /debug/flight:
+        # per-phase timing and the flight ring, events encoded for at
+        # least one watch, each watch's backlog at close, and the watch
+        # closes by reason (none here: no slow-watcher cap, no deadline)
+        self.timing = ApiserverTiming()
+        self.encode_total = 0
+        self.lag_hist = LagHist()
+        self.watch_terminations = {"slow": 0, "deadline": 0}
 
     @staticmethod
     def _key(namespace, name) -> tuple[str, str]:
@@ -204,9 +225,19 @@ class FakeKube:
                 )
             while self._undo and self._undo[0][0] <= self._compacted_rv:
                 self._undo.popleft()
+        timing = self.timing
+        t0 = time.perf_counter() if timing.enabled else None
+        pushed = 0
         for w in self._watches:
             if w.kind == kind and w.matches(obj):
                 w.q.put((type_, data))
+                pushed += 1
+        if pushed:
+            # serialized once, delivered to every matching watch
+            self.encode_total += 1
+            timing.fanout_pushes += pushed
+            if t0 is not None:
+                timing.note_fanout(time.perf_counter() - t0)
         return data
 
     def _unwatch(self, w: _Watch) -> None:
@@ -214,7 +245,18 @@ class FakeKube:
             if not w.stopped:
                 w.stopped = True
                 self._watches.remove(w)
+                self.lag_hist.observe(w.q.qsize())
                 w.q.put(None)
+
+    def watch_backlogs(self) -> list:
+        """Each open watch's backlog: events queued and not yet written
+        (``kwok_watch_backlog_events``; the peak is kept as scraped)."""
+        with self._lock:
+            lags = [w.q.qsize() for w in self._watches]
+        peak = max(lags, default=0)
+        if peak > self.timing.backlog_peak:
+            self.timing.backlog_peak = peak
+        return lags
 
     def stop_watches(self) -> None:
         """End every open watch (the server is going away)."""
@@ -602,6 +644,8 @@ class HttpFakeApiserver:
     def _make_handler(self):
         store = self.store
 
+        timing = store.timing
+
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
             # one TCP segment per response: with Nagle the body segment
@@ -612,20 +656,109 @@ class HttpFakeApiserver:
             def log_message(self, *a):
                 pass
 
+            # ---- per-phase timing, stamped as kwok_tpu's mock and the
+            # native server stamp it. parse_request runs after the
+            # request line was read, so read_headers excludes keep-alive
+            # idle time
+            def parse_request(self):
+                self._t_start = timing.begin_request()
+                self._t_hdr = self._t_body = self._t_parse = None
+                self._commit_s = 0.0
+                self._parse_ran = False
+                ok = super().parse_request()
+                if ok and self._t_start is not None:
+                    self._t_hdr = time.perf_counter()
+                return ok
+
+            def _commit(self, fn, *args, **kw):
+                """One store call, its wall time attributed to the commit
+                phase (the fanout subset comes through timing.tls)."""
+                if self._t_start is None:
+                    return fn(*args, **kw)
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self._commit_s += time.perf_counter() - t0
+
+            def _finish_timing(self, code: int, enc_s: float) -> None:
+                t0 = self._t_start
+                self._t_start = None  # one observation per request
+                t_end = time.perf_counter()
+                parsed = urllib.parse.urlparse(self.path)
+                m = _PATHS.match(parsed.path)
+                if not m:
+                    return  # ops and debug paths stay untimed
+                t_hdr = self._t_hdr or t0
+                t_body = self._t_body or t_hdr
+                phases = {
+                    "read_headers": t_hdr - t0,
+                    "read_body": t_body - t_hdr,
+                    "commit": self._commit_s,
+                    "encode": enc_s,
+                }
+                if self._parse_ran:
+                    phases["parse"] = self._t_parse - t_body
+                fan = getattr(timing.tls, "fanout_s", 0.0) or 0.0
+                if fan:
+                    phases["fanout"] = fan
+                total = t_end - t0
+                method = (self.command or "").upper()
+                if method == "GET":
+                    q = urllib.parse.parse_qs(parsed.query)
+                    if (q.get("watch") or ["false"])[0] in ("true", "1"):
+                        verb, band = "watch", "none"
+                    else:
+                        verb = "get" if m.group("name") else "list"
+                        band = "readonly"
+                else:
+                    verb = {"POST": "create", "PUT": "update",
+                            "PATCH": "patch", "DELETE": "delete"}.get(
+                        method, method.lower()
+                    )
+                    band = (
+                        "mutating"
+                        if method in ("POST", "PATCH", "DELETE")
+                        else "none"
+                    )
+                timing.observe_request(verb, total, phases)
+                timing.record_flight(
+                    self.command or "", self.path, code, band,
+                    time.time() - total, total * 1e6,
+                    {p: v * 1e6 for p, v in phases.items()},
+                )
+
             def _send_body(self, body: bytes, code: int = 200,
                            ctype: str = "application/json") -> None:
+                t_enc = (
+                    time.perf_counter()
+                    if getattr(self, "_t_start", None) is not None
+                    else None
+                )
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
+                if t_enc is not None:
+                    self._finish_timing(code, time.perf_counter() - t_enc)
 
             def _send_json(self, obj, code: int = 200) -> None:
                 self._send_body(_dumps(obj), code)
 
             def _body(self):
                 n = int(self.headers.get("Content-Length") or 0)
-                return json.loads(self.rfile.read(n) or b"null") if n else None
+                timed = getattr(self, "_t_start", None) is not None
+                data = self.rfile.read(n) if n else b""
+                if timed:
+                    self._t_body = time.perf_counter()
+                if not n:
+                    return None
+                doc = json.loads(data or b"null")
+                if timed:
+                    self._t_parse = time.perf_counter()
+                    self._parse_ran = True
+                return doc
 
             def _drain_body(self) -> None:
                 n = int(self.headers.get("Content-Length") or 0)
@@ -660,13 +793,25 @@ class HttpFakeApiserver:
                 if path == "/version":
                     self._send_json(VERSION)
                     return
+                if path == "/metrics":
+                    body = render_apiserver_metrics(
+                        {}, {}, store.watch_terminations,
+                    ) + render_timing_metrics(
+                        timing, store.watch_backlogs(), store.encode_total,
+                        lag_hist=store.lag_hist,
+                    )
+                    self._send_body(body, ctype="text/plain; version=0.0.4")
+                    return
+                if path == "/debug/flight":
+                    self._send_json(timing.flight_doc("mock"))
+                    return
                 route = self._route(named=None)
                 if route is None:
                     return
                 m, q = route
                 kind, ns, name = m.group("kind"), m.group("ns"), m.group("name")
                 if name:
-                    body = store.get_bytes(kind, ns, name)
+                    body = self._commit(store.get_bytes, kind, ns, name)
                     if body is None:
                         self._send_body(NOT_FOUND, 404)
                     else:
@@ -682,7 +827,8 @@ class HttpFakeApiserver:
                     )
                     return
                 try:
-                    items, token, rv, remaining = store.list_bytes(
+                    items, token, rv, remaining = self._commit(
+                        store.list_bytes,
                         kind, field_selector=fs, label_selector=ls,
                         limit=leading_int((q.get("limit") or ["0"])[0]),
                         continue_=(q.get("continue") or [None])[0],
@@ -779,7 +925,7 @@ class HttpFakeApiserver:
                     self._send_body(BAD_REQUEST, 400)
                     return
                 try:
-                    body = store.create_bytes(m.group("kind"), obj)
+                    body = self._commit(store.create_bytes, m.group("kind"), obj)
                 except AlreadyExists as e:
                     self._send_json(_status(409, "AlreadyExists", str(e)), 409)
                     return
@@ -796,9 +942,9 @@ class HttpFakeApiserver:
                     self._send_body(BAD_REQUEST, 400)
                     return
                 if m.group("sub") == "status":
-                    body = store.patch_status_bytes(kind, ns, name, patch)
+                    body = self._commit(store.patch_status_bytes, kind, ns, name, patch)
                 else:
-                    body = store.patch_meta_bytes(kind, ns, name, patch)
+                    body = self._commit(store.patch_meta_bytes, kind, ns, name, patch)
                 if body is None:
                     self._send_body(NOT_FOUND, 404)
                 else:
@@ -811,7 +957,8 @@ class HttpFakeApiserver:
                 m, _q = route
                 opts = self._body()
                 grace = opts.get("gracePeriodSeconds") if isinstance(opts, dict) else None
-                store.delete(
+                self._commit(
+                    store.delete,
                     m.group("kind"), m.group("ns"), m.group("name"),
                     grace_seconds=None if grace is None else int(grace),
                 )

@@ -64,10 +64,18 @@ slice of a stacked state that the federation's loop ticks.
 
 Names and logic of the ingest, tick and emit methods follow the JAX
 package's engine so each has its counterpart there. The mesh, HA,
-anti-entropy, fault injection, CNI, the profiler and the span tracer are
-not part of this engine; ``metrics`` is a plain counters dict, and the
-labeled families (stage seconds, pump seconds, lanes, degraded mode)
-live on ``registry``.
+anti-entropy, fault injection and CNI are not part of this engine.
+
+Telemetry is ``telemetry/engine_metrics.EngineTelemetry``: typed handles
+on a labeled registry (``registry``, rendered by ``metrics_text()``;
+``metrics`` is its flat view) and an always-on span ring (``tracer``,
+``trace_chrome()``, dumped at stop to ``trace_dump`` or
+``KWOK_TPU_TRACE``). Spans: ``tick.drain``, ``tick.dispatch``,
+``tick.consume``, ``tick.emit``, ``pump.send`` and 1 in
+``trace_sample_every`` pods' ``pod.ingest_to_patch``. ``profile_dir``
+runs ``torch.profiler`` over ticks [2, 102) on the tick thread
+(``profiling.TickProfiler``); a fresh degradation saves the apiserver's
+``/debug/flight`` to ``flight_dir`` (or ``KWOK_TPU_FLIGHT_DIR``).
 """
 
 from __future__ import annotations
@@ -112,7 +120,7 @@ from kwok_tpu_torch.edge.render import (
     rfc3339,
 )
 from kwok_tpu_torch.edge.selectors import parse_selector
-from kwok_tpu_torch import native
+from kwok_tpu_torch import native, profiling
 from kwok_tpu_torch.engine.rowpool import (
     EF_RENDER,
     EF_RGATES,
@@ -161,9 +169,8 @@ from kwok_tpu_torch.resilience.policy import (
     Degradation,
 )
 from kwok_tpu_torch.resilience.watchdog import Watchdog
-from kwok_tpu_torch.telemetry.errors import wire_reject
-from kwok_tpu_torch.telemetry.lanes import _HELP as _STAGE_HELP
-from kwok_tpu_torch.telemetry.registry import MetricsRegistry
+from kwok_tpu_torch.telemetry.engine_metrics import EngineTelemetry
+from kwok_tpu_torch.telemetry.errors import swallowed, wire_reject
 
 logger = logging.getLogger("kwok_tpu_torch.engine")
 
@@ -174,17 +181,6 @@ _SCALAR_STATUS_KEYS = frozenset({"phase", "hostIP", "podIP", "startTime"})
 _PENDING = POD_PHASES.phase_id("Pending")
 _NODE_READY = NODE_PHASES.phase_id("Ready")
 _NODE_OBSERVED = NODE_PHASES.phase_id("Observed")
-
-# the counters ``ClusterEngine.metrics`` always carries
-_COUNTERS = (
-    "watch_events_total", "watch_relists_total", "watch_bookmarks_total",
-    "rv_rewinds_total", "transitions_total",
-    "status_patches_total", "heartbeats_total", "deletes_total",
-    "patch_errors_total", "dropped_jobs_total", "ticks_total",
-    "epoch_rebases_total", "client_throttle_seconds_total",
-    "pump_requests_total", "pump_send_seconds_sum",
-)
-
 
 def _rv_of(meta: dict) -> int:
     """metadata.resourceVersion as an int, 0 when absent or unparseable
@@ -259,6 +255,18 @@ class EngineConfig:
     # "off" disables even under the env var (lane engines)
     checkpoint_dir: str = ""
     checkpoint_interval: float = 2.0
+    # when set, a torch.profiler trace of ticks [2, 102) is written here
+    # (profiling.TickProfiler; a lane process writes <dir>/lane<i>)
+    profile_dir: str = ""
+    # when set, the span ring is dumped here at stop() as Chrome
+    # trace-event JSON (KWOK_TPU_TRACE=<path> works too); the tracer is
+    # always on, /debug/trace is the live view
+    trace_dump: str = ""
+    # when set (or KWOK_TPU_FLIGHT_DIR), a FRESH degradation reason saves
+    # the apiserver's /debug/flight dump here (HTTP masters only)
+    flight_dir: str = ""
+    # 1-in-N sampling of pods for ingest->patch spans; 0 disables
+    trace_sample_every: int = 256
     device: str = "cuda"
 
     def validate(self) -> None:
@@ -410,7 +418,8 @@ class ClusterEngine:
     # coordinator's stacked state, so it holds no stream and no device rows
     _owns_device = True
 
-    def __init__(self, client: KubeClient, config: EngineConfig) -> None:
+    def __init__(self, client: KubeClient, config: EngineConfig,
+                 telemetry: "EngineTelemetry | None" = None) -> None:
         config.validate()
         self.device = torch.device(config.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -499,17 +508,27 @@ class ClusterEngine:
         # bumped on every row release; _PendingTick.seq snapshots it at
         # dispatch so consume can tell which mask bits went stale
         self._release_seq = 0
-        self._metrics_lock = threading.Lock()
-        self._metrics: dict[str, float] = {name: 0 for name in _COUNTERS}
-        self._metrics.update(
-            tick_seconds_last=0.0, tick_seconds_total=0.0, nodes_managed=0,
-            pods_managed=0, ingest_queue_depth=0,
-            restart_recovery_seconds=0.0,
+        # telemetry: labeled registry + span tracer. A federation passes a
+        # shard-labeled slice of its shared registry, a lane its parent's
+        self.telemetry = telemetry if telemetry is not None else EngineTelemetry()
+        self.tracer = self.telemetry.tracer
+        self.registry = self.telemetry.registry
+        # 1-in-N ingest->patch span sampling (0 disables); the cadence
+        # counter is bumped without a lock: a lost racy increment only
+        # shifts which pod is traced
+        self._trace_every = max(0, int(config.trace_sample_every))
+        self._trace_n = 0
+        # False for a federation member (the federation's loop ticks it
+        # and writes one merged trace dump) and for a lane
+        self._owns_tick = self._owns_device
+        # the device profiler of the tick thread (start() builds it when
+        # profile_dir is set and this engine runs a tick thread)
+        self._profiler: "profiling.TickProfiler | None" = None
+        # the degraded-mode ledger behind /readyz's 503; a fresh reason
+        # saves the apiserver's flight recorder (_flight_dump_on_degrade)
+        self._degradation = Degradation(
+            self.registry, on_set=self._flight_dump_on_degrade
         )
-        # the labeled families (lanes, kwok_degraded) and the degraded-mode
-        # ledger behind /readyz's 503
-        self.registry = MetricsRegistry()
-        self._degradation = Degradation(self.registry)
         # monotonic stamp of the last shed-clear stream resync (written by
         # lane drain workers; see lanes._SHED_RESYNC_MIN_S)
         self._shed_resync_at = 0.0
@@ -652,10 +671,9 @@ class ClusterEngine:
 
     @property
     def metrics(self) -> dict:
-        """A snapshot of the engine's counters and gauges; under process
-        lanes with every lane process's counters added in."""
-        with self._metrics_lock:
-            own = dict(self._metrics)
+        """The flat view of the registry (``EngineTelemetry.legacy_dict``);
+        under process lanes with every lane process's counters added in."""
+        own = self.telemetry.legacy_dict()
         if self._proc is not None:
             return self._proc.merged_flat(own)
         return own
@@ -677,13 +695,55 @@ class ClusterEngine:
 
         return render_nonempty()
 
-    def _inc(self, name: str, v=1) -> None:
-        with self._metrics_lock:
-            self._metrics[name] = self._metrics.get(name, 0) + v
+    def trace_chrome(self) -> dict:
+        """The span ring as a Chrome trace-event document."""
+        return self.tracer.chrome_trace()
 
-    def _set(self, name: str, v) -> None:
-        with self._metrics_lock:
-            self._metrics[name] = v
+    def _inc(self, name: str, v=1) -> None:
+        self.telemetry.inc(name, v)
+
+    def _flight_dump_on_degrade(self, reason: str) -> None:
+        """Degradation edge hook (``Degradation.on_set``): save the
+        apiserver's flight recorder before its bounded ring overwrites
+        the requests that led into the degradation. Best effort, on a
+        daemon thread of its own; armed only with a dump directory and
+        an HTTP master."""
+        dir_ = (
+            self.config.flight_dir
+            or os.environ.get("KWOK_TPU_FLIGHT_DIR", "")
+        ).strip()
+        server = getattr(self.client, "server", "")
+        if not dir_ or not str(server).startswith("http"):
+            return
+
+        def _grab():
+            import urllib.request
+
+            try:
+                with urllib.request.urlopen(
+                    str(server) + "/debug/flight", timeout=3
+                ) as r:
+                    data = r.read()
+                os.makedirs(dir_, exist_ok=True)
+                path = os.path.join(
+                    dir_, f"flight-{reason}-{int(time.time() * 1000)}.json"
+                )
+                tmp = path + ".tmp"
+                with open(tmp, "wb") as f:
+                    f.write(data)
+                os.replace(tmp, path)
+                logger.warning(
+                    "degraded (%s): apiserver flight dump saved to %s",
+                    reason, path,
+                )
+            except Exception:
+                # the apiserver may BE the reason for the degradation: a
+                # failed grab is expected there, never an error
+                swallowed("engine.flight_dump")
+
+        threading.Thread(
+            target=_grab, name="kwok-flight-dump", daemon=True
+        ).start()
 
     # ------------------------------------------------------------------ time
 
@@ -755,6 +815,15 @@ class ClusterEngine:
         its startup gate."""
         self._running = True
         self._stop_evt.clear()
+        self._owns_tick = run_tick_loop and self._owns_device
+        # the sampling profiler from the CALLER's thread (usually main):
+        # its SIGTERM dump hook can only install there
+        profiling.maybe_start()
+        if (self.config.profile_dir and self._owns_tick
+                and self._proc is None):
+            self._profiler = profiling.TickProfiler(
+                self.config.profile_dir, self.device
+            )
         self._watchdog = Watchdog(
             budget=self.config.worker_restart_budget,
             window=self.config.worker_restart_window,
@@ -874,7 +943,7 @@ class ClusterEngine:
         self._startup_pending = None
         self._startup_lanes = {}
         dt = time.monotonic() - self._startup_t0
-        self._set("restart_recovery_seconds", dt)
+        self.telemetry.set_gauge("restart_recovery_seconds", dt)
         r = self._restore
         if r is not None and r.gate_ready:
             if r.remaining:
@@ -902,10 +971,8 @@ class ClusterEngine:
         with self._ckpt_lock:
             if self._restore is r:
                 self._restore = None
-        with self._metrics_lock:
-            self._metrics.update(
-                restore_refined_rows=s["refined"], restore_stale_rows=s["stale"],
-            )
+        self.telemetry.note("restore_refined_rows", s["refined"])
+        self.telemetry.note("restore_stale_rows", s["stale"])
         logger.info(
             "checkpoint restore closed: %d rows refined, %d stale dropped",
             s["refined"], s["stale"],
@@ -1090,9 +1157,30 @@ class ClusterEngine:
             # this drains the writer and joins it
             self._ckpt.stop()
         self._threads = []
+        # nothing still queued is ever ingested (watch events that raced
+        # the stop, the sentinel): drop it, so a later start() begins
+        # from an empty queue and the depth gauge reads 0
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self.telemetry.set_gauge("ingest_queue_depth", 0)
         dropped = self.metrics["dropped_jobs_total"]
         if dropped:
             logger.warning("%d patch jobs dropped during shutdown", dropped)
+        profiling.maybe_dump()
+        trace_path = self.config.trace_dump or os.environ.get(
+            "KWOK_TPU_TRACE", ""
+        )
+        if trace_path and self._owns_tick:
+            # at-stop dump (the live view is /debug/trace); a federation
+            # member's spans go into the federation's merged dump
+            try:
+                self.tracer.dump(trace_path)
+                logger.info("span trace written to %s", trace_path)
+            except Exception:
+                logger.exception("span trace dump failed")
 
     # a stream that lived this long before its 410 ends an expiry storm:
     # the next 410 re-lists at once again
@@ -1276,7 +1364,7 @@ class ClusterEngine:
                     if not self._running:
                         return
                     delay = max(backoff.next_delay() or 0.0, e.retry_after)
-                    self._inc("client_throttle_seconds_total", delay)
+                    self.telemetry.add_throttle(delay)
                     logger.warning("watch %s throttled (429); retrying in %.2fs",
                                    kind, delay)
                     backoff.sleep(delay, stopping)
@@ -1364,14 +1452,6 @@ class ClusterEngine:
     # cap on buffered raw lines per kind before a mid-drain flush: bounds
     # the batch parse's latency and memory, keeps the amortization
     _RAW_FLUSH_AT = 8192
-
-    def _observe_stage(self, stage: str, seconds: float) -> None:
-        """One observation of ``kwok_tick_stage_seconds{stage}`` on this
-        engine's registry (a federation member's is the federation's)."""
-        self.registry.histogram(
-            "kwok_tick_stage_seconds", _STAGE_HELP["kwok_tick_stage_seconds"],
-            ("stage",),
-        ).labels(stage=stage).observe(seconds)
 
     def _drain_apply(
         self, item, raw_buf: dict, route=None, route_shards: int = 0
@@ -1496,9 +1576,9 @@ class ClusterEngine:
                     logger.exception("batch parse failed; parsing line by line")
         if batch is None:
             self._drain_lines(kind, lines, gen, route)
-            self._observe_stage("parse", time.perf_counter() - t0)
+            self.telemetry.observe_stage("parse", time.perf_counter() - t0)
             return
-        self._observe_stage("parse", time.perf_counter() - t0)
+        self.telemetry.observe_stage("parse", time.perf_counter() - t0)
         if batch.partitioned:
             info = batch.route_info
             if info.first_error < 0 and not info.unrouteable:
@@ -1510,7 +1590,9 @@ class ClusterEngine:
                 if info.bookmarks:
                     self._inc("watch_bookmarks_total", info.bookmarks)
                 if info.routable:
-                    self._inc("watch_events_total", info.routable)
+                    self.telemetry.inc_kind(
+                        "watch_events_total", kind, info.routable
+                    )
                     if part_shards > 1:
                         lanes.route_batch(kind, batch)
                     else:
@@ -1554,7 +1636,7 @@ class ClusterEngine:
         if latest_rv:
             self._commit_rv(kind, gen, latest_rv)
         if n_rec:
-            self._inc("watch_events_total", n_rec)
+            self.telemetry.inc_kind("watch_events_total", kind, n_rec)
         if bookmarks:
             self._inc("watch_bookmarks_total", bookmarks)
 
@@ -1612,7 +1694,7 @@ class ClusterEngine:
         if latest_rv:
             self._commit_rv(kind, gen, latest_rv)
         if n_rec:
-            self._inc("watch_events_total", n_rec)
+            self.telemetry.inc_kind("watch_events_total", kind, n_rec)
 
     # ---------------------------------------------------------------- ingest
 
@@ -1621,7 +1703,7 @@ class ClusterEngine:
             # counted per batch by the flush
             self._ingest_record(kind, obj)
             return
-        self._inc("watch_events_total")
+        self.telemetry.inc_kind("watch_events_total", kind)
         self._apply(kind, type_, obj)
 
     def _apply(self, kind: str, type_: str, obj) -> None:
@@ -1871,6 +1953,17 @@ class ClusterEngine:
         def flush_cols() -> None:
             if not cols:
                 return
+            if self._trace_every:
+                # sampled ingest->patch spans at the per-record cadence,
+                # without a per-record counter bump
+                start = self._trace_n
+                ev = self._trace_every
+                self._trace_n = start + len(cols)
+                j = (ev - (start % ev)) - 1
+                t0 = time.perf_counter()
+                while j < len(cols):
+                    cols[j][2]["_trace_t0"] = t0
+                    j += ev
             rows = []
             staged = False
             stage_ecols = self._stage_pod_ecols if self._emit_cols else None
@@ -2152,6 +2245,11 @@ class ClusterEngine:
         for fp_key in ("fp_status_done", "fp_spec", "fp_meta_sel",
                        "fp_expect", "expect_phase"):
             m.pop(fp_key, None)
+        if self._trace_every:
+            self._trace_n += 1
+            if self._trace_n % self._trace_every == 0:
+                # sampled end-to-end trace: the patch ack closes the span
+                m["_trace_t0"] = time.perf_counter()
         pod_ip = status.get("podIP")
         if pod_ip:
             with self._alloc_lock:
@@ -2306,6 +2404,10 @@ class ClusterEngine:
             m.update(fields)
             m.pop("obj", None)  # the raw line supersedes any stale object
             m.pop("uid", None)
+        if self._trace_every:
+            self._trace_n += 1
+            if self._trace_n % self._trace_every == 0:
+                m["_trace_t0"] = time.perf_counter()
         if rec.pod_ip:
             with self._alloc_lock:
                 if self.ippool.contains(rec.pod_ip):
@@ -2397,6 +2499,8 @@ class ClusterEngine:
         interval = self.config.tick_interval
         depth = max(1, int(self.config.pipeline_depth))
         pending: "deque" = deque()
+        tel = self.telemetry
+        profiling.maybe_start()
         try:
             while self._running:
                 deadline = time.monotonic() + interval
@@ -2416,6 +2520,8 @@ class ClusterEngine:
                 got_event = False
                 raw_buf: dict = {}
                 drain_s = 0.0  # seconds applying items this window
+                drain_t0 = 0.0  # first drained item of the window
+                lag_max = 0.0  # slowest enqueue->processing delay
                 # drain ingest until the next tick is due; while ticks are
                 # in flight, wait in short slices so a wire landing
                 # mid-drain is consumed promptly
@@ -2444,6 +2550,10 @@ class ClusterEngine:
                         # ticked within one normal interval
                         deadline = min(deadline, time.monotonic() + interval)
                     t_item = time.perf_counter()
+                    if not drain_t0:
+                        drain_t0 = t_item
+                    if len(item) > 3:
+                        lag_max = max(lag_max, time.monotonic() - item[3])
                     self._drain_apply(item, raw_buf)
                     # keep draining whatever is immediately available
                     while True:
@@ -2464,7 +2574,16 @@ class ClusterEngine:
                     self._drain_flush(raw_buf)
                     drain_s += time.perf_counter() - t_item
                 if got_event:
-                    self._observe_stage("drain", drain_s)
+                    tel.observe_watch_lag(lag_max)
+                    tel.observe_stage("drain", drain_s)
+                    # one span per drain window: anchored at the first
+                    # drained item, lasting the active drain time
+                    tel.span(
+                        "tick.drain", drain_t0, drain_t0 + drain_s, "drain"
+                    )
+                else:
+                    tel.set_gauge("watch_lag_seconds", 0.0)
+                tel.set_gauge("tick_inflight", len(pending))
                 did_dispatch = False
                 try:
                     # consume every tick whose wire has landed; a full
@@ -2494,7 +2613,7 @@ class ClusterEngine:
                     # re-arm: staged work may already be on the device
                     # with no event left to trigger the gate
                     self._idle_wake = time.monotonic() + interval
-                self._set("ingest_queue_depth", self._q.qsize())
+                tel.set_gauge("ingest_queue_depth", self._q.qsize())
                 if self._startup_pending is not None or self._ckpt is not None:
                     # the startup gate, the restore refine and the
                     # checkpoint gathers (one attribute test per iteration
@@ -2505,15 +2624,25 @@ class ClusterEngine:
                         logger.exception("checkpoint service failed")
         finally:
             # stopping: flush in-flight ticks so patches already computed
-            # on the device are not dropped, then gather the final
-            # checkpoint on this thread
+            # on the device are not dropped, flush a profile the stop cut
+            # short (torch.profiler must stop on the thread that started
+            # it), then gather the final checkpoint on this thread
             while pending:
                 self._consume_safe(pending.popleft())
+            self._close_profiler()
             if self._ckpt is not None:
                 try:
                     self._ckpt.final(self._ckpt_snapshot(self._now()))
                 except Exception:
                     logger.exception("final checkpoint failed")
+
+    def _close_profiler(self) -> None:
+        """The tick thread's exit path: write a profile window still open."""
+        if self._profiler is not None:
+            try:
+                self._profiler.close(self.telemetry.ticks_total)
+            except Exception:
+                logger.exception("profiler trace flush failed")
 
     def _consume_safe(self, p: "_PendingTick") -> None:
         try:
@@ -2615,20 +2744,23 @@ class ClusterEngine:
             kinds[kind] = ckpt_mod.gather_rows(
                 kind, k.pool, k.phase_h, fire, hb, gen, staged, now
             )
-        self._set("checkpoint_snapshot_seconds_last", time.perf_counter() - t0)
+        self.telemetry.note(
+            "checkpoint_snapshot_seconds_last", time.perf_counter() - t0
+        )
         return {"kinds": kinds}
 
     def _ckpt_written(self, seconds: float, nbytes: int, armed: int,
                       idle: int) -> None:
-        """The checkpoint writer's report after each good write."""
-        self._inc("checkpoint_writes_total")
-        with self._metrics_lock:
-            self._metrics.update(
-                checkpoint_write_seconds_last=seconds,
-                checkpoint_bytes_last=nbytes,
-                checkpoint_rows_armed=armed,
-                checkpoint_rows_idle=idle,
-            )
+        """The checkpoint writer's report after each good write:
+        ``kwok_checkpoint_write_seconds`` and ``kwok_checkpoint_rows``,
+        plus the flat view's summary."""
+        tel = self.telemetry
+        tel.ckpt_write_hist.observe(seconds)
+        tel.ckpt_rows["armed"].set(armed)
+        tel.ckpt_rows["idle"].set(idle)
+        tel.note("checkpoint_writes_total", tel.ckpt_write_hist.count)
+        tel.note("checkpoint_write_seconds_last", seconds)
+        tel.note("checkpoint_bytes_last", nbytes)
 
     @staticmethod
     def _wire_ready(p) -> bool:
@@ -2647,6 +2779,8 @@ class ClusterEngine:
         """First half of a tick: flush staged ingest writes and dispatch the
         fused kernel. Returns a _PendingTick whose wire lands on the host
         asynchronously, or None when nothing is on the device."""
+        if self._profiler is not None:
+            self._profiler.step(self.telemetry.ticks_total)
         t0 = time.perf_counter()
         now = self._now()
         if now >= REBASE_AFTER:
@@ -2664,9 +2798,12 @@ class ClusterEngine:
                 work = True
             elif len(k.pool):
                 work = True
-        self._set("nodes_managed", len(self.nodes.pool))
-        self._set("pods_managed", len(self.pods.pool))
-        self._inc("ticks_total")
+        t_flush = time.perf_counter()
+        tel = self.telemetry
+        tel.set_gauge("nodes_managed", len(self.nodes.pool))
+        tel.set_gauge("pods_managed", len(self.pods.pool))
+        tel.inc("ticks_total")
+        tel.observe_stage("flush", t_flush - t0)
         if not work:
             self._idle_wake = None  # empty engine: sleep until events
             return None
@@ -2676,6 +2813,7 @@ class ClusterEngine:
         now_base = now - (fused.steps - 1) * fused.dt
         _outs, wire = fused((self.nodes.state, self.pods.state), now_base)
         t_end = time.perf_counter()
+        tel.span("tick.dispatch", t0, t_end, "dispatch")
         return _PendingTick(
             wire=wire,
             caps=[self.nodes.capacity, self.pods.capacity],
@@ -2693,11 +2831,13 @@ class ClusterEngine:
         counters, masks_fn, dues, rows_fn = unpack_wire(
             np.asarray(p.wire), p.caps, rows=True
         )
+        t_wire = time.perf_counter()
         nd = float(dues.min())
         self._idle_wake = (
             None if nd == float("inf")
             else p.mono + max(0.0, nd - p.now)
         )
+        emit_s = 0.0
         if counters.any():
             now_str = now_rfc3339()
             masks = masks_fn()
@@ -2708,7 +2848,7 @@ class ClusterEngine:
                 n_trans = int(counters[i])
                 n_hb = int(counters[2 + i])
                 if n_trans:
-                    self._inc("transitions_total", n_trans)
+                    self.telemetry.inc_kind("transitions_total", kind, n_trans)
                 if not (n_trans or n_hb):
                     continue
                 dirty, deleted, hb = masks[i]
@@ -2734,12 +2874,25 @@ class ClusterEngine:
                         # refresh ONLY the fired rows
                         k.phase_h[idxs] = ph[idxs]
                         k.cond_h[idxs] = cb[idxs]
+                _t = time.perf_counter()
                 self._emit(kind, k, dirty, deleted, hb, now_str)
+                _t1 = time.perf_counter()
+                emit_s += _t1 - _t
+                self.telemetry.span(
+                    "tick.emit", _t, _t1, "emit", {"kind": kind}
+                )
         # host seconds of this tick on the tick thread: dispatch, the wait
         # for the wire, unpack and emit (patches run on the executor)
         elapsed = time.perf_counter() - t0 + p.host_s
-        self._set("tick_seconds_last", elapsed)
-        self._inc("tick_seconds_total", elapsed)
+        tel = self.telemetry
+        tel.observe_tick(elapsed)
+        tel.observe_stage("kernel", t_wire - t0)
+        if emit_s:
+            tel.observe_stage("emit", emit_s)
+        tel.span(
+            "tick.consume", t0, time.perf_counter(), "consume",
+            {"wire_wait_us": round((t_wire - t0) * 1e6, 1)},
+        )
 
     # ------------------------------------------------------------------ emit
 
@@ -2797,7 +2950,7 @@ class ClusterEngine:
                     return
                 if throttled:
                     delay = max(delay, e.retry_after)
-                    self._inc("client_throttle_seconds_total", delay)
+                    self.telemetry.add_throttle(delay)
                 backoff.sleep(delay, lambda: not self._running)
 
     def _get_pump(self):
@@ -3111,7 +3264,7 @@ class ClusterEngine:
         fused = res is not None
         if not fused:
             res = codec.emit_pods(**kw)  # render only; the frames carry paths
-        bodies, fps, status, _need = res
+        bodies, fps, status, slab_bytes = res
         base = self._pump_base_b
         if fused and not (status == 0).any():
             self._pump_note_outcome(len(rows), status)
@@ -3136,6 +3289,8 @@ class ClusterEngine:
                 if m is not None:
                     m["fp_expect"] = fps_l[i]
                     m["expect_phase"] = phases[pids[i]]
+        self._inc("emit_native_total", len(rows))
+        self._inc("emit_slab_bytes_total", int(slab_bytes))
         self._pump_send_tail(status, rows, "pods", len(rows), t0)
 
     def _pump_send_frames(self, reqs):
@@ -3181,32 +3336,39 @@ class ClusterEngine:
         status = self._pump_send_frames(reqs)
         self._pump_send_tail(status, idxs, kind, len(reqs), t0)
 
-    def _pump_count(self, n: int, t0: float) -> None:
+    def _pump_count(self, n: int, t0: float, kind: str) -> None:
         """A pump batch of ``n`` requests sent since ``t0``: the
-        ``kwok_pump_send_seconds`` histogram and the flat counters."""
-        dt = time.perf_counter() - t0
-        self.registry.histogram(
-            "kwok_pump_send_seconds", _STAGE_HELP["kwok_pump_send_seconds"],
-        ).child.observe(dt)
-        self._inc("pump_requests_total", n)
-        self._inc("pump_send_seconds_sum", dt)
+        ``kwok_pump_send_seconds`` histogram, the request counter and a
+        ``pump.send`` span."""
+        t1 = time.perf_counter()
+        tel = self.telemetry
+        tel.pump_hist.observe(t1 - t0)
+        tel.inc("pump_requests_total", n)
+        tel.span("pump.send", t0, t1, "pump", {"kind": kind, "n": n})
 
     def _pump_send_tail(self, status, idxs, kind, n, t0) -> None:
-        """Counters, shedding and the per-object fallback of every pump
-        batch. A batch the down target never answered is shed (counted in
-        ``dropped_jobs_total``) instead of turning into thousands of
-        doomed per-object jobs; other failed rows take the Python path
-        (under ``_safe``: ``PATCH_RETRY`` and Retry-After). A 404 is a
-        deleted object, a no-op as on that path. (The reference's sampled
-        trace spans here wait for the tracer, ROADMAP item 15.)"""
-        self._pump_count(n, t0)
+        """Counters, spans, shedding and the per-object fallback of every
+        pump batch. A batch the down target never answered is shed
+        (counted in ``dropped_jobs_total``) instead of turning into
+        thousands of doomed per-object jobs; other failed rows take the
+        Python path (under ``_safe``: ``PATCH_RETRY`` and Retry-After). A
+        404 is a deleted object, a no-op as on that path. An acknowledged
+        pod whose ingest was sampled closes its ``pod.ingest_to_patch``
+        span here."""
+        self._pump_count(n, t0, kind)
         if n and (status == 0).all() and "pump" in self._degradation.reasons:
             self._inc("dropped_jobs_total", n)
             return
         ok = int(((status >= 200) & (status < 300)).sum())
         self._inc("heartbeats_total" if kind == "heartbeat" else "status_patches_total", ok)
+        now = time.perf_counter()
+        # only pay the per-ack meta lookup when sampling is on (ingest
+        # can only have stamped _trace_t0 then)
+        want_trace = self._trace_every and kind == "pods"
         for st, idx in zip(status.tolist(), idxs):
             if 200 <= st < 300 or st == 404:
+                if want_trace:
+                    self._close_ingest_span(idx, now)
                 continue
             if kind == "pods":
                 key = self.pods.pool.key_of(idx)
@@ -3244,7 +3406,9 @@ class ClusterEngine:
             self._submit(self._send_heartbeat_bytes, name, body)
 
     def _send_heartbeat_bytes(self, name: str, body) -> None:
+        _t = time.perf_counter()
         self.client.patch_status("nodes", None, name, body)
+        self.telemetry.observe_patch_rtt("heartbeat", time.perf_counter() - _t)
         self._inc("heartbeats_total")
 
     def _emit_deletes_native(self, k, del_rows) -> None:
@@ -3283,7 +3447,7 @@ class ClusterEngine:
                     retry.add(idx)
         else:
             status = self._pump.send(deletes)
-        self._pump_count(len(strips) + len(deletes), t0)
+        self._pump_count(len(strips) + len(deletes), t0, "delete")
         # 404: gone already; the per-object path counts every issued
         # delete, and so does the batch
         ok = int((((status >= 200) & (status < 300)) | (status == 404)).sum())
@@ -3305,13 +3469,17 @@ class ClusterEngine:
         )
         if not node_status_patch_needed(current, rendered):
             return
+        _t = time.perf_counter()
         self.client.patch_status("nodes", None, name, {"status": rendered})
+        self.telemetry.observe_patch_rtt("node_status", time.perf_counter() - _t)
         self._inc("status_patches_total")
 
     def _heartbeat_node(self, name: str, idx: int, now_str: str) -> None:
         k = self.nodes
         rendered = render_node_heartbeat(int(k.cond_h[idx]), now_str, self.start_time)
+        _t = time.perf_counter()
         self.client.patch_status("nodes", None, name, {"status": rendered})
+        self.telemetry.observe_patch_rtt("heartbeat", time.perf_counter() - _t)
         self._inc("heartbeats_total")
 
     def _render_pod_pre(self, idx: int):
@@ -3352,11 +3520,28 @@ class ClusterEngine:
             self.config.node_ip, ip,
         )
 
+    def _close_ingest_span(self, idx: int, now: float) -> None:
+        """Close a sampled pod's ``pod.ingest_to_patch`` span at its
+        patch acknowledgement; its (key, rv) args tie it to the
+        apiserver's flight record of the same object."""
+        m = self.pods.pool.meta[idx]
+        t0e = m.pop("_trace_t0", None) if m else None
+        if t0e is not None:
+            key = self.pods.pool.key_of(idx)
+            self.telemetry.span(
+                "pod.ingest_to_patch", t0e, now, "event",
+                {"key": f"{key[0]}/{key[1]}" if key else "",
+                 "rv": m.get("rv")},
+            )
+
     def _patch_pod_status(self, key, idx: int) -> None:
         k = self.pods
         m = k.pool.meta[idx]
         if not m:
             return
+        # take a sampled ingest stamp up front: a suppressed patch must
+        # not leave it for a later, unrelated patch to close
+        t0e = m.pop("_trace_t0", None) if self._trace_every else None
         rendered = self._render_pod(idx)
         if rendered is None:
             return
@@ -3364,7 +3549,15 @@ class ClusterEngine:
         if not pod_status_patch_needed(current, rendered):
             return
         ns, name = key
+        _t = time.perf_counter()
         self.client.patch_status("pods", ns, name, {"status": rendered})
+        _t1 = time.perf_counter()
+        self.telemetry.observe_patch_rtt("pod_status", _t1 - _t)
+        if t0e is not None:  # the sampled ingest->patch span
+            self.telemetry.span(
+                "pod.ingest_to_patch", t0e, _t1, "event",
+                {"key": f"{ns}/{name}", "rv": m.get("rv")},
+            )
         self._inc("status_patches_total")
 
     def _delete_pod(self, key, idx: int) -> None:
@@ -3374,5 +3567,7 @@ class ClusterEngine:
         m = self.pods.pool.meta[idx]
         if m and m.get("finalizers"):
             self.client.patch_meta("pods", ns, name, {"metadata": {"finalizers": None}})
+        _t = time.perf_counter()
         self.client.delete("pods", ns, name, grace_seconds=0)
+        self.telemetry.observe_patch_rtt("pod_delete", time.perf_counter() - _t)
         self._inc("deletes_total")

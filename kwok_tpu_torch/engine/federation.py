@@ -25,16 +25,28 @@ The JAX package shards each group's stacked state over the device mesh;
 here it lives whole on one card (``n_devices = 1`` in the padding, until
 the multi-card row split of ROADMAP item 9b). Rows are independent and
 the counters are summed per member on the host, so the semantics are the
-same. Member watch-thread restarts under the watchdog (item 13) and the
-merged span trace (item 15) are not here.
+same. Member watch-thread restarts under the watchdog (item 13) are not
+here.
+
+Telemetry: every member writes a ``shard="<i>"``-labeled slice of ONE
+registry (``EngineTelemetry(registry, shard)``), so ``/metrics`` has
+per-shard series of every engine family beside the group dispatch
+counters and the ``kwok_fed_*`` aggregates. The federated loop records
+its dispatch, emit and consume spans in a tracer of its own; the
+members' pump and patch spans land in theirs, and ``trace_chrome()``
+merges them all under the labels ``federation`` and ``shard<i>`` (also
+the document ``trace_dump`` writes at stop). ``profile_dir`` profiles
+the federated loop's ticks [2, 102).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import logging
 import math
+import os
 import queue
 import threading
 import time
@@ -43,6 +55,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from kwok_tpu_torch import profiling
 from kwok_tpu_torch.edge.kubeclient import KubeClient
 from kwok_tpu_torch.edge.render import now_rfc3339
 from kwok_tpu_torch.engine.engine import ClusterEngine, EngineConfig, _warm_scatter
@@ -57,8 +70,9 @@ from kwok_tpu_torch.ops.tick import (
 )
 from kwok_tpu_torch.ops.updates import refine_flush
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
-from kwok_tpu_torch.resilience.policy import Degradation
+from kwok_tpu_torch.telemetry.engine_metrics import EngineTelemetry
 from kwok_tpu_torch.telemetry.registry import MetricsRegistry
+from kwok_tpu_torch.telemetry.trace import Tracer, merge_chrome_traces
 from kwok_tpu_torch.workers import spawn_worker
 
 logger = logging.getLogger("kwok_tpu_torch.federation")
@@ -73,8 +87,9 @@ _N_DEVICES = 1
 # ``metrics`` un-sums them (emit and drain work is per member and stays
 # summed).
 _SHARED_TICK_VALUES = (
-    "ticks_total", "tick_seconds_total", "tick_seconds_last",
-    "epoch_rebases_total",
+    "ticks_total", "tick_seconds_sum", "tick_seconds_last",
+    "epoch_rebases_total", "tick_flush_seconds_sum",
+    "tick_kernel_seconds_sum",
 )
 
 
@@ -109,16 +124,18 @@ def _table_bytes(tab) -> bytes:
 class _MemberEngine(ClusterEngine):
     """A ClusterEngine serving as federation member ``index``: no stream
     and no device rows of its own (its rows are a slice of its group's
-    stacked state), the federation's registry for its degraded-mode
-    ledger, and a member identity for its checkpoint file and threads."""
+    stacked state), its ``shard="<index>"`` slice of the federation's
+    registry (its degraded-mode ledger included), and a member identity
+    for its checkpoint file and threads."""
 
     _owns_device = False
 
     def __init__(self, client: KubeClient, config: EngineConfig, index: int,
                  registry: MetricsRegistry) -> None:
-        super().__init__(client, config)
-        self.registry = registry
-        self._degradation = Degradation(registry)
+        super().__init__(client, config, telemetry=EngineTelemetry(
+            registry=registry, shard=str(index),
+        ))
+        self._member_index = index
         self._ckpt_name = f"member{index}"
         self._worker_suffix = f"-m{index}"
 
@@ -155,6 +172,7 @@ class _FedPending:
     now: float  # engine time of the dispatch
     mono: float  # monotonic clock at dispatch (idle-wake anchor)
     host_s: float  # host seconds of this group's flush and launch
+    flush_s: float  # host seconds of this group's staged-write flush
 
 
 class _Group:
@@ -228,10 +246,13 @@ class FederatedEngine:
             *(int(c.initial_capacity) for c in cfgs),
         )
         self.config = config
-        # ONE registry for the whole federation: the group dispatch
-        # counters, the kwok_fed_* gauges and every member's degraded-mode
-        # ledger
+        # ONE registry for the whole federation: every member's
+        # shard-labeled families, the group dispatch counters, the
+        # kwok_fed_* gauges and every member's degraded-mode ledger. The
+        # federated loop records its spans in a tracer of its own
         self.registry = MetricsRegistry()
+        self.tracer = Tracer()
+        self._profiler: "profiling.TickProfiler | None" = None
         # members are single-lane (drain_shards=1): the federated loop
         # drives their ingest queues and emit paths directly. Every member
         # runs on the federation's device.
@@ -348,6 +369,11 @@ class FederatedEngine:
         thread. ``ready`` flips on that thread once every member's startup
         gate (first full re-list, checkpoint reconcile) has closed."""
         self._running = True
+        profiling.maybe_start()
+        if self.config.profile_dir:
+            self._profiler = profiling.TickProfiler(
+                self.config.profile_dir, self.device
+            )
         with self._device_ctx():
             self._warm_scatters()
             self._warm_ticks()
@@ -398,6 +424,17 @@ class FederatedEngine:
             self._thread.join(timeout=60)
         for e in self.engines:
             e.stop()
+        trace_path = self.config.trace_dump or os.environ.get(
+            "KWOK_TPU_TRACE", ""
+        )
+        if trace_path:
+            # members write no dump of their own: ONE merged document
+            try:
+                with open(trace_path, "w") as f:
+                    json.dump(self.trace_chrome(), f)
+                logger.info("federated span trace written to %s", trace_path)
+            except Exception:
+                logger.exception("federated span trace dump failed")
 
     # ------------------------------------------------------------- tick loop
 
@@ -414,6 +451,7 @@ class FederatedEngine:
         interval = self.config.tick_interval
         depth = max(1, int(self.config.pipeline_depth))
         pending: "deque[_FedPending]" = deque()
+        profiling.maybe_start()
         try:
             while self._running:
                 deadline = time.monotonic() + interval
@@ -469,6 +507,12 @@ class FederatedEngine:
                     self._consume_one(pending)
                 except Exception:
                     logger.exception("final federated consume failed")
+            if self._profiler is not None:
+                # torch.profiler stops on the thread that started it
+                try:
+                    self._profiler.close(self.engines[0].telemetry.ticks_total)
+                except Exception:
+                    logger.exception("profiler trace flush failed")
             for g in self.groups:
                 for c, e in enumerate(g.engines):
                     if e._ckpt is not None:
@@ -492,6 +536,7 @@ class FederatedEngine:
         ``_drain_apply`` into a raw-line buffer of its own, flushed (one
         batched native parse per member and kind) when the drain ends."""
         lag: dict[int, float] = {}
+        drain: dict[int, float] = {}  # seconds each member spent applying
         bufs: dict[int, dict] = {}
         interval = self.config.tick_interval
         idle_sleep = 0.002
@@ -513,7 +558,9 @@ class FederatedEngine:
                         drained_any = True
                         if len(item) > 3:
                             lag[i] = max(lag.get(i, 0.0), time.monotonic() - item[3])
+                        _t = time.perf_counter()
                         e._drain_apply(item, bufs.setdefault(i, {}))
+                        drain[i] = drain.get(i, 0.0) + (time.perf_counter() - _t)
                 if drained_any:
                     idle_sleep = 0.002
                     if not got_event:
@@ -532,12 +579,21 @@ class FederatedEngine:
         finally:
             for i, buf in bufs.items():
                 if buf:
+                    _t = time.perf_counter()
                     self.engines[i]._drain_flush(buf)
+                    drain[i] = drain.get(i, 0.0) + (time.perf_counter() - _t)
             # each member's own slowest enqueue->processing delay this
-            # tick (0 on a quiet one) and queue depth
+            # tick (0 on a quiet one), queue depth and drain seconds, on
+            # its own shard-labeled children
             for i, e in enumerate(self.engines):
-                e._set("watch_lag_seconds", lag.get(i, 0.0))
-                e._set("ingest_queue_depth", e._q.qsize())
+                tel = e.telemetry
+                if i in lag:
+                    tel.observe_watch_lag(lag[i])
+                else:
+                    tel.set_gauge("watch_lag_seconds", 0.0)
+                tel.set_gauge("ingest_queue_depth", e._q.qsize())
+                if drain.get(i):
+                    tel.observe_stage("drain", drain[i])
         return got_event
 
     # --------------------------------------- crash-durable restarts (ckpt)
@@ -613,7 +669,9 @@ class FederatedEngine:
                 kind, k.pool, k.phase_h, fire, hb, gen, staged, now,
                 offset=c * g.r,
             )
-        e._set("checkpoint_snapshot_seconds_last", time.perf_counter() - t0)
+        e.telemetry.note(
+            "checkpoint_snapshot_seconds_last", time.perf_counter() - t0
+        )
         return {"kinds": kinds}
 
     # ------------------------------------------------------------------ tick
@@ -631,6 +689,9 @@ class FederatedEngine:
     def _tick_dispatch_all(self, pending) -> None:
         """Dispatch one tick of every group, appending _FedPending records
         whose wires land on the host asynchronously."""
+        if self._profiler is not None:
+            self._profiler.step(self.engines[0].telemetry.ticks_total)
+        t0 = time.perf_counter()
         self._maybe_regrow()
         now = time.time() - self._epoch
         if now >= REBASE_AFTER:
@@ -646,11 +707,13 @@ class FederatedEngine:
             logger.info("federated epoch rebase at engine time %.1fs", now)
             now = 0.0
         any_dispatch = False
+        flush_s = 0.0
         for g in self.groups:
             p = self._tick_group_dispatch(g, now)
             if p is not None:
                 pending.append(p)
                 any_dispatch = True
+                flush_s += p.flush_s
             else:
                 # empty group: clear its wake so a stale deadline cannot
                 # keep the gate firing (its in-flight wires, if any, still
@@ -659,10 +722,14 @@ class FederatedEngine:
         if not any_dispatch:
             wakes = [g.wake for g in self.groups if g.wake is not None]
             self._idle_wake = min(wakes) if wakes else None
+        else:
+            self.tracer.span("tick.dispatch", t0, time.perf_counter(), "dispatch")
         for e in self.engines:
-            e._inc("ticks_total")
-            e._set("nodes_managed", len(e.nodes.pool))
-            e._set("pods_managed", len(e.pods.pool))
+            tel = e.telemetry
+            tel.inc("ticks_total")
+            tel.observe_stage("flush", flush_s)
+            tel.set_gauge("nodes_managed", len(e.nodes.pool))
+            tel.set_gauge("pods_managed", len(e.pods.pool))
 
     def _tick_group_dispatch(self, g: _Group, now: float) -> "_FedPending | None":
         """Flush members' staged writes into the group's stacked state and
@@ -681,6 +748,7 @@ class FederatedEngine:
                 elif len(k.pool):
                     any_rows = True
             g.stacked[kind] = state
+        t_flush = time.perf_counter()
         if not any_rows:
             return None  # empty group: nothing on device
         # with substeps, anchor the LAST substep at wall-now
@@ -696,6 +764,7 @@ class FederatedEngine:
             now=now,
             mono=time.monotonic(),
             host_s=time.perf_counter() - t0,
+            flush_s=t_flush - t0,
         )
 
     def _consume_one(self, pending) -> None:
@@ -708,6 +777,7 @@ class FederatedEngine:
         counters, masks_fn, dues, rows_fn = unpack_wire(
             np.asarray(p.wire), [p.cap, p.cap], rows=True
         )
+        t_wire = time.perf_counter()
         nd = float(dues.min())
         # per-group wake, newest consume wins (the single engine's
         # overwrite semantics, per group); the loop's gate reads the min
@@ -742,7 +812,7 @@ class FederatedEngine:
                         hb_c[stale] = False
                     trans_c = int(np.count_nonzero(d_c) + np.count_nonzero(del_c))
                     if trans_c:
-                        e._inc("transitions_total", trans_c)
+                        e.telemetry.inc_kind("transitions_total", kind, trans_c)
                         idxs = np.nonzero(d_c | del_c)[0]
                         if rows is None:
                             rows = rows_fn()
@@ -752,7 +822,14 @@ class FederatedEngine:
                         k.phase_h[idxs] = ph[lo:hi][idxs]
                         k.cond_h[idxs] = cb[lo:hi][idxs]
                     if trans_c or hb_c.any():
+                        _t = time.perf_counter()
                         e._emit(kind, k, d_c, del_c, hb_c, now_str)
+                        _t1 = time.perf_counter()
+                        e.telemetry.observe_stage("emit", _t1 - _t)
+                        self.tracer.span(
+                            "tick.emit", _t, _t1, "emit",
+                            {"kind": kind, "shard": e._member_index},
+                        )
         # prune each member's release log against its oldest still-in-
         # flight dispatch (members belong to exactly one group)
         next_p = next((q for q in pending if q.group is g), None)
@@ -761,10 +838,16 @@ class FederatedEngine:
         # host seconds of this group's tick on the federated thread:
         # flush and launch, the wait for the wire, unpack and emit. Every
         # member records it (a shared-tick value, un-summed in metrics)
-        elapsed = time.perf_counter() - t0 + p.host_s
+        t_end = time.perf_counter()
+        elapsed = t_end - t0 + p.host_s
+        self.tracer.span(
+            "tick.consume", t0, t_end, "consume",
+            {"wire_wait_us": round((t_wire - t0) * 1e6, 1)},
+        )
         for e in self.engines:
-            e._set("tick_seconds_last", elapsed)
-            e._inc("tick_seconds_total", elapsed)
+            tel = e.telemetry
+            tel.observe_tick(elapsed)
+            tel.observe_stage("kernel", t_wire - t0)
 
     # ------------------------------------------------------------------ grow
 
@@ -794,18 +877,13 @@ class FederatedEngine:
     # --------------------------------------------------------------- metrics
 
     @property
-    def shard_metrics(self) -> list[dict]:
-        """Every member's flat counters, in member order: ``/metrics``
-        renders them once per member under ``shard="<i>"``."""
-        return [e.metrics for e in self.engines]
-
-    @property
     def metrics(self) -> dict:
-        """Aggregated counters across members (gauges are summed too:
+        """Aggregated flat counters across members (gauges are summed too:
         nodes/pods managed are totals across the federation), plus one
-        ``group<i>_dispatches_total`` per rule-set group."""
+        ``group<i>_dispatches_total`` per rule-set group. The per-shard
+        series are the registry's."""
         agg: dict = {}
-        for m in self.shard_metrics:
+        for m in (e.metrics for e in self.engines):
             for name, v in m.items():
                 if name == "watch_lag_seconds":
                     # worst-case lag, not a sum over members
@@ -825,12 +903,21 @@ class FederatedEngine:
         """The shared registry's exposition (group dispatch counters,
         ``kwok_degraded``, the ``kwok_fed_*`` aggregates, refreshed here
         so a scrape sees one consistent view)."""
-        flats = self.shard_metrics
+        flats = [e.telemetry.legacy_dict() for e in self.engines]
         self._agg_lag.set(max(m.get("watch_lag_seconds", 0.0) for m in flats))
         self._agg_depth.set(sum(m.get("ingest_queue_depth", 0) for m in flats))
         self._agg_nodes.set(sum(m.get("nodes_managed", 0) for m in flats))
         self._agg_pods.set(sum(m.get("pods_managed", 0) for m in flats))
         return self.registry.render()
+
+    def trace_chrome(self) -> dict:
+        """One Chrome trace-event document: the federated loop's spans
+        and every member's (pump, patch and ingest spans land
+        member-side), under the labels ``federation`` and ``shard<i>``."""
+        return merge_chrome_traces(
+            [self.tracer] + [e.tracer for e in self.engines],
+            labels=["federation"] + [f"shard{i}" for i in range(len(self.engines))],
+        )
 
     def process_metrics_text(self) -> str:
         """The process-wide error counters (``telemetry/errors.py``)."""

@@ -28,7 +28,8 @@ consume order, so per-object patch order is exactly the single-lane
 engine's (the oracle in tests/test_torch_lanes.py holds it against
 kwok_tpu). Cross-lane state is shared: the IP pool under the engine's
 ``_alloc_lock``, ``node_has``/``pods_by_node`` (single-op mutations), the
-counters dict and its lock; a node's managed-ness flip reaches OTHER
+engine's ``EngineTelemetry`` (one registry and span ring; each lane's
+``LaneTelemetry`` adds the ``kwok_lane_*`` families); a node's managed-ness flip reaches OTHER
 lanes' pods as routed ``XUPD`` items through their own queues.
 
 Each lane is a ``ClusterEngine`` without threads, device state or stream
@@ -70,8 +71,8 @@ from kwok_tpu_torch.ops.tick import (
     unpack_wire,
 )
 from kwok_tpu_torch.ops.updates import UpdateBuffer, refine_flush
+from kwok_tpu_torch import profiling
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
-from kwok_tpu_torch.telemetry.lanes import _HELP, LaneTelemetry
 from kwok_tpu_torch.telemetry.errors import swallowed
 from kwok_tpu_torch.workers import spawn_worker
 
@@ -110,21 +111,19 @@ class _LaneEngine(ClusterEngine):
 
     def __init__(self, lane_set: "LaneSet", index: int, config) -> None:
         parent = lane_set.parent
-        super().__init__(parent.client, config)
+        # ONE telemetry (so /metrics counts every lane's patches and the
+        # lanes' spans land in the parent's ring)
+        super().__init__(parent.client, config, telemetry=parent.telemetry)
         self._lane_set = lane_set
         self._lane_index = index
         # shared cross-lane state: one IP pool and allocation lock, one
-        # topology view, one clock, ONE counters dict (so /metrics counts
-        # every lane's patches), one registry and degraded-mode ledger
+        # topology view, one clock, one degraded-mode ledger
         self.ippool = parent.ippool
         self._alloc_lock = parent._alloc_lock
         self.node_has = parent.node_has
         self.pods_by_node = parent.pods_by_node
         self._epoch = parent._epoch
         self.start_time = parent.start_time
-        self._metrics = parent._metrics
-        self._metrics_lock = parent._metrics_lock
-        self.registry = parent.registry
         self._degradation = parent._degradation
         self._stop_evt = parent._stop_evt
         # ONE compiled template table per engine (the lanes' rules are
@@ -161,6 +160,8 @@ class ShardLane:
             drain_shards=1,  # lanes never recurse
             initial_capacity=capacity,
             checkpoint_dir="off",  # ONE checkpoint, the parent's stacked
+            profile_dir="",  # the coordinator's tick thread profiles
+            trace_dump="",  # one dump, the parent's
         )
         self.engine = _LaneEngine(lane_set, index, cfg)
         self.q: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -171,7 +172,7 @@ class ShardLane:
         # held by the drain worker while applying, by the coordinator while
         # swapping buffers / growing, by the emit worker while it emits
         self.stage_lock = threading.RLock()
-        self.telemetry = LaneTelemetry(parent.registry, index)
+        self.telemetry = parent.telemetry.lane(str(index))
         # the router sheds into kwok_dropped_jobs_total while this queue
         # is deeper than this (0 = never); the drain worker clears the
         # flag once the backlog halves
@@ -374,7 +375,11 @@ class ShardLane:
                 k.cond_h[idxs] = cb[idxs]
             if idxs.size or hb.any():
                 e._emit(kind, k, dirty, deleted, hb, now_str)
-        self.telemetry.observe_stage("emit", time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self.telemetry.observe_stage("emit", t1 - t0)
+        e.telemetry.span(
+            "tick.emit", t0, t1, "emit", {"kind": kind, "shard": self.index}
+        )
 
 
 class LaneSet:
@@ -395,9 +400,6 @@ class LaneSet:
         # bumped by the router per routed event; the tick loop's
         # got-an-event gate (plain int: one writer)
         self.events_routed = 0
-        self._route_batch_hist = parent.registry.histogram(
-            "kwok_route_batch_seconds", _HELP["kwok_route_batch_seconds"],
-        ).child
 
     # ------------------------------------------------------------ lifecycle
 
@@ -494,17 +496,17 @@ class LaneSet:
                     self._route_item(item, raw_buf)
                 if raw_buf:
                     parent._drain_flush(raw_buf, self.route, self.n)
-                parent._set("ingest_queue_depth", q.qsize())
+                parent.telemetry.set_gauge("ingest_queue_depth", q.qsize())
                 if not parent._running:
                     return
         finally:
-            # straggler lines, the gauge as the router leaves the queue,
-            # then let every lane drain worker exit
+            # straggler lines, then let every lane drain worker exit (the
+            # depth gauge keeps the last window's reading, as in kwok_tpu:
+            # what reaches the queue after stop is never ingested)
             try:
                 if raw_buf:
                     parent._drain_flush(raw_buf, self.route, self.n)
             finally:
-                parent._set("ingest_queue_depth", q.qsize())
                 for lane in self.lanes:
                     lane.q.put(None)
 
@@ -512,7 +514,7 @@ class LaneSet:
         """One parent-queue item into the drain: raw lines are counted by
         the flush that parses them, every other event here."""
         if item[1] not in ("RAW", "RAWB", "GEN"):
-            self.parent._inc("watch_events_total")
+            self.parent.telemetry.inc_kind("watch_events_total", item[0])
         self.parent._drain_apply(item, raw_buf, self.route, self.n)
 
     def route(self, kind: str, type_: str, obj) -> None:
@@ -551,7 +553,7 @@ class LaneSet:
             lane.telemetry.inc_routed(count)
             routed += count
         self.events_routed += routed
-        self._route_batch_hist.observe(time.perf_counter() - t0)
+        self.parent.telemetry.observe_route_batch(time.perf_counter() - t0)
 
     def _shed(self, lane: ShardLane, n: int) -> None:
         """Graceful degradation: a lane whose queue is past the configured
@@ -636,6 +638,7 @@ class LaneSet:
         depth = max(1, int(parent.config.pipeline_depth))
         pending: "deque[_LanePending]" = deque()
         seen_events = 0
+        profiling.maybe_start()
         try:
             while parent._running:
                 deadline = time.monotonic() + interval
@@ -713,6 +716,7 @@ class LaneSet:
                     logger.exception("final lane consume failed")
             for lane in self.lanes:
                 lane.emit_q.put(None)
+            parent._close_profiler()
             if parent._ckpt is not None:
                 try:
                     parent._ckpt.final(self._ckpt_snapshot(parent._now()))
@@ -805,7 +809,7 @@ class LaneSet:
                         offset=li * self.r,
                     ))
             kinds[kind] = ents
-        self.parent._set(
+        self.parent.telemetry.note(
             "checkpoint_snapshot_seconds_last", time.perf_counter() - t0
         )
         return {"kinds": kinds}
@@ -817,6 +821,8 @@ class LaneSet:
         launch the fused kernel (the single-lane _tick_dispatch, minus
         drain and emit)."""
         parent = self.parent
+        if parent._profiler is not None:
+            parent._profiler.step(parent.telemetry.ticks_total)
         t0 = time.perf_counter()
         self._ensure_stacked()  # synchronous use without start()
         now = parent._now()
@@ -851,9 +857,12 @@ class LaneSet:
         r = self.r
         for li, kind, buf in swapped:
             self.stacked[kind] = buf.flush(self.stacked[kind], offset=li * r, rows=r)
-        parent._set("nodes_managed", sum(len(ln.engine.nodes.pool) for ln in self.lanes))
-        parent._set("pods_managed", sum(len(ln.engine.pods.pool) for ln in self.lanes))
-        parent._inc("ticks_total")
+        t_flush = time.perf_counter()
+        tel = parent.telemetry
+        tel.set_gauge("nodes_managed", sum(len(ln.engine.nodes.pool) for ln in self.lanes))
+        tel.set_gauge("pods_managed", sum(len(ln.engine.pods.pool) for ln in self.lanes))
+        tel.inc("ticks_total")
+        tel.observe_stage("flush", t_flush - t0)
         if not any_rows:
             parent._idle_wake = None  # empty engine: sleep until events
             return None
@@ -861,6 +870,7 @@ class LaneSet:
         now_base = now - (fused.steps - 1) * fused.dt
         _outs, wire = fused((self.stacked["nodes"], self.stacked["pods"]), now_base)
         t_end = time.perf_counter()
+        tel.span("tick.dispatch", t0, t_end, "dispatch")
         return _LanePending(
             wire=wire,
             r=r,
@@ -880,14 +890,18 @@ class LaneSet:
         counters, masks_fn, dues, rows_fn = unpack_wire(
             np.asarray(p.wire), [p.cap, p.cap], rows=True
         )
+        t_wire = time.perf_counter()
         nd = float(dues.min())
         parent._idle_wake = (
             None if nd == float("inf") else p.mono + max(0.0, nd - p.now)
         )
         if counters.any():
             n_trans = int(counters[0]) + int(counters[1])
-            if n_trans:
-                parent._inc("transitions_total", n_trans)
+            for ki, kind in enumerate(_KINDS):
+                if counters[ki]:
+                    parent.telemetry.inc_kind(
+                        "transitions_total", kind, int(counters[ki])
+                    )
             now_str = now_rfc3339()
             masks = masks_fn()
             rows = rows_fn() if n_trans else None
@@ -914,9 +928,14 @@ class LaneSet:
                 lane.emit_q.put(("__prune__", nxt))
         # host seconds of this tick on the coordinator: dispatch, the wait
         # for the wire, unpack and handoff (emit runs on the lane workers)
-        elapsed = time.perf_counter() - t0 + p.host_s
-        parent._set("tick_seconds_last", elapsed)
-        parent._inc("tick_seconds_total", elapsed)
+        t_end = time.perf_counter()
+        tel = parent.telemetry
+        tel.observe_tick(t_end - t0 + p.host_s)
+        tel.observe_stage("kernel", t_wire - t0)
+        tel.span(
+            "tick.consume", t0, t_end, "consume",
+            {"wire_wait_us": round((t_wire - t0) * 1e6, 1)},
+        )
 
     # ------------------------------------------------------------------ grow
 

@@ -65,7 +65,7 @@ import numpy as np
 from kwok_tpu_torch import native
 from kwok_tpu_torch.engine import shm as shm_mod
 from kwok_tpu_torch.engine.rowpool import shard_of
-from kwok_tpu_torch.telemetry.lanes import _HELP as _LANE_HELP
+from kwok_tpu_torch.telemetry.engine_metrics import _HELP as _ENGINE_HELP
 from kwok_tpu_torch.telemetry.errors import (
     PROCESS_REGISTRY,
     swallowed,
@@ -105,8 +105,7 @@ _PARENT_FLAT = frozenset({
 # flat gauges of the live lanes that add up (every other lane gauge is
 # merged as the worst lane's value)
 _SUM_FLAT_GAUGES = frozenset({
-    "checkpoint_bytes_last", "checkpoint_rows_armed", "checkpoint_rows_idle",
-    "restore_refined_rows", "restore_stale_rows",
+    "checkpoint_bytes_last", "restore_refined_rows", "restore_stale_rows",
 })
 
 
@@ -441,11 +440,6 @@ def make_proc_lane_engine_class():
             self._drain_apply((kind, type_, obj, time.monotonic()), raw_buf)
             self._drain_flush(raw_buf)
 
-        def _tick_consume(self, p) -> None:
-            t0 = time.perf_counter()
-            super()._tick_consume(p)
-            self._observe_stage("emit", time.perf_counter() - t0)
-
     return _ProcLaneEngine
 
 
@@ -465,18 +459,17 @@ def _make_lane_engine(spec: dict):
         drain_shards=1,  # the child IS one lane
         initial_capacity=spec["capacity"],
         shed_queue_depth=0,  # shedding is the parent router's concern
+        # the child owns its tick thread: its own profile window and its
+        # own span-ring dump (<parent dump>.lane<i>, written by stop() on
+        # STOP or SIGTERM)
+        profile_dir=spec["profile_dir"],
+        trace_dump=spec["trace_dump"],
     )
     e = cls(HttpKubeClient(**spec["client"]), cfg)
     e._lane_index = index
     e._lane_n = n
     e._proc_integ = {"nodes": 0, "pods": 0, "rewind": 0}
     e._ckpt_name = f"lane{index}"
-    # the lane's stage series exist from its first metrics snapshot
-    fam = e.registry.histogram(
-        "kwok_tick_stage_seconds", _LANE_HELP["kwok_tick_stage_seconds"], ("stage",)
-    )
-    for stage in ("parse", "drain", "emit"):
-        fam.labels(stage=stage)
     # disjoint per-lane sub-ranges of the pod CIDR: no cross-process
     # allocator lock, and a respawn re-derives the same range (IPs pinned
     # by re-listed pods still ride IPPool.use)
@@ -732,12 +725,9 @@ class ProcLaneSet:
         # it owns the per-lane routed-event counter of the threaded lanes
         routed = r.counter(
             "kwok_route_partition_events_total",
-            _LANE_HELP["kwok_route_partition_events_total"], ("shard",),
+            _ENGINE_HELP["kwok_route_partition_events_total"], ("shard",),
         )
         self._m_routed = [routed.labels(shard=str(i)) for i in range(self.n)]
-        self._m_route_batch = r.histogram(
-            "kwok_route_batch_seconds", _LANE_HELP["kwok_route_batch_seconds"],
-        ).child
 
     # ------------------------------------------------------------ lifecycle
 
@@ -803,7 +793,15 @@ class ProcLaneSet:
         return self.n * (per_lane + shm_mod.BANK_FIELDS * 8) + 64
 
     def _lane_spec(self, lane: ProcLane) -> dict:
+        cfg = self.parent.config
+        trace_base = cfg.trace_dump or os.environ.get("KWOK_TPU_TRACE", "")
         return {
+            # distinct per-lane files: parent and children each own one
+            "trace_dump": f"{trace_base}.lane{lane.index}" if trace_base else "",
+            "profile_dir": (
+                os.path.join(cfg.profile_dir, f"lane{lane.index}")
+                if cfg.profile_dir else ""
+            ),
             "index": lane.index,
             "n": self.n,
             "client": self.parent.client.connection_args,
@@ -946,7 +944,7 @@ class ProcLaneSet:
         """One parent-queue item into the drain: raw lines are counted by
         the flush that parses them, other events (re-lists aside) here."""
         if item[1] not in ("RESYNC", "RAW", "RAWB", "GEN"):
-            self.parent._inc("watch_events_total")
+            self.parent.telemetry.inc_kind("watch_events_total", item[0])
         self.parent._drain_apply(item, raw_buf, self.route, self.n)
 
     def route(self, kind: str, type_: str, obj) -> None:
@@ -1029,7 +1027,7 @@ class ProcLaneSet:
                 self._flush_buf(lane, kind)
                 self._ship(lane, kind, parts)
                 self._m_routed[li].inc(len(parts))
-        self._m_route_batch.observe(time.perf_counter() - t0)
+        self.parent.telemetry.observe_route_batch(time.perf_counter() - t0)
 
     def flush_lanes(self) -> None:
         """Window end: ship every buffered (lane, kind) slice."""
@@ -1273,9 +1271,10 @@ class ProcLaneSet:
             rows = bank.rows if bank is not None else None
             if rows is None:
                 continue
-            parent._set("nodes_managed", int(rows[:, shm_mod.BANK_NODES].sum()))
-            parent._set("pods_managed", int(rows[:, shm_mod.BANK_PODS].sum()))
-            parent._set("ingest_queue_depth", max(
+            tel = parent.telemetry
+            tel.set_gauge("nodes_managed", int(rows[:, shm_mod.BANK_NODES].sum()))
+            tel.set_gauge("pods_managed", int(rows[:, shm_mod.BANK_PODS].sum()))
+            tel.set_gauge("ingest_queue_depth", max(
                 parent._q.qsize(), int(rows[:, shm_mod.BANK_QDEPTH].max())))
             if parent._startup_pending is not None:
                 # ready once every lane has ingested its first re-list of

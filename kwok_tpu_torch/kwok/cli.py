@@ -20,6 +20,11 @@ KWOK_LANE_PROCS=true) each lane is a process of its own
 checkpoints. A comma-separated ``--master`` runs a federation
 (``engine/federation.py``): one member engine per apiserver, with
 per-member Stage files from the positional ``--member-config`` flags.
+``--trace-dump`` (or KWOK_TPU_TRACE) writes the span trace at stop,
+``--trace-sample-every`` sets the ingest->patch span sampling,
+``--profile-dir`` writes a torch.profiler trace of ticks 2-102, and
+KWOK_TPU_FLIGHT_DIR saves the apiserver's flight recorder on a fresh
+degradation.
 """
 
 from __future__ import annotations
@@ -107,16 +112,15 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    help="shard cluster state across all local devices "
                    "(refused when true: ROADMAP item 9b)")
     p.add_argument("--profile-dir", default="",
-                   help="write a device profiler trace here (refused: "
-                   "ROADMAP item 15)")
+                   help="write a torch.profiler trace of ticks 2-102 here "
+                   "(a lane process writes <dir>/lane<i>)")
     p.add_argument("--trace-dump", default="",
-                   help="write the engine's span trace here at stop; "
-                   "KWOK_TPU_TRACE=<path> works too (refused: ROADMAP "
-                   "item 15)")
+                   help="write the engine's span trace (Chrome trace-event "
+                   "JSON, same document as /debug/trace) here at stop; "
+                   "KWOK_TPU_TRACE=<path> works too")
     p.add_argument("--trace-sample-every", type=int, default=256,
                    help="sample 1-in-N watch events for end-to-end "
-                   "ingest->patch spans (0 disables; spans need the "
-                   "tracer of ROADMAP item 15)")
+                   "ingest->patch spans (0 disables)")
     p.add_argument("--faults", default=o.faults,
                    help="deterministic fault-injection spec; "
                    "KWOK_TPU_FAULTS works too (refused when non-empty: "
@@ -202,12 +206,6 @@ def refusals(args, masters: list[str]) -> list[str]:
                    "ROADMAP item 13")
     if args.enable_cni:
         out.append("--enable-cni true needs CNI: ROADMAP item 14")
-    if args.profile_dir:
-        out.append("--profile-dir needs the device profiler hook: "
-                   "ROADMAP item 15")
-    if args.trace_dump or env.get("KWOK_TPU_TRACE"):
-        out.append("--trace-dump (or KWOK_TPU_TRACE) needs the span "
-                   "tracer: ROADMAP item 15")
     return out
 
 
@@ -302,6 +300,9 @@ def _engine_config(args, stages: list[Stage], device: str):
         shed_queue_depth=args.shed_queue_depth,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_interval=args.checkpoint_interval,
+        profile_dir=args.profile_dir,
+        trace_dump=args.trace_dump,
+        trace_sample_every=args.trace_sample_every,
         node_rules=stages_to_rules(stages, ResourceKind.NODE),
         pod_rules=stages_to_rules(stages, ResourceKind.POD),
         device=device,

@@ -112,14 +112,18 @@ _DEGRADED_HELP = (
 
 
 class Degradation:
-    """Per-engine degraded-mode ledger over the engine's own registry."""
+    """Per-engine degraded-mode ledger over the engine's own registry.
+    ``on_set(reason)`` runs on every FRESH set, outside the ledger lock
+    (the engine saves the apiserver's flight recorder there); a hook
+    that raises is counted and never breaks the transition."""
 
-    def __init__(self, registry) -> None:
+    def __init__(self, registry, on_set=None) -> None:
         self._fam = registry.gauge(
             "kwok_degraded", _DEGRADED_HELP, ("reason",)
         )
         self._deg_lock = threading.Lock()
         self._reasons: set[str] = set()
+        self._on_set = on_set
 
     def set(self, reason: str) -> bool:
         """Mark a reason active; returns True when newly set (callers
@@ -128,6 +132,13 @@ class Degradation:
             fresh = reason not in self._reasons
             self._reasons.add(reason)
         self._fam.labels(reason=reason).set(1)
+        if fresh and self._on_set is not None:
+            try:
+                self._on_set(reason)
+            except Exception:
+                from kwok_tpu_torch.telemetry.errors import swallowed
+
+                swallowed("policy.degradation_on_set")
         return fresh
 
     def clear(self, reason: str) -> bool:

@@ -1,25 +1,15 @@
-"""Per-lane metric handles for the threaded drain+emit lanes (the lane
-part of ``kwok_tpu.telemetry.engine_metrics``), on the engine's labeled
-registry:
+"""Per-lane metric handles for the threaded drain+emit lanes, and their
+merge over lane processes (the lane half of
+``kwok_tpu.telemetry.engine_metrics``, on the engine's ``EngineTelemetry``):
 
 - ``kwok_lane_stage_seconds{shard,stage}``: wall seconds a lane's drain
   worker spent applying routed events (``stage="drain"``) and its emit
-  worker spent on wire slices (``stage="emit"``), as histograms;
+  worker spent on wire slices (``stage="emit"``), as histograms; each
+  observation also lands in the engine's ``kwok_tick_stage_seconds``;
 - ``kwok_lane_queue_depth{shard}``: routed events waiting in the lane's
   ingest queue;
 - ``kwok_route_partition_events_total{shard}``: events the router handed
-  the lane through the native pre-partitioned parse (``RECB`` runs);
-  the process lanes' router counts the same family per lane.
-
-The engine-wide ``kwok_tick_stage_seconds{stage}`` (``stage="parse"``:
-the batched native parse of raw watch lines, on whichever thread drains
-them) and ``kwok_route_batch_seconds`` (the router's per-batch handoff)
-take their help texts from here too, as does ``kwok_pump_send_seconds``
-(the wall seconds of each native pump batch send).
-
-``kwok_degraded{reason}`` lives with its ledger in
-``resilience/policy.py``. Every other engine counter stays on the flat
-``kwok_`` surface of ``ClusterEngine.metrics``.
+  the lane through the native pre-partitioned parse.
 
 Under process lanes (``engine/proclanes.py``) each lane child is a
 single-lane engine that times its drain and emit stages into
@@ -31,65 +21,96 @@ so the exposition has the threaded lanes' families.
 
 from __future__ import annotations
 
-# the stages a lane runs (flush and the kernel stay on the coordinator)
-LANE_STAGES = ("drain", "emit")
+from kwok_tpu_torch.telemetry.engine_metrics import _HELP, EngineTelemetry
 
-_HELP = {
-    "kwok_lane_stage_seconds": "Per-lane wall seconds by stage for the "
-    "threaded drain+emit lanes (shard=lane index; drain=ingest apply, "
-    "emit=patch fan-out)",
-    "kwok_lane_queue_depth": "Routed events waiting in a lane's ingest "
-    "queue (shard=lane index)",
-    "kwok_tick_stage_seconds": "Wall seconds by stage: parse=the batched "
-    "native parse of raw watch lines (the router's under lanes); in a "
-    "process lane's single-lane engine also drain=ingest of routed events "
-    "and emit=consume of a tick's wire",
-    "kwok_route_batch_seconds": "Wall seconds per native pre-partitioned "
-    "route handoff (the router's per-batch lane enqueue; the parse that "
-    "computed the partition is kwok_tick_stage_seconds{stage=parse})",
-    "kwok_route_partition_events_total": "Events routed to each lane via "
-    "the native pre-partitioned parse (shard=lane index)",
-    "kwok_pump_send_seconds": "Wall seconds per native pump batch send",
-}
+# Lane stages: the subset of STAGES a ShardLane runs (flush/kernel stay on
+# the coordinator tick thread, parse on the router; both remain unlabeled).
+LANE_STAGES = ("drain", "emit")
 
 
 class LaneTelemetry:
-    """One lane's handles on the engine's ``MetricsRegistry``."""
+    """Per-lane metric handles for the sharded host pipeline.
 
-    def __init__(self, registry, lane_id) -> None:
-        shard = str(lane_id)
-        fam = registry.histogram(
-            "kwok_lane_stage_seconds", _HELP["kwok_lane_stage_seconds"],
+    One instance per ShardLane, sharing the engine's registry. The lane
+    label intentionally reuses the ``shard`` label name the federation
+    surface established, under a lane-specific family — a federated member
+    never runs lanes (members are forced single-lane), so the two uses of
+    the label cannot collide on one registry.
+    """
+
+    def __init__(self, parent: EngineTelemetry, lane_id) -> None:
+        self.parent = parent
+        self.lane_id = str(lane_id)
+        r = parent.registry
+        fam = r.histogram(
+            "kwok_lane_stage_seconds",
+            _HELP["kwok_lane_stage_seconds"],
             ("shard", "stage"),
         )
         self.stage_hists = {
-            s: fam.labels(shard=shard, stage=s) for s in LANE_STAGES
+            s: fam.labels(shard=self.lane_id, stage=s) for s in LANE_STAGES
         }
-        self._depth = registry.gauge(
-            "kwok_lane_queue_depth", _HELP["kwok_lane_queue_depth"],
+        self._depth = r.gauge(
+            "kwok_lane_queue_depth",
+            _HELP["kwok_lane_queue_depth"],
             ("shard",),
-        ).labels(shard=shard)
-        self._routed = registry.counter(
+        ).labels(shard=self.lane_id)
+        self._routed = r.counter(
             "kwok_route_partition_events_total",
-            _HELP["kwok_route_partition_events_total"], ("shard",),
-        ).labels(shard=shard)
+            _HELP["kwok_route_partition_events_total"],
+            ("shard",),
+        ).labels(shard=self.lane_id)
 
     def observe_stage(self, stage: str, seconds: float) -> None:
         self.stage_hists[stage].observe(seconds)
-
-    def set_queue_depth(self, depth: int) -> None:
-        self._depth.set(depth)
+        self.parent.observe_stage(stage, seconds)
 
     def inc_routed(self, n: int) -> None:
         self._routed.inc(n)
 
+    def set_queue_depth(self, depth: int) -> None:
+        self._depth.set(depth)
+
     @property
     def stage_sums(self) -> dict:
-        """Per-lane stage second totals."""
+        """Per-lane stage second totals (lane-utilization reporting)."""
         return {s: h.sum for s, h in self.stage_hists.items()}
 
 
-def _merge_lane_snapshot(reg, shard: int, snap: dict) -> None:
+# --------------------------------------------------- proc-lane merge policy
+# (each lane process is a whole single-lane engine whose registry snapshot
+# crosses the process boundary in a MetricsBank slab. The parent folds
+# every snapshot into ONE scratch registry per scrape so the process-lane
+# exposition has the threaded lanes' families and labels: child stage
+# histograms label-split into kwok_lane_stage_seconds{shard=} AND
+# aggregate into the unlabeled stage family, as LaneTelemetry.observe_stage
+# does in process, while counters and histograms sum and gauges follow the
+# explicit policy below.)
+
+# gauges where the fleet-wide value is the sum of the lanes' values
+PROC_MERGE_SUM_GAUGES = frozenset({
+    "kwok_tick_inflight",
+    "kwok_checkpoint_rows",
+})
+# gauges where the fleet-wide value is the worst lane's value
+PROC_MERGE_MAX_GAUGES = frozenset({
+    "kwok_tick_seconds_last",
+    "kwok_watch_lag_seconds_last",
+    "kwok_restart_recovery_seconds",
+})
+# gauges the parent computes itself (StatusBank scrape / build identity):
+# a lane's copy is dropped, never double-counted
+PROC_MERGE_PARENT_GAUGES = frozenset({
+    "kwok_build_info",
+    "kwok_nodes_managed",
+    "kwok_pods_managed",
+    "kwok_ingest_queue_depth",
+    "kwok_shm_arena_bytes",
+})
+
+
+def _merge_lane_snapshot(reg, shard: int, snap: dict,
+                         include_gauges: bool) -> None:
     from kwok_tpu_torch.telemetry.registry import family_from_doc, merge_child
 
     lane_fam = reg.histogram(
@@ -97,9 +118,10 @@ def _merge_lane_snapshot(reg, shard: int, snap: dict) -> None:
         ("shard", "stage"),
     )
     for name, doc in sorted(snap.items()):
+        t = doc.get("type")
         if name == "kwok_tick_stage_seconds":
             # aggregate into the whole-engine stage family AND label-split
-            # drain/emit under the lane's shard (the LaneTelemetry shape)
+            # drain/emit under the lane's shard — the LaneTelemetry shape
             fam = family_from_doc(reg, name, doc)
             for values, v in doc.get("children", ()):
                 merge_child(fam, values, v)
@@ -107,9 +129,22 @@ def _merge_lane_snapshot(reg, shard: int, snap: dict) -> None:
                 if stage in LANE_STAGES:
                     merge_child(lane_fam, (str(shard), stage), v)
             continue
-        if doc.get("type") == "gauge":
-            # gauges are the parent's (kwok_degraded, the queue depths it
-            # reads from the StatusBank); a lane's copy would double them
+        if name in PROC_MERGE_PARENT_GAUGES:
+            continue
+        if name == "kwok_ingest_queue_depth":
+            continue  # label-split from the StatusBank, not the snapshot
+        if t == "gauge":
+            if not include_gauges:
+                continue  # a retired lane's gauges are stale by definition
+            if name in PROC_MERGE_SUM_GAUGES:
+                mode = "sum"
+            elif name in PROC_MERGE_MAX_GAUGES:
+                mode = "max"
+            else:
+                continue  # unlisted gauges stay parent-authoritative
+            fam = family_from_doc(reg, name, doc)
+            for values, v in doc.get("children", ()):
+                merge_child(fam, values, v, gauge=mode)
             continue
         fam = family_from_doc(reg, name, doc)
         for values, v in doc.get("children", ()):
@@ -119,14 +154,14 @@ def _merge_lane_snapshot(reg, shard: int, snap: dict) -> None:
 def merge_proc_lane_metrics(parent_snap: dict, lane_snaps: dict,
                             retired_snaps: dict, n: int,
                             queue_depths: "dict | None" = None):
-    """One scratch registry for a process-lane scrape: the parent's own
-    snapshot, every live lane's snapshot (``{shard: snap}``) and each
-    lane's retired accumulator (earlier incarnations' final snapshots,
-    so sums stay monotonic across respawns); counters and histograms
-    add up, lane gauges are left out. ``queue_depths`` feeds
-    ``kwok_lane_queue_depth`` from the StatusBank. The lane families
-    exist for every shard from the first scrape, before any child has
-    published."""
+    """One scratch registry for a proc-lane scrape: the parent's own
+    snapshot, every live lane's engine snapshot (``{shard: snap}``), and
+    each lane's retired accumulator (previous incarnations' final
+    snapshots — counters/histograms only, so aggregates stay monotonic
+    across respawns). ``queue_depths`` feeds kwok_lane_queue_depth from
+    the StatusBank (fresher than any 1s-cadence snapshot). Lane families
+    are pre-created for every shard so the exposition is stable from the
+    first scrape, before any child has published."""
     from kwok_tpu_torch.telemetry.registry import registry_from_snapshot
 
     reg = registry_from_snapshot(parent_snap)
@@ -145,8 +180,8 @@ def merge_proc_lane_metrics(parent_snap: dict, lane_snaps: dict,
         )
     for shard, snap in sorted(retired_snaps.items()):
         if snap:
-            _merge_lane_snapshot(reg, shard, snap)
+            _merge_lane_snapshot(reg, shard, snap, include_gauges=False)
     for shard, snap in sorted(lane_snaps.items()):
         if snap:
-            _merge_lane_snapshot(reg, shard, snap)
+            _merge_lane_snapshot(reg, shard, snap, include_gauges=True)
     return reg

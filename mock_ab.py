@@ -1,7 +1,9 @@
 """This tree's Python mock apiserver against another tree's, under the CLI
-phase's load, on one NVIDIA GPU.
+phase's load, on one NVIDIA GPU; or, with ``--tree``, this tree's whole
+CLI phase against another tree's.
 
     python3 mock_ab.py OTHER_TREE
+    python3 mock_ab.py --tree OTHER_TREE
 
 OTHER_TREE is another checkout of this repo (for example an earlier
 commit, unpacked from ``git archive``). chip_smoke.py's CLI phase (the
@@ -15,6 +17,12 @@ tree; kwok, the creator and the checks are this tree's. Each run prints
 one JSON line: its create->Running pods/s, the creator's span and the
 mock's and kwok's CPU seconds per 1,000 pods. Then the card's name and
 power limit, and last one JSON object with every run.
+
+With ``--tree`` each of the four runs is the other tree's or this tree's
+own ``chip_smoke.cli_phase()`` (its kwok, its native mock, its checks), in
+a process of its own started in that tree, in the same order; each
+prints its numbers, watch terminations, re-lists and lanes' drain and
+emit seconds besides.
 """
 
 from __future__ import annotations
@@ -51,9 +59,43 @@ def mock_command_of(tree: str):
     return command
 
 
+# one tree's CLI phase on its own native mock, in a process started there
+TREE_RUN = ("import json, chip_smoke as cs; from kwok_tpu_torch import native; "
+            "from kwok_tpu_torch.ops import cuda_tick; cuda_tick.tick_steps.library(); "
+            "native.load(); cs.APISERVER = native.apiserver_binary(); r = cs.cli_phase(); "
+            "print('RESULT', json.dumps({k: r.get(k) for k in KEYS}))")
+TREE_KEYS = KEYS + ("watch_terminations", "watch_relists", "lane_drain_s", "lane_emit_s",
+                    "tick_thread_s")
+
+
+def tree_ab(other: str, here: str) -> int:
+    """The --tree mode (see the module docstring)."""
+    import subprocess
+
+    print(cs.card_line(), flush=True)
+    code = f"KEYS = {TREE_KEYS!r}; " + TREE_RUN
+    runs = []
+    for arm, tree in (("other", other), ("this", here), ("this", here), ("other", other)):
+        p = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                           text=True, timeout=900)
+        res = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not res:
+            raise AssertionError(f"{arm} ({tree}) exited {p.returncode}: {p.stderr[-2000:]}")
+        row = {"arm": arm, "tree": tree, **json.loads(res[-1][len("RESULT "):])}
+        print(json.dumps(row), flush=True)
+        runs.append(row)
+    card = cs.card_line()
+    print(card, flush=True)
+    print(json.dumps({"tree_ab": runs, "card": card}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
+    whole = sys.argv[1:2] == ["--tree"]
+    if whole:
+        sys.argv.pop(1)
     if len(sys.argv) != 2:
         cs.log(__doc__)
         return 2
@@ -66,6 +108,8 @@ def main() -> int:
         if not os.path.isfile(os.path.join(tree, MOCK)):
             cs.log(f"mock_ab: no {MOCK} in {tree}")
             return 2
+    if whole:
+        return tree_ab(other, here)
     from kwok_tpu_torch import native
     from kwok_tpu_torch.ops import cuda_tick
 

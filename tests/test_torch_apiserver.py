@@ -19,8 +19,12 @@ and its loader, held against the port's Python mock and ``kwok_tpu``'s.
   graceful pod deletion, ``limit``/``continue`` pagination (a consistent
   snapshot, no trailing empty page, ``remainingItemCount``), watch resume,
   410 after ``POST /compact`` and under ``KWOK_TPU_RV_WINDOW=64``,
-  bookmarks under ``KWOK_TPU_BOOKMARK_INTERVAL=0.3``, and the error
-  answers.
+  bookmarks under ``KWOK_TPU_BOOKMARK_INTERVAL=0.3``, the error
+  answers, and the observability routes with timing values masked: the
+  ``GET /debug/flight`` schema (each server passes ``check_flight`` of
+  both packages, and the records name the same requests) and the ``GET
+  /metrics`` family set (families, types and label names, under the
+  strict exposition parse).
 - End to end: the port's CLI on the CPU against the port's native server
   ends in the same objects and delete count as ``kwok_tpu``'s CLI against
   ``kwok_tpu``'s native server.
@@ -446,13 +450,55 @@ def errors(url):
     return out
 
 
+def some_requests(url) -> None:
+    """A create, a list, a status patch, a delete and a 404 of each kind
+    of verb the engine sends."""
+    c = HttpKubeClient(url)
+    c.create("nodes", make_node("n0"))
+    c.create("pods", make_pod("p0", node="n0"))
+    c.list("pods")
+    c.patch_status("pods", "default", "p0", {"status": {"phase": "Running"}})
+    c.delete("pods", "default", "p0", grace_seconds=0)
+    call(url, "GET", "/api/v1/namespaces/default/pods/absent")
+    c.close()
+
+
+def flight(url):
+    from kwok_tpu.telemetry.timeline import check_flight as jax_check_flight
+    from kwok_tpu_torch.telemetry.timeline import check_flight
+
+    some_requests(url)
+    code, doc = call(url, "GET", "/debug/flight")
+    assert code == 200
+    check_flight(doc)
+    jax_check_flight(doc)
+    assert doc["server"] in ("native", "mock") and doc["timing_enabled"]
+    return {
+        "keys": sorted(doc), "ring_capacity": doc["ring_capacity"],
+        "captured": doc["captured"],
+        "records": [(r["method"], r["path"], r["status"], r["band"], sorted(r["phases_us"]))
+                    for r in doc["records"]],
+    }
+
+
+def metrics(url):
+    from tests.test_metrics_exposition import parse_exposition
+
+    some_requests(url)
+    code, text = call(url, "GET", "/metrics")
+    assert code == 200
+    return sorted(
+        (name, fam["type"], sorted({k for _, labels, _ in fam["samples"] for k in labels}))
+        for name, fam in parse_exposition(text).items())
+
+
 TWINS = {
     "crud": (crud, None), "merge": (merge, None), "selectors": (selectors, None),
     "watch_filtering": (watch_filtering, None), "graceful_deletion": (graceful_deletion, None),
     "pagination": (pagination, None), "resume_and_410": (resume_and_410, None),
     "window_expiry": (window_expiry, {"KWOK_TPU_RV_WINDOW": "64"}),
     "bookmarks": (bookmarks, {"KWOK_TPU_BOOKMARK_INTERVAL": "0.3"}),
-    "errors": (errors, None),
+    "errors": (errors, None), "flight": (flight, None), "metrics": (metrics, None),
 }
 
 

@@ -43,6 +43,7 @@ from kwok_tpu_torch.config.types import KwokConfigurationOptions
 from kwok_tpu_torch.edge.mockserver import FakeKube as PortFakeKube
 from kwok_tpu_torch.edge.mockserver import HttpFakeApiserver as PortServer
 from kwok_tpu_torch.kwok import cli as tcli
+from tests.test_metrics_exposition import check_chrome_trace
 from tests.test_torch_engine import make_node, make_pod, masked
 
 STAGES = [
@@ -166,12 +167,8 @@ REFUSED = {
     "audit-interval": (["--audit-interval", "5"], {}, 13),
     "faults": (["--faults", "seed=1;pump.drop=0.1"], {}, 13),
     "enable-cni": (["--enable-cni", "true"], {}, 14),
-    "profile-dir": (["--profile-dir", "prof"], {}, 15),
-    "trace-dump": (["--trace-dump", "trace.json"], {}, 15),
     # a federation runs on one card: its stacked state over several is 9b
     "two-masters": (TWO + ["--use-mesh", "true"], {}, "9b"),
-    # a federation's merged span trace waits for the tracer
-    "member-config": (TWO + ["--member-config", "", "--trace-dump", "t.json"], {}, 15),
     "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, "9b"),
     "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, 12),
     "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, 13),
@@ -179,7 +176,6 @@ REFUSED = {
     "env-faults": ([], {"KWOK_FAULTS": "seed=1"}, 13),
     "env-tpu-faults": ([], {"KWOK_TPU_FAULTS": "seed=1"}, 13),
     "env-enable-cni": ([], {"KWOK_ENABLE_CNI": "true"}, 14),
-    "env-tpu-trace": ([], {"KWOK_TPU_TRACE": "trace.json"}, 15),
 }
 
 
@@ -303,6 +299,88 @@ def test_checkpoint_dir_arms_a_checkpointer(name, tmp_path, monkeypatch):
     assert rc == [0]
     doc = json.load(open(os.path.join(ckpt_dir, "engine.ckpt.json")))
     assert list(doc["kinds"]["nodes"]) == ["n0"]
+
+
+# the tracing flags and env of ROADMAP item 15: (extra argv, env, masters,
+# what must hold after stop); DIR is the test's directory
+TRACING_FORMS = {
+    "profile-dir": (["--profile-dir", "DIR/prof"], {}, 1, "profile"),
+    "trace-dump": (["--trace-dump", "DIR/trace.json"], {}, 1, "trace"),
+    "env-tpu-trace": ([], {"KWOK_TPU_TRACE": "DIR/trace.json"}, 1, "trace"),
+    "trace-sample-every": (["--trace-dump", "DIR/trace.json",
+                            "--trace-sample-every", "1"], {}, 1, "sampled"),
+    # a federation writes ONE merged document of its loop and members
+    "member-config": (["--member-config", "", "--trace-dump", "DIR/trace.json"],
+                      {}, 2, "merged"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRACING_FORMS))
+def test_tracing_flags_reach_the_engine(name, tmp_path, monkeypatch):
+    """--profile-dir, --trace-dump, KWOK_TPU_TRACE and
+    --trace-sample-every reach EngineConfig and run: the engine starts,
+    patches its pods, and after stop the profile or the span trace is on
+    disk (a federation's with every member's spans under shard<i>)."""
+    import kwok_tpu_torch.engine as engine_mod
+
+    extra, env, n_masters, want = TRACING_FORMS[name]
+    d = str(tmp_path)
+    monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    monkeypatch.delenv("KWOK_TPU_TRACE", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v.replace("DIR", d))
+    built = []
+    cls = "FederatedEngine" if n_masters > 1 else "ClusterEngine"
+
+    class Recorded(getattr(engine_mod, cls)):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(engine_mod, cls, Recorded)
+    srvs = [PortServer().start() for _ in range(n_masters)]
+    for c, srv in enumerate(srvs):
+        srv.store.create("nodes", make_node(f"n{c}"))
+    argv = base_args(tmp_path, ",".join(s.url for s in srvs)) + [
+        "--drain-shards", "2", *(a.replace("DIR", d) for a in extra)]
+    stop, t, rc = run_cli(tcli.main, argv)
+    try:
+        # pods in waves, each after the last is Running: an idle engine
+        # does not tick, and the profile window opens at tick 2
+        for i in range(4):
+            for c, srv in enumerate(srvs):
+                srv.store.create("pods", make_pod(f"p{c}-{i}", node=f"n{c}"))
+            assert wait_for(lambda: all(
+                running(p) for s in srvs for p in s.store.list("pods")))
+        eng = built[0]
+        assert eng.metrics["ticks_total"] >= 4
+    finally:
+        stop.set()
+        t.join(60)
+        for s in srvs:
+            s.stop()
+    assert rc == [0] and not t.is_alive()
+    cfg = eng.config
+    if want == "profile":
+        assert cfg.profile_dir == f"{d}/prof"
+        meta = eng._profiler.meta
+        assert meta is not None and meta["ticks"][0] == 2, meta
+        trace = json.load(open(os.path.join(cfg.profile_dir, meta["trace"])))
+        assert any(ev.get("ph") == "X" for ev in trace["traceEvents"])
+        return
+    path = os.path.join(d, "trace.json")
+    assert (cfg.trace_dump or os.environ["KWOK_TPU_TRACE"]) == path
+    doc = json.load(open(path))
+    check_chrome_trace(doc)
+    names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    assert {"tick.dispatch", "tick.consume"} <= names, names
+    if want == "sampled":
+        assert cfg.trace_sample_every == 1
+        assert "pod.ingest_to_patch" in names, names
+    if want == "merged":
+        labels = {e["args"]["name"] for e in doc["traceEvents"]
+                  if e["name"] == "process_name"}
+        assert labels == {"federation", "shard0", "shard1"}, labels
 
 
 def test_cli_flags_reach_engine_config():
@@ -492,7 +570,12 @@ def test_readyz_503_until_first_relist_and_metrics(tmp_path, monkeypatch):
         store.gate.set()
         assert wait_for(lambda: get(base + "/readyz")[0] == 200)
         assert wait_for(lambda: running(store.get("pods", "default", "p0")))
-        assert get(base + "/debug/trace")[0] == 404
+        code, body = get(base + "/debug/trace")
+        assert code == 200
+        doc = json.loads(body)
+        check_chrome_trace(doc)
+        names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+        assert {"tick.dispatch", "tick.consume"} <= names, names
         code, text = get(base + "/metrics")
         assert code == 200
         samples = dict(

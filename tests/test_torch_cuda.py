@@ -181,6 +181,41 @@ def test_threaded_engine_on_card(card):
     assert cuda_tick.tick_steps.launches > before
 
 
+def test_profiler_records_every_tick_launch_on_card(card, tmp_path):
+    """profile_dir on the card: the tick thread's torch.profiler window
+    (ticks [2, 102), cut short by stop) holds one tick_kernel event per
+    launch the window recorded."""
+    from kwok_tpu_torch.profiling import profile_summary
+
+    server = FakeKube()
+    prof = str(tmp_path / "prof")
+    eng = ClusterEngine(server, EngineConfig(
+        manage_all_nodes=True, tick_interval=0.02, profile_dir=prof))
+    eng.start()
+    try:
+        server.create("nodes", {"metadata": {"name": "n0"}})
+        for wave in range(8):
+            for i in range(20):
+                server.create("pods", {
+                    "metadata": {"name": f"p{wave}-{i}", "namespace": "default"},
+                    "spec": {"nodeName": "n0"}, "status": {"phase": "Pending"},
+                })
+            time.sleep(0.1)
+        deadline = time.time() + 60
+        while time.time() < deadline and server.count(
+            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running"
+        ) < 160:
+            time.sleep(0.05)
+    finally:
+        eng.stop()
+    s = profile_summary(prof)
+    meta = s["meta"]
+    assert meta["thread"] == "kwok-tick" and meta["ticks"][0] == 2, meta
+    assert meta["launches"] > 0, meta
+    assert s["kernel_events"] == meta["launches"], s
+    assert 0.0 < s["busy_share"] <= 1.0, s
+
+
 def test_engine_resumes_on_card_through_cut_and_compaction(card):
     """The engine on the card against the port's FakeKube: a cut pods
     stream resumes (no re-list); after a compaction the next cut re-lists

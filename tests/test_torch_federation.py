@@ -436,9 +436,11 @@ def test_federation_over_http_converges_on_the_native_drain():
         fed.stop()
         for s in srvs:
             s.stop()
-    parse = [ln for ln in text.splitlines()
-             if ln.startswith('kwok_tick_stage_seconds_count{stage="parse"}')]
-    assert parse and float(parse[0].rsplit(" ", 1)[1]) > 0
+    # one shard="<i>" series per member, as in kwok_tpu's federation
+    parse = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+             if ln.startswith("kwok_tick_stage_seconds_count{")
+             and 'stage="parse"' in ln]
+    assert len(parse) == 2 and all(v > 0 for v in parse), parse
     assert fed.metrics["patch_errors_total"] == 0
 
 

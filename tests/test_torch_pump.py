@@ -504,8 +504,12 @@ def test_federation_members_each_pump_to_their_own_apiserver():
         assert fed.engines[0]._pump is not fed.engines[1]._pump
         assert _wait(lambda: all(_phase(s.store, f"fp{c}-{i}") == "Running"
                                  for c, s in enumerate(srvs) for i in range(3)))
-        for e in fed.engines:
-            assert e.metrics["pump_requests_total"] >= 3  # its own 3 pods
+        # the pump counts a batch once its answers are back, which can
+        # come after the server shows the patched phase: wait for it
+        # (each member must count its own 3 pods)
+        assert _wait(lambda: all(e.metrics["pump_requests_total"] >= 3
+                                 for e in fed.engines)), [
+            e.metrics["pump_requests_total"] for e in fed.engines]
     finally:
         fed.stop()
         for s in srvs:
