@@ -165,6 +165,37 @@ result line then):
    parsed, launches > 0, main returns 0) and the kernel bit-exact at the
    phase engine's stacked capacities with the Stage rules.
 
+10. Chaos (ROADMAP item 13a, run after 7): the fault plane through main's
+   --faults on three topologies, each against native mocks sending
+   bookmarks every second (so an idle watch thread wakes into its pill).
+   (a) Threaded lanes: the CLI phase's size and path with --faults
+   CHAOS_SPEC: every 3 s a WorkerKilled pill goes into the next of
+   kwok-emit0, kwok-lane0, kwok-watch-nodes and kwok-watch-pods (the
+   glob's sorted matches), besides 1% dropped and 1% short pump batches
+   and a stream cut per 5,000 watch lines. After the flood the engine
+   stays up until the kill log holds all four names (at most 20 s more),
+   then the kill window closes and the deletes run. Hard checks: at least
+   3 worker.kill faults, the kill log naming a kwok-lane*, a kwok-emit*
+   and a kwok-watch* thread; once the pills have landed (at most 30 s)
+   every kill matched by a restart in the watchdog's restart_log, and
+   kwok_worker_restarts_total moved by as much for each name; every pod
+   Running with a distinct IP, the deletes gone, no patch error; not
+   degraded, /readyz 200; launches > 0; the kernel bit-exact at the
+   engine's capacities. Its pods/s is printed beside the CLI phase's.
+   (b) Federation: 2 native mocks, 1,250 nodes and 6,250 pods each, with
+   worker.kill=kwok-watch-pods-m*:2.0 (each member builds its own plane,
+   as kwok_tpu's do); once every pod is Running and a member has
+   restarted (at most 20 s more) the kill windows close:
+   kwok_fed_member_restarts_total > 0, not degraded, each group's kernel
+   bit-exact. (c) Process lanes: --lane-procs true
+   --drain-shards 2, 2,000 nodes and 5,000 pods, with 2% of the ring
+   descriptors dropped and 2% garbled by the parent:
+   kwok_shm_desc_rejects_total > 0 (each garbled descriptor rejected by
+   the lane process before it touches the ring),
+   kwok_faults_injected_total{kind="shm.desc_drop"} > 0, every pod
+   Running, the deletes gone, not degraded; the kernel bit-exact at lane
+   0's capacities. A part that fails fails the run.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -228,6 +259,18 @@ RESTART_PODS = 25_000
 RESTART_DELAY_S = 30.0
 RESTART_EXTRA_S = 5.0  # run on after the file covers every armed pod
 RESTART_DEADLINE_S = 300.0
+# the chaos phase (ROADMAP item 13a): the fault plane on each topology
+CHAOS_SPEC = ("seed=13;worker.kill=kwok-[elw]*[0s]:3.0;pump.drop=0.01;"
+              "pump.partial=0.01;watch.cut=0.0002")
+# the names the glob matches: the rotation reaches each every 4 x 3.0 s
+CHAOS_NAMES = ("kwok-emit0", "kwok-lane0", "kwok-watch-nodes", "kwok-watch-pods")
+CHAOS_COVER_S = 20.0  # after the flood, until the kill log reaches every name
+CHAOS_SETTLE_S = 30.0  # until every armed pill has landed and restarted
+CHAOS_FED_MEMBERS = 2
+CHAOS_FED_SPEC = "seed=17;worker.kill=kwok-watch-pods-m*:2.0"
+CHAOS_PROCS_NODES = 2_000
+CHAOS_PROCS_PODS = 5_000
+CHAOS_PROCS_SPEC = "seed=5;shm.desc_garble=0.02;shm.desc_drop=0.02"
 DEVICE = "cuda"
 # the native mock apiserver's binary (kwok_tpu_torch/native/apiserver.cc),
 # built once by main(); every HTTP phase but the cli_python_mock arm runs it
@@ -1882,6 +1925,252 @@ def procs_phase(cli_run):
     }
 
 
+class sized:
+    """CLI_NODES, CLI_PODS and CLI_DELETES set for one block (the helpers
+    of the CLI phases read them at call time), restored after it."""
+
+    def __init__(self, **sizes) -> None:
+        self.sizes = sizes
+
+    def __enter__(self):
+        g = globals()
+        self.saved = {k: g[k] for k in self.sizes}
+        g.update(self.sizes)
+
+    def __exit__(self, *exc) -> None:
+        globals().update(self.saved)
+
+
+def settle_kills(plane, wd, names, before: dict, deadline: float) -> dict:
+    """Wait (until ``deadline``) for every kill the plane logged to be
+    matched by a restart of that thread in the watchdog's restart_log and
+    in kwok_worker_restarts_total (``before`` holds its values at the
+    phase's start). A pill armed on a thread blocked in a C call lands
+    when the call returns, hence the wait. Returns kills and restarts per
+    name; raises when they still differ."""
+    from kwok_tpu_torch.telemetry.errors import worker_restarts_total
+
+    while True:
+        kills = {n: 0 for n in names}
+        for k in plane.kill_log():
+            kills[k["thread"]] = kills.get(k["thread"], 0) + 1
+        logged = {n: 0 for n in kills}
+        for r in wd.restart_log():
+            if not r.get("proc") and r["thread"] in logged:
+                logged[r["thread"]] += 1
+        counted = {n: worker_restarts_total(n) - before.get(n, 0.0) for n in kills}
+        if kills == logged and all(counted[n] == kills[n] for n in kills):
+            return {"kills": kills, "restarts": logged}
+        if time.monotonic() > deadline:
+            raise AssertionError(f"kills {kills} against restart_log {logged} and "
+                                 f"kwok_worker_restarts_total {counted}: a pill was "
+                                 f"not absorbed by the watchdog")
+        time.sleep(0.1)
+
+
+def chaos_lanes(cli_run):
+    """Phase 10a: the CLI phase under CHAOS_SPEC (see the module
+    docstring)."""
+    import torch
+
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.telemetry.errors import worker_restarts_total
+
+    n_lanes = resolve_drain_shards(0, 0)
+    before = {n: worker_restarts_total(n) for n in CHAOS_NAMES}
+    cuda_tick.tick_steps.launches = 0
+    run = start_cli(["--faults", CHAOS_SPEC], mock_env={"KWOK_TPU_BOOKMARK_INTERVAL": "1"})
+    info: dict = {}
+    try:
+        eng = run["engine"]
+        plane = eng._faults
+        if plane is None or eng._lanes is None or eng._lanes.n != n_lanes:
+            raise AssertionError(f"--faults did not build a plane on {n_lanes} lanes")
+        if any(ln.engine._faults is not plane for ln in eng._lanes.lanes):
+            raise AssertionError("a lane engine does not share the parent's plane")
+
+        def cover():
+            # the flood is over: stay up until every name was killed once,
+            # then close the kill window (the storm, then the healing)
+            t0 = time.monotonic()
+            while {k["thread"] for k in plane.kill_log()} < set(CHAOS_NAMES):
+                if time.monotonic() - t0 > CHAOS_COVER_S:
+                    break
+                time.sleep(0.1)
+            info["cover_s"] = time.monotonic() - t0
+            plane.spec.kill_glob = "chaos-window-closed"
+
+        load = drive_pods(run, after_running=cover)
+        pods = load["client"].list("pods")
+        settled = settle_kills(plane, eng._watchdog, CHAOS_NAMES, before,
+                               time.monotonic() + CHAOS_SETTLE_S)
+        counts = plane.counts()
+        killed = {k["thread"] for k in plane.kill_log()}
+        if counts.get("worker.kill", 0) < 3 or not all(
+                any(n.startswith(pre) for n in killed)
+                for pre in ("kwok-lane", "kwok-emit", "kwok-watch")):
+            raise AssertionError(f"worker kills {counts.get('worker.kill')}, names {sorted(killed)}")
+        code, _ = http_get(run["base"] + "/readyz")
+        if code != 200 or eng.degraded:
+            raise AssertionError(f"/readyz {code}, degraded {eng._degradation.reasons}")
+        m = scrape(run)
+    finally:
+        stop_cli(run)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the chaos run launched no tick kernel")
+    check_final_pods(pods, m)
+    native = native_edge(m, summed(m, "kwok_watch_events_total"), lanes=n_lanes)
+    caps, shape_ms, shape_plain_ms, _wire_ms = engine_shape_check(torch, eng, rearm=True)
+    log(f"chaos (lanes): kernel at the engine's capacities {caps}: checked, {shape_ms:.4f} ms")
+    return {
+        "lanes": n_lanes, "spec": CHAOS_SPEC, **load["report"],
+        "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
+        "pods_per_s_vs_cli": (load["report"]["create_to_running_pods_per_s"]
+                              / cli_run["create_to_running_pods_per_s"]),
+        "faults": counts, **settled, "kill_cover_s": info.get("cover_s"),
+        "restart_latency_s": sorted(r["restart_latency_s"]
+                                    for r in eng._watchdog.restart_log() if not r.get("proc")),
+        "watch_relists": m["kwok_watch_relists_total"], "native": native,
+        "kwok_cpu_s_per_1000_pods": per_1000(load["report"]["window_kwok_process_cpu_s"],
+                                             load["report"]["pods"]),
+        "kernel_launches": launches, "capacities": caps,
+        "kernel_ms_at_capacities": shape_ms, "plain_ms_at_capacities": shape_plain_ms,
+    }
+
+
+def chaos_fed():
+    """Phase 10b: a 2-member federation whose members' pods watch threads
+    are killed every 2 s (see the module docstring)."""
+    import torch
+
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+    from kwok_tpu_torch.ops import cuda_tick
+
+    n = CHAOS_FED_MEMBERS
+    cuda_tick.tick_steps.launches = 0
+    run = start_cli(["--faults", CHAOS_FED_SPEC], members=n, nodes=FED_NODES,
+                    mock_env={"KWOK_TPU_BOOKMARK_INTERVAL": "1"})
+    try:
+        fed = run["engine"]
+        if not hasattr(fed, "groups") or len(fed.engines) != n:
+            raise AssertionError(f"--master with {n} URLs did not run a federation of {n}")
+        planes = [e._faults for e in fed.engines]
+        if any(p is None for p in planes):
+            raise AssertionError("a member built no fault plane")
+        creators = [spawn_creator(u, "pods", FED_PODS, nodes=FED_NODES, conns=FED_CONNS)
+                    for u in run["urls"]]
+        for proc, _span in creators:
+            join_creator(proc, run["deadline"])
+        clients = [HttpKubeClient(u) for u in run["urls"]]
+        while True:
+            m = scrape(run)
+            if summed(m, "kwok_status_patches_total") >= n * (FED_NODES + FED_PODS):
+                t_patched = time.time()
+                if all(sum(map(running, c.list("pods"))) == FED_PODS for c in clients):
+                    break
+            if time.monotonic() > run["deadline"]:
+                raise AssertionError(f"timeout: {summed(m, 'kwok_status_patches_total')} patches")
+            time.sleep(POLL_S)
+        # the kill window stays open until a member has restarted (a fast
+        # flood can end before the first 2 s period), at most CHAOS_COVER_S
+        deadline = time.monotonic() + CHAOS_COVER_S
+        while (summed(scrape(run), "kwok_fed_member_restarts_total") < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        for p in planes:
+            p.spec.kill_glob = "chaos-window-closed"
+        kills = sum(len(p.kill_log()) for p in planes)
+        m = scrape(run)
+        restarts = summed(m, "kwok_fed_member_restarts_total")
+        if restarts <= 0 or kills <= 0:
+            raise AssertionError(f"member restarts {restarts} after {kills} kills")
+        code, _ = http_get(run["base"] + "/readyz")
+        if code != 200 or fed.degraded:
+            raise AssertionError(f"/readyz {code}, degraded {fed._degradation.reasons}")
+        for c in clients:
+            c.close()
+    finally:
+        stop_cli(run)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the chaos federation launched no tick kernel")
+    groups = []
+    for g in fed.groups:
+        caps, ms, _plain_ms, _wire_ms = engine_shape_check(
+            torch, GroupView(g), rearm=True, states=(g.stacked["nodes"], g.stacked["pods"]),
+            fire_after=1.5)
+        groups.append({"capacities": caps, "kernel_ms_at_capacities": ms})
+    log(f"chaos (federation): kernel at each group's capacities: checked {groups}")
+    window = t_patched - min(span[0] for _p, span in creators)
+    return {
+        "members": n, "spec": CHAOS_FED_SPEC, "pods": n * FED_PODS,
+        "create_to_running_pods_per_s": n * FED_PODS / window,
+        "member_restarts": {k: v for k, v in m.items()
+                            if k.startswith("kwok_fed_member_restarts_total")},
+        "kills": kills, "kernel_launches": launches, "groups": groups,
+        "watch_relists": summed(m, "kwok_watch_relists_total"),
+    }
+
+
+def chaos_procs():
+    """Phase 10c: 2 lane processes while the parent drops and garbles
+    ring descriptors (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    with sized(CLI_NODES=CHAOS_PROCS_NODES, CLI_PODS=CHAOS_PROCS_PODS):
+        run = start_cli(["--lane-procs", "true", "--drain-shards", "2",
+                         "--faults", CHAOS_PROCS_SPEC])
+        try:
+            eng = run["engine"]
+            pl = eng._proc
+            if pl is None or pl.n != 2 or eng._faults is None:
+                raise AssertionError("--lane-procs true --drain-shards 2 --faults did not run "
+                                     "2 lane processes under a plane")
+            load = drive_pods(run, [s["pid"] for s in pl.status()])
+            pods = load["client"].list("pods")
+            counts = eng._faults.counts()
+            deadline = time.monotonic() + CHAOS_SETTLE_S
+            while True:  # the lanes publish their counters once a second
+                m = scrape(run)
+                rejects = summed(m, "kwok_shm_desc_rejects_total")
+                if rejects > 0 or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            if rejects <= 0 or counts.get("shm.desc_drop", 0) <= 0:
+                raise AssertionError(f"descriptor rejects {rejects}, faults {counts}")
+            if eng.degraded:
+                raise AssertionError(f"degraded {eng._degradation.reasons}")
+            status = pl.status()
+        finally:
+            stop_cli(run)
+        launches = sum(s["launches"] for s in pl.status())
+        if launches <= 0:
+            raise AssertionError("the chaos lane processes launched no tick kernel")
+        check_final_pods(pods, m)
+        caps, ms, _plain_ms, _wire_ms = engine_shape_check(
+            torch, eng, rearm=True, states=lane_states(np, eng, status[0]["capacities"]))
+    log(f"chaos (process lanes): kernel at lane 0's capacities {caps}: checked, {ms:.4f} ms")
+    return {
+        "lanes": 2, "spec": CHAOS_PROCS_SPEC, **load["report"], "faults": counts,
+        "desc_rejects": {k: v for k, v in m.items()
+                         if k.startswith("kwok_shm_desc_rejects_total")},
+        "watch_relists": m.get("kwok_watch_relists_total", 0.0),
+        "kernel_launches": launches, "capacities": caps, "kernel_ms_at_capacities": ms,
+    }
+
+
+def chaos_phase(cli_run) -> dict:
+    """Phase 10: the three parts in turn; any part's failure fails it."""
+    out = {"lanes": chaos_lanes(cli_run)}
+    out["federation"] = chaos_fed()
+    out["procs"] = chaos_procs()
+    out["kernel_launches"] = sum(out[k]["kernel_launches"] for k in ("lanes", "federation", "procs"))
+    return out
+
+
 def member_stage_documents() -> list[dict]:
     """Federation members 6 and 7's pod Stages: the default pod-delete
     stage and one constant 1 s Pending->Running stage (a second rule-set
@@ -2159,6 +2448,8 @@ def main() -> int:
     print(json.dumps({"watch": watch}), flush=True)
     procs = procs_phase(cli_run)
     print(json.dumps({"procs": procs}), flush=True)
+    chaos = chaos_phase(cli_run)
+    print(json.dumps({"chaos": chaos}), flush=True)
     fed = fed_phase(cli_run)
     print(json.dumps({"federation": fed}), flush=True)
     card = card_line()
@@ -2226,6 +2517,16 @@ def main() -> int:
                       f"kernel {g['kernel_ms_at_capacities']:.4f} ms" for g in fed["groups"])
           + f" ({card})", flush=True)
 
+    cl, cf, cp = chaos["lanes"], chaos["federation"], chaos["procs"]
+    print(f"chaos ({n_lanes} lanes, {CHAOS_SPEC}): {cl['create_to_running_pods_per_s']:.1f} "
+          f"pods/s create->Running against the cli phase's {cl['cli_phase_pods_per_s']:.1f} "
+          f"({cl['pods_per_s_vs_cli']:.3f}x), kills {cl['kills']}, restarts {cl['restarts']}, "
+          f"restart latency max {max(cl['restart_latency_s'] or [0.0]):.3f} s, faults "
+          f"{cl['faults']}, kwok_watch_relists_total {cl['watch_relists']:.0f}; federation "
+          f"({cf['members']} members): {cf['create_to_running_pods_per_s']:.1f} pods/s, "
+          f"{cf['kills']} kills, {cf['member_restarts']}; process lanes: "
+          f"{cp['create_to_running_pods_per_s']:.1f} pods/s, faults {cp['faults']}, "
+          f"{cp['desc_rejects']} ({card})", flush=True)
     tp, tw = traced["profile"], traced["profile_window"]
     print(f"trace ({n_lanes} lanes, profiled ticks {tw['ticks'][0]}-{tw['ticks'][1]} on "
           f"{tw['thread']}, {tw['wall_s']:.3f} s): device busy share {tp['busy_share']:.6f}, "
@@ -2264,7 +2565,7 @@ def main() -> int:
                      + traced["kernel_launches"]
                      + py_mock["kernel_launches"] + ab_off["kernel_launches"]
                      + watch["kernel_launches"] + procs["kernel_launches"]
-                     + fed["kernel_launches"]),
+                     + chaos["kernel_launches"] + fed["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],
@@ -2279,7 +2580,8 @@ def main() -> int:
             "trace": traced["kernel_launches"],
             "cli_python_mock": py_mock["kernel_launches"],
             "ingest_ab_off": ab_off["kernel_launches"], "watch": watch["kernel_launches"],
-            "procs": procs["kernel_launches"], "federation": fed["kernel_launches"],
+            "procs": procs["kernel_launches"], "chaos": chaos["kernel_launches"],
+            "federation": fed["kernel_launches"],
         },
         "watch_capacities": watch["capacities"],
         "watch_ms": watch["kernel_ms_at_capacities"],

@@ -35,6 +35,7 @@ from kwok_tpu_torch.edge.kubeclient import (
     WatchEvent,
 )
 from kwok_tpu_torch.telemetry.errors import swallowed, wire_reject
+from kwok_tpu_torch.locks import reclaimable
 
 logger = logging.getLogger("kwok_tpu_torch.edge.http")
 
@@ -93,7 +94,7 @@ class HttpKubeClient:
         # requests must keep it when extracting the path from a full URL
         self._base_path = split.path.rstrip("/")
         self._conns: set = set()
-        self._conns_lock = threading.Lock()
+        self._conns_lock = reclaimable()
         ctx: ssl.SSLContext | None = None
         if self.server.startswith("https"):
             ctx = ssl.create_default_context(cafile=ca_file)

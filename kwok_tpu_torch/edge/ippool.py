@@ -9,7 +9,8 @@ network base address.
 from __future__ import annotations
 
 import ipaddress
-import threading
+
+from kwok_tpu_torch.locks import reclaimable
 
 
 _DIGITS = frozenset("0123456789")
@@ -56,7 +57,7 @@ class IPPool:
         self._lane_j = 0
         self._free: list[str] = []
         self._used: set[str] = set()
-        self._lock = threading.Lock()
+        self._lock = reclaimable()
 
     def _next_off(self) -> int:
         """Next allocation offset (callers hold ``_lock``). Unpartitioned:

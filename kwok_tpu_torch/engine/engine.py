@@ -62,9 +62,19 @@ A federation (``engine/federation.py``) runs engines of this class as
 members, each started with ``run_tick_loop=False``: its rows live in a
 slice of a stacked state that the federation's loop ticks.
 
+Workers run under the watchdog (``resilience/watchdog.py``): the watch
+threads here, the lanes' router, drain and emit workers, the process
+lanes' router and supervisor. A crashed worker restarts in place within
+``worker_restart_budget`` restarts per ``worker_restart_window``, and its
+restart heals what the crash may have eaten (``_worker_restarted_resync``);
+past the budget the engine degrades. With ``faults`` (or
+``KWOK_TPU_FAULTS``) the fault plane of ``resilience/faults.py`` wraps the
+client and the pumps and kills supervised workers; without it there is no
+plane and nothing is wrapped.
+
 Names and logic of the ingest, tick and emit methods follow the JAX
 package's engine so each has its counterpart there. The mesh, HA,
-anti-entropy, fault injection and CNI are not part of this engine.
+anti-entropy and CNI are not part of this engine.
 
 Telemetry is ``telemetry/engine_metrics.EngineTelemetry``: typed handles
 on a labeled registry (``registry``, rendered by ``metrics_text()``;
@@ -121,6 +131,7 @@ from kwok_tpu_torch.edge.render import (
 )
 from kwok_tpu_torch.edge.selectors import parse_selector
 from kwok_tpu_torch import native, profiling
+from kwok_tpu_torch.locks import reclaimable
 from kwok_tpu_torch.engine.rowpool import (
     EF_RENDER,
     EF_RGATES,
@@ -162,6 +173,7 @@ from kwok_tpu_torch.ops.updates import (
     update_rows,
 )
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
+from kwok_tpu_torch.resilience import faults as resilience_faults
 from kwok_tpu_torch.resilience.policy import (
     PATCH_RETRY,
     PUMP_RESEND,
@@ -237,9 +249,14 @@ class EngineConfig:
     # lane is a spawned process running the single-lane engine over its
     # hash shard; needs an HTTP apiserver
     lane_procs: bool = False
-    # watchdog budget: more than this many restarts of one worker (a lane
-    # process respawn, the router, the supervisor) within the window
-    # degrades the engine (/readyz 503)
+    # deterministic fault-injection spec (resilience/faults.py grammar).
+    # "" = disabled (falls back to KWOK_TPU_FAULTS); the literal "off"
+    # disables even under the env var (lane engines). When set, the
+    # client transport, the pumps and the supervised workers are faulted
+    faults: str = ""
+    # watchdog budget: more than this many restarts of one worker (a
+    # watch thread, a lane worker, a lane process respawn, the router,
+    # the supervisor) within the window degrades the engine (/readyz 503)
     worker_restart_budget: int = 5
     worker_restart_window: float = 30.0
     # graceful degradation: shed routed events when a lane queue is deeper
@@ -309,7 +326,7 @@ class _PumpGroup:
     on one lock."""
 
     def __init__(self, pumps) -> None:
-        self._pumps = [(p, threading.Lock()) for p in pumps]
+        self._pumps = [(p, reclaimable()) for p in pumps]
         self._next = 0  # racy round-robin hint; exactness does not matter
 
     def __len__(self) -> int:
@@ -427,6 +444,19 @@ class ClusterEngine:
                 f"EngineConfig.device={config.device!r} but no CUDA device "
                 "is available (pass device='cpu' to run on the CPU)"
             )
+        # the fault plane: None unless a spec is configured, and then the
+        # disabled case wraps nothing and costs nothing. Wrapping is
+        # idempotent, so a lane engine handed its parent's wrapped client
+        # does not inject twice
+        self._faults = resilience_faults.from_config(config.faults)
+        if self._faults is not None:
+            client = self._faults.wrap_client(client)
+            rate = self._faults.spec.rate("clock.jump")
+            if rate is not None and rate.p > 0:
+                # a hostile clock: every engine `now` read is skewed. An
+                # instance attribute only when the spec asks, so the
+                # unfaulted _now stays a two-op method
+                self._now = self._skewed_now
         self.client = client
         self.config = config
         self._n_lanes = resolve_drain_shards(
@@ -501,7 +531,7 @@ class ClusterEngine:
         self._executor: ThreadPoolExecutor | None = None
         # ONE lock for IP/meta allocation bookkeeping: pool get/use/put,
         # podIP commits and row-release reads in _pod_deleted
-        self._alloc_lock = threading.Lock()
+        self._alloc_lock = reclaimable()
         # monotonic wake-up for the idle tick loop; 0 = tick immediately,
         # None = nothing scheduled on device (sleep until an event arrives)
         self._idle_wake: float | None = 0.0
@@ -554,7 +584,7 @@ class ClusterEngine:
         # guards the startup gate's bookkeeping (drain workers of several
         # lanes mark their RESYNCs concurrently), the restore swap and the
         # integrity-doubt re-list's timer
-        self._ckpt_lock = threading.Lock()
+        self._ckpt_lock = reclaimable()
         # kinds whose first full re-list is not ingested yet; None when
         # the startup gate is not armed (before start()) or finished
         self._startup_pending: set[str] | None = None
@@ -580,7 +610,7 @@ class ClusterEngine:
         # next reconnect must re-list whatever revision the loop holds
         # (resync_streams), and each kind's stream generation, bumped
         # whenever its resume revision dies (_expire_stream)
-        self._gen_lock = threading.Lock()
+        self._gen_lock = reclaimable()
         self._resync_req: set[str] = set()
         self._stream_gen: dict[str, int] = {}
         # monotonic stamp of the last rewind-triggered resync: bounds the
@@ -750,6 +780,13 @@ class ClusterEngine:
     def _now(self) -> float:
         return time.time() - self._epoch
 
+    def _skewed_now(self) -> float:
+        """The clock.jump arm of ``_now`` (installed only when the fault
+        spec configures clock.jump): engine time plus the plane's bounded,
+        seeded skew. Timers, heartbeats and checkpoint residues all see
+        the hostile clock."""
+        return time.time() - self._epoch + self._faults.clock_skew()
+
     def _device_ctx(self):
         """Run device work on the engine's stream (no-op on the CPU)."""
         if self._stream is None:
@@ -824,12 +861,15 @@ class ClusterEngine:
             self._profiler = profiling.TickProfiler(
                 self.config.profile_dir, self.device
             )
-        self._watchdog = Watchdog(
-            budget=self.config.worker_restart_budget,
-            window=self.config.worker_restart_window,
-            on_exhausted=self._worker_budget_exhausted,
-            on_restart=self._worker_restarted_resync,
-        )
+        # supervision before any worker exists (a federation installs ONE
+        # shared watchdog across its members before starting them)
+        if self._watchdog is None or self._watchdog.closed:
+            self._watchdog = Watchdog(
+                budget=self.config.worker_restart_budget,
+                window=self.config.worker_restart_window,
+                on_exhausted=self._worker_budget_exhausted,
+                on_restart=self._worker_restarted_resync,
+            )
         self._executor = ThreadPoolExecutor(
             max_workers=self.config.parallelism, thread_name_prefix="kwok-patch"
         )
@@ -855,6 +895,10 @@ class ClusterEngine:
                     self._ckpt.path, self._restore.remaining,
                 )
             self._ckpt.start()
+        if self._faults is not None:
+            # the worker killer (when the spec asks for one); refcounted,
+            # so engines sharing the plane start and stop it together
+            self._faults.start()
         # (a federation member warms nothing: the federation warms its
         # group's stacked state)
         if run_tick_loop and self._proc is not None:
@@ -963,14 +1007,42 @@ class ClusterEngine:
             logger.info("startup re-list ingested in %.3fs; engine ready", dt)
         self.ready = True
 
+    def _rearm_restore(self) -> None:
+        """Reload the on-disk checkpoint and arm a refill RestoreSession (no
+        readiness gate, 30 s to live): rows that a re-list after a worker
+        or member restart re-initializes resume their checkpointed timers.
+        Safe from any thread: the session swap is atomic, and only the
+        device-owning loop consumes a session."""
+        if self._ckpt is None:
+            return
+        data = ckpt_mod.load(self._ckpt_dir, self._ckpt_name)
+        if data is None:
+            return
+        session = ckpt_mod.RestoreSession(data["kinds"], gate_ready=False, ttl=30.0)
+        with self._ckpt_lock:
+            # pairs with _close_restore's identity check: the device loop
+            # closing an OLD session never clobbers a refill armed from a
+            # restarted worker's thread
+            self._restore = session
+        logger.info(
+            "checkpoint refill armed (%s): %d candidate rows",
+            self._ckpt_name, session.remaining,
+        )
+
+    def _close_restore(self, r) -> None:
+        """Drop a finished or expired restore session, but only if it is
+        still THE session: _rearm_restore may have swapped a fresh one in
+        from another thread since the caller read it."""
+        with self._ckpt_lock:
+            if self._restore is r:
+                self._restore = None
+
     def _end_restore(self, r) -> None:
         """Close a finished or expired restore session (its leftovers are
         stale) and publish its summary: ``restore_refined_rows``,
         ``restore_stale_rows``."""
         s = r.finish()
-        with self._ckpt_lock:
-            if self._restore is r:
-                self._restore = None
+        self._close_restore(r)
         self.telemetry.note("restore_refined_rows", s["refined"])
         self.telemetry.note("restore_stale_rows", s["stale"])
         logger.info(
@@ -1028,11 +1100,39 @@ class ClusterEngine:
             logger.error("engine degraded: worker %s out of restart budget", name)
 
     def _worker_restarted_resync(self, name: str) -> None:
-        """Watchdog callback after an in-thread restart: a crash may have
-        eaten an in-flight item, and only a full list+RESYNC re-delivers
-        it."""
-        if self._running:
-            self.resync_streams()
+        """Watchdog callback, on the restarted worker's own thread: a
+        crashed lane drain worker or router may have eaten an in-flight
+        item (the crash can land mid-get or mid-apply), and the watch
+        cache will not replay it, so the restart completes with a full
+        list+RESYNC of every stream, and every managed node's pods are
+        re-fanned to their lanes (a cross-lane managed-ness update the
+        dead worker ate is the one loss a re-list does not reproduce: the
+        pods' re-delivery drops as echoes)."""
+        if not self._running:
+            return
+        if name.startswith("kwok-emit"):
+            # lossless by construction: the in-flight wire slice survives
+            # in the lane's replay slot (ShardLane.emit_loop) and is
+            # replayed by the restarted loop
+            return
+        if name.startswith("kwok-watch"):
+            # a restarted watch loop re-lists its own kind by construction
+            # (it starts with no resume revision), which re-delivers
+            # whatever the pill ate; cutting the other kind's healthy
+            # stream would be pure cost. Re-arm the checkpoint refine, so
+            # rows the re-list re-initializes resume their timers
+            self._rearm_restore()
+            return
+        self.resync_streams()
+        if self._lanes is not None:
+            while True:
+                try:
+                    nodes = list(self.node_has)
+                    break
+                except RuntimeError:  # the shared set resized mid-copy
+                    time.sleep(0)
+            for node in nodes:
+                self._lanes.route_pod_updates(node)
 
     def resync_streams(self) -> None:
         """Force every watch stream through a full list+RESYNC (a cut
@@ -1118,7 +1218,9 @@ class ClusterEngine:
         self._startup_pending = None
         self._stop_evt.set()
         if self._watchdog is not None:
-            self._watchdog.close()
+            self._watchdog.close()  # shutdown crashes must not restart
+        if self._faults is not None:
+            self._faults.stop()  # the worker killer down first
         with self._ckpt_lock:
             timer, self._wire_timer = self._wire_timer, None
         if timer is not None:
@@ -1377,11 +1479,12 @@ class ClusterEngine:
                     )
                     backoff.sleep(delay, stopping)
 
-        t = threading.Thread(
-            target=loop, name=f"kwok-watch-{kind}{self._worker_suffix}", daemon=True
-        )
-        t.start()
-        self._threads.append(t)
+        # supervised: a crash (or a fault plane's pill) restarts the loop
+        # in place, and the fresh loop re-lists, so the restart IS the
+        # recovery. The suffix names a federation member's threads
+        # (kwok-watch-pods-m1) for the budget and the member counter
+        self._threads.append(self._watchdog.spawn(
+            loop, name=f"kwok-watch-{kind}{self._worker_suffix}"))
 
     def _stream_raw(self, kind: str, reader, stopped=None) -> tuple:
         """Queue one stream's packed line batches from the native reader
@@ -2957,9 +3060,11 @@ class ClusterEngine:
         """The native pump group bound to the client's plain-HTTP
         endpoint, built once; None under ``KWOK_TPU_NATIVE=0``, for a TLS
         or in-process client, or when the pump cannot be built (logged at
-        WARNING): those keep the executor's one job per object. The fault
-        plane's and the HA fence's wraps (ROADMAP items 13 and 12) would
-        go inside ``_pump_wrap``; the CLI refuses both."""
+        WARNING): those keep the executor's one job per object. Under a
+        fault plane each connection group is a ``FaultyPump``; a process
+        lane's ``_pump_wrap`` goes outside it, so its replay slot sees
+        exactly the frames that reach the plane. The HA fence's wrap
+        (ROADMAP item 12) would go between the two; the CLI refuses HA."""
         if self._pump_tried:
             return self._pump
         self._pump_tried = True
@@ -2981,6 +3086,10 @@ class ClusterEngine:
                                  header_extra=extra)
                 for _ in range(self._pump_groups)
             ]
+            if self._faults is not None:
+                # pump.cc's failure contract on demand (drops, short
+                # writes, delays)
+                pumps = [self._faults.wrap_pump(p) for p in pumps]
             if self._pump_wrap is not None:
                 # outermost: a process lane's replay slot must see exactly
                 # the frames that go on the wire

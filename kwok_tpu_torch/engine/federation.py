@@ -25,8 +25,15 @@ The JAX package shards each group's stacked state over the device mesh;
 here it lives whole on one card (``n_devices = 1`` in the padding, until
 the multi-card row split of ROADMAP item 9b). Rows are independent and
 the counters are summed per member on the host, so the semantics are the
-same. Member watch-thread restarts under the watchdog (item 13) are not
-here.
+same.
+
+Member failover: ONE watchdog supervises every member's watch threads
+(``kwok-watch-<kind>-m<i>``). A crashed one restarts in place on its own
+thread, is counted in ``kwok_fed_member_restarts_total{member}``, re-lists
+(the fresh loop's construction) and re-arms its member's checkpoint
+refill (``_rearm_restore``); a member past its restart budget degrades
+the federation's ``/readyz``. Each member builds its own fault plane from
+the configuration, as ``kwok_tpu``'s members do.
 
 Telemetry: every member writes a ``shard="<i>"``-labeled slice of ONE
 registry (``EngineTelemetry(registry, shard)``), so ``/metrics`` has
@@ -70,6 +77,7 @@ from kwok_tpu_torch.ops.tick import (
 )
 from kwok_tpu_torch.ops.updates import refine_flush
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
+from kwok_tpu_torch.resilience.watchdog import Watchdog
 from kwok_tpu_torch.telemetry.engine_metrics import EngineTelemetry
 from kwok_tpu_torch.telemetry.registry import MetricsRegistry
 from kwok_tpu_torch.telemetry.trace import Tracer, merge_chrome_traces
@@ -338,6 +346,16 @@ class FederatedEngine:
         self._agg_pods = self.registry.gauge(
             "kwok_fed_pods_managed", "Pods tracked across all shards"
         )
+        # member failover: ONE watchdog (built in start) supervises every
+        # member's watch threads; a restart is counted per member
+        self._member_restarts = self.registry.counter(
+            "kwok_fed_member_restarts_total",
+            "Supervised federation-member ingest workers restarted in "
+            "place after a crash (the member re-lists and refines its "
+            "slice of the stacked state from its checkpoint)",
+            ("member",),
+        )
+        self._watchdog: "Watchdog | None" = None
 
         self._running = False
         self.ready = False  # /readyz gate; flips once members catch up
@@ -377,7 +395,16 @@ class FederatedEngine:
         with self._device_ctx():
             self._warm_scatters()
             self._warm_ticks()
+        # installed BEFORE the members start, so each adopts it instead of
+        # building its own
+        self._watchdog = Watchdog(
+            budget=self.config.worker_restart_budget,
+            window=self.config.worker_restart_window,
+            on_exhausted=self._member_budget_exhausted,
+            on_restart=self._member_worker_restarted,
+        )
         for e in self.engines:
+            e._watchdog = self._watchdog
             e.start(run_tick_loop=False)
             # each member's pump group to its own apiserver, built now
             # rather than inside the first tick's emit (its stop closes it)
@@ -396,6 +423,49 @@ class FederatedEngine:
         return self._running and any(
             e._startup_pending is not None for e in self.engines
         )
+
+    def _member_of_worker(self, name: str) -> "int | None":
+        """The member index a worker's ``-m<i>`` suffix names, or None."""
+        i = name.rfind("-m")
+        if i < 0:
+            return None
+        try:
+            idx = int(name[i + 2:])
+        except ValueError:
+            return None
+        return idx if 0 <= idx < len(self.engines) else None
+
+    def _member_budget_exhausted(self, name: str) -> None:
+        """Watchdog callback: a member's worker failed past its restart
+        budget; the member (and so the federation's /readyz) degrades."""
+        i = self._member_of_worker(name)
+        if i is None:
+            return
+        if self.engines[i]._degradation.set("worker_restart_budget"):
+            logger.error(
+                "federation member %d degraded: worker %s out of restart "
+                "budget", i, name,
+            )
+
+    def _member_worker_restarted(self, name: str) -> None:
+        """Watchdog callback, on the restarted worker's own thread: count
+        the member's restart and re-arm its checkpoint refill, so rows its
+        re-list re-initializes resume their timers (the federated loop
+        applies the refine in the member's slice of the stacked state).
+        The restarted loop re-lists its own kind by construction; cutting
+        the member's healthy other stream would be pure cost."""
+        i = self._member_of_worker(name)
+        if i is None:
+            return
+        self._member_restarts.labels(member=str(i)).inc()
+        e = self.engines[i]
+        if not e._running:
+            return
+        logger.warning(
+            "federation member %d: ingest worker %s restarted; re-listing "
+            "and re-filling its slice", i, name,
+        )
+        e._rearm_restore()
 
     def _warm_scatters(self) -> None:
         """Both ingest scatters once per stacked state, on a row still in
@@ -417,6 +487,8 @@ class FederatedEngine:
     def stop(self) -> None:
         self._running = False
         self.ready = False
+        if self._watchdog is not None:
+            self._watchdog.close()  # shutdown crashes must not restart
         # join the shared tick first so it cannot submit patch jobs to
         # members whose executors are already shut down; its exit path
         # consumes the in-flight wires and queues every final checkpoint

@@ -43,12 +43,20 @@ call (``ClusterEngine._drain_apply``), which also computes every event's
 lane; each lane then gets its contiguous index run over the shared
 parsed batch as one ``RECB`` item (``route_batch``), instead of one
 hashed and queued event at a time. ``KWOK_TPU_NATIVE_ROUTE=0`` keeps the
-per-record route. The JAX package's worker watchdog belongs with the
-resilience slice and is not here.
+per-record route.
+
+The router and every lane's drain and emit worker run under the engine's
+watchdog (``resilience/watchdog.py``), with the reference's thread names
+(``kwok-route``, ``kwok-lane<i>``, ``kwok-emit<i>``): a crashed worker
+restarts in place on the same thread against the same queues, and the
+engine's ``_worker_restarted_resync`` heals what the crash ate. The lane
+engines share the parent's fault plane; they never build one of their
+own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -62,6 +70,7 @@ import numpy as np
 from kwok_tpu_torch.edge.render import now_rfc3339
 from kwok_tpu_torch.engine.engine import ClusterEngine, _warm_scatter
 from kwok_tpu_torch.engine.rowpool import shard_of
+from kwok_tpu_torch.locks import reclaimable
 from kwok_tpu_torch.ops.state import new_row_state, regrow_stacked
 from kwok_tpu_torch.ops.tick import (
     REBASE_AFTER,
@@ -74,7 +83,6 @@ from kwok_tpu_torch.ops.updates import UpdateBuffer, refine_flush
 from kwok_tpu_torch import profiling
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
 from kwok_tpu_torch.telemetry.errors import swallowed
-from kwok_tpu_torch.workers import spawn_worker
 
 logger = logging.getLogger("kwok_tpu_torch.lanes")
 
@@ -100,6 +108,20 @@ class _LanePending:
     now: float  # engine time of the dispatch
     mono: float  # monotonic clock at dispatch (idle-wake anchor)
     host_s: float  # host seconds spent in the dispatch half
+
+
+class _ReclaimableQueue(queue.Queue):
+    """A ``queue.Queue`` whose mutex (and so its three conditions) is a
+    reclaimable lock (``kwok_tpu_torch.locks``): a pill that lands in the
+    emit worker inside the queue's own lock does not freeze the
+    coordinator's puts."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.mutex = reclaimable()
+        self.not_empty = threading.Condition(self.mutex)
+        self.not_full = threading.Condition(self.mutex)
+        self.all_tasks_done = threading.Condition(self.mutex)
 
 
 class _LaneEngine(ClusterEngine):
@@ -162,16 +184,26 @@ class ShardLane:
             checkpoint_dir="off",  # ONE checkpoint, the parent's stacked
             profile_dir="",  # the coordinator's tick thread profiles
             trace_dump="",  # one dump, the parent's
+            faults="off",  # ONE fault plane, the parent's (shared below)
         )
         self.engine = _LaneEngine(lane_set, index, cfg)
+        # the parent's plane is THE engine-wide one: lane pumps draw from
+        # the same seeded decision streams
+        self.engine._faults = parent._faults
         self.q: "queue.SimpleQueue" = queue.SimpleQueue()
         # queue.Queue (not SimpleQueue): the emit worker's replay claim
         # (emit_loop) peeks under the queue's own condition before popping
-        self.emit_q: "queue.Queue" = queue.Queue()
+        self.emit_q: "queue.Queue" = _ReclaimableQueue()
         # guards this lane's staged buffers, pool growth and release log:
         # held by the drain worker while applying, by the coordinator while
         # swapping buffers / growing, by the emit worker while it emits
-        self.stage_lock = threading.RLock()
+        self.stage_lock = reclaimable()
+        # set by the coordinator while it waits for stage_lock: a drain
+        # burst ends early and yields it (the lock is not fair: a drain
+        # worker that releases and re-takes it while its queue holds a
+        # re-list can keep the coordinator out for as long as the flood
+        # lasts, and no tick runs meanwhile)
+        self.swap_waiting = False
         self.telemetry = parent.telemetry.lane(str(index))
         # the router sheds into kwok_dropped_jobs_total while this queue
         # is deeper than this (0 = never); the drain worker clears the
@@ -230,11 +262,24 @@ class ShardLane:
                 with self.stage_lock:
                     n += e._ingest_record_batch(item[0], batch, idx, lo, end)
                 lo = end
+                if self.swap_waiting:
+                    self._yield_stage()
             return n
         with self.stage_lock:
             return self._apply_item(item)
 
     _EMPTY = object()  # drain_loop's sentinel: the queue is momentarily dry
+
+    # longest a drain worker waits for a waiting coordinator to take the
+    # stage_lock before it goes on
+    _YIELD_S = 0.005
+
+    def _yield_stage(self) -> None:
+        """Give a waiting coordinator the stage_lock: drop the interpreter
+        lock until it has taken the stage lock (bounded by _YIELD_S)."""
+        deadline = time.monotonic() + self._YIELD_S
+        while self.swap_waiting and time.monotonic() < deadline:
+            time.sleep(0)
 
     def drain_loop(self) -> None:
         q = self.q
@@ -270,7 +315,7 @@ class ShardLane:
                 with self.stage_lock:
                     while True:
                         n += self._apply_item(item)
-                        if n >= self._BURST:
+                        if n >= self._BURST or self.swap_waiting:
                             item = empty
                             break
                         item = next_item()
@@ -279,6 +324,8 @@ class ShardLane:
                             break
                         if item is empty or item[1] == "RECB":
                             break
+            if self.swap_waiting:
+                self._yield_stage()
             tel.observe_stage("drain", time.perf_counter() - t0)
             depth = q.qsize()
             tel.set_queue_depth(depth)
@@ -438,13 +485,28 @@ class LaneSet:
         np.asarray(wire)  # complete (and warm) the wire's D2H path
 
     def start_workers(self, threads: list) -> None:
-        """Spawn the router and every lane's drain and emit workers (the
-        coordinator itself is started by ClusterEngine.start as
-        'kwok-tick')."""
-        threads.append(spawn_worker(self.route_loop, name="kwok-route"))
+        """Spawn the router and every lane's drain and emit workers under
+        the engine's watchdog (the coordinator itself is started by
+        ClusterEngine.start as 'kwok-tick'): a crashed worker restarts in
+        place, same thread, same queues, within the restart budget."""
+        wd = self.parent._watchdog
+        threads.append(wd.spawn(self.route_loop, name="kwok-route"))
         for lane in self.lanes:
-            threads.append(spawn_worker(lane.drain_loop, name=f"kwok-lane{lane.index}"))
-            threads.append(spawn_worker(lane.emit_loop, name=f"kwok-emit{lane.index}"))
+            threads.append(wd.spawn(lane.drain_loop, name=f"kwok-lane{lane.index}"))
+            threads.append(wd.spawn(lane.emit_loop, name=f"kwok-emit{lane.index}"))
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _claim(lane: ShardLane):
+        """A lane's stage_lock for the coordinator, with the lane's drain
+        worker asked to yield it (``ShardLane.swap_waiting``)."""
+        lane.swap_waiting = True
+        try:
+            with lane.stage_lock:
+                lane.swap_waiting = False
+                yield
+        finally:
+            lane.swap_waiting = False
 
     def close(self) -> None:
         """Stop the lanes and close their pump groups (the client and
@@ -777,7 +839,7 @@ class LaneSet:
             runs = []
             for li, lane in enumerate(self.lanes):
                 k = self._lane_kind(lane, kind)
-                with lane.stage_lock:
+                with self._claim(lane):
                     staged = k.buffer.staged_rows() if k.buffer.pending else frozenset()
                     idx, fire, hb, gen = r.match_kind(
                         kind, k.pool, staged, now, phase_h=k.phase_h,
@@ -802,7 +864,7 @@ class LaneSet:
             ents: dict = {}
             for li, lane in enumerate(self.lanes):
                 k = self._lane_kind(lane, kind)
-                with lane.stage_lock:
+                with self._claim(lane):
                     staged = k.buffer.staged_rows() if k.buffer.pending else frozenset()
                     ents.update(ckpt_mod.gather_rows(
                         kind, k.pool, k.phase_h, fire, hb, gen, staged, now,
@@ -843,7 +905,7 @@ class LaneSet:
         any_rows = False
         for li, lane in enumerate(self.lanes):
             e = lane.engine
-            with lane.stage_lock:
+            with self._claim(lane):
                 for kind, k in (("nodes", e.nodes), ("pods", e.pods)):
                     want = max(want, k.capacity)
                     if k.buffer.pending:
@@ -946,7 +1008,7 @@ class LaneSet:
         new_r = want
         logger.info("lane regrow (%d lanes): %d -> %d rows/lane", self.n, self.r, new_r)
         for lane in self.lanes:
-            with lane.stage_lock:
+            with self._claim(lane):
                 for k in (lane.engine.nodes, lane.engine.pods):
                     if k.capacity < new_r:
                         k.grow(new_r)

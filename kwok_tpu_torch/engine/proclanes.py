@@ -42,8 +42,20 @@ no arena, pipe or process exists.
 
 A lane process parses each routed window (``RAWB``) in one native call
 on its own core, and ingests it through the single-lane engine's record
-path. Not here yet: the fault plane and the drift mirror (item 13),
-per-lane trace dumps (item 15).
+path. Every descriptor passes a bounds gate (``_desc_check``) before the
+child touches the ring: a garbled one is rejected, counted in
+``kwok_shm_desc_rejects_total{reason}`` and turned into a re-list. Each
+lane process writes its own span dump (``<trace dump>.lane<i>``).
+
+The fault plane reaches the lanes as in ``kwok_tpu``: each lane process
+is a ``worker.kill`` and ``lane.sigstop`` target of the parent's plane
+(``register_proc_target``: a real SIGKILL or SIGSTOP); the parent drops
+(``shm.desc_drop``) and garbles (``shm.desc_garble``, ``_garble_desc``)
+descriptors; each child runs the plane ``child_spec_text`` derives for
+it (its pumps, its clock, ``shm.torn`` on its slot and metrics slab,
+``shm.stall`` on its ring), and ``quiesce_child_faults`` clears every
+child's rates over the pipe (``FAULTSOFF``). Not here yet: the drift
+mirror (item 13b).
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ import numpy as np
 from kwok_tpu_torch import native
 from kwok_tpu_torch.engine import shm as shm_mod
 from kwok_tpu_torch.engine.rowpool import shard_of
+from kwok_tpu_torch.resilience.faults import child_spec_text
 from kwok_tpu_torch.telemetry.engine_metrics import _HELP as _ENGINE_HELP
 from kwok_tpu_torch.telemetry.errors import (
     PROCESS_REGISTRY,
@@ -163,9 +176,13 @@ class _SlotGuardClient:
     in it beside the single requests; should the union still overflow,
     the largest entries leave it first."""
 
-    def __init__(self, slot: shm_mod.InflightSlot, inner) -> None:
+    def __init__(self, slot: shm_mod.InflightSlot, inner, plane=None) -> None:
         self._slot = slot
         self._inner = inner
+        # the lane's own fault plane: shm.torn makes the writer "die"
+        # mid-arm (a prefix lands, the state never returns to armed), and
+        # the parent's post-mortem peek() must read the slot as empty
+        self._plane = plane
         self._lock = threading.Lock()
         self._inflight: dict[int, list] = {}
         self._seq = 0
@@ -179,16 +196,21 @@ class _SlotGuardClient:
         url = c._url(kind, namespace, name, subresource)
         return (c._base_path + url[len(c.server):]) or "/"
 
-    def _publish(self) -> None:
-        # caller holds _lock
+    def _publish(self, torn: bool = False) -> None:
+        # caller holds _lock; ``torn``: this re-arm dies mid-copy
+        # (shm.torn, decided by the caller before it took the lock)
         try:
             # smallest first: what does not fit leaves largest first, so
             # an oversized union still keeps the single requests
             entries = sorted(self._inflight.values(), key=_frames_bytes)
             while entries:
-                if self._slot.arm(pickle.dumps(
+                payload = pickle.dumps(
                     [r for reqs in entries for r in reqs], protocol=4,
-                )):
+                )
+                if torn:
+                    self._slot.torn_arm(payload)
+                    return
+                if self._slot.arm(payload):
                     return
                 entries.pop()
             # nothing in flight: an empty slot, never a stale one
@@ -205,12 +227,16 @@ class _SlotGuardClient:
 
     def _park(self, token: int, requests: list) -> None:
         """``requests`` under ``token`` in the slot (none: out of it)."""
+        plane = self._plane
+        torn = bool(requests) and plane is not None and plane.decide("shm.torn") is not None
+        if torn:
+            plane.record("shm.torn")
         with self._lock:
             if requests:
                 self._inflight[token] = requests
             elif self._inflight.pop(token, None) is None:
                 return
-            self._publish()
+            self._publish(torn)
 
     def _guarded(self, requests: list, send):
         """send() with ``requests`` parked in the slot until it returns."""
@@ -464,6 +490,9 @@ def _make_lane_engine(spec: dict):
         # STOP or SIGTERM)
         profile_dir=spec["profile_dir"],
         trace_dump=spec["trace_dump"],
+        # the plane the parent derived for this lane (child_spec_text);
+        # "off" builds none even under an inherited KWOK_TPU_FAULTS
+        faults=spec.get("faults") or "off",
     )
     e = cls(HttpKubeClient(**spec["client"]), cfg)
     e._lane_index = index
@@ -496,10 +525,24 @@ def lane_proc_main(spec: dict, conn) -> None:
     row[shm_mod.BANK_PID] = os.getpid()
     row[shm_mod.BANK_ALIVE_NS] = time.monotonic_ns()
     e = _make_lane_engine(spec)
-    guard = e.client = e._slot_guard = _SlotGuardClient(slot, e.client)
+    # the lane's own fault plane (None unless the parent derived one):
+    # shm.torn and shm.stall inject here, on the surfaces this process
+    # owns; its client, pumps and clock are already wrapped
+    plane = e._faults
+    guard = e.client = e._slot_guard = _SlotGuardClient(slot, e.client, plane)
     e._pump_wrap = lambda p: _SlotGuardPump(guard, p)
     received = 0
     stop_status = threading.Event()
+    # descriptors the bounds gate rejected, by reason: absent from the
+    # exposition until the first reject
+    desc_rejects = e.registry.counter(
+        "kwok_shm_desc_rejects_total",
+        "Ring descriptors rejected by a lane child's bounds validation "
+        "before any shared-memory dereference (corrupt offset/length/"
+        "bounds vector), by reason; each reject also raises an "
+        "integrity-doubt upcall so the parent re-lists.",
+        ("reason",),
+    )
 
     def publish_metrics() -> None:
         """The lane's whole metrics state into its seqlock slab: the
@@ -515,7 +558,14 @@ def lane_proc_main(spec: dict, conn) -> None:
                 "launches": tick_steps.launches,
                 "capacities": [e.nodes.capacity, e.pods.capacity],
             }
-            mbank.write(json.dumps(doc).encode())
+            payload = json.dumps(doc).encode()
+            if plane is not None and plane.decide("shm.torn") is not None:
+                # the writer "dies" mid-slab: an odd stamp and half a
+                # payload; readers back off, the next write restamps
+                plane.record("shm.torn")
+                mbank.torn_write(payload)
+                return
+            mbank.write(payload)
         except Exception:
             swallowed("proclanes.metrics_publish")
 
@@ -568,14 +618,29 @@ def lane_proc_main(spec: dict, conn) -> None:
                 bad = _desc_check(kind, off, ln, bounds, ring.cap,
                                   int(ring.arena.hdr[shm_mod.RawRing.W]))
                 if bad is not None:
-                    # never dereferenced; the parent re-lists the kind
+                    # never dereferenced: the skipped bytes retire when the
+                    # next good read sets the read cursor, and the upcall
+                    # makes the parent re-list the kind
+                    desc_rejects.labels(reason=bad).inc()
                     logger.warning("lane %d: rejected %s descriptor (%s)",
                                    spec["index"], kind, bad)
                     for k in (kind,) if kind in _KINDS else _KINDS:
                         e._integrity_resync(k)
                     continue
+                if plane is not None:
+                    stall = plane.decide("shm.stall")
+                    if stall is not None:
+                        # wedge ring consumption: the parent's router fills
+                        # the ring and takes its drop+re-list path
+                        plane.record("shm.stall")
+                        time.sleep(stall.arg or (_RING_STALL_S + 1.0))
                 e._q.put((kind, "RAWB", (ring.read(off, ln), bounds), t))
                 received += len(bounds) - 1
+            elif op == "FAULTSOFF":
+                # the parent cleared its own rates and asks every lane to
+                # do the same (a convergence check runs fault-free)
+                if plane is not None:
+                    plane.spec.rates.clear()
             elif op == "EV":
                 _op, kind, type_, obj = msg
                 e._q.put((kind, type_, obj, t))
@@ -620,6 +685,25 @@ def lane_proc_main(spec: dict, conn) -> None:
 # -------------------------------------------------------------- parent side
 
 
+def _garble_desc(plane, off: int, ln: int, bounds: list, cap: int):
+    """One seeded descriptor corruption (``shm.desc_garble``), in one of
+    the three shapes a hostile pipe produces: a length past the ring, an
+    offset past the published window, a bounds vector that disagrees with
+    the length. The child's bounds gate must catch every shape before it
+    touches shared memory. ``bounds`` is not changed in place."""
+    rng, lock = plane._streams["shm.desc_garble"]
+    with lock:
+        shape = rng.randrange(3)
+        jitter = rng.randrange(1, 1 << 20)
+    if shape == 0:
+        return off, cap + jitter, bounds
+    if shape == 1:
+        return off + cap + jitter, ln, bounds
+    garbled = list(bounds)
+    garbled[-1] = garbled[-1] + jitter
+    return off, ln, garbled
+
+
 class ProcLane:
     """Parent-side handle of one lane process: its arenas, its descriptor
     pipe and the live Process."""
@@ -654,6 +738,18 @@ class ProcLane:
             return False
         try:
             os.kill(p.pid, signal.SIGKILL)
+            return True
+        except OSError:
+            return False
+
+    def sigstop(self) -> bool:
+        """SIGSTOP the lane process (the fault plane's ``lane.sigstop``:
+        wedged but alive; the supervisor's stall kill recovers it)."""
+        p = self.proc
+        if p is None or not p.is_alive() or p.pid is None:
+            return False
+        try:
+            os.kill(p.pid, signal.SIGSTOP)
             return True
         except OSError:
             return False
@@ -786,6 +882,12 @@ class ProcLaneSet:
         self._m_arena.labels(pool="metrics").set(_METRICS_BYTES * self.n)
         for lane in self.lanes:
             self._spawn_lane(lane)
+        faults = self.parent._faults
+        if faults is not None:
+            # each lane process joins the worker.kill and lane.sigstop
+            # rotations under its thread-style name (kwok-lane<i>)
+            for lane in self.lanes:
+                faults.register_proc_target(lane.name, lane.sigkill, lane.sigstop)
 
     def arena_bytes(self) -> int:
         """Shared memory the arenas take (payloads plus headers)."""
@@ -812,6 +914,13 @@ class ProcLaneSet:
             "bank": self.bank.name,
             "metrics": lane.mbank.name,
             "log_level": logging.getLogger().getEffectiveLevel(),
+            # the lane's plane: the parent's rates restricted to the kinds
+            # a child owns, re-seeded as (seed, lane, kind); "off" when
+            # the parent has no plane or nothing survives the filter
+            "faults": child_spec_text(
+                self.parent._faults.spec if self.parent._faults is not None else None,
+                lane.index,
+            ),
         }
 
     def _spawn_lane(self, lane: ProcLane) -> None:
@@ -850,6 +959,10 @@ class ProcLaneSet:
         deadline = time.monotonic() + 20.0
         while self._respawning and time.monotonic() < deadline:
             time.sleep(0.05)
+        faults = self.parent._faults
+        if faults is not None:
+            for lane in self.lanes:
+                faults.unregister_proc_target(lane.name)
         for lane in self.lanes:
             if lane.conn is not None:
                 try:
@@ -1095,6 +1208,25 @@ class ProcLaneSet:
                 return
             time.sleep(0.001)
             off = lane.ring.try_write(blob)
+        faults = self.parent._faults
+        if faults is not None:
+            if faults.decide("shm.desc_drop") is not None:
+                # the descriptor dies between the ring write and the pipe
+                # send: its bytes retire when the child's next good read
+                # sets the read cursor, and the drop schedules the re-list
+                # (the ring-stall drop's recovery)
+                faults.record("shm.desc_drop")
+                self.parent._inc("dropped_jobs_total", len(parts))
+                self.parent._integrity_resync(kind)
+                return
+            if faults.decide("shm.desc_garble") is not None:
+                faults.record("shm.desc_garble")
+                off, ln, bounds = _garble_desc(
+                    faults, off, len(blob), bounds, lane.ring.cap
+                )
+                self._send(lane, ("RAWB", kind, off, ln, bounds))
+                self._m_handoff.observe(time.perf_counter() - t0)
+                return
         self._send(lane, ("RAWB", kind, off, len(blob), bounds))
         self._m_handoff.observe(time.perf_counter() - t0)
 
@@ -1131,6 +1263,13 @@ class ProcLaneSet:
         except (OSError, ValueError):
             # a dead child mid-send: the supervisor owns recovery
             swallowed("proclanes.send_dead_lane")
+
+    def quiesce_child_faults(self) -> None:
+        """Clear every lane process's fault rates over its pipe
+        (``FAULTSOFF``); the caller clears the parent's own. A convergence
+        check then runs fault-free on both sides of the boundary."""
+        for lane in self.lanes:
+            self._send(lane, ("FAULTSOFF",))
 
     @staticmethod
     def _pod_key(obj: dict):

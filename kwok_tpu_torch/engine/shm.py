@@ -184,6 +184,17 @@ class InflightSlot:
     def clear(self) -> None:
         self.arena.hdr[self.STATE] = 0
 
+    def torn_arm(self, payload: bytes) -> None:
+        """The fault plane's twin of :meth:`arm` (``shm.torn``): the writer
+        dies mid-copy. The disarm fires, a PREFIX of the payload lands, and
+        neither the length nor the state is written, so the torn re-arm
+        reads as empty (:meth:`peek` -> None)."""
+        hdr = self.arena.hdr
+        hdr[self.STATE] = 0  # disarm first, as arm() does
+        k = max(1, min(len(payload), self.cap) // 2)
+        self.arena.payload[:k] = payload[:k]
+        # ...writer SIGKILLed here: no LEN store, no state=1
+
     def peek(self) -> bytes | None:
         hdr = self.arena.hdr
         if int(hdr[self.STATE]) != 1:
@@ -270,6 +281,23 @@ class MetricsBank:
         hdr[self.LEN] = len(payload)
         hdr[self.SEQ] = seq + 2  # even: consistent again
         return True
+
+    def torn_write(self, payload: bytes) -> None:
+        """The fault plane's twin of :meth:`write` (``shm.torn``): the
+        writer dies mid-slab. The stamp goes odd, a PREFIX of the payload
+        lands, and neither the length nor the closing even stamp is
+        written: readers back off (odd stamp) and the next live write
+        restamps."""
+        if len(payload) > self.cap:
+            return
+        hdr = self.arena.hdr
+        seq = int(hdr[self.SEQ])
+        if seq % 2:
+            seq += 1
+        hdr[self.SEQ] = seq + 1  # odd: mid-write
+        k = max(1, len(payload) // 2)
+        self.arena.payload[:k] = payload[:k]
+        # ...writer SIGKILLed here: no LEN store, no even restamp
 
     def reset(self) -> None:
         """Respawn path: empty the slab so a dead incarnation's snapshot

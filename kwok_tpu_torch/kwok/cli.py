@@ -17,7 +17,9 @@ auto) runs the threaded lanes, and with ``--lane-procs true`` (or
 KWOK_LANE_PROCS=true) each lane is a process of its own
 (``engine/proclanes.py``; it needs the HTTP ``--master``);
 ``--checkpoint-dir`` (or KWOK_TPU_CHECKPOINT_DIR) turns on crash-durable
-checkpoints. A comma-separated ``--master`` runs a federation
+checkpoints, and ``--faults`` (or KWOK_FAULTS; KWOK_TPU_FAULTS is the
+engine's fallback) the deterministic fault plane
+(``resilience/faults.py``). A comma-separated ``--master`` runs a federation
 (``engine/federation.py``): one member engine per apiserver, with
 per-member Stage files from the positional ``--member-config`` flags.
 ``--trace-dump`` (or KWOK_TPU_TRACE) writes the span trace at stop,
@@ -122,17 +124,18 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    help="sample 1-in-N watch events for end-to-end "
                    "ingest->patch spans (0 disables)")
     p.add_argument("--faults", default=o.faults,
-                   help="deterministic fault-injection spec; "
-                   "KWOK_TPU_FAULTS works too (refused when non-empty: "
-                   "ROADMAP item 13)")
+                   help="deterministic fault-injection spec (e.g. "
+                   "'seed=42;pump.drop=0.02;worker.kill=kwok-lane*:2.0'); "
+                   "KWOK_TPU_FAULTS works too; empty = disabled (zero "
+                   "overhead), 'off' = disabled even under the env var")
     p.add_argument("--shed-queue-depth", type=int, default=o.shedQueueDepth,
                    help="shed routed events when a lane queue is deeper "
                    "than this; 0 = never shed")
     p.add_argument("--worker-restart-budget", type=int,
                    default=o.workerRestartBudget,
-                   help="watchdog: max respawns of one crashed lane "
-                   "process per --worker-restart-window; past it the "
-                   "engine degrades")
+                   help="watchdog: max restarts of one crashed worker "
+                   "(a watch thread, a lane worker, a lane process) per "
+                   "--worker-restart-window; past it the engine degrades")
     p.add_argument("--worker-restart-window", type=float,
                    default=o.workerRestartWindow,
                    help="watchdog restart-budget window in seconds")
@@ -146,7 +149,7 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    default=o.auditInterval,
                    help="anti-entropy auditor cadence in seconds; "
                    "KWOK_TPU_AUDIT_INTERVAL works too; 0 = off (refused "
-                   "when > 0: ROADMAP item 13)")
+                   "when > 0: ROADMAP item 13b)")
     p.add_argument("--ha-role", default=o.haRole,
                    choices=["", "off", "primary", "standby"],
                    help="warm-standby HA (refused as primary or standby: "
@@ -190,7 +193,6 @@ def refusals(args, masters: list[str]) -> list[str]:
     """Why this invocation asks for a subsystem the port does not have yet,
     one message per flag (or KWOK_TPU_* twin), each naming the ROADMAP item
     that brings it. Empty when the engine can run it."""
-    env = os.environ
     out = []
     if args.use_mesh:
         out.append("--use-mesh true splits rows across cards (a "
@@ -200,10 +202,7 @@ def refusals(args, masters: list[str]) -> list[str]:
                    "calls: ROADMAP item 12")
     if args.audit_interval > 0 or _env_float("KWOK_TPU_AUDIT_INTERVAL") > 0:
         out.append("--audit-interval > 0 (or KWOK_TPU_AUDIT_INTERVAL) "
-                   "needs the anti-entropy auditor: ROADMAP item 13")
-    if args.faults or env.get("KWOK_TPU_FAULTS"):
-        out.append("--faults (or KWOK_TPU_FAULTS) needs fault injection: "
-                   "ROADMAP item 13")
+                   "needs the anti-entropy auditor: ROADMAP item 13b")
     if args.enable_cni:
         out.append("--enable-cni true needs CNI: ROADMAP item 14")
     return out
@@ -298,6 +297,7 @@ def _engine_config(args, stages: list[Stage], device: str):
         worker_restart_budget=args.worker_restart_budget,
         worker_restart_window=args.worker_restart_window,
         shed_queue_depth=args.shed_queue_depth,
+        faults=args.faults,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_interval=args.checkpoint_interval,
         profile_dir=args.profile_dir,

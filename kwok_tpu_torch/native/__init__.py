@@ -55,6 +55,8 @@ import threading
 
 import numpy as np
 
+from kwok_tpu_torch.locks import reclaimable
+
 logger = logging.getLogger("kwok_tpu_torch.native")
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -416,7 +418,7 @@ class ParsedBatch:
         else:
             self.shard = self.lane_idx = self.lane_off = None
             self.route_info = None
-        self._lists_lock = threading.Lock()
+        self._lists_lock = reclaimable()
         if lazy:
             self.off = self.fp = self.flags_arr = self.rvs = None
         else:

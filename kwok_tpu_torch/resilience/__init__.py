@@ -5,8 +5,15 @@
   cannot reach its disk, a spent restart budget, a pump target down past
   its resend deadline), ``RetryPolicy`` and the shared
   ``WATCH_RECONNECT``/``PATCH_RETRY``/``PUMP_RESEND`` policies.
-- ``watchdog``: supervised workers and the restart budget that the
-  process-lane supervisor charges for every lane respawn.
+- ``faults``: the deterministic fault plane (``EngineConfig.faults``,
+  ``--faults``, ``KWOK_TPU_FAULTS``) wrapping the client transport, the
+  pumps and the supervised workers, and the process lanes' shared-memory
+  surfaces; ``kwok_tpu``'s grammar and seeded decision streams. Without
+  a spec nothing exists and nothing is wrapped.
+- ``watchdog``: supervised workers (watch threads, the lanes' router,
+  drain and emit workers, federation members' watch threads, the process
+  lanes' router and supervisor) restarted in place within a budget that
+  the process-lane supervisor also charges for every lane respawn.
 - ``checkpoint``: the periodic atomic-rename checkpoint of the device
   timer state (``--checkpoint-dir``) and the cold-start reconcile that
   resumes matching rows' Stage delays after a restart. The file format is

@@ -374,9 +374,10 @@ class RestoreSession:
     :meth:`match_kind`. ``gate_ready`` sessions belong to the startup
     reconcile (the engine's /readyz gate finishes them); once the gate
     lets go of one, the engine sets ``deadline`` and the session ends
-    when that passes."""
+    when that passes. A refill armed after a worker restart has no gate
+    and ends ``ttl`` seconds after it was made."""
 
-    def __init__(self, kinds: dict, gate_ready: bool):
+    def __init__(self, kinds: dict, gate_ready: bool, ttl: float = 0.0):
         # parse into {kind: {key_str: entry-list}} defensively: a stale
         # or hand-edited file must degrade to "nothing matches"
         self.kinds: dict[str, dict] = {}
@@ -384,7 +385,8 @@ class RestoreSession:
             ents = kinds.get(kind)
             self.kinds[kind] = dict(ents) if isinstance(ents, dict) else {}
         self.gate_ready = gate_ready
-        self.deadline = 0.0  # monotonic; 0 = no deadline
+        # monotonic; 0 = no deadline
+        self.deadline = (time.monotonic() + ttl) if ttl > 0 else 0.0
         self.matched = 0
         self.stale = 0
 

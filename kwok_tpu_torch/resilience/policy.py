@@ -20,8 +20,9 @@ shedding instead of keeping up. Reasons clear when the condition heals.
 from __future__ import annotations
 
 import random
-import threading
 import time
+
+from kwok_tpu_torch.locks import reclaimable
 
 
 class RetryPolicy:
@@ -121,7 +122,7 @@ class Degradation:
         self._fam = registry.gauge(
             "kwok_degraded", _DEGRADED_HELP, ("reason",)
         )
-        self._deg_lock = threading.Lock()
+        self._deg_lock = reclaimable()
         self._reasons: set[str] = set()
         self._on_set = on_set
 

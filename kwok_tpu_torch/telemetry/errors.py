@@ -72,6 +72,11 @@ def worker_restarted(thread_name: str) -> None:
     _restarts.labels(thread=thread_name).inc()
 
 
+def worker_restarts_total(thread_name: str) -> float:
+    """One worker's restart counter (the chaos phase and tests)."""
+    return _restarts.labels(thread=thread_name).value
+
+
 def worker_crash_ledger() -> dict:
     """Every worker's (crashes, restarts) pair: a crash without a
     matching restart means a worker died for good outside the
@@ -89,9 +94,12 @@ def wire_reject(reason: str, n: int = 1) -> None:
     _wire_rejects.labels(reason=reason).inc(n)
 
 
-def wire_rejects_total(reason: str) -> float:
-    """kwok_wire_rejects_total{reason=} so far in this process."""
-    return _wire_rejects.labels(reason=reason).value
+def wire_rejects_total(reason: "str | None" = None) -> float:
+    """kwok_wire_rejects_total{reason=} so far in this process; with no
+    reason, the sum over every reason."""
+    if reason is not None:
+        return _wire_rejects.labels(reason=reason).value
+    return sum(c.value for _values, c in _wire_rejects.children())
 
 
 def render_nonempty() -> str:

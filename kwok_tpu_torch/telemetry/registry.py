@@ -15,8 +15,9 @@ old surface exported with no matching ``_count``.
 
 from __future__ import annotations
 
-import threading
 from bisect import bisect_left
+
+from kwok_tpu_torch.locks import reclaimable
 
 # Latency buckets (seconds): 100us .. 10s, the range a tick/drain/patch can
 # plausibly land in; fixed at registration so observe stays index+increment.
@@ -58,7 +59,7 @@ class _CounterChild:
     __slots__ = ("_lock", "value")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = reclaimable()
         self.value = 0
 
     def inc(self, v=1) -> None:
@@ -70,7 +71,7 @@ class _GaugeChild:
     __slots__ = ("_lock", "value")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = reclaimable()
         self.value = 0.0
 
     def set(self, v) -> None:
@@ -85,7 +86,7 @@ class _HistogramChild:
     __slots__ = ("_lock", "bounds", "counts", "sum")
 
     def __init__(self, bounds):
-        self._lock = threading.Lock()
+        self._lock = reclaimable()
         self.bounds = bounds
         self.counts = [0] * (len(bounds) + 1)  # last = +Inf
         self.sum = 0.0
@@ -110,7 +111,7 @@ class _Family:
         self.name = name
         self.help = help
         self.label_names = tuple(label_names)
-        self._lock = threading.Lock()
+        self._lock = reclaimable()
         self._children: dict[tuple, object] = {}
         if not self.label_names:
             # label-less family: the bare child exists from birth so the
@@ -219,7 +220,7 @@ class MetricsRegistry:
     same family share it (their per-shard children coexist as labels)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = reclaimable()
         self._families: dict[str, _Family] = {}
 
     def _get_or_create(self, cls, name, help, label_names, **kw):

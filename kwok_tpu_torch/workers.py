@@ -1,7 +1,9 @@
 """Named daemon worker threads with crash accounting.
 
-:func:`spawn_worker` (used by ``kwok/server.py``'s HTTP thread) names the
-thread and accounts crashes: an uncaught exception is logged with the
+:func:`spawn_worker` (the HTTP thread of ``kwok/server.py``, and every
+worker the watchdog supervises) names the thread, keeps it in a live
+registry (:func:`live_workers`, which the fault plane's worker killer
+reads) and accounts crashes: an uncaught exception is logged with the
 thread's name and bumped into ``kwok_worker_crashes_total{thread=...}``
 *before being re-raised into* ``threading.excepthook``. Wrapping the
 target (instead of replacing the process hook) composes with test
@@ -14,10 +16,17 @@ from __future__ import annotations
 
 import logging
 import threading
+import weakref
 
 from kwok_tpu_torch.telemetry.errors import worker_crashed
 
 logger = logging.getLogger("kwok_tpu_torch.workers")
+
+# name -> Thread; an entry vanishes when its thread object is collected
+_live: "weakref.WeakValueDictionary[str, threading.Thread]" = (
+    weakref.WeakValueDictionary()
+)
+
 
 def spawn_worker(
     target,
@@ -40,6 +49,13 @@ def spawn_worker(
             raise  # still reaches threading.excepthook (tests fail on it)
 
     t = threading.Thread(target=run, name=name, daemon=daemon)
+    _live[name] = t
     if start:
         t.start()
     return t
+
+
+def live_workers() -> dict[str, threading.Thread]:
+    """The spawned workers still alive, by name (the fault plane's kill
+    targets, and tests)."""
+    return {n: t for n, t in _live.items() if t.is_alive()}

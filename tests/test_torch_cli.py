@@ -8,7 +8,9 @@
 - Both parsers have the same option strings and defaults.
 - Every flag (and environment twin) that would switch on a subsystem the
   port lacks exits non-zero naming its ROADMAP item; so does the default
-  cuda device on a host without a card. ``--lane-procs`` and its
+  cuda device on a host without a card. ``--faults`` and its two
+  environment twins, refused until item 13a, now reach the engine's
+  fault plane (``--faults off`` builds none). ``--lane-procs`` and its
   environment twin reach the engine's config (process lanes need an
   HTTP apiserver; with them off no arena is made). ``--checkpoint-dir``
   and its two environment twins start an engine with a checkpoint writer
@@ -164,25 +166,57 @@ REFUSED = {
     "use-mesh": (["--use-mesh", "true"], {}, "9b"),
     "ha-primary": (["--ha-role", "primary"], {}, 12),
     "ha-standby": (["--ha-role", "standby"], {}, 12),
-    "audit-interval": (["--audit-interval", "5"], {}, 13),
-    "faults": (["--faults", "seed=1;pump.drop=0.1"], {}, 13),
+    "audit-interval": (["--audit-interval", "5"], {}, "13b"),
+    # accepted since item 13a (None): the spec reaches the fault plane
+    "faults": (["--faults", "seed=1;pump.drop=0.1"], {}, None),
     "enable-cni": (["--enable-cni", "true"], {}, 14),
     # a federation runs on one card: its stacked state over several is 9b
     "two-masters": (TWO + ["--use-mesh", "true"], {}, "9b"),
     "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, "9b"),
     "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, 12),
-    "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, 13),
-    "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, 13),
-    "env-faults": ([], {"KWOK_FAULTS": "seed=1"}, 13),
-    "env-tpu-faults": ([], {"KWOK_TPU_FAULTS": "seed=1"}, 13),
+    "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, "13b"),
+    "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, "13b"),
+    "env-faults": ([], {"KWOK_FAULTS": "seed=1"}, None),
+    "env-tpu-faults": ([], {"KWOK_TPU_FAULTS": "seed=1"}, None),
     "env-enable-cni": ([], {"KWOK_ENABLE_CNI": "true"}, 14),
 }
+
+
+def accepted_fault_spec(extra, env, monkeypatch):
+    """The fault plane an accepted ``--faults`` form builds: the CLI's
+    precedence (config < KWOK_* env < flag, then KWOK_TPU_FAULTS as the
+    engine's fallback) up to a constructed engine."""
+    from kwok_tpu.resilience.faults import FaultSpec as JaxSpec
+    from kwok_tpu_torch.config.types import apply_env_overrides
+    from kwok_tpu_torch.engine import ClusterEngine
+    from kwok_tpu_torch.resilience.faults import FaultyClient
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    opts = KwokConfigurationOptions()
+    apply_env_overrides(opts)
+    args = tcli.build_parser(opts).parse_args(extra + ["--manage-all-nodes", "true"])
+    assert tcli.refusals(args, ["http://127.0.0.1:1"]) == []
+    cfg = tcli._engine_config(args, [], "cpu")
+    eng = ClusterEngine(PortFakeKube(), cfg)
+    assert eng._faults is not None and isinstance(eng.client, FaultyClient)
+    text = (extra[1:2] or list(env.values()))[0]
+    # the spec the plane runs is the one given, as kwok_tpu parses it
+    assert eng._faults.spec.render() == JaxSpec.parse(text).render()
+    return cfg
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
     extra, env, item = REFUSED[name]
     monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    if item is None:
+        cfg = accepted_fault_spec(extra, env, monkeypatch)
+        # the flag and KWOK_FAULTS fill EngineConfig.faults;
+        # KWOK_TPU_FAULTS stays the engine's own fallback, as in kwok_tpu
+        assert cfg.faults == ("" if "KWOK_TPU_FAULTS" in env else
+                              (extra[1:2] or list(env.values()))[0])
+        return
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     # port 1 has no apiserver: a refusal must come before any network wait
@@ -463,6 +497,20 @@ def test_default_flags_run_the_auto_lane_count():
     eng = ClusterEngine(PortFakeKube(), tcli._engine_config(args, [], "cpu"))
     n = resolve_drain_shards(0, args.max_drain_shards)
     assert (eng._lanes.n if eng._lanes is not None else 1) == n
+
+
+def test_faults_off_builds_no_plane(monkeypatch):
+    """``--faults off`` wins over an inherited KWOK_TPU_FAULTS: no plane,
+    the client unwrapped (the zero-cost contract)."""
+    from kwok_tpu_torch.engine import ClusterEngine
+
+    monkeypatch.setenv("KWOK_TPU_FAULTS", "seed=1;pump.drop=1.0")
+    args = tcli.build_parser(KwokConfigurationOptions()).parse_args(
+        ["--faults", "off", "--manage-all-nodes", "true"])
+    assert tcli.refusals(args, ["http://127.0.0.1:1"]) == []
+    kube = PortFakeKube()
+    eng = ClusterEngine(kube, tcli._engine_config(args, [], "cpu"))
+    assert eng._faults is None and eng.client is kube
 
 
 def test_ha_role_off_and_defaults_are_not_refused(tmp_path):

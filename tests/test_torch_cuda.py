@@ -181,6 +181,55 @@ def test_threaded_engine_on_card(card):
     assert cuda_tick.tick_steps.launches > before
 
 
+def test_killed_drain_worker_restarts_on_card(card):
+    """Threaded lanes on the card under the fault plane: a pill in lane
+    0's drain worker mid-churn is absorbed by the watchdog, the worker
+    restarts in place (one restart_log entry for the one kill), every pod
+    reaches Running, the engine is not degraded and the kernel launched
+    on the card."""
+    from kwok_tpu_torch.telemetry.errors import worker_restarts_total
+
+    server = FakeKube()
+    eng = ClusterEngine(server, EngineConfig(
+        manage_all_nodes=True, tick_interval=0.02, drain_shards=2, faults="seed=11"))
+    assert eng._lanes.stacked == {} and eng.device.type == "cuda"
+    before = cuda_tick.tick_steps.launches
+    r0 = worker_restarts_total("kwok-lane0")
+
+    def running():
+        return server.count(
+            "pods", lambda p: (p.get("status") or {}).get("phase") == "Running")
+
+    def wait(pred, timeout=60.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline and not pred():
+            time.sleep(0.05)
+        return pred()
+
+    eng.start()
+    try:
+        assert eng._lanes.stacked["pods"].phase.device.type == "cuda"
+        for i in range(10):
+            server.create("nodes", {"metadata": {"name": f"n{i}"}})
+        pod = lambda i: {  # noqa: E731
+            "metadata": {"name": f"p{i}", "namespace": "default"},
+            "spec": {"nodeName": f"n{i % 10}"}, "status": {"phase": "Pending"},
+        }
+        for i in range(100):
+            server.create("pods", pod(i))
+        assert wait(lambda: running() == 100)
+        assert eng._faults.kill_worker("kwok-lane0")
+        for i in range(100, 200):
+            server.create("pods", pod(i))
+        assert wait(lambda: worker_restarts_total("kwok-lane0") > r0)
+        assert wait(lambda: running() == 200)
+        assert [r["thread"] for r in eng._watchdog.restart_log()] == ["kwok-lane0"]
+        assert not eng.degraded
+    finally:
+        eng.stop()
+    assert cuda_tick.tick_steps.launches > before
+
+
 def test_profiler_records_every_tick_launch_on_card(card, tmp_path):
     """profile_dir on the card: the tick thread's torch.profiler window
     (ticks [2, 102), cut short by stop) holds one tick_kernel event per

@@ -420,3 +420,35 @@ def test_lane_regrow_keeps_rows_and_offsets():
         for key, idx in lane.engine.pods.pool.items():
             assert active[li * ls.r + idx], key
     assert int(active.sum()) == n_pods
+
+
+def test_drain_burst_yields_the_stage_lock_to_a_waiting_coordinator(monkeypatch):
+    """While the coordinator waits for a lane's stage_lock
+    (``swap_waiting``), the lane's drain worker ends its burst after each
+    item and yields, instead of keeping the lock for up to _BURST items:
+    counted in drain bursts (one per stage_lock hold), not in seconds."""
+    eng = TorchEngine(PortFakeKube(), TorchConfig(
+        manage_all_nodes=True, device="cpu", drain_shards=2))
+    lane = eng._lanes.lanes[0]
+    bursts = []
+    monkeypatch.setattr(lane.telemetry, "observe_stage",
+                        lambda stage, s: bursts.append(stage))
+
+    def drain(waiting: bool) -> int:
+        bursts.clear()
+        lane.swap_waiting = waiting
+        for i in range(5):
+            lane.q.put(("pods", "XUPD", [("default", f"absent-{i}")], 0.0))
+        lane.q.put(None)
+        lane.drain_loop()
+        return bursts.count("drain")
+
+    monkeypatch.setattr(lane, "_YIELD_S", 0.0)
+    assert drain(False) == 1
+    assert drain(True) == 5
+    lane.swap_waiting = False
+    # the coordinator's claim raises the flag while it waits and always
+    # lowers it
+    with tlanes.LaneSet._claim(lane):
+        assert not lane.swap_waiting
+    assert not lane.swap_waiting
