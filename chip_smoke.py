@@ -77,9 +77,10 @@ result line then):
    1,000 pods, the creator's seconds for its pods,
    kwok_watch_terminations_total{reason} from the mocks' /metrics
    and kwok_watch_relists_total from kwok's.
-6a. Trace (run between 6 and 6c): the CLI phase's path and size on the
-   native mock with --profile-dir, --trace-dump, --trace-sample-every 256
-   and KWOK_TPU_FLIGHT_DIR under a temporary directory. Each of these
+6a. Trace (run between 6 and 6c): the CLI phase's path on the native
+   mock at TRACE_PODS = 10,000 pods (cut from 25,000) with
+   --profile-dir, --trace-dump, --trace-sample-every 256 and
+   KWOK_TPU_FLIGHT_DIR under a temporary directory. Each of these
    fails the run: /debug/trace must answer 200 during the flood with a
    document that passes the Chrome trace-event check and holds
    tick.dispatch, tick.emit, pump.send and at least one sampled
@@ -108,7 +109,11 @@ result line then):
    kwok_tpu_torch.edge.mockserver --port 0; its /debug/flight must
    name the server "mock"),
    the apiserver of every HTTP phase before the native one: the numbers
-   that compare with earlier runs. The same checks.
+   that compare with earlier runs. The same checks, at PY_MOCK_PODS =
+   5,000 pods (cut from 25,000 to keep the script inside its time).
+   In every HTTP phase, once /readyz is 200, each mock's GET
+   /debug/watchers must pass check_watchers and, outside the fault
+   phases, hold the engine's two watches.
 7. Process lanes: the same topology, Stage file and native mock through
    main with --lane-procs true (auto lane count) and checkpoints every 1 s:
    one spawned lane process per lane, each running its own single-lane
@@ -117,7 +122,7 @@ result line then):
    deleted pods gone; every lane process on cuda with kernel launches,
    every lane<i>.ckpt.json written, the parent's --trace-dump and
    every lane process's <dump>.lane<i> written and parsed; /metrics with
-   kwok_status_patches_total >= 35,000 summed over the lanes and lane
+   kwok_status_patches_total >= nodes + pods summed over the lanes and lane
    stage seconds for at least 2 shards. Lane 0 is then SIGKILLed: it
    must be back within 60 s, kwok_lane_proc_restarts_total{shard="0"}
    must read 1, the engine must not be degraded, and 1,000 more pods
@@ -196,6 +201,54 @@ result line then):
    Running, the deletes gone, not degraded; the kernel bit-exact at lane
    0's capacities. A part that fails fails the run.
 
+11. Drift (ROADMAP item 13b, run after 10): the anti-entropy auditor.
+   (a) Threaded lanes at the CLI phase's width: the native mock under
+   --rig-routes (routes that change its store behind the engine's back,
+   driven by drift_rig.py; its 16,384-event watch backlog cap on),
+   10,000 nodes, a ClusterEngine in this process on the card with auto
+   lanes, audit_interval 1.0 and kwok_tpu's drift-soak
+   storm DRIFT_SPEC (seed 42: garbled, truncated, duplicated and stale
+   watch lines and LIST bodies, a skewed clock, stream cuts). 25,000 pods
+   are created in two halves 1 s apart by the CLI phase's creator (a
+   spawned process, 8 keep-alive connections); 2.5 s after the last, the
+   storm closes (rates cleared, the watch cache compacted, every watch
+   stopped) and the mock's watch-cache window widens from 4,096 to
+   DRIFT_RV_WINDOW = 32,768 events, so the auditor's continue tokens
+   outlive a scan cycle. Hard checks: every pod Running;
+   kwok_faults_injected_total > 0 for wire.garble, wire.dup and
+   wire.stale; kwok_wire_rejects_total rose; every lane's queues empty
+   at one moment within 180 s; no worker crash outside supervision; not
+   degraded (a drift streak the storm left must clear within 120 s).
+   Then, faults off and the watches quiet, 16 divergences are seeded
+   behind the engine's back in the first, middle and last windows of the
+   scan: 4 pods set back to Pending, 4 deleted, 4 rows' revisions set
+   ahead of the server's (under their lane's stage_lock), 4 bound pods
+   stored with no event. kwok_drift_detected_total must rise by at least
+   4 for each reason; every seeded object must be repaired (Running on
+   the server, the ghost row gone, the missed row present, the row
+   revision the server's), the stale, missed and double-applied ones
+   within (25 + 1) x 1.0 s + 3 s = 29 s of the seeding (a scan cycle of
+   ceil(25,000 / (256 x 4)) windows and a pass), the ghosts within
+   (2 x 25 + 1) x 1.0 s + 3 s = 54 s (they become suspects only when the
+   next cycle ends); not degraded 3 intervals later; the kernel
+   bit-exact at the engine's capacities. Every 5 s the phase logs the
+   pods Running, the queue depths, re-lists, rv rewinds, audit passes and
+   the mock's CPU seconds. Reported: pods/s against the CLI phase's,
+   the mock's and this process's CPU seconds in the storm, audit passes
+   with the median and largest kwok_audit_pass_seconds, detections by
+   reason in the storm and after the seeding, repair seconds and passes,
+   re-lists, rv rewinds and slow-watcher
+   terminations. (b) Process lanes over HTTP: kwok's entry point
+   (cli.main) in a process of its own with --lane-procs true
+   --drain-shards 2 --audit-interval 1.0 against an in-process Python
+   mock, 1,000 nodes and 2,500 pods (cut from 2,000 and 5,000 to keep the
+   script inside its time), then 4 stale rows, 4 ghosts and 4
+   missed events seeded: the parent's /metrics must show the lanes'
+   kwok_drift_detected_total summed, at least 4 for each, the stale and
+   missed pods Running and kwok_pods_managed back at 2,500 within 60 s,
+   /readyz 200 at the end, the process exiting 0 with lane kernel
+   launches > 0. A part that fails fails the run.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -271,6 +324,58 @@ CHAOS_FED_SPEC = "seed=17;worker.kill=kwok-watch-pods-m*:2.0"
 CHAOS_PROCS_NODES = 2_000
 CHAOS_PROCS_PODS = 5_000
 CHAOS_PROCS_SPEC = "seed=5;shm.desc_garble=0.02;shm.desc_drop=0.02"
+# the drift phase (ROADMAP item 13b): kwok_tpu's drift soak (its DRIFT_SPEC,
+# seed 42) at the CLI phase's width, then divergence seeded behind the
+# engine's back; 4 objects per reason, in the first, middle and last
+# windows of the auditor's scan. Part (a)'s store is the native mock under
+# --rig-routes, whose routes make the silent changes (drift_rig.py drives
+# them). The Python mock, in process or in a process of its own, fell
+# behind the engine's patches at this width (PERF.md §6)
+DRIFT_NODES = 10_000
+DRIFT_PODS = 25_000
+DRIFT_SPEC = ("seed=42;wire.garble=0.08;wire.truncate=0.02;wire.dup=0.10;"
+              "wire.stale=0.10;clock.jump=0.5:0.3;watch.cut=0.005")
+DRIFT_AUDIT_S = 1.0  # --audit-interval
+# the Python mock's watch-cache window once the drift storm has closed
+# (and in the process-lane part): the storm runs under the mock's default
+# 4,096 events, whose compaction pressure is part of it, but at the
+# heartbeats' 333 writes/s that window lives about 12 s, less than a
+# 25-pass scan cycle, so every continue token of the auditor's scan would
+# expire before its cycle ends (the real apiserver compacts every 5
+# minutes)
+DRIFT_RV_WINDOW = 32_768
+DRIFT_STORM_TAIL_S = 2.5  # after the last create, before the storm closes
+DRIFT_DEADLINE_S = 420.0  # from the engine's start until every pod is Running
+DRIFT_DRAIN_S = 180.0  # after every pod is Running, until every lane's queues are empty at once
+DRIFT_DEGRADED_WAIT_S = 120.0  # after that, until a drift streak the storm left has cleared
+DRIFT_SEEDS = {  # pod index -> the divergence seeded there
+    **{i: "stale-row" for i in (10, 500, 12_500, 24_900)},
+    **{i: "ghost-row" for i in (20, 510, 12_510, 24_910)},
+    **{i: "double-apply" for i in (30, 520, 12_520, 24_920)},
+    **{i: "missed-event" for i in (40, 530, 12_530, 24_940)},
+}
+# the repair bounds in seconds: one scan cycle of ceil(pods / (256 x 4))
+# windows plus a pass, at one pass per DRIFT_AUDIT_S, and 3 s; a ghost
+# becomes a suspect only when the next cycle ends, so two cycles
+# (kwok_tpu's 4 s bound holds only when one window covers the cluster).
+# The passes each repair took are reported beside them
+DRIFT_CYCLE = -(-DRIFT_PODS // (256 * 4))
+DRIFT_REPAIR_S = (DRIFT_CYCLE + 1) * DRIFT_AUDIT_S + 3.0
+DRIFT_GHOST_REPAIR_S = (2 * DRIFT_CYCLE + 1) * DRIFT_AUDIT_S + 3.0
+# part (b), cut from 2,000 nodes and 5,000 pods (after cli_python_mock)
+# to keep the script inside 900 s with part (a) at full width
+DRIFT_PROCS_NODES = 1_000
+DRIFT_PROCS_PODS = 2_500
+DRIFT_PROCS_SEEDS = {
+    **{i: "stale-row" for i in (10, 700, 1_250, 2_400)},
+    **{i: "ghost-row" for i in (20, 710, 1_260, 2_410)},
+    **{i: "missed-event" for i in (30, 720, 1_280, 2_430)},
+}
+DRIFT_PROCS_REPAIR_S = 60.0
+# the cli_python_mock phase's pods, cut from 25,000 to keep the script
+# inside its time
+PY_MOCK_PODS = 5_000
+TRACE_PODS = 10_000  # the trace phase's pods, cut from 25,000 likewise
 DEVICE = "cuda"
 # the native mock apiserver's binary (kwok_tpu_torch/native/apiserver.cc),
 # built once by main(); every HTTP phase but the cli_python_mock arm runs it
@@ -833,7 +938,7 @@ def stage_documents() -> list[dict]:
 
 
 def create_over_http(url: str, kind: str, count: int, conns: int,
-                     nodes: int, span, first: int = 0) -> None:
+                     nodes: int, span, first: int = 0, pod_name: str = "pod-{}") -> None:
     """Create ``count`` nodes, or pods bound round-robin to ``nodes``
     nodes, numbered from ``first``, over ``conns`` keep-alive connections
     (one per thread). Runs in a spawned process, so the creator does not
@@ -849,7 +954,7 @@ def create_over_http(url: str, kind: str, count: int, conns: int,
         if kind == "nodes":
             return {"metadata": {"name": f"node-{i}"}}
         return {
-            "metadata": {"name": f"pod-{i}", "namespace": "default",
+            "metadata": {"name": pod_name.format(i), "namespace": "default",
                          "finalizers": ["kwok.x-k8s.io/smoke"]},
             "spec": {"nodeName": f"node-{i % nodes}",
                      "containers": [{"name": "c", "image": "busybox"}]},
@@ -869,7 +974,8 @@ def create_over_http(url: str, kind: str, count: int, conns: int,
 
 
 def spawn_creator(url: str, kind: str, count: int, first: int = 0,
-                  nodes: "int | None" = None, conns: "int | None" = None):
+                  nodes: "int | None" = None, conns: "int | None" = None,
+                  pod_name: str = "pod-{}"):
     """Start create_over_http in a spawned process (pods bound to
     ``nodes`` nodes, CLI_NODES by default, over ``conns`` connections,
     CLI_CONNS by default); returns it and its (start, end) span."""
@@ -881,7 +987,7 @@ def spawn_creator(url: str, kind: str, count: int, first: int = 0,
     ctx = multiprocessing.get_context("spawn")
     span = ctx.Array("d", 2)
     proc = ctx.Process(target=create_over_http,
-                       args=(url, kind, count, conns, nodes, span, first),
+                       args=(url, kind, count, conns, nodes, span, first, pod_name),
                        name=f"create-{kind}")
     proc.start()
     return proc, span
@@ -1094,6 +1200,11 @@ def start_cli(extra_argv: list, members: int = 1, nodes: "int | None" = None,
             raise AssertionError(f"/readyz: want 503 before the first re-list, then 200; "
                                  f"got {readyz[:3]}...{readyz[-3:]}")
         run["engine"] = engines[0]
+        # every mock's watch census under check_watchers, the engine's
+        # two watches among its live ones (under a fault plane a stream
+        # may be between a cut and its resume)
+        run["watchers"] = [check_mock_watchers(u, 0 if "--faults" in extra_argv else 2)
+                           for u in urls]
         if run["engine"].device.type != DEVICE:
             raise AssertionError(f"the CLI's engine runs on {run['engine'].device}, not {DEVICE}")
     except BaseException:
@@ -2171,6 +2282,487 @@ def chaos_phase(cli_run) -> dict:
     return out
 
 
+def check_mock_watchers(url: str, at_least: int = 2) -> dict:
+    """GET /debug/watchers of a mock under check_watchers (both mocks
+    serve the census); the engine's watches must be among them."""
+    from kwok_tpu_torch.telemetry.timeline import check_watchers
+
+    code, text = http_get(url + "/debug/watchers")
+    if code != 200:
+        raise AssertionError(f"{url}/debug/watchers answered {code}")
+    doc = json.loads(text)
+    check_watchers(doc)
+    if doc["count"] < at_least:
+        raise AssertionError(f"{url}/debug/watchers: {doc['count']} watches, want {at_least}")
+    return {"server": doc["server"], "count": doc["count"], "backlog_cap": doc["backlog_cap"],
+            "max_lag": max((w["lag_events"] for w in doc["watchers"]), default=0)}
+
+
+class PassTimes:
+    """The auditor's kwok_audit_pass_seconds histogram, with each pass's
+    seconds kept (the histogram keeps buckets only)."""
+
+    def __init__(self, hist) -> None:
+        self.hist = hist
+        self.values: list = []
+
+    def observe(self, v: float) -> None:
+        self.values.append(v)
+        self.hist.observe(v)
+
+
+def drift_pod(i: int, nodes: int, prefix: str = "dpod") -> dict:
+    return {"metadata": {"name": f"{prefix}-{i:05d}", "namespace": "default"},
+            "spec": {"nodeName": f"node-{i % nodes}",
+                     "containers": [{"name": "c", "image": "busybox"}]},
+            "status": {"phase": "Pending"}}
+
+
+def quiescent(relists, hold: float = 1.5, timeout: float = 20.0) -> bool:
+    """Wait until ``relists()`` has not moved for ``hold`` seconds: a
+    storm-era cut or resync landing while divergence is seeded would
+    repair it through a re-list before the auditor sees it."""
+    deadline = time.monotonic() + timeout
+    last, since = None, time.monotonic()
+    while time.monotonic() < deadline:
+        cur = relists()
+        if cur != last:
+            last, since = cur, time.monotonic()
+        elif time.monotonic() - since >= hold:
+            return True
+        time.sleep(0.1)
+    return False
+
+
+def seed_divergence(rig, seeds: dict, nodes: int, prefix: str, eng=None) -> dict:
+    """Seed one divergence per entry of ``seeds`` (pod index -> reason)
+    behind the engine's back through ``rig`` (drift_rig's RigClient or
+    LocalRig): a phase set back to Pending, a silent delete, the row
+    revision set ahead of the server's (the double-apply; in ``eng``'s
+    owning lane, under its stage_lock), or a bound pod stored with a
+    revision and no event beside the pod (the missed event). Returns
+    {name: reason}."""
+    import drift_rig
+
+    out = {}
+    for i, reason in sorted(seeds.items()):
+        name = f"{prefix}-{i:05d}"
+        if reason == "stale-row":
+            ok = rig.silent(op="phase", kind="pods", namespace="default", name=name,
+                            phase="Pending")["ok"]
+        elif reason == "ghost-row":
+            ok = rig.silent(op="delete", kind="pods", namespace="default", name=name)["ok"]
+        elif reason == "double-apply":
+            srv_rv = int(rig.get("pods", "default", name)["metadata"]["resourceVersion"])
+            ok = drift_rig.set_row_rv(eng, "pods", ("default", name), srv_rv + 1_000_000)
+        else:
+            pod = drift_pod(i, nodes, prefix)
+            name = pod["metadata"]["name"] = f"{name}-m"
+            ok = rig.silent(op="create", kind="pods", object=pod)["ok"]
+        if not ok:
+            raise AssertionError(f"drift seed {reason} on {name}: no such object or row")
+        out[name] = reason
+    return out
+
+
+def progress_logger(sample, stop: threading.Event, every: float = 5.0) -> None:
+    """Log ``sample()`` every ``every`` seconds until ``stop`` is set: the
+    drift phase's record of where it stood when a check fails."""
+    t0 = time.monotonic()
+
+    def loop() -> None:
+        while not stop.wait(every):
+            try:
+                log(f"drift +{time.monotonic() - t0:.0f} s: {sample()}")
+            except Exception as e:  # a sample must never end the phase
+                log(f"drift +{time.monotonic() - t0:.0f} s: sample failed: {e!r}")
+
+    threading.Thread(target=loop, name="drift-progress", daemon=True).start()
+
+
+def drift_lanes(cli_run):
+    """Phase 11a: the storm, then seeded divergence (see the module
+    docstring)."""
+    import statistics
+
+    import torch
+
+    import drift_rig
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+    from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
+    from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.resilience.antientropy import REASONS
+    from kwok_tpu_torch.telemetry.errors import wire_rejects_total, worker_crash_ledger
+
+    n_lanes = resolve_drain_shards(0, 0)
+    info: dict = {"lanes": n_lanes, "spec": DRIFT_SPEC, "mock": "native --rig-routes"}
+    mock = subprocess.Popen(mock_command("native") + ["--rig-routes"],
+                            stdout=subprocess.PIPE, text=True)
+    eng = None
+    stop_progress = threading.Event()
+    try:
+        url = mock_url(mock)
+        check_mock(url, "native")
+        rig = drift_rig.RigClient(url)
+        proc, _span = spawn_creator(url, "nodes", DRIFT_NODES)
+        join_creator(proc, time.monotonic() + DRIFT_DEADLINE_S)
+        eng = ClusterEngine(HttpKubeClient(url), EngineConfig(
+            manage_all_nodes=True, cidr="10.0.0.1/16", drain_shards=n_lanes,
+            faults=DRIFT_SPEC, audit_interval=DRIFT_AUDIT_S, device=DEVICE))
+        plane = eng._faults
+
+        def injected() -> dict:
+            m = parse_metrics(eng.process_metrics_text())
+            return {k.split('kind="', 1)[1].split('"', 1)[0]: v for k, v in m.items()
+                    if k.startswith("kwok_faults_injected_total{")}
+
+        def pod_views(names) -> dict:
+            """For a failure's message: each pod's server status, its row's
+            (uid, rv, phase, node), its node, whether that node is managed
+            and the node's row."""
+            views = {}
+            for n in names:
+                obj = rig.get("pods", "default", n) or {}
+                node = (obj.get("spec") or {}).get("nodeName")
+                views[n] = (obj.get("status"), aud._row_view("pods", ("default", n)),
+                            node, node in eng.node_has, aud._row_view("nodes", node))
+            return views
+
+        inj0 = injected()
+        rejects0 = wire_rejects_total()
+        crashes0 = {k: len(v) for k, v in worker_crash_ledger().items()}
+        cuda_tick.tick_steps.launches = 0
+        eng.start()
+        aud = eng._auditor
+        if aud is None or plane is None or eng._lanes is None or eng._lanes.n != n_lanes:
+            raise AssertionError(f"no auditor, plane or {n_lanes} lanes: {aud}, {plane}")
+        aud._pass_hist = passes = PassTimes(aud._pass_hist)
+        lanes = eng._lanes.lanes
+
+        def sample() -> str:
+            st = rig.state()
+            q = [ln.q.qsize() for ln in lanes]
+            em = [ln.emit_q.qsize() for ln in lanes]
+            m = eng.metrics
+            return (f"{st['running']} of {st['pods']} pods Running; ingest queue "
+                    f"{eng._q.qsize()}, lane queues {sum(q)} (largest {max(q)}), emit "
+                    f"{sum(em)}; re-lists {m.get('watch_relists_total', 0):.0f}, rv rewinds "
+                    f"{m.get('rv_rewinds_total', 0):.0f}; audit passes "
+                    f"{aud.snapshot()['passes']}, detected {aud.detected_total()}, repaired "
+                    f"{aud.repaired_total}; degraded {sorted(eng._degradation.reasons)}; "
+                    f"slow terminations {st['terminations'].get('slow', 0)}; mock CPU "
+                    f"{cpu_seconds(mock.pid):.1f} s")
+
+        progress_logger(sample, stop_progress)
+        deadline = time.monotonic() + DRIFT_DEADLINE_S
+        while not eng.ready:
+            if time.monotonic() > deadline:
+                raise AssertionError("the drift engine never became ready")
+            time.sleep(0.05)
+        info["watchers_at_ready"] = check_mock_watchers(url, 0)
+        # the storm: two halves about 1 s apart from the CLI phase's
+        # creator (a spawned process over CLI_CONNS keep-alive
+        # connections), so the wire tier corrupts live traffic
+        t_first = time.monotonic()
+        cpu0 = (cpu_seconds(mock.pid), cpu_seconds(os.getpid()))
+        half = DRIFT_PODS // 2
+        for lo, hi, gap in ((0, half, 1.0), (half, DRIFT_PODS, 0.0)):
+            proc, _span = spawn_creator(url, "pods", hi - lo, first=lo,
+                                        nodes=DRIFT_NODES, pod_name="dpod-{:05d}")
+            join_creator(proc, deadline)
+            time.sleep(gap)
+        t_created = time.monotonic()
+        time.sleep(DRIFT_STORM_TAIL_S)
+        # close the storm as an outage ends: rates cleared, the watch
+        # cache compacted, every stream cut (each re-lists); then the
+        # window widens so the auditor's continue tokens outlive a cycle
+        plane.spec.rates.clear()
+        info["faults"] = plane.counts()
+        t_heal = time.monotonic()
+        rig.compact()
+        rig.stop_watches()
+        rig.window(DRIFT_RV_WINDOW)
+        log(f"drift: storm closed {t_heal - t_first:.1f} s after the first create")
+        while (st := rig.state())["running"] < DRIFT_PODS:
+            if time.monotonic() > deadline:
+                snap = aud.snapshot()
+                raise AssertionError(
+                    f"drift storm: {st['running']} of {DRIFT_PODS} Running, first not: "
+                    f"{st['not_running']}; server status, (uid, rv, phase, node) of the "
+                    f"row, the node, managed, its row: {pod_views(st['not_running'][:5])}; "
+                    f"audit passes {snap['passes']}, cursor {snap['cursor']}, re-lists "
+                    f"{eng.metrics['watch_relists_total']}, watch terminations "
+                    f"{st['terminations']}")
+            time.sleep(0.5)
+        t_running = time.monotonic()
+        cpu1 = (cpu_seconds(mock.pid), cpu_seconds(os.getpid()))
+        log(f"drift: every pod Running {t_running - t_heal:.1f} s after the storm closed")
+        inj = {k: v - inj0.get(k, 0.0) for k, v in injected().items()}
+        missing = [k for k in ("wire.garble", "wire.dup", "wire.stale") if inj.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"kwok_faults_injected_total did not move for {missing}: {inj}")
+        rejects = wire_rejects_total() - rejects0
+        if rejects <= 0:
+            raise AssertionError("kwok_wire_rejects_total did not rise in the storm")
+        # every lane's queues empty at one moment: the node heartbeats
+        # keep events flowing, so lanes that keep up are empty between
+        # them, and a backlog that does not drain fails here
+        t_q = time.monotonic() + DRIFT_DRAIN_S
+        while True:
+            sizes = [(ln.q.qsize(), ln.emit_q.qsize()) for ln in lanes]
+            if not any(a or b for a, b in sizes):
+                break
+            if time.monotonic() > t_q:
+                raise AssertionError(f"lane queues did not drain in {DRIFT_DRAIN_S} s: {sizes}")
+            time.sleep(0.02)
+        info["lanes_drained_s"] = time.monotonic() - t_running
+        crashes = {k: len(v) - crashes0.get(k, 0) for k, v in worker_crash_ledger().items()}
+        if any(crashes.values()):
+            raise AssertionError(f"worker crashes outside supervision: {crashes}")
+        # a drift streak the storm left clears once two scan cycles have
+        # re-covered its window clean (the auditor's own rule)
+        t_deg = time.monotonic() + DRIFT_DEGRADED_WAIT_S
+        while eng.degraded:
+            if time.monotonic() > t_deg:
+                views = {}
+                for ent, rec in list(aud._streaks.items())[:8]:
+                    kind, key = ent[0], ent[1]
+                    ns, name = key if kind == "pods" else (None, key)
+                    views[repr(ent)] = (rec, aud._row_view(kind, key),
+                                        rig.get(kind, ns, name) is not None)
+                raise AssertionError(
+                    f"degraded after the storm: {eng._degradation.reasons}; streaks "
+                    f"(count and cycle, the row, on the server): {views}")
+            time.sleep(0.2)
+        info["degraded_after_storm_s"] = time.monotonic() - t_running
+        storm_detected = {r: aud.detected_total(reason=r) for r in REASONS}
+        relists_storm = eng.metrics["watch_relists_total"]
+        if not quiescent(lambda: eng.metrics["watch_relists_total"]):
+            raise AssertionError("the watch streams kept re-listing after the storm")
+        # seeded divergence, faults off
+        seeded = seed_divergence(rig, DRIFT_SEEDS, DRIFT_NODES, "dpod", eng)
+        t_seed = time.monotonic()
+        passes0 = aud.snapshot()["passes"]
+        log(f"drift: {len(seeded)} divergences seeded "
+            f"{t_seed - t_running:.1f} s after every pod was Running")
+        bound = {r: DRIFT_GHOST_REPAIR_S if r == "ghost-row" else DRIFT_REPAIR_S
+                 for r in REASONS}
+
+        def repaired(name: str, reason: str) -> bool:
+            row = drift_rig.row_rv(eng, "pods", ("default", name))
+            if reason == "ghost-row":
+                return row is None
+            obj = rig.get("pods", "default", name)
+            if obj is None or row is None:
+                return False
+            if reason == "double-apply":
+                return row == int(obj["metadata"]["resourceVersion"])
+            return (obj.get("status") or {}).get("phase") == "Running"
+
+        repaired_at: dict = {}
+        repaired_pass: dict = {}
+        while len(repaired_at) < len(seeded):
+            for name, reason in seeded.items():
+                if name not in repaired_at and repaired(name, reason):
+                    repaired_at[name] = time.monotonic() - t_seed
+                    repaired_pass[name] = aud.snapshot()["passes"] - passes0
+            if time.monotonic() - t_seed > max(bound.values()):
+                break
+            time.sleep(0.25)
+        late = {n: (r, repaired_at.get(n), repaired_pass.get(n)) for n, r in seeded.items()
+                if repaired_at.get(n) is None or repaired_at[n] > bound[r]}
+        if late:
+            raise AssertionError(
+                f"seeded divergence not repaired in time (bounds {DRIFT_REPAIR_S} s, ghosts "
+                f"{DRIFT_GHOST_REPAIR_S} s): {late}; {pod_views(list(late))}")
+        log(f"drift: seeded divergence repaired in {max(repaired_at.values()):.1f} s")
+        detected = {r: aud.detected_total(reason=r) - storm_detected[r] for r in REASONS}
+        short = {r: n for r, n in detected.items() if n < 4}
+        if short:
+            raise AssertionError(f"kwok_drift_detected_total rose by less than 4: {short}")
+        time.sleep(3 * DRIFT_AUDIT_S)
+        if eng.degraded:
+            raise AssertionError(f"degraded 3 intervals after the repairs: "
+                                 f"{eng._degradation.reasons}")
+        info["watchers_at_end"] = check_mock_watchers(url, 0)
+        snap = aud.snapshot()
+        info.update({
+            "nodes": DRIFT_NODES, "pods": DRIFT_PODS,
+            "create_to_running_pods_per_s": DRIFT_PODS / (t_running - t_first),
+            "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
+            "pod_create_s": t_created - t_first, "heal_to_running_s": t_running - t_heal,
+            "storm_mock_cpu_s": cpu1[0] - cpu0[0],
+            "storm_engine_process_cpu_s": cpu1[1] - cpu0[1],
+            "faults_injected": inj, "wire_rejects": rejects,
+            "audit_passes": snap["passes"],
+            "audit_pass_s_median": statistics.median(passes.values),
+            "audit_pass_s_max": max(passes.values),
+            "detected_in_storm": storm_detected, "detected_seeded": detected,
+            "repaired_total": snap["repaired_total"],
+            "repair_s": {r: sorted(t for n, t in repaired_at.items() if seeded[n] == r)
+                         for r in REASONS},
+            "repair_passes": {r: sorted(p for n, p in repaired_pass.items() if seeded[n] == r)
+                              for r in REASONS},
+            "repair_bound_s": {"ghost-row": DRIFT_GHOST_REPAIR_S, "others": DRIFT_REPAIR_S},
+            "watch_relists": eng.metrics["watch_relists_total"],
+            "watch_relists_after_storm": relists_storm,
+            "rv_rewinds": eng.metrics.get("rv_rewinds_total", 0),
+            "slow_terminations": rig.state()["terminations"].get("slow", 0),
+        })
+    finally:
+        stop_progress.set()
+        if eng is not None:
+            eng.stop()
+        mock.terminate()
+        try:
+            mock.wait(30)
+        except subprocess.TimeoutExpired:
+            mock.kill()
+            mock.wait(30)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the drift phase launched no tick kernel")
+    caps, ms, plain_ms, _wire_ms = engine_shape_check(torch, eng)
+    log(f"drift (lanes): kernel at the engine's capacities {caps}: checked, {ms:.4f} ms")
+    info.update({"kernel_launches": launches, "capacities": caps,
+                 "kernel_ms_at_capacities": ms, "plain_ms_at_capacities": plain_ms})
+    return info
+
+
+# the process-lane arm runs kwok's entry point in a process of its own
+# (cli.main, as python -m kwok_tpu_torch.kwok runs it) and prints the
+# lane processes' kernel launches once main has returned
+DRIFT_PROCS_MAIN = """
+import json, sys
+import kwok_tpu_torch.engine as engine_mod
+from kwok_tpu_torch.kwok import cli
+engines = []
+class Recorded(engine_mod.ClusterEngine):
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        engines.append(self)
+engine_mod.ClusterEngine = Recorded
+rc = cli.main(sys.argv[1:])
+pl = engines[0]._proc if engines else None
+print("drift-procs " + json.dumps({"rc": rc, "launches": sum(
+    s["launches"] for s in pl.status()) if pl is not None else 0}), flush=True)
+sys.exit(rc)
+"""
+
+
+def drift_procs():
+    """Phase 11b: the auditor in 2 lane processes over HTTP (see the
+    module docstring)."""
+    import drift_rig
+    from kwok_tpu_torch.edge.mockserver import FakeKube, HttpFakeApiserver
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    store = FakeKube()
+    store.rv_window = DRIFT_RV_WINDOW
+    srv = HttpFakeApiserver(store).start()
+    proc = None
+    info: dict = {"lanes": 2, "nodes": DRIFT_PROCS_NODES, "pods": DRIFT_PROCS_PODS}
+    try:
+        for i in range(DRIFT_PROCS_NODES):
+            store.create("nodes", {"metadata": {"name": f"node-{i}"}})
+        workdir = tempfile.mkdtemp(prefix="kwok-drift-")
+        stage_path = os.path.join(workdir, "stages.json")
+        with open(stage_path, "w") as f:
+            f.write("---\n".join(json.dumps(d) + "\n" for d in stage_documents()))
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DRIFT_PROCS_MAIN, "--master", srv.url,
+             "--kubeconfig", os.path.join(workdir, "no-kubeconfig"),
+             "--manage-all-nodes", "true", "--server-address", f"127.0.0.1:{port}",
+             "--cidr", "10.0.0.1/16", "--config", stage_path, "--lane-procs", "true",
+             "--drain-shards", "2", "--audit-interval", str(DRIFT_AUDIT_S)],
+            cwd=here, stdout=subprocess.PIPE, text=True)
+        deadline = time.monotonic() + DRIFT_DEADLINE_S
+        while http_get(base + "/readyz")[0] != 200:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"kwok --lane-procs never ready (exit {proc.poll()})")
+            time.sleep(0.1)
+        info["watchers_at_ready"] = check_mock_watchers(srv.url)
+        t0 = time.monotonic()
+        for i in range(DRIFT_PROCS_PODS):
+            store.create("pods", drift_pod(i, DRIFT_PROCS_NODES, "ppod"))
+        while store.count("pods", running) < DRIFT_PROCS_PODS:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{store.count('pods', running)} pods Running")
+            time.sleep(POLL_S)
+        info["create_to_running_pods_per_s"] = DRIFT_PROCS_PODS / (time.monotonic() - t0)
+
+        def metrics() -> dict:
+            code, text = http_get(base + "/metrics")
+            if code != 200:
+                raise AssertionError(f"kwok /metrics answered {code}")
+            return parse_metrics(text)
+
+        def detected(m: dict, reason: str) -> float:
+            return sum(v for k, v in m.items() if k.startswith("kwok_drift_detected_total{")
+                       and f'reason="{reason}"' in k)
+
+        if not quiescent(lambda: metrics()["kwok_watch_relists_total"]):
+            raise AssertionError("the watch streams kept re-listing")
+        m0 = metrics()
+        if m0["kwok_pods_managed"] != DRIFT_PROCS_PODS:
+            raise AssertionError(f"kwok_pods_managed {m0['kwok_pods_managed']}")
+        seeded = seed_divergence(drift_rig.LocalRig(store), DRIFT_PROCS_SEEDS,
+                                 DRIFT_PROCS_NODES, "ppod")
+        reasons = sorted(set(seeded.values()))
+        t_seed = time.monotonic()
+        while True:
+            m = metrics()
+            done = {r: detected(m, r) - detected(m0, r) for r in reasons}
+            phases_ok = all(
+                ((store.get("pods", "default", n) or {}).get("status") or {}).get("phase")
+                == "Running" for n, r in seeded.items() if r != "ghost-row")
+            # the missed pods' rows came in and the ghosts' went out
+            if (all(v >= 4 for v in done.values()) and phases_ok
+                    and m["kwok_pods_managed"] == DRIFT_PROCS_PODS):
+                break
+            if time.monotonic() - t_seed > DRIFT_PROCS_REPAIR_S:
+                raise AssertionError(f"process lanes: detected {done}, phases repaired "
+                                     f"{phases_ok}, kwok_pods_managed {m['kwok_pods_managed']}")
+            time.sleep(0.2)
+        info["repair_s"] = time.monotonic() - t_seed
+        info["detected"] = done
+        info["repaired_total"] = m.get("kwok_drift_repaired_total", 0.0) - m0.get(
+            "kwok_drift_repaired_total", 0.0)
+        info["audit_passes"] = m.get("kwok_audit_pass_seconds_count", 0.0)
+        time.sleep(3 * DRIFT_AUDIT_S)
+        code, _ = http_get(base + "/readyz")
+        if code != 200:
+            raise AssertionError(f"/readyz {code} at the end of the process-lane drift arm")
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                out, _ = proc.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate(timeout=30)
+        srv.stop()
+    line = [ln for ln in out.splitlines() if ln.startswith("drift-procs ")]
+    result = json.loads(line[-1].split(" ", 1)[1]) if line else {}
+    if proc.returncode != 0 or result.get("rc") != 0:
+        raise AssertionError(f"kwok --lane-procs exited {proc.returncode}: {result}")
+    if result.get("launches", 0) <= 0:
+        raise AssertionError("the drift lane processes launched no tick kernel")
+    info["kernel_launches"] = result["launches"]
+    return info
+
+
+def drift_phase(cli_run) -> dict:
+    """Phase 11: the auditor on threaded lanes, then in lane processes
+    over HTTP; either part's failure fails it."""
+    out = {"lanes": drift_lanes(cli_run), "procs": drift_procs()}
+    out["kernel_launches"] = out["lanes"]["kernel_launches"] + out["procs"]["kernel_launches"]
+    return out
+
+
 def member_stage_documents() -> list[dict]:
     """Federation members 6 and 7's pod Stages: the default pod-delete
     stage and one constant 1 s Pending->Running stage (a second rule-set
@@ -2372,6 +2964,7 @@ def fed_phase(cli_run):
 
 
 def main() -> int:
+    t_main = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -2428,30 +3021,37 @@ def main() -> int:
         print(json.dumps({"kernel_config": c}), flush=True)
     from kwok_tpu_torch.config.types import resolve_drain_shards
 
-    engine = engine_phase()
-    print(json.dumps({"engine": engine}), flush=True)
+    phase_s: dict = {}
+
+    def timed(name: str, fn, *args, **sizes):
+        """Run one phase (under ``sized(**sizes)`` when sizes are given),
+        keep its wall seconds in phase_s and print its result."""
+        t = time.monotonic()
+        if sizes:
+            with sized(**sizes):
+                out = fn(*args)
+        else:
+            out = fn(*args)
+        phase_s[name] = time.monotonic() - t
+        print(json.dumps({name: out}), flush=True)
+        return out
+
+    engine = timed("engine", engine_phase)
     n_lanes = resolve_drain_shards(0)
     print(f"lanes: {n_lanes} (cpu_count {os.cpu_count()})", flush=True)
-    lanes_run = engine_phase(n_lanes)
-    print(json.dumps({"lanes_engine": lanes_run}), flush=True)
-    restart = restart_phase()
-    print(json.dumps({"restart": restart}), flush=True)
-    cli_run = cli_phase()
-    print(json.dumps({"cli": cli_run}), flush=True)
-    traced = trace_phase(cli_run)
-    print(json.dumps({"trace": traced}), flush=True)
-    py_mock = cli_phase(mock="python")
-    print(json.dumps({"cli_python_mock": py_mock}), flush=True)
-    ab_off = cli_phase(native_off=True)
-    print(json.dumps({"ingest_ab_off": ab_off}), flush=True)
-    watch = watch_phase(cli_run)
-    print(json.dumps({"watch": watch}), flush=True)
-    procs = procs_phase(cli_run)
-    print(json.dumps({"procs": procs}), flush=True)
-    chaos = chaos_phase(cli_run)
-    print(json.dumps({"chaos": chaos}), flush=True)
-    fed = fed_phase(cli_run)
-    print(json.dumps({"federation": fed}), flush=True)
+    lanes_run = timed("lanes_engine", engine_phase, n_lanes)
+    restart = timed("restart", restart_phase)
+    cli_run = timed("cli", cli_phase)
+    traced = timed("trace", trace_phase, cli_run, CLI_PODS=TRACE_PODS)
+    py_mock = timed("cli_python_mock", lambda: cli_phase(mock="python"), CLI_PODS=PY_MOCK_PODS)
+    ab_off = timed("ingest_ab_off", lambda: cli_phase(native_off=True))
+    watch = timed("watch", watch_phase, cli_run)
+    procs = timed("procs", procs_phase, cli_run)
+    chaos = timed("chaos", chaos_phase, cli_run)
+    drift = timed("drift", drift_phase, cli_run)
+    fed = timed("federation", fed_phase, cli_run)
+    print(f"phase seconds: {json.dumps(phase_s)}; since main began {time.monotonic() - t_main:.1f} s",
+          flush=True)
     card = card_line()
     print(f"engine: {engine['create_to_running_pods_per_s']:.1f} pods/s with 1 lane, "
           f"{lanes_run['create_to_running_pods_per_s']:.1f} pods/s with {n_lanes} lanes; "
@@ -2527,6 +3127,17 @@ def main() -> int:
           f"{cf['kills']} kills, {cf['member_restarts']}; process lanes: "
           f"{cp['create_to_running_pods_per_s']:.1f} pods/s, faults {cp['faults']}, "
           f"{cp['desc_rejects']} ({card})", flush=True)
+    dl, dp = drift["lanes"], drift["procs"]
+    print(f"drift ({n_lanes} lanes, {DRIFT_SPEC}, --audit-interval {DRIFT_AUDIT_S}): "
+          f"{dl['create_to_running_pods_per_s']:.1f} pods/s create->Running against the cli "
+          f"phase's {dl['cli_phase_pods_per_s']:.1f}; faults {dl['faults_injected']}, wire "
+          f"rejects {dl['wire_rejects']:.0f}; audit passes {dl['audit_passes']}, pass s median "
+          f"{dl['audit_pass_s_median']:.4f} max {dl['audit_pass_s_max']:.4f}; detected in the "
+          f"storm {dl['detected_in_storm']}, seeded {dl['detected_seeded']}; repair s "
+          f"{dl['repair_s']}; re-lists {dl['watch_relists']:.0f}, slow terminations "
+          f"{dl['slow_terminations']}; process lanes: {dp['create_to_running_pods_per_s']:.1f} "
+          f"pods/s, detected {dp['detected']}, repaired {dp['repaired_total']:.0f} in "
+          f"{dp['repair_s']:.2f} s, {dp['kernel_launches']} lane launches ({card})", flush=True)
     tp, tw = traced["profile"], traced["profile_window"]
     print(f"trace ({n_lanes} lanes, profiled ticks {tw['ticks'][0]}-{tw['ticks'][1]} on "
           f"{tw['thread']}, {tw['wall_s']:.3f} s): device busy share {tp['busy_share']:.6f}, "
@@ -2565,7 +3176,8 @@ def main() -> int:
                      + traced["kernel_launches"]
                      + py_mock["kernel_launches"] + ab_off["kernel_launches"]
                      + watch["kernel_launches"] + procs["kernel_launches"]
-                     + chaos["kernel_launches"] + fed["kernel_launches"]),
+                     + chaos["kernel_launches"] + drift["kernel_launches"]
+                     + fed["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],
@@ -2581,7 +3193,7 @@ def main() -> int:
             "cli_python_mock": py_mock["kernel_launches"],
             "ingest_ab_off": ab_off["kernel_launches"], "watch": watch["kernel_launches"],
             "procs": procs["kernel_launches"], "chaos": chaos["kernel_launches"],
-            "federation": fed["kernel_launches"],
+            "drift": drift["kernel_launches"], "federation": fed["kernel_launches"],
         },
         "watch_capacities": watch["capacities"],
         "watch_ms": watch["kernel_ms_at_capacities"],

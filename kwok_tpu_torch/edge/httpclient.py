@@ -30,6 +30,7 @@ from typing import Iterator
 
 from kwok_tpu_torch.config.types import parse_documents
 from kwok_tpu_torch.edge.kubeclient import (
+    ContinueExpired,
     TooLargeResourceVersion,
     TooManyRequests,
     WatchEvent,
@@ -329,6 +330,40 @@ class HttpKubeClient:
             cont = (doc.get("metadata") or {}).get("continue")
             if not cont:
                 return items
+
+    def list_page(self, kind, *, limit: int, cont: str = "",
+                  field_selector=None, label_selector=None):
+        """ONE page of a paged LIST: the anti-entropy auditor's budgeted
+        read (``resilience/antientropy.py``), which bounds its pages per
+        pass and resumes the continue cursor on its next pass. Returns
+        ``(items, continue_token)``; a 410 on a resumed cursor raises
+        :class:`ContinueExpired`, so a caller restarts its scan and never
+        mistakes the expiry for a completed one (a legitimately empty
+        final page returns no token either). A 410 on a first page stays
+        an HTTP error."""
+        try:
+            doc = self._json(
+                "GET",
+                self._url(kind, query={
+                    "fieldSelector": field_selector,
+                    "labelSelector": label_selector,
+                    "limit": limit,
+                    "continue": cont or None,
+                }),
+            ) or {}
+        except urllib.error.HTTPError as e:
+            if e.code == 410 and cont:
+                logger.warning(
+                    "audit list %s continue token expired; restarting scan",
+                    kind,
+                )
+                raise ContinueExpired(kind) from e
+            raise
+        items = []
+        for item in doc.get("items") or []:
+            item.setdefault("apiVersion", "v1")
+            items.append(item)
+        return items, (doc.get("metadata") or {}).get("continue") or ""
 
     def watch(self, kind, *, field_selector=None, label_selector=None,
               resource_version=None, allow_bookmarks=False):

@@ -16,7 +16,7 @@ semantics the engine relies on:
   ``spec.terminationGracePeriodSeconds``, or 30.
 
 The watch cache is ``kwok_tpu.edge.mockserver``'s: the last
-``RV_WINDOW`` events are kept, and a watch that resumes from a revision
+``RV_WINDOW`` events are kept (``FakeKube.rv_window``, per store), and a watch that resumes from a revision
 gets the events after it replayed, then goes live with no gap between the
 two. A revision below the window (or below a ``compact()``) raises
 ``WatchExpired`` (410 Gone: the client re-lists), one ahead of the store
@@ -30,30 +30,44 @@ then, rolled back through an undo log kept over the same window (a key
 created later is hidden and earns no continue token). The first page of
 a ``limit`` list reports ``remainingItemCount``.
 
+The chaos tier: a watch whose live backlog (the events queued for it and
+not yet written; a resume's replay is kept apart and exempt) grows past
+``WATCH_BACKLOG`` is closed as a slow watcher, its backlog dropped
+(``kwok_watch_terminations_total{reason="slow"}``; the HTTP stream ends
+with no terminal chunk and the client resumes or re-lists). ``dump()`` and
+``load()`` are the mock's etcd snapshot and restore: a load replaces the
+store, compacts the watch cache (every older resume and continue token
+gets 410) and closes every watch. ``watchers_doc()`` is the census of
+live watches.
+
 ``HttpFakeApiserver`` puts an HTTP front on a ``FakeKube``: the routes
 ``edge/httpclient.HttpKubeClient`` uses (``/api/v1/{nodes,pods}`` list
 with ``limit``/``continue``, ``?watch=1`` as a chunked stream of JSON
 lines with ``resourceVersion`` and ``allowWatchBookmarks``, get, POST
 create, PATCH ``/status`` and metadata, DELETE with
-``gracePeriodSeconds``, ``/version``, ``/healthz`` and ``POST
-/compact``), a timer that sends bookmarks every ``BOOKMARK_INTERVAL``
-seconds, and the observability routes of the native server: ``GET
+``gracePeriodSeconds``, ``/version``, ``/healthz``, ``POST /compact``,
+``GET /snapshot`` and ``POST /restore``), a timer that sends bookmarks
+every ``BOOKMARK_INTERVAL`` seconds, two-band max-inflight admission
+(``KWOK_TPU_MAX_INFLIGHT``/``KWOK_TPU_MAX_MUTATING_INFLIGHT`` or the
+constructor's limits, 0 = off: a saturated band answers 429 with
+Retry-After; watches are exempt), a 400 Status for a request body that
+does not decode, and the observability routes of the native server: ``GET
 /metrics`` (``telemetry/apiserver_metrics``: inflight and rejected per
-band, both 0, and watch terminations, then the per-phase request timing
-families) and ``GET /debug/flight`` (the ring of recent request records,
-``"server": "mock"``); ``KWOK_TPU_APISERVER_TIMING=0`` turns the clock
-stamps off. It is the front of ``kwok_tpu.edge.mockserver`` cut to
-those routes: no TLS, audit, admission bands, slow-watcher termination,
-snapshots or RBAC (ROADMAP item 13 and later). A watch's backlog is
-the events queued for it and not yet written (the reference measures
-its broadcast ring's cursor lag). On those routes it answers as the native mock apiserver
-(``kwok_tpu_torch/native/apiserver.cc``) does, status bodies included
-(``tests/test_torch_apiserver.py`` holds the two to each other). Run it
-alone with
+band and watch terminations by reason, then the per-phase request timing
+families), ``GET /debug/flight`` (the ring of recent request records,
+``"server": "mock"``) and ``GET /debug/watchers`` (``watchers_doc``);
+``KWOK_TPU_APISERVER_TIMING=0`` turns the clock stamps off. It is the
+front of ``kwok_tpu.edge.mockserver`` cut to those routes: no TLS, audit,
+leases or RBAC (ROADMAP items 12 and 16). On those routes it answers as
+the native mock apiserver (``kwok_tpu_torch/native/apiserver.cc``) does,
+status bodies included (``tests/test_torch_apiserver.py`` holds the two
+to each other). Run it alone with
 
-    python3 -m kwok_tpu_torch.edge.mockserver --port 0
+    python3 -m kwok_tpu_torch.edge.mockserver --port 0 [--data-file F]
 
-which prints ``mock apiserver listening on URL``.
+which prints ``mock apiserver listening on URL`` (with ``--data-file``,
+after ``restored store from F`` when the file exists; the store is
+written back there at SIGTERM).
 """
 
 from __future__ import annotations
@@ -62,6 +76,7 @@ import base64
 import bisect
 import collections
 import copy
+import heapq
 import json
 import os
 import queue
@@ -105,6 +120,32 @@ RV_WINDOW = int(os.environ.get("KWOK_TPU_RV_WINDOW", "4096"))
 # FakeKube.emit_bookmarks directly)
 BOOKMARK_INTERVAL = float(os.environ.get("KWOK_TPU_BOOKMARK_INTERVAL", "60"))
 
+# a watch whose live backlog (queued, not yet written) grows past this is
+# closed as a slow watcher and its backlog dropped, instead of growing
+# without bound; the client resumes or re-lists. A resume's replay is
+# exempt (RV_WINDOW bounds it already: capping it would terminate every
+# resume whose gap exceeds the cap, a loop). <= 0 disables the cap. The
+# native server reads the same variable
+WATCH_BACKLOG = int(os.environ.get("KWOK_TPU_WATCH_BACKLOG", "16384"))
+
+# two-band max-inflight admission (kube-apiserver --max-requests-inflight
+# and --max-mutating-requests-inflight): a saturated band answers 429 with
+# Retry-After instead of queueing. 0 = the band is off (the default);
+# watches are exempt, bounded by WATCH_BACKLOG instead
+MAX_INFLIGHT = int(os.environ.get("KWOK_TPU_MAX_INFLIGHT", "0"))
+MAX_MUTATING_INFLIGHT = int(os.environ.get("KWOK_TPU_MAX_MUTATING_INFLIGHT", "0"))
+RETRY_AFTER_SECONDS = "1"
+TOO_MANY_REQUESTS_BODY = (
+    b'{"kind":"Status","apiVersion":"v1","status":"Failure",'
+    b'"message":"Too many requests, please try again later.",'
+    b'"reason":"TooManyRequests","code":429}'
+)
+
+# the kinds of a snapshot, in the native server's order: the kinds this
+# mock does not serve are always empty there
+SNAPSHOT_KINDS = ("nodes", "pods", "roles", "rolebindings", "clusterroles",
+                  "clusterrolebindings", "events")
+
 
 def _dumps(obj) -> bytes:
     return json.dumps(obj, separators=(",", ":")).encode()
@@ -114,10 +155,39 @@ class AlreadyExists(Exception):
     """Create of a name that exists (the apiserver's HTTP 409)."""
 
 
+class _WatchQueue:
+    """A watch's events as one queue of (type, object JSON): the replay of
+    a resume first (``replay``, exempt from the backlog cap), then the
+    live events the store's writes put (``live``, the backlog)."""
+
+    def __init__(self) -> None:
+        self.replay: collections.deque = collections.deque()
+        self.live: "queue.SimpleQueue" = queue.SimpleQueue()
+
+    def put(self, item) -> None:
+        self.live.put(item)
+
+    def get(self, block: bool = True, timeout: "float | None" = None):
+        try:
+            return self.replay.popleft()
+        except IndexError:
+            return self.live.get(block, timeout)
+
+    def get_nowait(self):
+        return self.get(False)
+
+    def qsize(self) -> int:
+        return len(self.replay) + self.live.qsize()
+
+    def empty(self) -> bool:
+        return self.qsize() == 0
+
+
 class _Watch:
-    """One open watch: a queue of (type, object JSON) fed by the store's
-    writes (after the replay of a resume). Iterating blocks for the next
-    event and ends when the watch stops."""
+    """One open watch: its events in ``q`` (a resume's replay, then the
+    live events). Iterating blocks for the next event and ends when the
+    watch stops; a slow-watcher close (``terminated``) drops what is
+    queued."""
 
     def __init__(self, server: "FakeKube", kind: str, field_selector,
                  label_selector, bookmarks: bool = False) -> None:
@@ -126,8 +196,12 @@ class _Watch:
         self.field_selector = field_selector
         self.label_selector = parse_selector(label_selector)
         self.bookmarks = bool(bookmarks)
-        self.q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.q = _WatchQueue()
         self.stopped = False
+        #: "slow" once the server closed it for its backlog
+        self.terminated: "str | None" = None
+        #: wall stamp of registration (GET /debug/watchers age_s)
+        self.created_unix = time.time()
 
     def matches(self, obj: dict) -> bool:
         if not match_field_selector(obj, self.field_selector):
@@ -141,14 +215,15 @@ class _Watch:
     def __iter__(self):
         while True:
             ev = self.q.get()
-            if ev is None:
+            if ev is None or self.terminated:
                 return
             yield WatchEvent(ev[0], json.loads(ev[1]))
 
     def lines(self):
         """The stream as watch-event JSON lines, in batches: each item is
         the list of lines queued by then (at least one). Ends when the
-        watch stops."""
+        watch stops, at once when it was terminated (``terminated`` is
+        set: the caller ends the stream abruptly)."""
         while True:
             batch = [self.q.get()]
             while True:
@@ -156,6 +231,8 @@ class _Watch:
                     batch.append(self.q.get_nowait())
                 except queue.Empty:
                     break
+            if self.terminated:
+                return
             out = [
                 b'{"type":"%s","object":%s}\n' % (ev[0].encode(), ev[1])
                 for ev in batch if ev is not None
@@ -187,16 +264,23 @@ class FakeKube:
         # event or None), which rolls a paginated LIST back to its revision
         self._bytes: dict[str, dict] = {k: {} for k in KINDS}
         self._undo: collections.deque = collections.deque()
+        # each kind's keys in order, kept until a key comes or goes (a LIST
+        # page then bisects instead of sorting the store)
+        self._sorted: dict[str, list] = {}
         # objects removed for good (the smoke run checks its deletes)
         self.delete_count = 0
         # the observability surface of GET /metrics and /debug/flight:
         # per-phase timing and the flight ring, events encoded for at
         # least one watch, each watch's backlog at close, and the watch
-        # closes by reason (none here: no slow-watcher cap, no deadline)
+        # closes by reason ("slow": the backlog cap; no deadline here)
         self.timing = ApiserverTiming()
         self.encode_total = 0
         self.lag_hist = LagHist()
         self.watch_terminations = {"slow": 0, "deadline": 0}
+        # the slow-watcher cap and the watch-cache window, per store
+        # (tests tighten them, a rig widens the window)
+        self.watch_backlog = WATCH_BACKLOG
+        self.rv_window = RV_WINDOW
 
     @staticmethod
     def _key(namespace, name) -> tuple[str, str]:
@@ -216,10 +300,11 @@ class FakeKube:
             current.pop(key, None)
         else:
             current[key] = data
-        if RV_WINDOW > 0:
+        window = self.rv_window
+        if window > 0:
             self._history.append((self._rv, kind, type_, data))
             self._undo.append((self._rv, kind, key, prev))
-            while len(self._history) > RV_WINDOW:
+            while len(self._history) > window:
                 self._compacted_rv = max(
                     self._compacted_rv, self._history.popleft()[0]
                 )
@@ -228,10 +313,16 @@ class FakeKube:
         timing = self.timing
         t0 = time.perf_counter() if timing.enabled else None
         pushed = 0
+        cap = self.watch_backlog
+        slow = []
         for w in self._watches:
             if w.kind == kind and w.matches(obj):
                 w.q.put((type_, data))
                 pushed += 1
+                if cap > 0 and w.q.live.qsize() > cap:
+                    slow.append(w)
+        for w in slow:
+            self._close_watch_locked(w, terminated="slow")
         if pushed:
             # serialized once, delivered to every matching watch
             self.encode_total += 1
@@ -242,17 +333,36 @@ class FakeKube:
 
     def _unwatch(self, w: _Watch) -> None:
         with self._lock:
-            if not w.stopped:
-                w.stopped = True
-                self._watches.remove(w)
-                self.lag_hist.observe(w.q.qsize())
-                w.q.put(None)
+            self._close_watch_locked(w)
+
+    def _close_watch_locked(self, w: _Watch, terminated: "str | None" = None) -> None:
+        """Close one watch (caller holds the lock). A graceful close still
+        delivers what is queued; a termination (``terminated="slow"``)
+        drops the backlog, is counted by reason, and ends the stream with
+        no terminal chunk."""
+        if w.stopped:
+            return
+        w.stopped = True
+        self._watches.remove(w)
+        # the stream's final backlog (a slow close: the overflow that
+        # ended it)
+        self.lag_hist.observe(w.q.live.qsize())
+        if terminated:
+            w.terminated = terminated
+            self.watch_terminations[terminated] = (
+                self.watch_terminations.get(terminated, 0) + 1
+            )
+            if self.watch_backlog > self.timing.backlog_peak:
+                self.timing.backlog_peak = self.watch_backlog
+            w.q.live = queue.SimpleQueue()  # the dropped backlog
+        w.q.put(None)
 
     def watch_backlogs(self) -> list:
-        """Each open watch's backlog: events queued and not yet written
-        (``kwok_watch_backlog_events``; the peak is kept as scraped)."""
+        """Each open watch's backlog: live events queued and not yet
+        written, a resume's replay not counted (``kwok_watch_backlog_events``;
+        the peak is kept as scraped)."""
         with self._lock:
-            lags = [w.q.qsize() for w in self._watches]
+            lags = [w.q.live.qsize() for w in self._watches]
         peak = max(lags, default=0)
         if peak > self.timing.backlog_peak:
             self.timing.backlog_peak = peak
@@ -261,9 +371,85 @@ class FakeKube:
     def stop_watches(self) -> None:
         """End every open watch (the server is going away)."""
         with self._lock:
-            watches = list(self._watches)
-        for w in watches:
-            w.stop()
+            for w in list(self._watches):
+                self._close_watch_locked(w)
+
+    def watchers_doc(self, server: str = "mock") -> dict:
+        """The ``GET /debug/watchers`` census: every live watch's backlog
+        (``lag_events``), its pending replay, age, band and the
+        termination-risk class against the backlog cap, in the schema of
+        ``kwok_tpu.edge.mockserver.watchers_doc`` and the native server
+        (``telemetry/timeline.check_watchers``)."""
+        now = time.time()
+        cap = self.watch_backlog
+        with self._lock:
+            watchers = []
+            parked = 0
+            for w in self._watches:
+                lag = w.q.live.qsize()
+                replay = len(w.q.replay)
+                if lag == 0 and replay == 0:
+                    parked += 1  # its writer thread waits for an event
+                watchers.append({
+                    "kind": w.kind,
+                    "lag_events": lag,
+                    "replay_pending": replay,
+                    "age_s": round(max(0.0, now - w.created_unix), 3),
+                    "band": "none",  # watches are admission-exempt
+                    "risk": ("none" if lag == 0
+                             else ("lagging" if lag <= cap // 2 else "at_risk")),
+                })
+        return {
+            "server": server,
+            "backlog_cap": cap,
+            "thread_per_watcher": True,
+            "count": len(watchers),
+            "parked_threads": parked,
+            "watchers": watchers,
+        }
+
+    def dump(self) -> dict:
+        """The whole store as one consistent snapshot (the mock's etcd
+        snapshot): its revision and every object's committed JSON, ordered
+        by (namespace, name), under the native server's kinds."""
+        with self._lock:
+            rv = self._rv
+            objects = {
+                kind: [json.loads(v) for _k, v in sorted(self._bytes[kind].items())]
+                if kind in self._bytes else []
+                for kind in SNAPSHOT_KINDS
+            }
+        return {"resourceVersion": rv, "objects": objects}
+
+    def load(self, data: dict) -> None:
+        """Replace the store from a ``dump()``: the restored objects keep
+        their revisions, the store's clock moves past both worlds, the
+        watch cache and the undo log are compacted (a resume or continue
+        token from before gets 410) and every open watch is closed, so
+        clients re-list, as after an etcd restore. One lock covers it
+        all, so no write lands half in the old world and no ghost event
+        reaches a resumed watcher."""
+        objs: dict = {k: {} for k in KINDS}
+        raw: dict = {k: {} for k in KINDS}
+        for kind, items in (data.get("objects") or {}).items():
+            if kind not in objs:
+                continue
+            for obj in items:
+                meta = obj.get("metadata") or {}
+                if not meta.get("name"):
+                    continue
+                key = self._key(meta.get("namespace"), meta["name"])
+                objs[kind][key] = copy.deepcopy(obj)
+                raw[kind][key] = _dumps(obj)
+        with self._lock:
+            self._objs, self._bytes = objs, raw
+            self._sorted.clear()
+            self._rv = max(self._rv, int(data.get("resourceVersion") or 0)) + 1
+            self._history.clear()
+            self._undo.clear()
+            self._compacted_rv = self._rv
+            for w in list(self._watches):
+                self._close_watch_locked(w)
 
     # -- serialized forms (the HTTP front's) ---------------------------------
 
@@ -278,7 +464,19 @@ class FakeKube:
             meta.setdefault("creationTimestamp", now_rfc3339())
             meta.setdefault("uid", f"uid-{self._rv + 1}")
             store[key] = obj
+            self.keys_changed(kind)
             return self._commit_locked(kind, key, obj, ADDED)
+
+    def keys_changed(self, kind: str) -> None:
+        """A key of ``kind`` came or went (caller holds the lock)."""
+        self._sorted.pop(kind, None)
+
+    def _sorted_keys(self, kind: str) -> list:
+        """The live keys of ``kind`` in order (caller holds the lock)."""
+        keys = self._sorted.get(kind)
+        if keys is None:
+            keys = self._sorted[kind] = sorted(self._objs[kind])
+        return keys
 
     def get_bytes(self, kind: str, namespace, name: str) -> bytes | None:
         with self._lock:
@@ -322,22 +520,30 @@ class FakeKube:
                     break
                 if k == kind:
                     rolled[key] = prev
-            # gathered in insertion order, whose sorted runs the sort
-            # reuses (a set's order would make each page's sort a full one)
-            keys = [k for k in live if rolled.get(k, b"") is not None]
-            keys += [k for k, v in rolled.items() if v is not None and k not in live]
-            keys.sort()
-            pos = bisect.bisect_right(keys, after) if after is not None else 0
+            # the snapshot's keys after the cursor, in order: the live keys
+            # (bisected in the cached order) merged with the keys removed
+            # since, skipping the keys created since
+            ordered = self._sorted_keys(kind)
+            lo = bisect.bisect_right(ordered, after) if after is not None else 0
+            removed = sorted(
+                k for k, v in rolled.items()
+                if v is not None and k not in live and (after is None or k > after)
+            )
+            keys = heapq.merge((ordered[i] for i in range(lo, len(ordered))), removed)
             items: list[bytes] = []
             token = None
+            pending = None  # the token, once a key after the page's last shows
             rest = 0
-            for i in range(pos, len(keys)):
-                key = keys[i]
+            for key in keys:
                 if key in rolled:
                     data = rolled[key]
+                    if data is None:
+                        continue  # created after list_rv
                     obj = json.loads(data)
                 else:
                     obj, data = live[key], None
+                if pending is not None:
+                    token, pending = pending, None
                 if limit and len(items) >= limit:
                     if not first_page:
                         break  # later pages stop at the cut
@@ -346,8 +552,8 @@ class FakeKube:
                 if not matches(obj):
                     continue
                 items.append(data if data is not None else self._bytes[kind][key])
-                if limit and len(items) >= limit and i + 1 < len(keys):
-                    token = encode_continue(list_rv, key)
+                if limit and len(items) >= limit:
+                    pending = encode_continue(list_rv, key)
             if first_page and not rest:
                 token = None
             return items, token, list_rv, rest
@@ -396,7 +602,7 @@ class FakeKube:
         sel = parse_selector(label_selector)
         with self._lock:
             out = []
-            for key in sorted(self._objs[kind]):
+            for key in self._sorted_keys(kind):
                 obj = self._objs[kind][key]
                 if not match_field_selector(obj, field_selector):
                     continue
@@ -425,11 +631,11 @@ class FakeKube:
             if rv:
                 if rv > self._rv:
                     raise TooLargeResourceVersion(rv, self._rv)
-                if rv < self._compacted_rv or RV_WINDOW <= 0:
+                if rv < self._compacted_rv or self.rv_window <= 0:
                     raise WatchExpired(f"too old resource version: {rv}")
                 for hrv, hkind, htype, hdata in self._history:
                     if hrv > rv and hkind == kind and w.matches(json.loads(hdata)):
-                        w.q.put((htype, hdata))
+                        w.q.replay.append((htype, hdata))
             self._watches.append(w)
         return w
 
@@ -494,6 +700,7 @@ class FakeKube:
                 self._commit_locked(kind, key, obj, MODIFIED)
                 return
             del self._objs[kind][key]
+            self.keys_changed(kind)
             self.delete_count += 1
             self._commit_locked(kind, key, obj, DELETED)
 
@@ -581,6 +788,53 @@ def decode_continue(token: str) -> tuple[int, tuple[str, str]]:
     return int(rv), (ns, name)
 
 
+class _BadBody(Exception):
+    """A request body that does not decode as JSON (garbled or truncated
+    on the wire): answered 400 with the native server's Status."""
+
+
+class _Admission:
+    """Two-band max-inflight admission. A slot is held for the request's
+    whole life, its body read and its answer included, so a band
+    saturates exactly when that many requests are in flight. The lock
+    guards only the counters."""
+
+    def __init__(self, readonly_max: int, mutating_max: int) -> None:
+        self.limits = {"readonly": readonly_max, "mutating": mutating_max}
+        self.inflight = {"readonly": 0, "mutating": 0}
+        self.rejected = {"readonly": 0, "mutating": 0}
+        self._adm_lock = threading.Lock()
+
+    def try_acquire(self, band: str) -> bool:
+        with self._adm_lock:
+            limit = self.limits[band]
+            if limit > 0 and self.inflight[band] >= limit:
+                self.rejected[band] += 1
+                return False
+            self.inflight[band] += 1
+            return True
+
+    def release(self, band: str) -> None:
+        with self._adm_lock:
+            self.inflight[band] -= 1
+
+
+def _admission_band(method: str, path: str, query: str) -> "str | None":
+    """The band a request is admitted through, or None when exempt: only
+    resource requests are admitted (health, metrics, debug and the ops
+    routes stay outside), and watches are long-running and exempt."""
+    if not _PATHS.match(path):
+        return None
+    if method == "GET":
+        q = urllib.parse.parse_qs(query)
+        if (q.get("watch") or ["false"])[0] in ("true", "1"):
+            return None
+        return "readonly"
+    if method in ("POST", "PATCH", "DELETE"):
+        return "mutating"
+    return None
+
+
 class _Server(ThreadingHTTPServer):
     # the default backlog of 5 drops connections under bursty load
     request_queue_size = 256
@@ -596,8 +850,15 @@ class HttpFakeApiserver:
     """An HTTP front on a ``FakeKube`` (its ``store``)."""
 
     def __init__(self, store: FakeKube | None = None, port: int = 0,
-                 address: str = "127.0.0.1") -> None:
+                 address: str = "127.0.0.1", max_inflight: "int | None" = None,
+                 max_mutating_inflight: "int | None" = None) -> None:
         self.store = store or FakeKube()
+        # admission: None falls back to the environment; both bands off
+        # means no admission object and no per-request cost
+        ro = MAX_INFLIGHT if max_inflight is None else int(max_inflight)
+        mu = (MAX_MUTATING_INFLIGHT if max_mutating_inflight is None
+              else int(max_mutating_inflight))
+        self._admission = _Admission(ro, mu) if (ro > 0 or mu > 0) else None
         self.httpd = _Server((address, port), self._make_handler())
         self.port = self.httpd.server_address[1]
         host = "127.0.0.1" if address in ("", "0.0.0.0") else address
@@ -643,6 +904,7 @@ class HttpFakeApiserver:
 
     def _make_handler(self):
         store = self.store
+        server_obj = self
 
         timing = store.timing
 
@@ -754,7 +1016,12 @@ class HttpFakeApiserver:
                     self._t_body = time.perf_counter()
                 if not n:
                     return None
-                doc = json.loads(data or b"null")
+                try:
+                    doc = json.loads(data or b"null")
+                except ValueError as e:
+                    # garbled or truncated request bytes: 400 (the
+                    # _guarded chokepoint), before any store call
+                    raise _BadBody() from e
                 if timed:
                     self._t_parse = time.perf_counter()
                     self._parse_ran = True
@@ -785,7 +1052,48 @@ class HttpFakeApiserver:
                     return None
                 return m, urllib.parse.parse_qs(parsed.query)
 
+            def _reject_429(self) -> None:
+                """A saturated band: 429 with Retry-After (never queued),
+                after draining the body so the keep-alive connection
+                stays parseable."""
+                self._drain_body()
+                t_enc = time.perf_counter() if self._t_start is not None else None
+                self.send_response(429)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Retry-After", RETRY_AFTER_SECONDS)
+                self.send_header("Content-Length", str(len(TOO_MANY_REQUESTS_BODY)))
+                self.end_headers()
+                self.wfile.write(TOO_MANY_REQUESTS_BODY)
+                if t_enc is not None:
+                    self._finish_timing(429, time.perf_counter() - t_enc)
+
+            def _admitted(self, impl) -> None:
+                """One request through admission (when a band is on) and
+                the garbled-body guard."""
+                adm = server_obj._admission
+                band = None
+                if adm is not None:
+                    parsed = urllib.parse.urlparse(self.path)
+                    band = _admission_band(self.command or "", parsed.path, parsed.query)
+                if band is not None and not adm.try_acquire(band):
+                    self._reject_429()
+                    return
+                try:
+                    try:
+                        impl()
+                    except _BadBody:
+                        try:
+                            self._send_body(BAD_REQUEST, 400)
+                        except OSError:
+                            self.close_connection = True
+                finally:
+                    if band is not None:
+                        adm.release(band)
+
             def do_GET(self):  # noqa: N802
+                self._admitted(self._do_get)
+
+            def _do_get(self):
                 path = urllib.parse.urlparse(self.path).path
                 if path == "/healthz":
                     self._send_body(b"ok", ctype="text/plain")
@@ -794,8 +1102,10 @@ class HttpFakeApiserver:
                     self._send_json(VERSION)
                     return
                 if path == "/metrics":
+                    adm = server_obj._admission
                     body = render_apiserver_metrics(
-                        {}, {}, store.watch_terminations,
+                        adm.inflight if adm else {}, adm.rejected if adm else {},
+                        store.watch_terminations,
                     ) + render_timing_metrics(
                         timing, store.watch_backlogs(), store.encode_total,
                         lag_hist=store.lag_hist,
@@ -804,6 +1114,13 @@ class HttpFakeApiserver:
                     return
                 if path == "/debug/flight":
                     self._send_json(timing.flight_doc("mock"))
+                    return
+                if path == "/debug/watchers":
+                    self._send_json(store.watchers_doc("mock"))
+                    return
+                if path == "/snapshot":
+                    # the mock's `etcdctl snapshot save`
+                    self._send_json(store.dump())
                     return
                 route = self._route(named=None)
                 if route is None:
@@ -894,8 +1211,12 @@ class HttpFakeApiserver:
                         for line in lines:
                             self.wfile.write(b"%x\r\n%s\r\n" % (len(line), line))
                         self.wfile.flush()
-                    self.wfile.write(b"0\r\n\r\n")
-                    self.wfile.flush()
+                    if not w.terminated:
+                        # a slow-watcher close ends abruptly: no terminal
+                        # chunk, the backlog is gone and the client
+                        # resumes or re-lists
+                        self.wfile.write(b"0\r\n\r\n")
+                        self.wfile.flush()
                 except (BrokenPipeError, ConnectionResetError):
                     pass  # the client went away
                 finally:
@@ -903,6 +1224,14 @@ class HttpFakeApiserver:
                 self.close_connection = True
 
             def do_POST(self):  # noqa: N802
+                self._admitted(self._do_post)
+
+            def _do_post(self):
+                if urllib.parse.urlparse(self.path).path == "/restore":
+                    # the mock's `etcdctl snapshot restore` + etcd restart
+                    store.load(self._body() or {})
+                    self._send_json({"kind": "Status", "status": "Success"})
+                    return
                 if urllib.parse.urlparse(self.path).path == "/compact":
                     # the mock's `etcdctl compact`: expire resumes and
                     # continue tokens below the current revision now
@@ -932,6 +1261,9 @@ class HttpFakeApiserver:
                 self._send_body(body, 201)
 
             def do_PATCH(self):  # noqa: N802
+                self._admitted(self._do_patch)
+
+            def _do_patch(self):
                 route = self._route()
                 if route is None:
                     return
@@ -951,6 +1283,9 @@ class HttpFakeApiserver:
                     self._send_body(body)
 
             def do_DELETE(self):  # noqa: N802
+                self._admitted(self._do_delete)
+
+            def _do_delete(self):
                 route = self._route()
                 if route is None:
                     return
@@ -982,19 +1317,38 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--address", default="127.0.0.1",
                    help="bind address (0.0.0.0 to serve other hosts)")
+    p.add_argument("--data-file", default="",
+                   help="persist the store here across restarts (the mock's "
+                   "etcd data dir): loaded at startup, written on shutdown")
+    p.add_argument("--max-inflight", type=int, default=None,
+                   help="max concurrent LIST/GET requests before answering 429 "
+                   "+ Retry-After (0 = off, default from KWOK_TPU_MAX_INFLIGHT)")
+    p.add_argument("--max-mutating-inflight", type=int, default=None,
+                   help="max concurrent POST/PATCH/DELETE requests before 429 "
+                   "(0 = off, default from KWOK_TPU_MAX_MUTATING_INFLIGHT)")
     args = p.parse_args(argv)
-    srv = HttpFakeApiserver(port=args.port, address=args.address)
-    print(f"mock apiserver listening on {srv.url}", flush=True)
+    srv = HttpFakeApiserver(port=args.port, address=args.address,
+                            max_inflight=args.max_inflight,
+                            max_mutating_inflight=args.max_mutating_inflight)
+    if args.data_file:
+        try:
+            with open(args.data_file) as f:
+                srv.store.load(json.load(f))
+            print(f"restored store from {args.data_file}", flush=True)
+        except FileNotFoundError:
+            pass
 
     # SIGTERM arrives on the thread running serve_forever, so calling
     # shutdown() from the handler would deadlock: raise instead and let
-    # the exception unwind out of serve_forever
+    # the exception unwind out of serve_forever. Installed before the
+    # line below, so a caller may terminate as soon as it reads it
     def _term(*_a):
         raise SystemExit(0)
 
     signal.signal(signal.SIGTERM, _term)
-    srv.start_bookmarks()
+    print(f"mock apiserver listening on {srv.url}", flush=True)
     try:
+        srv.start_bookmarks()
         srv.httpd.serve_forever()
     except (KeyboardInterrupt, SystemExit):
         pass
@@ -1002,6 +1356,11 @@ def main(argv=None) -> int:
         srv._bookmark_stop.set()
         srv.httpd.server_close()
         srv.store.stop_watches()
+        if args.data_file:
+            tmp = args.data_file + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(srv.store.dump(), f)
+            os.replace(tmp, args.data_file)
     return 0
 
 

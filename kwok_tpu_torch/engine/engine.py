@@ -72,9 +72,17 @@ past the budget the engine degrades. With ``faults`` (or
 client and the pumps and kills supervised workers; without it there is no
 plane and nothing is wrapped.
 
+With ``audit_interval`` (or ``KWOK_TPU_AUDIT_INTERVAL``) a supervised
+``kwok-audit`` worker runs the anti-entropy auditor
+(``resilience/antientropy.py``): a paced pass that diffs a budgeted LIST
+window against the rows and repairs each divergent row by re-ingest
+through ``_q``. Lane engines never audit (the parent's auditor reads
+their rows); under process lanes each lane process audits its own shard
+and the parent mirrors their ``drift`` flags.
+
 Names and logic of the ingest, tick and emit methods follow the JAX
-package's engine so each has its counterpart there. The mesh, HA,
-anti-entropy and CNI are not part of this engine.
+package's engine so each has its counterpart there. The mesh, HA and CNI
+are not part of this engine.
 
 Telemetry is ``telemetry/engine_metrics.EngineTelemetry``: typed handles
 on a labeled registry (``registry``, rendered by ``metrics_text()``;
@@ -100,7 +108,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from urllib.parse import quote as _quote
+from urllib.parse import quote as _urlquote
 
 import numpy as np
 import torch
@@ -186,6 +194,21 @@ from kwok_tpu_torch.telemetry.errors import swallowed, wire_reject
 
 logger = logging.getLogger("kwok_tpu_torch.engine")
 
+
+def _wire(s: str) -> bytes:
+    """A server-provided string as the bytes it came in: a name or value
+    the native parser decoded from a garbled line carries its bytes that
+    are not UTF-8 as surrogate escapes, and they go back out as they came
+    (a strict encode raises, and a raise mid-batch leaves the batch's
+    other rows half-staged)."""
+    return s.encode("utf-8", "surrogateescape")
+
+
+def _quote(s: str) -> str:
+    """``urllib.parse.quote`` of a server-provided path segment, its
+    surrogate escapes percent-encoded as the bytes they stand for."""
+    return _urlquote(s, errors="surrogateescape")
+
 _NODE_READY_BITS = 1 << NODE_PHASES.condition_bit("Ready")
 # status keys whose strategic merge is plain replacement: when the current
 # status has only these, merge(current, rendered) == rendered exactly
@@ -254,6 +277,12 @@ class EngineConfig:
     # disables even under the env var (lane engines). When set, the
     # client transport, the pumps and the supervised workers are faulted
     faults: str = ""
+    # anti-entropy auditor (resilience/antientropy.py): seconds between
+    # passes that diff a budgeted LIST window against the rows by (uid,
+    # rv, phase) and repair each divergent row by re-ingest. 0 = off (the
+    # default; falls back to KWOK_TPU_AUDIT_INTERVAL); negative = off even
+    # under the env var (lane engines). Off means no thread and no LISTs
+    audit_interval: float = 0.0
     # watchdog budget: more than this many restarts of one worker (a
     # watch thread, a lane worker, a lane process respawn, the router,
     # the supervisor) within the window degrades the engine (/readyz 503)
@@ -525,6 +554,9 @@ class ClusterEngine:
         self.start_time = rfc3339(None)
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()
         self._watches: dict[str, object] = {}
+        # each kind's watch selectors (_spawn_watch): the auditor lists
+        # through the same ones, so its window is what this engine tracks
+        self._watch_opts: dict[str, dict] = {}
         self._threads: list[threading.Thread] = []
         self._running = False
         self._stop_evt = threading.Event()
@@ -571,6 +603,27 @@ class ClusterEngine:
         ).strip()
         if self._ckpt_dir == "off":
             self._ckpt_dir = ""
+        # the anti-entropy auditor's cadence: config < env, as for the
+        # checkpoint directory; a NEGATIVE config value is off even under
+        # the env var (lane engines: ONE auditor, the parent's). The
+        # auditor itself is built in start()
+        if config.audit_interval < 0:
+            self._audit_interval = 0.0
+        elif config.audit_interval > 0:
+            self._audit_interval = float(config.audit_interval)
+        else:
+            env_aud = os.environ.get("KWOK_TPU_AUDIT_INTERVAL", "").strip()
+            try:
+                self._audit_interval = (
+                    float(env_aud) if env_aud and env_aud != "off" else 0.0
+                )
+            except ValueError:
+                logger.warning(
+                    "KWOK_TPU_AUDIT_INTERVAL=%r is not a number; "
+                    "auditor stays off", env_aud,
+                )
+                self._audit_interval = 0.0
+        self._auditor = None  # resilience.antientropy.AntiEntropyAuditor
         # <checkpoint_dir>/<name>.ckpt.json: "engine", as the JAX
         # package's engine names it (one file restores in either
         # package); a lane process writes lane<i>, a federation member
@@ -927,6 +980,23 @@ class ClusterEngine:
         t = threading.Thread(target=loop, name="kwok-tick", daemon=True)
         t.start()
         self._threads.append(t)
+        if self._audit_interval > 0 and self._proc is not None:
+            # the parent holds no rows to diff: each lane process audits
+            # its own hash shard (the interval rides the lane spec) and
+            # mirrors its drift flag back through BANK_DRIFT
+            logger.info(
+                "anti-entropy audit runs shard-scoped in the %d lane "
+                "processes (interval %.3fs); the parent spawns no auditor",
+                self._proc.n, self._audit_interval,
+            )
+        elif self._audit_interval > 0:
+            # supervised, so a crashed pass restarts in place (with no
+            # stream resync: _worker_restarted_resync)
+            from kwok_tpu_torch.resilience.antientropy import AntiEntropyAuditor
+
+            self._auditor = AntiEntropyAuditor(self, self._audit_interval)
+            self._threads.append(
+                self._watchdog.spawn(self._auditor.run, name="kwok-audit"))
 
     def _warm_scatters(self) -> None:
         """Run both ingest scatters once on a row that is still in its
@@ -1123,6 +1193,11 @@ class ClusterEngine:
             # rows the re-list re-initializes resume their timers
             self._rearm_restore()
             return
+        if name.startswith("kwok-audit"):
+            # the auditor holds no engine data a crash could eat: its
+            # next pass re-lists its window anyway, and a full stream
+            # resync per audit crash would be pure cost
+            return
         self.resync_streams()
         if self._lanes is not None:
             while True:
@@ -1313,6 +1388,7 @@ class ClusterEngine:
         A client without raw lines (the in-process FakeKube) keeps the
         decoded-event loop."""
         opts = {k: v for k, v in sel.items() if v}
+        self._watch_opts[kind] = dict(opts)
         # process lanes: a re-list travels as the RESYNC snapshot alone
         # (the lane process applies its objects before the prune); the
         # router parses the raw lines and ships each lane its own
@@ -1522,11 +1598,16 @@ class ClusterEngine:
         is lost; resuming from the drained revision alone lags the store
         by the drain's backlog, which under a flood can outrun the
         server's watch window (a 410 and a needless re-list). 0 (re-list)
-        when the drain dropped the kind's revision: a 410 it saw."""
+        when the drain dropped the kind's revision: a 410 it saw.
+
+        Both watch threads call this while the drain parses, so the line
+        goes through the batch parse, whose buffers are the call's own:
+        the single-line ``parse`` reuses the parser's buffers, and two
+        threads in it at once corrupt them."""
         drained = self._watch_rv.get(kind, 0)
         if not drained:
             return 0
-        return max(drained, parser.parse(bytes(last)).rv if last else 0)
+        return max(drained, parser.parse_batch([bytes(last)])[0].rv if last else 0)
 
     def _relist(self, kind: str, opts: dict, proc: bool) -> None:
         """One full LIST of ``kind`` onto the ingest queue: its objects as
@@ -1911,7 +1992,7 @@ class ClusterEngine:
                                 pool = k.pool
                                 pool.srv_phase[idx] = self._pod_phase_ids.get(rec.phase, -1)
                                 pool.host_b[idx] = (
-                                    rec.host_ip.encode() if rec.host_ip else None
+                                    _wire(rec.host_ip) if rec.host_ip else None
                                 )
                                 if scalar:
                                     pool.eflags[idx] |= EF_SCALAR
@@ -2404,14 +2485,14 @@ class ClusterEngine:
         pool.eflags[idx] = f
         pool.srv_phase[idx] = self._pod_phase_ids.get(m.get("phase_str") or "", -1)
         h = m.get("host_ip")
-        pool.host_b[idx] = h.encode() if h else None
+        pool.host_b[idx] = _wire(h) if h else None
         c = m.get("creation")
-        pool.start_b[idx] = c.encode() if c else b""
+        pool.start_b[idx] = _wire(c) if c else b""
         pool.ctr_b[idx] = m.get("ctrs") or b""
         pool.ictr_b[idx] = m.get("ictrs") or b""
         ip = m.get("podIP")
         if ip:
-            pool.ip_b[idx] = ip.encode()
+            pool.ip_b[idx] = _wire(ip)
         if pool.path_b[idx] is None:
             pool.path_b[idx] = (
                 f"/api/v1/namespaces/{_quote(m.get('namespace') or 'default')}"
@@ -3240,9 +3321,9 @@ class ClusterEngine:
             conds_l.append(int(k.cond_h[idx]))
             phases.append(phase_name.encode())
             phase_names.append(phase_name)
-            hosts.append((m.get("host_ip") or node_ip).encode())
-            ips.append(ip.encode())
-            starts.append((m.get("creation") or now_rfc3339()).encode())
+            hosts.append(_wire(m.get("host_ip") or node_ip))
+            ips.append(_wire(ip))
+            starts.append(_wire(m.get("creation") or now_rfc3339()))
             ctrs.append(m.get("ctrs") or b"")
             ictrs.append(m.get("ictrs") or b"")
             paths.append(
@@ -3330,7 +3411,7 @@ class ClusterEngine:
                         continue
                     ip_s = m.get("podIP")
                     if ip_s:
-                        ips[ri] = ipc[idx] = ip_s.encode()
+                        ips[ri] = ipc[idx] = _wire(ip_s)
                     else:
                         missing.append((ri, idx, m))
                 if missing:

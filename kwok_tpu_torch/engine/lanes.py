@@ -185,6 +185,7 @@ class ShardLane:
             profile_dir="",  # the coordinator's tick thread profiles
             trace_dump="",  # one dump, the parent's
             faults="off",  # ONE fault plane, the parent's (shared below)
+            audit_interval=-1.0,  # ONE auditor, the parent's (env-proof)
         )
         self.engine = _LaneEngine(lane_set, index, cfg)
         # the parent's plane is THE engine-wide one: lane pumps draw from

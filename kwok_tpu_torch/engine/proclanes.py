@@ -479,6 +479,10 @@ def _make_lane_engine(spec: dict):
     index = spec["index"]
     n = spec["n"]
     cls = make_proc_lane_engine_class()
+    # the child's shard-scoped audit interval is the parent's RESOLVED
+    # one; anything else (an inherited KWOK_TPU_AUDIT_INTERVAL included)
+    # is forced off with -1: the parent's resolution is the one source
+    audit = float(spec.get("audit_interval") or 0.0)
     cfg = dataclasses.replace(
         spec["config"],
         lane_procs=False,
@@ -493,6 +497,7 @@ def _make_lane_engine(spec: dict):
         # the plane the parent derived for this lane (child_spec_text);
         # "off" builds none even under an inherited KWOK_TPU_FAULTS
         faults=spec.get("faults") or "off",
+        audit_interval=audit if audit > 0 else -1.0,
     )
     e = cls(HttpKubeClient(**spec["client"]), cfg)
     e._lane_index = index
@@ -587,6 +592,10 @@ def lane_proc_main(spec: dict, conn) -> None:
             row[shm_mod.BANK_INTEG_NODES] = integ["nodes"]
             row[shm_mod.BANK_INTEG_PODS] = integ["pods"]
             row[shm_mod.BANK_REWIND] = integ["rewind"]
+            # drift upcall: the shard-scoped auditor degrades the CHILD on
+            # an unrepaired-divergence streak; the parent mirrors the flag
+            # into its own /readyz (the operator's surface is the parent's)
+            row[shm_mod.BANK_DRIFT] = int("drift" in e._degradation.reasons)
             beats += 1
             if beats % _METRICS_EVERY_BEATS == 0:
                 publish_metrics()
@@ -921,6 +930,9 @@ class ProcLaneSet:
                 self.parent._faults.spec if self.parent._faults is not None else None,
                 lane.index,
             ),
+            # shard-scoped anti-entropy: the parent's RESOLVED interval
+            # (0 keeps the child's auditor off through the -1 force)
+            "audit_interval": float(self.parent._audit_interval),
         }
 
     def _spawn_lane(self, lane: ProcLane) -> None:
@@ -1448,6 +1460,18 @@ class ProcLaneSet:
                     )
                     parent._inc("rv_rewinds_total")
                     parent.resync_streams()
+            # drift mirror: a lane whose auditor holds an unrepaired
+            # divergence streak publishes BANK_DRIFT=1, and the parent
+            # degrades on "drift" as the single-process auditor would; it
+            # clears once every lane's streak has healed
+            if any(int(rows[lane.index, shm_mod.BANK_DRIFT]) for lane in self.lanes):
+                if parent._degradation.set("drift"):
+                    logger.warning(
+                        "lane auditor reported an unrepaired-divergence "
+                        "streak; engine degraded (drift)"
+                    )
+            elif parent._degradation.clear("drift"):
+                logger.info("lane drift repaired; degraded reason cleared")
             if self._shed_depth:
                 self._shed_clear()
 

@@ -18,13 +18,16 @@ def shard_of(key: Any, n: int) -> int:
     (PYTHONHASHSEED), and the lane layout should be reproducible across
     runs so soak artifacts and trace dumps from different rounds line up.
     Keys are the row-pool keys: node name (str) or (namespace, name) for
-    pods — crc32 over the joined utf-8 bytes."""
+    pods — crc32 over the joined utf-8 bytes. A name the native parser
+    decoded from bytes that are not UTF-8 (a garbled watch line) carries
+    them as surrogate escapes: they encode back to the bytes the native
+    partition hashed (``kwok_tpu``'s ``shard_of`` raises on them)."""
     if n <= 1:
         return 0
     if isinstance(key, tuple):
-        data = "\x1f".join(str(p) for p in key).encode()
+        data = "\x1f".join(str(p) for p in key).encode("utf-8", "surrogateescape")
     else:
-        data = str(key).encode()
+        data = str(key).encode("utf-8", "surrogateescape")
     return zlib.crc32(data) % n
 
 

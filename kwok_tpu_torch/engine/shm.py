@@ -222,7 +222,7 @@ BANK_PID = 7           # the child's own pid
 BANK_INTEG_NODES = 8   # integrity-doubt resync requests (nodes)
 BANK_INTEG_PODS = 9    # integrity-doubt resync requests (pods)
 BANK_REWIND = 10       # re-listed-rv-rewind detections (store restore)
-BANK_DRIFT = 11        # reserved: the drift auditor's flag (not set here)
+BANK_DRIFT = 11        # 1 while the lane's auditor holds it degraded (drift)
 BANK_FIELDS = 12
 
 

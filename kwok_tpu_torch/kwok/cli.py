@@ -147,9 +147,14 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    help="checkpoint cadence in seconds")
     p.add_argument("--audit-interval", type=float,
                    default=o.auditInterval,
-                   help="anti-entropy auditor cadence in seconds; "
-                   "KWOK_TPU_AUDIT_INTERVAL works too; 0 = off (refused "
-                   "when > 0: ROADMAP item 13b)")
+                   help="anti-entropy auditor cadence in seconds: a paced "
+                   "background pass diffs a budgeted window of apiserver "
+                   "objects against engine rows by (uid, rv, phase), "
+                   "classifies silent divergence (missed-event / "
+                   "double-apply / stale-row / ghost-row) and repairs "
+                   "per row via re-ingest (docs/resilience.md). "
+                   "KWOK_TPU_AUDIT_INTERVAL works too; 0 = off "
+                   "(no thread, no LISTs)")
     p.add_argument("--ha-role", default=o.haRole,
                    choices=["", "off", "primary", "standby"],
                    help="warm-standby HA (refused as primary or standby: "
@@ -181,14 +186,6 @@ def build_parser(defaults) -> argparse.ArgumentParser:
 _bool = parse_bool
 
 
-def _env_float(name: str) -> float:
-    raw = os.environ.get(name, "").strip()
-    try:
-        return float(raw) if raw else 0.0
-    except ValueError:
-        raise SystemExit(f"{name}={raw!r} is not a number") from None
-
-
 def refusals(args, masters: list[str]) -> list[str]:
     """Why this invocation asks for a subsystem the port does not have yet,
     one message per flag (or KWOK_TPU_* twin), each naming the ROADMAP item
@@ -200,9 +197,6 @@ def refusals(args, masters: list[str]) -> list[str]:
     if args.ha_role in ("primary", "standby"):
         out.append(f"--ha-role {args.ha_role} needs HA and the lease "
                    "calls: ROADMAP item 12")
-    if args.audit_interval > 0 or _env_float("KWOK_TPU_AUDIT_INTERVAL") > 0:
-        out.append("--audit-interval > 0 (or KWOK_TPU_AUDIT_INTERVAL) "
-                   "needs the anti-entropy auditor: ROADMAP item 13b")
     if args.enable_cni:
         out.append("--enable-cni true needs CNI: ROADMAP item 14")
     return out
@@ -298,6 +292,7 @@ def _engine_config(args, stages: list[Stage], device: str):
         worker_restart_window=args.worker_restart_window,
         shed_queue_depth=args.shed_queue_depth,
         faults=args.faults,
+        audit_interval=args.audit_interval,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_interval=args.checkpoint_interval,
         profile_dir=args.profile_dir,

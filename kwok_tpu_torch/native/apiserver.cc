@@ -197,6 +197,24 @@ struct JParser {
     return v;
   }
 
+  // the length of the well-formed UTF-8 sequence at p (a lead byte of 2
+  // to 4 bytes), or 0: truncated, a stray continuation byte, an overlong
+  // form or past U+10FFFF. An encoded surrogate passes, as Python's
+  // json.loads takes it from bytes
+  static size_t utf8_len(const char* p, const char* end) {
+    unsigned char c = (unsigned char)p[0];
+    size_t n = c >= 0xC2 && c <= 0xDF ? 2 : c >= 0xE0 && c <= 0xEF ? 3
+             : c >= 0xF0 && c <= 0xF4 ? 4 : 0;
+    if (!n || (size_t)(end - p) < n) return 0;
+    for (size_t i = 1; i < n; i++)
+      if (((unsigned char)p[i] & 0xC0) != 0x80) return 0;
+    unsigned char c1 = (unsigned char)p[1];
+    if ((c == 0xE0 && c1 < 0xA0) || (c == 0xF0 && c1 < 0x90) ||
+        (c == 0xF4 && c1 > 0x8F))
+      return 0;
+    return n;
+  }
+
   std::string string() {
     std::string out;
     if (p >= end || *p != '"') {
@@ -231,8 +249,19 @@ struct JParser {
           default: ok = false;
         }
         p++;
-      } else {
+      } else if ((unsigned char)*p < 0x80) {
         out += *p++;
+      } else {
+        // JSON text is UTF-8: a malformed sequence (a garbled byte) makes
+        // the body unparseable, as Python's json.loads finds it, instead
+        // of landing in the store and in every later LIST
+        size_t n = utf8_len(p, end);
+        if (!n) {
+          ok = false;
+          return out;
+        }
+        out.append(p, n);
+        p += n;
       }
     }
     if (p < end) p++;  // closing quote
@@ -1062,13 +1091,18 @@ static int events_cap() {
 // watches. Resuming below the window gets the real apiserver's 410 Gone
 // ("too old resource version", etcd compaction semantics); <= 0 disables
 // the cache so every resume expires. Mirrors mockserver.py RV_WINDOW.
-static int rv_window() {
-  static const int w = [] {
+static std::atomic<int>& rv_window_cell() {
+  static std::atomic<int> w{[] {
     const char* v = getenv("KWOK_TPU_RV_WINDOW");
     return v && *v ? atoi(v) : 4096;
-  }();
+  }()};
   return w;
 }
+// the drift rig's POST /rig/window sets it (--rig-routes)
+static int rv_window() { return rv_window_cell().load(std::memory_order_relaxed); }
+
+// --rig-routes: serve the drift rig's /rig/ routes (rig_route below)
+static bool g_rig_routes = false;
 
 // watch-cache entry: ring position is the store clock at emit time (NOT
 // the object's own rv — events-cap evictions re-emit old objects and the
@@ -2396,6 +2430,149 @@ void App::persist() {
 }
 
 // returns false when the connection must close
+// >>> the port's drift rig routes
+// The drift rig's routes (--rig-routes; without the flag /rig/ is not
+// served): changes to the store behind its watchers' backs, route for
+// route those of drift_rig.py's RigApiserver over the Python mock. They
+// add no watch event and no watch-cache or undo entry; a silent create
+// takes a real revision. POST /rig/silent {"op": "phase" | "delete" |
+// "create", "kind", "namespace", "name", "phase" | "object"}; POST
+// /rig/window {"events"}; POST /rig/stop-watches; GET /rig/state (the
+// pods Running with a pod IP, the pods, the first names not Running, the
+// watch terminations by reason, the revision).
+static std::string rig_route(Store& store, const Request& req, int& code) {
+  static const std::string ok_true = "{\"ok\":true}";
+  static const std::string ok_false = "{\"ok\":false}";
+  code = 200;
+  if (req.method == "GET" && req.path == "/rig/state") {
+    int pods = kind_index("pods");
+    long running = 0, total = 0;
+    std::vector<std::string> stuck;
+    for (auto& ns_sh : store.kind_shards(pods)) {
+      std::lock_guard<std::mutex> sl(ns_sh.second->smu);
+      for (auto& kv : ns_sh.second->objs) {
+        total++;
+        if (field_str(kv.second->obj, "status.phase") == "Running" &&
+            !field_str(kv.second->obj, "status.podIP").empty())
+          running++;
+        else
+          stuck.push_back(kv.first);
+      }
+    }
+    std::sort(stuck.begin(), stuck.end());
+    int64_t rv;
+    {
+      std::lock_guard<std::mutex> lk(store.mu);
+      rv = store.rv;
+    }
+    std::string out = "{\"running\":" + std::to_string(running) +
+                      ",\"pods\":" + std::to_string(total) +
+                      ",\"not_running\":[";
+    for (size_t i = 0; i < stuck.size() && i < 8; i++) {
+      if (i) out += ',';
+      out += '"';
+      json_escape(out, stuck[i]);
+      out += '"';
+    }
+    out += "],\"terminations\":{\"slow\":" +
+           std::to_string(g_watch_term_slow.load()) + ",\"deadline\":" +
+           std::to_string(g_watch_term_deadline.load()) +
+           "},\"rv\":" + std::to_string(rv) + "}";
+    return out;
+  }
+  if (req.method != "POST") {
+    code = 404;
+    return "{\"error\":\"no rig route\"}";
+  }
+  if (req.path == "/rig/stop-watches") {
+    {
+      std::lock_guard<std::mutex> lk(store.mu);
+      std::lock_guard<std::mutex> rl(store.ring_mu);
+      for (auto& w : store.watches) store.close_watch_locked(w, false);
+    }
+    store.ring_cv.notify_all();
+    return ok_true;
+  }
+  JParser p(req.body);
+  JVal doc = p.parse();
+  if (!p.ok || !doc.is_obj()) {
+    code = 400;
+    return "{\"error\":\"the body is not a JSON object\"}";
+  }
+  auto str = [&](const char* k) {
+    const JVal* v = doc.find(k);
+    return v && v->type == JVal::STR ? v->s : std::string();
+  };
+  if (req.path == "/rig/window") {
+    const JVal* v = doc.find("events");
+    if (!v || v->type != JVal::NUM) {
+      code = 400;
+      return "{\"error\":\"events: a number\"}";
+    }
+    rv_window_cell().store(atoi(v->s.c_str()));
+    return ok_true;
+  }
+  if (req.path != "/rig/silent") {
+    code = 404;
+    return "{\"error\":\"no rig route\"}";
+  }
+  std::string op = str("op");
+  int kind = kind_index(doc.find("kind") ? str("kind") : "pods");
+  if (kind < 0) {
+    code = 400;
+    return "{\"error\":\"unknown kind\"}";
+  }
+  if (op == "phase" || op == "delete") {
+    ShardPtr sh = store.shard_of(kind, str("namespace"), false);
+    if (!sh) return ok_false;
+    std::lock_guard<std::mutex> sl(sh->smu);
+    auto it = sh->objs.find(str("name"));
+    if (it == sh->objs.end()) return ok_false;
+    EntryPtr prev = it->second, next;
+    if (op == "phase") {
+      JVal obj = prev->obj;  // same resourceVersion
+      obj.get_or_insert_obj("status").set("phase", JVal::str(str("phase")));
+      next = publish(std::move(obj));
+      it->second = next;
+    } else {
+      sh->objs.erase(it);
+    }
+    std::lock_guard<std::mutex> lk(store.mu);
+    store.idx_adjust(kind, prev, next);
+    if (!next) store.obj_count[kind]--;
+    return ok_true;
+  }
+  if (op == "create") {
+    const JVal* o = doc.find("object");
+    JVal obj = o && o->is_obj() ? *o : JVal{};
+    Key key = Store::obj_key(obj);
+    if (key.second.empty()) {
+      code = 400;
+      return "{\"error\":\"object: no metadata.name\"}";
+    }
+    ShardPtr sh = store.shard_of(kind, key.first);
+    std::lock_guard<std::mutex> sl(sh->smu);
+    if (sh->objs.count(key.second)) {
+      code = 400;
+      return "{\"error\":\"the object exists\"}";
+    }
+    std::lock_guard<std::mutex> lk(store.mu);
+    store.rv++;
+    JVal& meta = obj.get_or_insert_obj("metadata");
+    meta.set("resourceVersion", JVal::str(std::to_string(store.rv)));
+    if (!meta.find("uid"))
+      meta.set("uid", JVal::str("uid-silent-" + std::to_string(store.rv)));
+    EntryPtr e = publish(std::move(obj));
+    store.idx_adjust(kind, nullptr, e);
+    store.obj_count[kind]++;
+    sh->objs[key.second] = e;
+    return "{\"ok\":true,\"object\":" + e->bytes + "}";
+  }
+  code = 400;
+  return "{\"error\":\"unknown silent op\"}";
+}
+// <<< the port's drift rig routes
+
 bool App::handle_request(ConnIO& io, Request& req) {
   int fd = io.fd;  // streaming paths (watch) write directly
   auto q = parse_query(req.query);
@@ -2586,6 +2763,11 @@ bool App::handle_request(ConnIO& io, Request& req) {
     }
     return respond(200,
                    "{\"compactedRevision\":" + std::to_string(crv) + "}");
+  }
+  if (g_rig_routes && req.path.rfind("/rig/", 0) == 0) {
+    int code;
+    std::string body = rig_route(store, req, code);
+    return respond(code, body);
   }
 
   // ---- coordination.k8s.io/v1 leases (ISSUE 12): the leadership plane's
@@ -4124,6 +4306,7 @@ int main(int argc, char** argv) {
     else if (const char* v = val("--max-inflight")) max_ro = atol(v);
     else if (const char* v = val("--max-mutating-inflight")) max_mu = atol(v);
     else if (a == "--authorization") authorization = true;
+    else if (a == "--rig-routes") g_rig_routes = true;
   }
 
   signal(SIGPIPE, SIG_IGN);

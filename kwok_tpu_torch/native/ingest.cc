@@ -83,7 +83,7 @@ bool raw_string(Cursor& c, const char** start, int64_t* len) {
   *start = c.p;
   while (c.p < c.end) {
     if (*c.p == '\\') {
-      c.p += 2;
+      c.p += 2;  // an escape at the very end leaves p past end: clamped below
       continue;
     }
     if (*c.p == '"') {
@@ -93,6 +93,10 @@ bool raw_string(Cursor& c, const char** start, int64_t* len) {
     }
     c.p++;
   }
+  // unterminated (a line cut mid-string): no length to hand out, and the
+  // cursor stays inside the line
+  c.p = c.end;
+  *len = 0;
   c.ok = false;
   return false;
 }
@@ -162,7 +166,7 @@ uint64_t fp_value(Cursor& c) {
     case '"': {
       const char* s;
       int64_t n;
-      raw_string(c, &s, &n);
+      if (!raw_string(c, &s, &n)) return 0;  // unterminated: c.ok is false
       return fnv(s, n) ^ 0x5bd1e995u;
     }
     default: {

@@ -1,7 +1,8 @@
 """Cross-tier latency timeline: stitch the engine's span ring and the
 apiserver's flight recorder into ONE Chrome-trace document (the port's
-copy of ``kwok_tpu.telemetry.timeline``; ``check_watchers`` and
-``/debug/watchers`` come with ROADMAP item 13).
+copy of ``kwok_tpu.telemetry.timeline``), and the schema checks of both
+mock apiservers' ``GET /debug/flight`` (``check_flight``) and ``GET
+/debug/watchers`` (``check_watchers``).
 
 The engine's tracer (`telemetry/trace.py`) sees its own side of every
 request — drain, emit, `pump.send`, sampled `pod.ingest_to_patch` spans
@@ -67,6 +68,38 @@ def check_flight(doc: dict) -> None:
         assert set(phases) == set(TIMING_PHASES), sorted(phases)
         for v in phases.values():
             assert isinstance(v, (int, float)) and v >= 0
+
+
+def check_watchers(doc: dict) -> None:
+    """The shared ``GET /debug/watchers`` schema both mock apiservers must
+    satisfy: per-watcher backlog (``lag_events``), replay backlog, age,
+    band, and the termination-risk class, a pure function of the backlog
+    against the cap. Raises AssertionError on any violation."""
+    assert isinstance(doc, dict), "watchers dump is not an object"
+    assert doc.get("server") in ("native", "mock"), doc.get("server")
+    assert isinstance(doc["backlog_cap"], int) and doc["backlog_cap"] > 0
+    assert isinstance(doc["thread_per_watcher"], bool)
+    assert isinstance(doc["count"], int) and doc["count"] >= 0
+    assert isinstance(doc["parked_threads"], int)
+    assert 0 <= doc["parked_threads"] <= doc["count"]
+    watchers = doc["watchers"]
+    assert isinstance(watchers, list)
+    assert len(watchers) == doc["count"]
+    for w in watchers:
+        assert w["kind"] in ("nodes", "pods"), w.get("kind")
+        assert isinstance(w["lag_events"], int) and w["lag_events"] >= 0
+        assert isinstance(w["replay_pending"], int)
+        assert w["replay_pending"] >= 0
+        assert isinstance(w["age_s"], (int, float)) and w["age_s"] >= 0
+        assert w["band"] in ("readonly", "mutating", "none"), w.get("band")
+        assert w["risk"] in ("none", "lagging", "at_risk"), w.get("risk")
+        lag = w["lag_events"]
+        cap = doc["backlog_cap"]
+        expect = (
+            "none" if lag == 0
+            else ("lagging" if lag <= cap // 2 else "at_risk")
+        )
+        assert w["risk"] == expect, (w["risk"], expect, lag, cap)
 
 
 def lane_trace_events(

@@ -71,14 +71,18 @@ def binary() -> str:
 
 class Server:
     """One of the port's mock apiservers in a process of its own:
-    ``python`` (``kwok_tpu_torch.edge.mockserver``) or ``native`` (the
-    port's binary, or ``binary``), ``env`` added to its environment. Its
+    ``python`` (``kwok_tpu_torch.edge.mockserver``), ``python-rig``
+    (``drift_rig.py``: that mock with the drift rig's routes) or
+    ``native`` (the port's binary, or ``binary``), ``env`` added to its
+    environment. Its
     URL is read off the "listening on" line (the native server prints
     "restored store from ..." first when given ``--data-file``)."""
 
     def __init__(self, which: str, args=(), env=None, binary: "str | None" = None):
         if which == "native":
             cmd = [binary or native.apiserver_binary(), "--port", "0", *args]
+        elif which == "python-rig":
+            cmd = [sys.executable, str(ROOT / "drift_rig.py"), "--port", "0", *args]
         else:
             cmd = [sys.executable, "-m", "kwok_tpu_torch.edge.mockserver", "--port", "0", *args]
         self.proc = subprocess.Popen(
@@ -492,6 +496,381 @@ def metrics(url):
         for name, fam in parse_exposition(text).items())
 
 
+# ------------------------------------------ the chaos tier (ROADMAP 13c)
+# the scenarios of tests/test_mock_snapshot.py and the chaos-tier cases of
+# tests/test_native_apiserver.py that the port's Python mock can run
+
+
+def _obj(kind, name, uid, ns=None, node=None):
+    """An object with its uid and creationTimestamp fixed, so the two
+    servers' stores compare byte for byte."""
+    meta = {"name": name, "uid": uid, "creationTimestamp": "2026-01-02T03:04:05Z"}
+    if ns:
+        meta["namespace"] = ns
+    doc = {"apiVersion": "v1", "kind": "Node" if kind == "nodes" else "Pod", "metadata": meta}
+    if kind == "pods":
+        doc["spec"] = {"nodeName": node or "n0", "containers": [{"name": "c", "image": "busybox"}]}
+        doc["status"] = {"phase": "Pending"}
+    return doc
+
+
+def _canon(doc) -> str:
+    return json.dumps(doc, sort_keys=True, separators=(",", ":"))
+
+
+def snapshot_restore(url):
+    """tests/test_mock_snapshot.py's restore sequence: a snapshot, writes
+    the restore must erase, a live watch the restore must close, restored
+    objects keeping their revisions, a resume from before answering the
+    expired-watch dialect, and the store's clock moving on."""
+    c = HttpKubeClient(url)
+    out: dict = {}
+    c.create("nodes", _obj("nodes", "n0", "uid-n0"))
+    c.create("pods", _obj("pods", "p0", "uid-p0", ns="default"))
+    c.create("pods", _obj("pods", "p1", "uid-p1", ns="default"))
+    code, snap = call(url, "GET", "/snapshot")
+    out["snapshot"] = (code, _canon(snap))
+    c.create("pods", _obj("pods", "p2", "uid-p2", ns="default"))
+    c.patch_status("pods", "default", "p0", {"status": {"phase": "Running"}})
+    pre_rv = max(rv_of(p) for p in c.list("pods"))
+    out["pre_restore_rv"] = pre_rv
+    w = c.watch("pods")
+    ended = threading.Event()
+    threading.Thread(target=lambda: (list(w), ended.set()), daemon=True).start()
+    time.sleep(0.2)  # the stream registers on the server
+    out["restore"] = call(url, "POST", "/restore", snap)
+    out["watch_closed"] = ended.wait(5.0)
+    pods = c.list("pods")
+    out["pods"] = _canon(sorted(pods, key=lambda p: p["metadata"]["name"]))
+    out["rv_rewound"] = all(rv_of(p) < pre_rv for p in pods)
+    gone = call(url, "GET", "/api/v1/pods?" + urllib.parse.urlencode(
+        {"watch": "true", "resourceVersion": str(pre_rv)}))
+    out["resume"] = (gone[0], gone[1]["type"], gone[1]["object"]["code"],
+                     gone[1]["object"]["reason"])
+    created = c.create("nodes", _obj("nodes", "n1", "uid-n1"))
+    out["rv_monotonic"] = rv_of(created) > pre_rv
+    _, after = call(url, "GET", "/snapshot")
+    out["after"] = sorted(o["metadata"]["name"] for objs in after["objects"].values()
+                          for o in objs)
+    c.close()
+    assert out["watch_closed"] and out["rv_rewound"] and out["rv_monotonic"]
+    assert out["resume"][:3] == (200, "ERROR", 410) and '"p2"' not in out["pods"]
+    return out
+
+
+def _raw_response(url: str, method: str, path: str, body: bytes,
+                  content_length: "int | None" = None, timeout: float = 5.0):
+    """One request on a socket of its own: (status, body bytes), or (None,
+    b"") when the server closed without an answer. ``content_length``
+    above the body's promises bytes that never come."""
+    import socket
+
+    s = socket.socket()
+    s.settimeout(timeout)
+    s.connect(("127.0.0.1", int(url.rsplit(":", 1)[1])))
+    cl = len(body) if content_length is None else content_length
+    s.sendall(f"{method} {path} HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+              f"Content-Length: {cl}\r\nConnection: close\r\n\r\n".encode() + body)
+    if content_length is not None and content_length > len(body):
+        s.shutdown(socket.SHUT_WR)
+    buf = b""
+    try:
+        while True:
+            b = s.recv(65536)
+            if not b:
+                break
+            buf += b
+    except socket.timeout:
+        pass
+    s.close()
+    if not buf:
+        return None, b""
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), rest
+
+
+GARBLED = b'{"apiVersion":"v1","kind":"Pod","met\xff\x00adata":{{{{'
+
+
+def bad_bodies(url):
+    """Garbled JSON in a create, a status patch and a metadata patch: 400
+    with the native server's Status; a truncated body; and the server
+    keeps serving, its store intact."""
+    c = HttpKubeClient(url)
+    c.create("nodes", make_node("gb-n"))
+    c.create("pods", make_pod("gb-p", node="gb-n"))
+    out = {
+        verb: _raw_response(url, method, path, GARBLED)
+        for verb, method, path in (
+            ("post", "POST", "/api/v1/namespaces/default/pods"),
+            ("patch_status", "PATCH", "/api/v1/namespaces/default/pods/gb-p/status"),
+            ("patch_meta", "PATCH", "/api/v1/namespaces/default/pods/gb-p"))
+    }
+    _raw_response(url, "POST", "/api/v1/namespaces/default/pods", GARBLED[:20],
+                  content_length=512, timeout=3.0)
+    out["after"] = [call(url, "GET", "/api/v1/namespaces/default/pods/gb-p")[0],
+                    call(url, "POST", "/api/v1/nodes", make_node("gb-n2"))[0],
+                    len(c.list("pods"))]
+    c.close()
+    assert [out[v][0] for v in ("post", "patch_status", "patch_meta")] == [400] * 3
+    assert out["after"] == [200, 201, 1]
+    return out
+
+
+def malformed_utf8(url):
+    """A status patch and a create whose strings hold malformed UTF-8 (a
+    stray continuation byte, a truncated sequence, an overlong form, a
+    code point past U+10FFFF) answer 400 and store nothing; well-formed
+    multi-byte text goes through, and every LIST still decodes."""
+    c = HttpKubeClient(url)
+    c.create("nodes", make_node("u8-n"))
+    c.create("pods", make_pod("u8-p", node="u8-n"))
+    bad = [b"\xc3(", b"\xe2\x82", b"\xc0\xaf", b"\xf4\x90\x80\x80", b"\x80"]
+    out = {"patch": [], "create": []}
+    for i, raw in enumerate(bad):
+        body = b'{"status":{"phase":"Running","hostIP":"' + raw + b'"}}'
+        out["patch"].append(_raw_response(
+            url, "PATCH", "/api/v1/namespaces/default/pods/u8-p/status", body)[0])
+        pod = json.dumps(make_pod(f"u8-{i}", node="u8-n")).encode().replace(
+            b'"name": "c"', b'"name": "c' + raw + b'"')
+        out["create"].append(_raw_response(
+            url, "POST", "/api/v1/namespaces/default/pods", pod)[0])
+    good = {"status": {"phase": "Running", "hostIP": "h\u00e9\u20ac\U0001f600"}}
+    out["good"] = c.patch_status("pods", "default", "u8-p", good)["status"]["hostIP"]
+    out["list"] = [p["metadata"]["name"] for p in c.list("pods")]
+    c.close()
+    assert out["patch"] == [400] * len(bad) and out["create"] == [400] * len(bad)
+    assert out["list"] == ["u8-p"] and out["good"] == good["status"]["hostIP"]
+    return out
+
+
+def _scrape(url: str) -> dict:
+    from tests.test_metrics_exposition import parse_exposition
+
+    _code, text = call(url, "GET", "/metrics")
+    return {f"{name}{sorted(labels.items())}": v
+            for name, fam in parse_exposition(text).items()
+            if name in ("kwok_apiserver_inflight", "kwok_apiserver_rejected_total",
+                        "kwok_watch_terminations_total")
+            for _n, labels, v in fam["samples"]}
+
+
+def admission(url):
+    """Under KWOK_TPU_MAX_INFLIGHT=1 and KWOK_TPU_MAX_MUTATING_INFLIGHT=1:
+    a POST held mid-body fills the mutating band, the next write gets
+    429 with Retry-After 1 and the TooManyRequests Status, reads and
+    watches pass (band separation, watches exempt), and once the held
+    request completes writes are admitted again."""
+    import http.client
+
+    w = HttpKubeClient(url).watch("nodes")  # exempt: holds no readonly slot
+    body = json.dumps(make_node("held")).encode()
+    held = http.client.HTTPConnection("127.0.0.1", int(url.rsplit(":", 1)[1]))
+    held.putrequest("POST", "/api/v1/nodes")
+    held.putheader("Content-Type", "application/json")
+    held.putheader("Content-Length", str(len(body)))
+    held.endheaders()
+    time.sleep(0.3)
+    req = urllib.request.Request(url + "/api/v1/nodes", method="POST",
+                                 data=json.dumps(make_node("n2")).encode())
+    try:
+        urllib.request.urlopen(req, timeout=5)
+        rejected = None
+    except urllib.error.HTTPError as e:
+        rejected = (e.code, e.headers.get("Retry-After"), json.loads(e.read()))
+    out = {"rejected": rejected, "list": call(url, "GET", "/api/v1/nodes")[0],
+           "metrics_saturated": _scrape(url)}
+    held.send(body)
+    out["held"] = held.getresponse().status
+    held.close()
+    out["after"] = call(url, "POST", "/api/v1/nodes", make_node("n3"))[0]
+    out["metrics_after"] = _scrape(url)
+    w.stop()
+    assert rejected is not None and rejected[:2] == (429, "1")
+    assert rejected[2]["reason"] == "TooManyRequests"
+    assert (out["list"], out["held"], out["after"]) == (200, 201, 201)
+    return out
+
+
+def backlog(url):
+    """Under KWOK_TPU_WATCH_BACKLOG=8: a watcher that stops reading is
+    closed once its backlog passes the cap, abruptly (no terminal chunk),
+    counted as a slow termination, the backlog peak held at the cap; a
+    resume whose replay is far longer than the cap is exempt and gets
+    every event."""
+    import socket
+
+    stalled = socket.socket()
+    stalled.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+    stalled.connect(("127.0.0.1", int(url.rsplit(":", 1)[1])))
+    stalled.sendall(b"GET /api/v1/nodes?watch=true HTTP/1.1\r\nHost: x\r\n\r\n")
+    time.sleep(0.2)
+    c = HttpKubeClient(url)
+    pad = "x" * 32768
+    for i in range(200):
+        c.create("nodes", {"apiVersion": "v1", "kind": "Node",
+                           "metadata": {"name": f"bn{i}", "labels": {"pad": pad}}})
+    time.sleep(0.3)
+    m = _scrape(url)
+    stalled.settimeout(10)
+    tail = b""
+    while True:
+        b = stalled.recv(65536)
+        if not b:
+            break
+        tail = (tail + b)[-64:]
+    stalled.close()
+    first = c.create("pods", make_pod("rp-0"))
+    for i in range(1, 40):
+        c.create("pods", make_pod(f"rp-{i}"))
+    replay = collect(c.watch("pods", resource_version=rv_of(first)), 39)
+    m_after = _scrape(url)
+    _code, text = call(url, "GET", "/metrics")
+    peak = [line for line in text.splitlines()
+            if line.startswith('kwok_watch_backlog_events{agg="peak"}')]
+    c.close()
+    slow = "kwok_watch_terminations_total[('reason', 'slow')]"
+    out = {"slow": m[slow], "clean_end": tail.endswith(b"0\r\n\r\n"),
+           "replay": [o["metadata"]["name"] for _t, o in replay],
+           "slow_after_resume": m_after[slow], "peak": float(peak[0].rsplit(" ", 1)[1])}
+    assert out["slow"] == 1 and not out["clean_end"]
+    assert out["replay"] == [f"rp-{i}" for i in range(1, 40)]
+    assert out["slow_after_resume"] == 1 and 1 <= out["peak"] <= 8
+    return out
+
+
+def data_file(which):
+    """--data-file: the store written at SIGTERM is back after a restart
+    (the server prints "restored store from F" first), and the store's
+    clock moves on past it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "store.json")
+        srv = Server(which, ["--data-file", path])
+        try:
+            c = HttpKubeClient(srv.url)
+            c.create("nodes", _obj("nodes", "df-n", "uid-df-n"))
+            c.create("pods", _obj("pods", "df-p", "uid-df-p", ns="default", node="df-n"))
+            last = rv_of(c.patch_status("pods", "default", "df-p",
+                                        {"status": {"phase": "Running"}}))
+            c.close()
+        finally:
+            srv.stop()
+        with open(path) as f:
+            saved = json.load(f)
+        srv = Server(which, ["--data-file", path])
+        try:
+            c = HttpKubeClient(srv.url)
+            out = {"saved": _canon(saved), "nodes": call(srv.url, "GET", "/api/v1/nodes"),
+                   "pod": call(srv.url, "GET", "/api/v1/namespaces/default/pods/df-p")}
+            out["moved_on"] = rv_of(c.create("nodes", _obj("nodes", "df-n2", "u2"))) > last
+            c.close()
+        finally:
+            srv.stop()
+    assert out["pod"][1]["status"]["phase"] == "Running" and out["moved_on"]
+    return out
+
+
+data_file.own_server = True
+
+
+def watchers(url):
+    """GET /debug/watchers: the census of live watches passes
+    check_watchers of both packages; an idle watch is parked, band none,
+    risk none."""
+    from kwok_tpu.telemetry.timeline import check_watchers as jax_check_watchers
+    from kwok_tpu_torch.telemetry.timeline import check_watchers
+
+    c = HttpKubeClient(url)
+    c.create("nodes", make_node("w-n"))
+    ws = [c.watch("nodes"), c.watch("pods", field_selector="spec.nodeName!=")]
+    time.sleep(0.3)
+    code, doc = call(url, "GET", "/debug/watchers")
+    check_watchers(doc)
+    jax_check_watchers(doc)
+    for w in ws:
+        w.stop()
+    time.sleep(0.3)
+    _, empty = call(url, "GET", "/debug/watchers")
+    check_watchers(empty)
+    c.close()
+    return {"code": code, "keys": list(doc), "cap": doc["backlog_cap"],
+            "threads": doc["thread_per_watcher"], "count": doc["count"],
+            "parked": doc["parked_threads"],
+            "watchers": sorted((w["kind"], w["lag_events"], w["replay_pending"], w["band"],
+                                w["risk"], sorted(w)) for w in doc["watchers"]),
+            "after_stop": empty["count"]}
+
+
+def rig_routes(which):
+    """The drift rig's routes (the native server under --rig-routes, the
+    Python mock as drift_rig.py serves it): a phase set back and a
+    delete with no event and no revision, a create under a real revision
+    and no event; GET /rig/state; the window route narrows the watch
+    cache; stop-watches ends every watch; bad requests answer 400."""
+    import drift_rig
+
+    srv = Server("native", ["--rig-routes"]) if which == "native" else Server("python-rig")
+    try:
+        url = srv.url
+        c = HttpKubeClient(url)
+        rig = drift_rig.RigClient(url)
+        c.create("nodes", make_node("rn"))
+        for i in range(2):
+            pod = make_pod(f"rp{i}", "rn")
+            pod["status"] = {"phase": "Running", "podIP": f"10.0.0.{i + 1}"}
+            c.create("pods", pod)
+        rv0 = rig.state()["rv"]
+        w = c.watch("pods")
+        out = {"state0": {k: v for k, v in rig.state().items() if k != "rv"},
+               "phase": rig.silent(op="phase", kind="pods", namespace="default", name="rp0",
+                                   phase="Pending"),
+               "delete": rig.silent(op="delete", kind="pods", namespace="default", name="rp1"),
+               "missing": rig.silent(op="phase", kind="pods", namespace="default", name="nope",
+                                     phase="Pending"),
+               "created": rig.silent(op="create", kind="pods", object=make_pod("rp2", "rn"))}
+        out["rp0"] = rig.get("pods", "default", "rp0")
+        out["rp1"] = rig.get("pods", "default", "rp1")
+        out["created_rv"] = rv_of(out["created"]["object"]) - rv0
+        out["created_uid"] = out["created"]["object"]["metadata"]["uid"] == (
+            f"uid-silent-{rv0 + 1}")
+        out["again"] = call(url, "POST", "/rig/silent", {"op": "create", "kind": "pods",
+                                                         "object": make_pod("rp2", "rn")})[0]
+        out["bad_op"] = call(url, "POST", "/rig/silent", {"op": "nope"})[0]
+        out["bad_body"] = call(url, "POST", "/rig/window", [1])[0]
+        st = rig.state()
+        out["state"] = {**{k: v for k, v in st.items() if k != "rv"}, "rv": st["rv"] - rv0}
+        c.create("pods", make_pod("rp3", "rn"))
+        # the first event the open watch sees is the real create
+        out["events"] = [(t, o["metadata"]["name"]) for t, o in collect(w, 1)]
+        rig.window(2)
+        first = c.create("nodes", make_node("wn0"))
+        for i in range(1, 4):
+            c.create("nodes", make_node(f"wn{i}"))
+        old = c.watch("nodes", resource_version=rv_of(first))
+        out["expired"] = list(old) == [] and old.expired
+        live = c.watch("nodes")
+        ended = threading.Event()
+        threading.Thread(target=lambda: (list(live), ended.set()), daemon=True).start()
+        rig.stop_watches()
+        out["stopped"] = ended.wait(10)
+        c.close()
+    finally:
+        srv.stop()
+    assert out["phase"] == out["delete"] == {"ok": True} and out["missing"] == {"ok": False}
+    assert out["rp0"]["status"]["phase"] == "Pending" and out["rp1"] is None
+    assert out["created_rv"] == 1 and out["created_uid"]
+    assert (out["again"], out["bad_op"], out["bad_body"]) == (400, 400, 400)
+    assert out["state"] == {"running": 0, "pods": 2, "not_running": ["rp0", "rp2"],
+                            "terminations": {"slow": 0, "deadline": 0}, "rv": 1}
+    assert out["events"] == [("ADDED", "rp3")] and out["expired"] and out["stopped"]
+    return out
+
+
+rig_routes.own_server = True
+
+
 TWINS = {
     "crud": (crud, None), "merge": (merge, None), "selectors": (selectors, None),
     "watch_filtering": (watch_filtering, None), "graceful_deletion": (graceful_deletion, None),
@@ -499,11 +878,19 @@ TWINS = {
     "window_expiry": (window_expiry, {"KWOK_TPU_RV_WINDOW": "64"}),
     "bookmarks": (bookmarks, {"KWOK_TPU_BOOKMARK_INTERVAL": "0.3"}),
     "errors": (errors, None), "flight": (flight, None), "metrics": (metrics, None),
+    "snapshot_restore": (snapshot_restore, None), "bad_bodies": (bad_bodies, None),
+    "admission": (admission, {"KWOK_TPU_MAX_INFLIGHT": "1",
+                              "KWOK_TPU_MAX_MUTATING_INFLIGHT": "1"}),
+    "backlog": (backlog, {"KWOK_TPU_WATCH_BACKLOG": "8"}),
+    "data_file": (data_file, None), "watchers": (watchers, None),
+    "rig_routes": (rig_routes, None), "malformed_utf8": (malformed_utf8, None),
 }
 
 
 def run_twin(which: str, name: str):
     scenario, env = TWINS[name]
+    if getattr(scenario, "own_server", False):
+        return masked(scenario(which))
     srv = Server(which, env={"KWOK_TPU_BOOKMARK_INTERVAL": "0", **(env or {})})
     try:
         return masked(scenario(srv.url))
@@ -641,3 +1028,34 @@ def test_pump_survives_server_restart(binary, tmp_path):
     finally:
         pump.close()
         srv.stop()
+
+
+# -------------------------------------- the store's snapshot, in process
+
+
+def _dump_load(FakeKube) -> dict:
+    a = FakeKube()
+    a.create("nodes", {"metadata": {"name": "n0", "uid": "u0"}})
+    a.create("pods", {"metadata": {"name": "p0", "namespace": "ns", "uid": "u1"}})
+    snap = a.dump()
+    b = FakeKube()
+    w = b.watch("nodes")
+    b.load(json.loads(json.dumps(snap)))  # through the wire's encoding
+    closed = list(w) == []  # the restore closed the watch
+    created = b.create("nodes", {"metadata": {"name": "n1", "uid": "u2"}})
+    return {"rv": snap["resourceVersion"],
+            "objects": {k: v for k, v in snap["objects"].items() if k in ("nodes", "pods")},
+            "restored": [b.get("nodes", None, "n0"), b.get("pods", "ns", "p0")],
+            "watch_closed": closed,
+            "moved_on": int(created["metadata"]["resourceVersion"]) > snap["resourceVersion"]}
+
+
+def test_dump_load_matches_jax_in_process():
+    """tests/test_mock_snapshot.py's dump/load round trip and watch close
+    on both packages' in-memory stores (timestamps masked)."""
+    from kwok_tpu.edge.mockserver import FakeKube as JaxFakeKube
+    from kwok_tpu_torch.edge.mockserver import FakeKube
+
+    got, ref = masked(_dump_load(FakeKube)), masked(_dump_load(JaxFakeKube))
+    assert got == ref
+    assert got["watch_closed"] and got["moved_on"] and all(got["restored"])

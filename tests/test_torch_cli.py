@@ -166,7 +166,8 @@ REFUSED = {
     "use-mesh": (["--use-mesh", "true"], {}, "9b"),
     "ha-primary": (["--ha-role", "primary"], {}, 12),
     "ha-standby": (["--ha-role", "standby"], {}, 12),
-    "audit-interval": (["--audit-interval", "5"], {}, "13b"),
+    # accepted since item 13b (None): the interval reaches the auditor
+    "audit-interval": (["--audit-interval", "5"], {}, None),
     # accepted since item 13a (None): the spec reaches the fault plane
     "faults": (["--faults", "seed=1;pump.drop=0.1"], {}, None),
     "enable-cni": (["--enable-cni", "true"], {}, 14),
@@ -174,8 +175,8 @@ REFUSED = {
     "two-masters": (TWO + ["--use-mesh", "true"], {}, "9b"),
     "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, "9b"),
     "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, 12),
-    "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, "13b"),
-    "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, "13b"),
+    "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, None),
+    "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, None),
     "env-faults": ([], {"KWOK_FAULTS": "seed=1"}, None),
     "env-tpu-faults": ([], {"KWOK_TPU_FAULTS": "seed=1"}, None),
     "env-enable-cni": ([], {"KWOK_ENABLE_CNI": "true"}, 14),
@@ -206,10 +207,73 @@ def accepted_fault_spec(extra, env, monkeypatch):
     return cfg
 
 
+def audit_intervals(extra, env, monkeypatch, options=None) -> list:
+    """(EngineConfig.audit_interval, the engine's resolved
+    _audit_interval) that an accepted ``--audit-interval`` form gives,
+    through the port's CLI and through kwok_tpu's: the config's
+    ``auditInterval`` (``options``), then KWOK_AUDIT_INTERVAL, then the
+    flag; KWOK_TPU_AUDIT_INTERVAL is the engine's fallback."""
+    from kwok_tpu.config.types import KwokConfigurationOptions as JaxOptions
+    from kwok_tpu.config.types import apply_env_overrides as jax_env
+    from kwok_tpu.edge.mockserver import FakeKube as JaxFakeKube
+    from kwok_tpu.engine import ClusterEngine as JaxEngine
+    from kwok_tpu_torch.config.types import apply_env_overrides
+    from kwok_tpu_torch.engine import ClusterEngine
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    out = []
+    for lib in ("torch", "jax"):
+        opts = KwokConfigurationOptions() if lib == "torch" else JaxOptions()
+        for k, v in (options or {}).items():
+            setattr(opts, k, v)
+        (apply_env_overrides if lib == "torch" else jax_env)(opts)
+        mod = tcli if lib == "torch" else jcli
+        args = mod.build_parser(opts).parse_args(extra + ["--manage-all-nodes", "true"])
+        if lib == "torch":
+            assert tcli.refusals(args, ["http://127.0.0.1:1"]) == []
+            cfg = tcli._engine_config(args, [], "cpu")
+            eng = ClusterEngine(PortFakeKube(), cfg)
+        else:
+            cfg = jcli._engine_config(args, [])
+            eng = JaxEngine(JaxFakeKube(), cfg)
+        out.append((cfg.audit_interval, eng._audit_interval))
+    assert out[0] == out[1]
+    return out[0]
+
+
+AUDIT_PRECEDENCE = {
+    # config file, then KWOK_AUDIT_INTERVAL, then the flag
+    "config": ({"auditInterval": 3.0}, {}, [], 3.0),
+    "env-over-config": ({"auditInterval": 3.0}, {"KWOK_AUDIT_INTERVAL": "4"}, [], 4.0),
+    "flag-over-env": ({"auditInterval": 3.0}, {"KWOK_AUDIT_INTERVAL": "4"},
+                      ["--audit-interval", "6"], 6.0),
+    "flag-zero-falls-back-to-tpu-env": ({}, {"KWOK_TPU_AUDIT_INTERVAL": "1.5"},
+                                        ["--audit-interval", "0"], 1.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AUDIT_PRECEDENCE))
+def test_audit_interval_precedence_matches_jax(name, monkeypatch):
+    options, env, extra, want = AUDIT_PRECEDENCE[name]
+    monkeypatch.delenv("KWOK_AUDIT_INTERVAL", raising=False)
+    monkeypatch.delenv("KWOK_TPU_AUDIT_INTERVAL", raising=False)
+    _cfg, resolved = audit_intervals(extra, env, monkeypatch, options)
+    assert resolved == want
+
+
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
     extra, env, item = REFUSED[name]
     monkeypatch.setenv("KWOK_TPU_PLATFORM", "cpu")
+    if item is None and "audit" in name:
+        cfg_value, resolved = audit_intervals(extra, env, monkeypatch)
+        given = float((extra[1:2] or list(env.values()))[0])
+        # the flag and KWOK_AUDIT_INTERVAL fill EngineConfig.audit_interval;
+        # KWOK_TPU_AUDIT_INTERVAL stays the engine's own fallback
+        assert cfg_value == (0.0 if "KWOK_TPU_AUDIT_INTERVAL" in env else given)
+        assert resolved == given
+        return
     if item is None:
         cfg = accepted_fault_spec(extra, env, monkeypatch)
         # the flag and KWOK_FAULTS fill EngineConfig.faults;

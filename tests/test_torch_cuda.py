@@ -230,6 +230,54 @@ def test_killed_drain_worker_restarts_on_card(card):
     assert cuda_tick.tick_steps.launches > before
 
 
+def test_auditor_repairs_silent_divergence_on_card(card):
+    """The anti-entropy auditor's threaded end-to-end case on the card,
+    over 2 threaded lanes: once every pod is Running, a phase silently
+    rewound and a pod silently deleted on the store are detected
+    (stale-row, ghost-row) and repaired within 15 s, the engine ends not
+    degraded, and the kernel launched on the card."""
+    import drift_rig
+
+    server = FakeKube()
+    eng = ClusterEngine(server, EngineConfig(
+        manage_all_nodes=True, tick_interval=0.02, drain_shards=2, audit_interval=0.4))
+    before = cuda_tick.tick_steps.launches
+
+    def phase(name):
+        return ((server.get("pods", "default", name) or {}).get("status") or {}).get("phase")
+
+    def wait(pred, timeout=30.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline and not pred():
+            time.sleep(0.05)
+        return pred()
+
+    eng.start()
+    try:
+        server.create("nodes", {"metadata": {"name": "te-n"}})
+        names = [f"tep{i}" for i in range(6)]
+        for n in names:
+            server.create("pods", {"metadata": {"name": n, "namespace": "default"},
+                                   "spec": {"nodeName": "te-n"},
+                                   "status": {"phase": "Pending"}})
+        assert wait(lambda: all(phase(n) == "Running" for n in names))
+        time.sleep(0.5)
+        assert drift_rig.silent_patch(server, "pods", "default", names[0],
+                                      lambda o: o["status"].update(phase="Pending"))
+        assert drift_rig.silent_delete(server, "pods", "default", names[1])
+        gone = ("default", names[1])
+        assert wait(lambda: phase(names[0]) == "Running"
+                    and drift_rig.row_rv(eng, "pods", gone) is None, 15.0)
+        aud = eng._auditor
+        assert aud.detected_total(reason="stale-row") >= 1
+        assert aud.detected_total(reason="ghost-row") >= 1
+        assert aud.repaired_total >= 2
+        assert wait(lambda: not eng.degraded, 5.0)
+    finally:
+        eng.stop()
+    assert cuda_tick.tick_steps.launches > before
+
+
 def test_profiler_records_every_tick_launch_on_card(card, tmp_path):
     """profile_dir on the card: the tick thread's torch.profiler window
     (ticks [2, 102), cut short by stop) holds one tick_kernel event per

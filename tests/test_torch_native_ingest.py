@@ -824,3 +824,79 @@ def test_echo_tier_two_with_a_hand_seeded_expectation(kind):
         out[lib] = {f: m.get(f) for f in ("fp_status_done", "fp_nsc_done", "phase_str",
                                           "host_ip", "status_scalar")}
     assert out["torch"] == out["jax"]
+
+
+def test_lines_cut_mid_string_are_rejected_not_read_past():
+    """The port's repair of its parser copy (ROADMAP §3): a watch line cut
+    inside a string (``wire.truncate``, or a garbled quote) left the
+    string's length unset and the status fingerprint hashed bytes far past
+    the line; under the drift phase's storm that was a segfault.
+    kwok_tpu's parser still reads past such a line. Run in a process of
+    its own (a regression would kill the test process): every cut and
+    seeded garble of a pod line parses to an error flag or a record, and
+    the intact line still parses whole."""
+    import subprocess
+    import sys
+
+    code = r'''
+import json, random, sys
+from kwok_tpu_torch import native
+from kwok_tpu_torch.resilience.faults import FaultPlane, FaultSpec
+p = native.EventParser()
+pod = {"metadata": {"name": "p0", "namespace": "default", "resourceVersion": "12345",
+                    "uid": "u0"}, "spec": {"nodeName": "n0"},
+       "status": {"phase": "Running", "conditions": [
+           {"type": "Ready", "status": "True", "lastTransitionTime": "2026-10-17T18:00:00Z"}]}}
+line = b'{"type":"MODIFIED","object":' + json.dumps(pod, separators=(",", ":")).encode() + b'}'
+rng = random.Random(5)
+plane = FaultPlane(FaultSpec.parse("seed=5;wire.garble=1"))
+for cut in range(len(line)):
+    p.parse(line[:cut])
+    p.parse(line[:cut] + b"\\")
+for _ in range(500):
+    batch = []
+    for _ in range(rng.randint(1, 20)):
+        b = line
+        for _ in range(rng.randint(0, 3)):
+            b = plane.garble_bytes(b)
+        batch.append(b[: rng.randint(0, len(b))] if rng.random() < 0.3 else b)
+    p.parse_raw_batch(batch, "pods", 4)
+    p.parse_raw_batch(batch)
+whole = p.parse(line)
+assert (whole.type, whole.rv, whole.name) == ("MODIFIED", 12345, "p0"), whole
+print("ok")
+'''
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", (r.returncode, r.stderr[-2000:])
+
+
+def test_garbled_bytes_in_one_record_leave_the_batch_whole():
+    """A garbled watch line that still parses can carry bytes that are not
+    UTF-8 (a creation stamp, a host IP): the parser hands them over as
+    surrogate escapes. The columnar ingest stages them back as the bytes
+    they came in; a strict encode raised mid-batch, left the batch's other
+    rows half-staged (in the pool, never ticked), and their re-list was
+    dropped as stale: pods that stayed Pending for good (the drift
+    phase's storm). Every intact pod of the batch must reach Running (the
+    garbled one's patch carries its garbled stamp back: the anti-entropy
+    auditor's stale row to repair)."""
+    log, eng = _build("torch", 1)
+    log.inner.create("nodes", make_node("n0"))
+    raw_buf: dict = {}
+    eng._drain_apply(("nodes", "RAW", ev_line("ADDED", _obj(make_node("n0"), 1)), 0.0), raw_buf)
+    names = [f"gp{i}" for i in range(6)]
+    for i, n in enumerate(names):
+        pod = _obj(make_pod(n, node="n0"), 10 + i)
+        pod["metadata"]["creationTimestamp"] = "2026-01-02T03:04:05Z"
+        log.inner.create("pods", copy.deepcopy(pod))
+        line = ev_line("ADDED", pod)
+        if i == 2:
+            line = line.replace(b"2026-01-02T03:04:05Z", b"2026-01-02T03:04:\xff\xfeZ")
+        eng._drain_apply(("pods", "RAW", line, 0.0), raw_buf)
+    eng._drain_flush(raw_buf)
+    assert all(eng.pods.pool.lookup(("default", n)) is not None for n in names)
+    for _ in range(3):
+        eng.tick_once()
+    phases = [log.inner.get("pods", "default", n)["status"]["phase"] for n in names]
+    assert phases[:2] + phases[3:] == ["Running"] * 5

@@ -756,3 +756,50 @@ def test_native_resume_rides_the_received_revision_past_a_stalled_drain(monkeypa
         gate.set()
         eng.stop()
         srv.stop()
+
+
+def test_resume_revision_parse_is_safe_beside_the_drain_parser():
+    """Both watch threads read their resume revision while the drain
+    parses single lines with the same parser: the resume parse must use
+    buffers of its own (the single-line parse reuses, and regrows, the
+    parser's). Every revision read on every thread must be its line's;
+    before the repair two threads in the single-line parse at once wrote
+    into each other's buffers (a segfault under the drift phase's storm)."""
+    from kwok_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("no native library")
+    eng = TorchEngine(tmock.FakeKube(), TorchConfig(manage_all_nodes=True, device="cpu"))
+    parser = eng._batch_parser
+    assert parser is not None
+    eng._watch_rv["pods"] = 1
+
+    def line(rv: int, pad: int) -> bytes:
+        return json.dumps({"type": "MODIFIED", "object": {"metadata": {
+            "name": f"p{rv}", "namespace": "default", "resourceVersion": str(rv),
+            "labels": {"pad": "x" * pad}}}}).encode()
+
+    wrong: list = []
+    stop = threading.Event()
+
+    def resumes(seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            rv = int(rng.integers(2, 10**9))
+            got = eng._resume_rv("pods", line(rv, int(rng.integers(0, 20_000))), parser)
+            if got != rv:
+                wrong.append((rv, got))
+
+    threads = [threading.Thread(target=resumes, args=(s,)) for s in (1, 2)]
+    for t in threads:
+        t.start()
+    rng = np.random.default_rng(3)
+    try:
+        for _ in range(3_000):  # the drain's single-line parses, regrowing the buffer
+            rv = int(rng.integers(2, 10**9))
+            assert parser.parse(line(rv, int(rng.integers(0, 20_000)))).rv == rv
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(10)
+    assert wrong == []
