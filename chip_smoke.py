@@ -159,8 +159,8 @@ result line then):
    and the nodes one once; each time the seconds until a new handle is
    installed are taken (resume_s). Once, between two of those, a node
    label patch, POST /compact and a pods cut: that resume must get the
-   410, and the seconds until every lane ingested the re-list's RESYNC are
-   taken (relist_s). After the flood, 3 s of quiet, then
+   410, and the seconds until every lane ingested the re-list's prune are
+   taken (relist_s), beside the pods that LIST held. After the flood, 3 s of quiet, then
    kwok_watch_bookmarks_total must be > 0; POST /compact, and once a
    bookmark has followed it (node heartbeats keep writing), both
    connections are dropped: neither may re-list. Over the phase
@@ -219,7 +219,10 @@ result line then):
    wire.stale; kwok_wire_rejects_total rose; every lane's queues empty
    at one moment within 180 s; no worker crash outside supervision; not
    degraded (a drift streak the storm left must clear within 120 s).
-   Then, faults off and the watches quiet, 16 divergences are seeded
+   Then, faults off and the watches quiet, once the auditor's pods scan
+   has begun a cycle on the quiet store (its pages show one snapshot per
+   cycle, so a seed on a pod written after it would show only in the next
+   cycle; the wait is reported), 16 divergences are seeded
    behind the engine's back in the first, middle and last windows of the
    scan: 4 pods set back to Pending, 4 deleted, 4 rows' revisions set
    ahead of the server's (under their lane's stage_lock), 4 bound pods
@@ -233,12 +236,17 @@ result line then):
    next cycle ends); not degraded 3 intervals later; the kernel
    bit-exact at the engine's capacities. Every 5 s the phase logs the
    pods Running, the queue depths, re-lists, rv rewinds, audit passes and
-   the mock's CPU seconds. Reported: pods/s against the CLI phase's,
+   the mock's CPU seconds. The storm restores no store, so no row may
+   cause a second rv rewind (the engine's rv_rewind_log names the (kind,
+   key) of each). Reported: pods/s against the CLI phase's,
    the mock's and this process's CPU seconds in the storm, audit passes
    with the median and largest kwok_audit_pass_seconds, detections by
    reason in the storm and after the seeding, repair seconds and passes,
-   re-lists, rv rewinds and slow-watcher
-   terminations. (b) Process lanes over HTTP: kwok's entry point
+   re-lists, rv rewinds and the rows that caused them, slow-watcher
+   terminations, the largest summed lane queue depth (items, polled every
+   20 ms: a re-list's share of a lane is one item), the re-lists routed
+   with their objects each, and the seconds from the storm's close until
+   every pod was Running. (b) Process lanes over HTTP: kwok's entry point
    (cli.main) in a process of its own with --lane-procs true
    --drain-shards 2 --audit-interval 1.0 against an in-process Python
    mock, 1,000 nodes and 2,500 pods (cut from 2,000 and 5,000 to keep the
@@ -248,6 +256,19 @@ result line then):
    missed pods Running and kwok_pods_managed back at 2,500 within 60 s,
    /readyz 200 at the end, the process exiting 0 with lane kernel
    launches > 0. A part that fails fails the run.
+
+12. CNI (ROADMAP item 14, run after 11): the CLI phase's path, size and
+   checks through main with --enable-cni true and the provider that
+   KWOK_TPU_CNI_PROVIDER names (smoke_cni:PROVIDER, beside this script:
+   IPs from 100.64.0.0/10, every setup and remove recorded), on auto
+   threaded lanes against the native mock. Hard checks: every pod
+   Running with the IP the provider handed it, all distinct, none in the
+   pool's CIDR; one remove for each of the 500 deleted pods and no more;
+   /readyz 200 and not degraded; kwok_pump_requests_total > 0 (nodes,
+   heartbeats and deletes; every pod patch takes the per-pod path under
+   a live provider); launches > 0; the kernel bit-exact at the engine's
+   capacities. Reported: pods/s and kwok CPU seconds per 1,000 pods
+   against the CLI phase's.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1685,6 +1706,16 @@ def watch_phase(cli_run):
             mark(kind, lane)
 
         eng._mark_resync = marked
+        # each LIST the engine makes: (kind, objects, when)
+        lists: list = []
+        real_list = eng.client.list
+
+        def counted_list(kind, **kw):
+            out = real_list(kind, **kw)
+            lists.append((kind, len(out), time.monotonic()))
+            return out
+
+        eng.client.list = counted_list
         errors: list = []
         flood_over = threading.Event()
 
@@ -1727,6 +1758,7 @@ def watch_phase(cli_run):
                     raise AssertionError("the re-list after the 410 never reached every lane")
                 time.sleep(0.005)
             info["relist_s"] = max(ts for k, _, ts in resyncs[n0:] if k == "pods") - t
+            info["relist_objects"] = next(n for k, n, ts in lists if k == "pods" and ts >= t)
             if eng._stream_gen.get("pods", 0) <= gen:
                 raise AssertionError("the resume after the compaction did not get its 410")
             info["relist_during_flood"] = not flood_over.is_set()
@@ -1792,6 +1824,7 @@ def watch_phase(cli_run):
         m = scrape(run)
         client.close()
     finally:
+        run["engine"].client.__dict__.pop("list", None)
         stop_cli(run)
     launches = cuda_tick.tick_steps.launches
     if launches <= 0:
@@ -2439,6 +2472,25 @@ def drift_lanes(cli_run):
             raise AssertionError(f"no auditor, plane or {n_lanes} lanes: {aud}, {plane}")
         aud._pass_hist = passes = PassTimes(aud._pass_hist)
         lanes = eng._lanes.lanes
+        # the objects of every re-list the router hands the lanes, and the
+        # largest summed lane queue depth (items: a re-list's share of a
+        # lane is one item), polled
+        listed: list = []
+        route = eng._lanes.route
+
+        def counted_route(kind, type_, obj):
+            if type_ == "LIST":
+                listed.append(len(obj[1]))
+            route(kind, type_, obj)
+
+        eng._lanes.route = counted_route
+        depth_peak = [0]
+
+        def depth_poll():
+            while not stop_progress.wait(0.02):
+                depth_peak[0] = max(depth_peak[0], sum(ln.q.qsize() for ln in lanes))
+
+        threading.Thread(target=depth_poll, name="drift-depth", daemon=True).start()
 
         def sample() -> str:
             st = rig.state()
@@ -2540,6 +2592,19 @@ def drift_lanes(cli_run):
         relists_storm = eng.metrics["watch_relists_total"]
         if not quiescent(lambda: eng.metrics["watch_relists_total"]):
             raise AssertionError("the watch streams kept re-listing after the storm")
+        # the pods scan pages one snapshot per cycle (its first page's
+        # revision): a seed on a pod written after that snapshot shows
+        # only in the next cycle, past the one-cycle bound. The bounds
+        # are for a quiet store, so the seeds go in once the scan has
+        # begun a cycle after every pod was Running
+        t_wait = time.monotonic()
+        cycles0 = aud._cycles["pods"]
+        while aud._cycles["pods"] == cycles0:
+            if time.monotonic() - t_wait > 2 * DRIFT_REPAIR_S:
+                raise AssertionError(f"the pods scan did not finish a cycle in "
+                                     f"{2 * DRIFT_REPAIR_S} s")
+            time.sleep(0.05)
+        info["cycle_wait_s"] = time.monotonic() - t_wait
         # seeded divergence, faults off
         seeded = seed_divergence(rig, DRIFT_SEEDS, DRIFT_NODES, "dpod", eng)
         t_seed = time.monotonic()
@@ -2586,6 +2651,14 @@ def drift_lanes(cli_run):
             raise AssertionError(f"degraded 3 intervals after the repairs: "
                                  f"{eng._degradation.reasons}")
         info["watchers_at_end"] = check_mock_watchers(url, 0)
+        # the storm restores no store: a second rewind of one row is the
+        # re-list loop (a row corrected by a re-list still queued)
+        seen_rewinds: dict = {}
+        for ent in eng.rv_rewind_log:
+            seen_rewinds[ent] = seen_rewinds.get(ent, 0) + 1
+        again = {repr(k): n for k, n in seen_rewinds.items() if n > 1}
+        if again:
+            raise AssertionError(f"a row caused more than one rv rewind: {again}")
         snap = aud.snapshot()
         info.update({
             "nodes": DRIFT_NODES, "pods": DRIFT_PODS,
@@ -2608,7 +2681,11 @@ def drift_lanes(cli_run):
             "watch_relists": eng.metrics["watch_relists_total"],
             "watch_relists_after_storm": relists_storm,
             "rv_rewinds": eng.metrics.get("rv_rewinds_total", 0),
+            "rv_rewind_rows": [list(map(str, k)) for k in eng.rv_rewind_log],
             "slow_terminations": rig.state()["terminations"].get("slow", 0),
+            "peak_lane_queue_items": depth_peak[0],
+            "relists_routed": len(listed),
+            "objects_per_relist": (sum(listed) / len(listed)) if listed else 0.0,
         })
     finally:
         stop_progress.set()
@@ -2761,6 +2838,91 @@ def drift_phase(cli_run) -> dict:
     out = {"lanes": drift_lanes(cli_run), "procs": drift_procs()}
     out["kernel_launches"] = out["lanes"]["kernel_launches"] + out["procs"]["kernel_launches"]
     return out
+
+
+CNI_PROVIDER = "smoke_cni:PROVIDER"  # KWOK_TPU_CNI_PROVIDER of the CNI phase
+CNI_POOL = "10.0.0.0/16"  # the --cidr every CLI phase gives kwok
+
+
+def cni_phase(cli_run):
+    """Phase 12: the CLI phase with --enable-cni true and the provider
+    that KWOK_TPU_CNI_PROVIDER names (see the module docstring)."""
+    import ipaddress
+
+    import torch
+
+    import smoke_cni
+    from kwok_tpu_torch import cni
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+    from kwok_tpu_torch.ops import cuda_tick
+
+    n_lanes = resolve_drain_shards(0, 0)
+    prov = smoke_cni.PROVIDER
+    prov.reset()
+    cuda_tick.tick_steps.launches = 0
+    os.environ["KWOK_TPU_CNI_PROVIDER"] = CNI_PROVIDER
+    try:
+        run = start_cli(["--enable-cni", "true"])
+    finally:
+        os.environ.pop("KWOK_TPU_CNI_PROVIDER", None)
+    try:
+        eng = run["engine"]
+        if not eng._cni_live() or eng._lanes is None or eng._lanes.n != n_lanes:
+            raise AssertionError(f"the CLI's engine runs no live CNI provider on {n_lanes} lanes")
+        load = drive_pods(run)
+        pods = load["client"].list("pods")
+        # the Deleted events reach the engine after the deletes are gone
+        # from the server: one remove each
+        deleted = {("default", f"pod-{i}") for i in range(CLI_DELETES)}
+        t_rm = time.monotonic() + 30.0
+        while len(prov.removes) < CLI_DELETES and time.monotonic() < t_rm:
+            time.sleep(0.05)
+        time.sleep(1.0)
+        removes = list(prov.removes)
+        code, _ = http_get(run["base"] + "/readyz")
+        degraded = sorted(eng._degradation.reasons)
+        m = scrape(run)
+    finally:
+        stop_cli(run)
+        cni._provider = None
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the CNI phase ran without launching the tick kernel")
+    if code != 200 or degraded:
+        raise AssertionError(f"/readyz {code}, degraded {degraded}")
+    if m["kwok_patch_errors_total"]:
+        raise AssertionError(f"{m['kwok_patch_errors_total']} patch errors")
+    pool = ipaddress.ip_network(CNI_POOL)
+    wrong = [p["metadata"]["name"] for p in pods
+             if not running(p)
+             or p["status"]["podIP"] != prov.setups.get(("default", p["metadata"]["name"]))
+             or ipaddress.ip_address(p["status"]["podIP"]) in pool]
+    ips = {p["status"]["podIP"] for p in pods}
+    if wrong or len(ips) != len(pods) or len(pods) != CLI_PODS - CLI_DELETES:
+        raise AssertionError(f"{len(pods)} pods, {len(ips)} distinct IPs; not Running with the "
+                             f"provider's IP outside {CNI_POOL}: {wrong[:5]}")
+    if len(removes) != CLI_DELETES or set(removes) != deleted:
+        extra = sorted(set(removes) - deleted)[:5]
+        raise AssertionError(f"{len(removes)} cni removes for {CLI_DELETES} deleted pods "
+                             f"({len(set(removes))} distinct; not deleted: {extra})")
+    caps, shape_ms, shape_plain_ms, _wire_ms = engine_shape_check(torch, eng, rearm=True)
+    log(f"cni: kernel at the engine's capacities {caps}: checked, {shape_ms:.4f} ms")
+    native = native_edge(m, summed(m, "kwok_watch_events_total"), lanes=n_lanes)
+    return {
+        "lanes": n_lanes, "provider": CNI_PROVIDER, **load["report"], "native": native,
+        "cni_setups": len(prov.setups), "cni_removes": len(removes),
+        "kwok_cpu_s_per_1000_pods": per_1000(load["report"]["window_kwok_process_cpu_s"],
+                                             load["report"]["pods"]),
+        "cli_phase_pods_per_s": cli_run["create_to_running_pods_per_s"],
+        "pods_per_s_vs_cli": (load["report"]["create_to_running_pods_per_s"]
+                              / cli_run["create_to_running_pods_per_s"]),
+        "cli_phase_kwok_cpu_s_per_1000_pods": cli_run["kwok_cpu_s_per_1000_pods"],
+        "readyz_503_polls": run["readyz"].count(503),
+        "watch_relists": m["kwok_watch_relists_total"],
+        "status_patches": m["kwok_status_patches_total"],
+        "kernel_launches": launches, "capacities": caps,
+        "kernel_ms_at_capacities": shape_ms, "plain_ms_at_capacities": shape_plain_ms,
+    }
 
 
 def member_stage_documents() -> list[dict]:
@@ -3049,6 +3211,7 @@ def main() -> int:
     procs = timed("procs", procs_phase, cli_run)
     chaos = timed("chaos", chaos_phase, cli_run)
     drift = timed("drift", drift_phase, cli_run)
+    cni_run = timed("cni", cni_phase, cli_run)
     fed = timed("federation", fed_phase, cli_run)
     print(f"phase seconds: {json.dumps(phase_s)}; since main began {time.monotonic() - t_main:.1f} s",
           flush=True)
@@ -3071,7 +3234,7 @@ def main() -> int:
           flush=True)
     http_phases = (("cli", cli_run), ("trace", traced), ("cli_python_mock", py_mock),
                    ("ingest_ab_off", ab_off), ("watch", watch), ("procs", procs),
-                   ("federation", fed))
+                   ("cni", cni_run), ("federation", fed))
     for name, r in http_phases:
         print(f"{name}: {r['mock']} mock, {r['create_to_running_pods_per_s']:.1f} pods/s "
               f"create->Running ({r['pods']} pods), creator {r['pod_create_s']:.2f} s, kwok CPU "
@@ -3095,7 +3258,8 @@ def main() -> int:
     print(f"watch ({n_lanes} lanes): {watch['create_to_running_pods_per_s']:.1f} pods/s "
           f"create->Running, {watch['cuts']} cuts ({watch['cuts_during_flood']} during the flood), "
           f"resume_s median {watch['resume_s_median']:.4f} max {watch['resume_s_max']:.4f}, "
-          f"relist_s {watch['relist_s']:.3f}, re-lists {watch['relists_after_start']}, "
+          f"relist_s {watch['relist_s']:.3f} ({watch['relist_objects']} pods listed), "
+          f"re-lists {watch['relists_after_start']}, "
           f"bookmarks {watch['bookmarks']:.0f}, stale_rv {watch['stale_rv_rejects']:.0f}, "
           f"throttle {watch['client_throttle_seconds']:.1f} s, kwok CPU "
           f"{watch['kwok_cpu_s_per_1000_pods']:.2f} s per 1,000 pods ({card})", flush=True)
@@ -3135,9 +3299,20 @@ def main() -> int:
           f"{dl['audit_pass_s_median']:.4f} max {dl['audit_pass_s_max']:.4f}; detected in the "
           f"storm {dl['detected_in_storm']}, seeded {dl['detected_seeded']}; repair s "
           f"{dl['repair_s']}; re-lists {dl['watch_relists']:.0f}, slow terminations "
-          f"{dl['slow_terminations']}; process lanes: {dp['create_to_running_pods_per_s']:.1f} "
+          f"{dl['slow_terminations']}; rv rewinds {dl['rv_rewinds']:.0f} "
+          f"{dl['rv_rewind_rows']}; peak lane queue {dl['peak_lane_queue_items']} items, "
+          f"{dl['relists_routed']} re-lists routed, {dl['objects_per_relist']:.1f} objects "
+          f"each; heal->Running {dl['heal_to_running_s']:.1f} s; process lanes: "
+          f"{dp['create_to_running_pods_per_s']:.1f} "
           f"pods/s, detected {dp['detected']}, repaired {dp['repaired_total']:.0f} in "
           f"{dp['repair_s']:.2f} s, {dp['kernel_launches']} lane launches ({card})", flush=True)
+    print(f"cni ({n_lanes} lanes, KWOK_TPU_CNI_PROVIDER={cni_run['provider']}): "
+          f"{cni_run['create_to_running_pods_per_s']:.1f} pods/s create->Running against the "
+          f"cli phase's {cni_run['cli_phase_pods_per_s']:.1f} "
+          f"({cni_run['pods_per_s_vs_cli']:.3f}x), kwok CPU "
+          f"{cni_run['kwok_cpu_s_per_1000_pods']:.2f} s per 1,000 pods against "
+          f"{cni_run['cli_phase_kwok_cpu_s_per_1000_pods']:.2f}, {cni_run['cni_setups']} "
+          f"setups, {cni_run['cni_removes']} removes ({card})", flush=True)
     tp, tw = traced["profile"], traced["profile_window"]
     print(f"trace ({n_lanes} lanes, profiled ticks {tw['ticks'][0]}-{tw['ticks'][1]} on "
           f"{tw['thread']}, {tw['wall_s']:.3f} s): device busy share {tp['busy_share']:.6f}, "
@@ -3177,7 +3352,7 @@ def main() -> int:
                      + py_mock["kernel_launches"] + ab_off["kernel_launches"]
                      + watch["kernel_launches"] + procs["kernel_launches"]
                      + chaos["kernel_launches"] + drift["kernel_launches"]
-                     + fed["kernel_launches"]),
+                     + cni_run["kernel_launches"] + fed["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],
@@ -3193,7 +3368,8 @@ def main() -> int:
             "cli_python_mock": py_mock["kernel_launches"],
             "ingest_ab_off": ab_off["kernel_launches"], "watch": watch["kernel_launches"],
             "procs": procs["kernel_launches"], "chaos": chaos["kernel_launches"],
-            "drift": drift["kernel_launches"], "federation": fed["kernel_launches"],
+            "drift": drift["kernel_launches"], "cni": cni_run["kernel_launches"],
+            "federation": fed["kernel_launches"],
         },
         "watch_capacities": watch["capacities"],
         "watch_ms": watch["kernel_ms_at_capacities"],

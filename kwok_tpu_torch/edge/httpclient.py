@@ -60,6 +60,14 @@ def _unlink_quiet(path: str) -> None:
         pass
 
 
+class ListPage(list):
+    """One page of a paged LIST; ``rv`` is its metadata.resourceVersion:
+    the revision of the snapshot it shows (every page of one paged LIST
+    shows its first page's), 0 when the server sent none."""
+
+    rv = 0
+
+
 class HttpKubeClient:
     def __init__(
         self,
@@ -336,7 +344,8 @@ class HttpKubeClient:
         """ONE page of a paged LIST: the anti-entropy auditor's budgeted
         read (``resilience/antientropy.py``), which bounds its pages per
         pass and resumes the continue cursor on its next pass. Returns
-        ``(items, continue_token)``; a 410 on a resumed cursor raises
+        ``(items, continue_token)``, the items a :class:`ListPage`
+        carrying the page's revision; a 410 on a resumed cursor raises
         :class:`ContinueExpired`, so a caller restarts its scan and never
         mistakes the expiry for a completed one (a legitimately empty
         final page returns no token either). A 410 on a first page stays
@@ -359,11 +368,16 @@ class HttpKubeClient:
                 )
                 raise ContinueExpired(kind) from e
             raise
-        items = []
+        meta = doc.get("metadata") or {}
+        items = ListPage()
+        try:
+            items.rv = int(meta.get("resourceVersion") or 0)
+        except (TypeError, ValueError):
+            pass
         for item in doc.get("items") or []:
             item.setdefault("apiVersion", "v1")
             items.append(item)
-        return items, (doc.get("metadata") or {}).get("continue") or ""
+        return items, meta.get("continue") or ""
 
     def watch(self, kind, *, field_selector=None, label_selector=None,
               resource_version=None, allow_bookmarks=False):

@@ -138,7 +138,7 @@ from kwok_tpu_torch.edge.render import (
     rfc3339,
 )
 from kwok_tpu_torch.edge.selectors import parse_selector
-from kwok_tpu_torch import native, profiling
+from kwok_tpu_torch import cni, native, profiling
 from kwok_tpu_torch.locks import reclaimable
 from kwok_tpu_torch.engine.rowpool import (
     EF_RENDER,
@@ -226,6 +226,13 @@ def _rv_of(meta: dict) -> int:
         return 0
 
 
+def _event_count(type_: str, obj) -> int:
+    """The watch events one ingest-queue item stands for: a re-list's
+    LIST item its objects and the prune, as the ADDED events and the
+    RESYNC marker it replaces."""
+    return len(obj[1]) + 1 if type_ == "LIST" else 1
+
+
 def _ctr_blob(containers) -> bytes:
     """A container list in the native renderers' form: "name\\x1fimage"
     records joined by \\x1e."""
@@ -251,6 +258,10 @@ class EngineConfig:
     disregard_status_with_label_selector: str = ""
     cidr: str = "10.0.0.1/24"
     node_ip: str = "196.168.0.1"
+    # pod IPs from a registered CNI provider (kwok_tpu_torch.cni) instead
+    # of the pool; without a provider the pool serves, as the reference's
+    # non-Linux stub does
+    enable_cni: bool = False
     tick_interval: float = 0.05
     # inner simulated ticks per device dispatch (MultiTickKernel steps)
     tick_substeps: int = 1
@@ -669,6 +680,18 @@ class ClusterEngine:
         # monotonic stamp of the last rewind-triggered resync: bounds the
         # re-list rate of a store that keeps rewinding (_note_rv_rewind)
         self._rv_rewind_at = 0.0
+        # the rewind check's memory (_check_rewind): per kind, the rows
+        # already answered for, {key: tracked revision}, each kind's
+        # watch thread its own; the kinds whose next re-list is one a
+        # noted rewind forced (under _gen_lock); and the (kind, key) of
+        # every rewind acted on
+        self._rewound: dict[str, dict] = {}
+        self._rewind_forced: set[str] = set()
+        self.rv_rewind_log: list[tuple] = []
+        # each kind's newest fetched re-list: a queued LIST item of an
+        # older one is superseded (_list_superseded). Written by the
+        # kind's watch thread only
+        self._relist_seq: dict[str, int] = {}
         # the native edge (kwok_tpu_torch/native); None under
         # KWOK_TPU_NATIVE=0 or when the library cannot be built (the
         # loader logs that at WARNING). With it, HTTP watch streams queue
@@ -730,12 +753,11 @@ class ClusterEngine:
         # the GEN markers as they drain); both under _gen_lock
         self._watch_rv: dict[str, int] = {}
         self._drain_gen: dict[str, int] = {}
-        # the record path cannot evaluate disregard selectors: they match
-        # labels and annotations a record does not carry
-        self._record_needs_full_path = (
-            self._disregard_annotation is not None
-            or self._disregard_label is not None
-        )
+        # the record path cannot evaluate disregard selectors (they match
+        # labels and annotations a record does not carry) and never
+        # enters a CNI provider: either forces the full path. Evaluated
+        # again in start(): a provider may be registered after the build
+        self._record_needs_full_path = self._needs_full_path()
         # the threaded lanes (engine/lanes.py) or the process lanes
         # (engine/proclanes.py); lane engines are built with
         # drain_shards=1, so neither recurses
@@ -909,6 +931,7 @@ class ClusterEngine:
         # the sampling profiler from the CALLER's thread (usually main):
         # its SIGTERM dump hook can only install there
         profiling.maybe_start()
+        self._record_needs_full_path = self._needs_full_path()
         if (self.config.profile_dir and self._owns_tick
                 and self._proc is None):
             self._profiler = profiling.TickProfiler(
@@ -1250,16 +1273,22 @@ class ClusterEngine:
             self._watch_rv.pop(kind, None)
             self._stream_gen[kind] = self._stream_gen.get(kind, 0) + 1
 
+    @staticmethod
+    def _key_of_meta(kind: str, meta: dict):
+        """The row key of an object's metadata, None without a name."""
+        name = meta.get("name")
+        if not name:
+            return None
+        return (meta.get("namespace") or "default", name) if kind == "pods" else name
+
     def _tracked_rv(self, kind: str, obj: dict) -> int:
         """The revision this engine last ingested for ``obj``'s key (the
         owning lane's engine under threaded lanes), or 0 when the row is
         unknown. Read without a lock: a row's rv only moves forward, so a
         stale read only makes the rewind check more conservative."""
-        meta = obj.get("metadata") or {}
-        name = meta.get("name")
-        if not name:
+        key = self._key_of_meta(kind, obj.get("metadata") or {})
+        if key is None:
             return 0
-        key = (meta.get("namespace") or "default", name) if kind == "pods" else name
         lanes = self._lanes
         e = lanes.lanes[shard_of(key, lanes.n)].engine if lanes is not None else self
         k = e.pods if kind == "pods" else e.nodes
@@ -1269,23 +1298,61 @@ class ClusterEngine:
         # meta rv is an int, set from _rv_of at ingest
         return (k.pool.meta[idx] or {}).get("rv") or 0
 
-    def _note_rv_rewind(self, kind: str, name, listed: int, tracked: int) -> None:
+    # least seconds between two rewind-forced resyncs
+    _RV_REWIND_MIN_S = 5.0
+
+    def _note_rv_rewind(self, kind: str, name, listed: int, tracked: int) -> bool:
         """A re-listed object carries a revision below the one this engine
         already ingested for it: an object's own revision never goes back,
         so the store was restored from a snapshot. Every stream re-lists
-        (at most once per 5 s), so none keeps resuming against revisions
-        of the old world."""
+        (at most once per ``_RV_REWIND_MIN_S``), so none keeps resuming
+        against revisions of the old world; those re-lists are the
+        correction and note no rewind of their own (_check_rewind).
+        Returns whether the rewind was acted on."""
         now = time.monotonic()
-        if now - self._rv_rewind_at < 5.0:
-            return
+        if now - self._rv_rewind_at < self._RV_REWIND_MIN_S:
+            return False
         self._rv_rewind_at = now
         self._inc("rv_rewinds_total")
+        self.rv_rewind_log.append((kind, name))
         logger.warning(
             "rv rewind on the %s re-list (%s listed at rv %d < ingested rv "
             "%d): the store was restored; re-listing every stream",
             kind, name, listed, tracked,
         )
+        with self._gen_lock:
+            self._rewind_forced.update(self._watches)
         self.resync_streams()
+        return True
+
+    def _check_rewind(self, kind: str, objs: list) -> None:
+        """The rewind check of one re-list, on the kind's watch thread.
+        A row counts once per tracked revision: while the correcting
+        re-list is still queued (deep lane queues), later re-lists see the
+        same row at the same tracked revision and are not a new rewind.
+        ``kwok_tpu`` judges every re-list afresh, so one row whose tracked
+        revision sits above the server's (a garbled line that parsed)
+        re-lists every stream again each time the window allows."""
+        rewound: dict = {}
+        first = None
+        known = self._rewound.get(kind, {})
+        for obj in objs:
+            meta = obj.get("metadata") or {}
+            rv = _rv_of(meta)
+            tracked = self._tracked_rv(kind, obj) if rv else 0
+            if tracked and rv < tracked:
+                key = self._key_of_meta(kind, meta)
+                rewound[key] = tracked
+                if first is None and known.get(key) != tracked:
+                    first = (key, rv, tracked)
+        with self._gen_lock:
+            forced = kind in self._rewind_forced
+            self._rewind_forced.discard(kind)
+        if first is not None and not forced and not self._note_rv_rewind(kind, *first):
+            # not acted on (inside the window): only the rows already
+            # answered for stay so
+            rewound = {k: t for k, t in rewound.items() if known.get(k) == t}
+        self._rewound[kind] = rewound
 
     def stop(self) -> None:
         self._running = False
@@ -1610,26 +1677,95 @@ class ClusterEngine:
         return max(drained, parser.parse_batch([bytes(last)])[0].rv if last else 0)
 
     def _relist(self, kind: str, opts: dict, proc: bool) -> None:
-        """One full LIST of ``kind`` onto the ingest queue: its objects as
-        ADDED events (under process lanes the RESYNC snapshot carries
-        them), then the RESYNC marker that prunes rows the list no longer
-        holds. An object listed below the revision already ingested for
-        it is a store rewind (_note_rv_rewind)."""
+        """One full LIST of ``kind`` onto the ingest queue as ONE ``LIST``
+        item: its objects, then the prune of rows the list no longer holds
+        (``_apply_list``; threaded lanes split it per lane). Under process
+        lanes the RESYNC snapshot carries it. The list supersedes every
+        older re-list of the kind still queued. An object listed below the
+        revision already ingested for it is a store rewind
+        (_check_rewind, before the list can correct the row)."""
         objs = self.client.list(kind, **opts)
         self._inc("watch_relists_total")
-        rewind = None
+        self._check_rewind(kind, objs)
+        if proc:
+            self._q.put((kind, "RESYNC", objs, time.monotonic()))
+            return
+        seq = self._relist_seq[kind] = self._relist_seq.get(kind, 0) + 1
+        self._q.put((kind, "LIST", (seq, objs), time.monotonic()))
+
+    def _list_superseded(self, kind: str, seq: int) -> bool:
+        """A newer re-list of ``kind`` was fetched: it is the whole truth,
+        and this one's objects and prune not yet applied are dropped."""
+        return seq < self._relist_seq.get(kind, 0)
+
+    def _listed_row(self, kind: str, obj: dict):
+        """The row index of a listed object whose row already holds its
+        revision (same uid, same revision), else None: staging it again
+        would change nothing."""
+        meta = obj.get("metadata") or {}
+        rv = _rv_of(meta)
+        uid = meta.get("uid")
+        key = self._key_of_meta(kind, meta)
+        if not rv or not uid or key is None:
+            return None
+        k = self.pods if kind == "pods" else self.nodes
+        idx = k.pool.lookup(key)
+        if idx is None:
+            return None
+        m = k.pool.meta[idx]
+        if m and m.get("rv") == rv and ckpt_mod.row_uid(m) == uid:
+            return idx
+        return None
+
+    def _listed_pod_diverged(self, obj: dict, idx: int) -> bool:
+        """A listed pod at its row's revision that the row does not
+        describe (a status patch that was lost, a garbled line that parsed
+        with the server's revision): the row bound to another node than
+        the listed one, or a managed pod past Pending whose listed phase
+        is not the row's or that has no pod IP. It takes the full ADDED
+        path, which rebinds the row and whose LockPod repair patches it,
+        as ``kwok_tpu``'s re-list does for every object; the cheap
+        comparison keeps the unchanged majority off that path."""
+        k = self.pods
+        m = k.pool.meta[idx]
+        if (m.get("node") or "") != ((obj.get("spec") or {}).get("nodeName") or ""):
+            return True
+        phase = int(k.phase_h[idx])
+        if phase == _PENDING or m.get("has_del"):
+            return False
+        if not (self._pod_bits(m) >> self.pod_bits[SEL_MANAGED] & 1):
+            return False
+        status = obj.get("status") or {}
+        return status.get("phase") != self._pod_phases[phase] or not status.get("podIP")
+
+    def _apply_listed(self, kind: str, objs) -> None:
+        """A re-list's objects as ADDED events; one unchanged since its
+        row's last revision is not staged again (unless the row does not
+        describe the pod, ``_listed_pod_diverged``)."""
         for obj in objs:
-            if not proc:
-                self._q.put((kind, ADDED, obj, time.monotonic()))
-            if rewind is None:
-                meta = obj.get("metadata") or {}
-                rv = _rv_of(meta)
-                tracked = self._tracked_rv(kind, obj) if rv else 0
-                if tracked and rv < tracked:
-                    rewind = (meta.get("name"), rv, tracked)
-        self._q.put((kind, "RESYNC", objs, time.monotonic()))
-        if rewind is not None:
-            self._note_rv_rewind(kind, *rewind)
+            try:
+                idx = self._listed_row(kind, obj)
+                if idx is None or (
+                    kind == "pods" and self._listed_pod_diverged(obj, idx)
+                ):
+                    self._apply(kind, ADDED, obj)
+            except Exception:  # one malformed object must not end the list
+                logger.exception("re-list ingest failed for a %s object", kind)
+
+    # objects of a LIST item applied between two checks for a newer list (a
+    # lane also yields its stage lock between two such slices)
+    _LIST_SLICE = 4096
+
+    def _apply_list(self, kind: str, seq: int, objs: list) -> None:
+        """One re-list on this engine: its objects, then the prune
+        (``_resync``), unless a newer re-list of the kind supersedes it."""
+        step = self._LIST_SLICE
+        for lo in range(0, len(objs), step):
+            if self._list_superseded(kind, seq):
+                return
+            self._apply_listed(kind, objs[lo:lo + step])
+        if not self._list_superseded(kind, seq):
+            self._resync(kind, objs)
 
     # ----------------------------------------------------- raw-line drain
 
@@ -1887,7 +2023,7 @@ class ClusterEngine:
             # counted per batch by the flush
             self._ingest_record(kind, obj)
             return
-        self.telemetry.inc_kind("watch_events_total", kind)
+        self.telemetry.inc_kind("watch_events_total", kind, _event_count(type_, obj))
         self._apply(kind, type_, obj)
 
     def _apply(self, kind: str, type_: str, obj) -> None:
@@ -1900,6 +2036,9 @@ class ClusterEngine:
             return
         if type_ == "RESYNC":
             self._resync(kind, obj)
+            return
+        if type_ == "LIST":
+            self._apply_list(kind, *obj)
             return
         if type_ in (MODIFIED, DELETED) and self._stale_dict_event(kind, obj):
             return
@@ -2442,6 +2581,12 @@ class ClusterEngine:
                     # neither reassigns them nor hands them to another pod
                     self.ippool.use(pod_ip)
                 m["podIP"] = pod_ip
+                if self._cni_live():
+                    # a live provider owns every IP it may have assigned,
+                    # even one inside the pool's CIDR: the delete goes
+                    # through cni.remove (CNI DEL is idempotent), and the
+                    # pinned pool slot stays retired
+                    m["cni"] = True
         if self._emit_cols:
             self._stage_pod_ecols(k.pool, idx, m)
         has_del = m["has_del"]
@@ -2465,11 +2610,15 @@ class ClusterEngine:
         else:
             k.buffer.stage_update(idx, bits, has_del)
         # repair path (LockPod on every event + computePatchData
-        # suppression)
+        # suppression); the ingest-side render never enters a CNI
+        # provider: a row that needs one defers the repair to the
+        # executor job, which renders and suppresses no-ops itself
         managed = bool(bits >> self.pod_bits[SEL_MANAGED] & 1)
         if managed and not has_del and k.phase_h[idx] != _PENDING:
-            rendered = self._render_pod(idx)
-            if rendered is not None and pod_status_patch_needed(status, rendered):
+            rendered, defer = self._render_pod_ingest(idx)
+            if defer or (
+                rendered is not None and pod_status_patch_needed(status, rendered)
+            ):
                 self._submit(self._patch_pod_status, key, idx)
 
     def _stage_pod_ecols(self, pool, idx: int, m: dict) -> None:
@@ -2635,16 +2784,42 @@ class ClusterEngine:
         m = k.pool.meta[idx]
         node_name = m.get("node")
         with self._alloc_lock:
+            # released inside the lock: a CNI setup committing meanwhile
+            # either lands before (the flag below says remove) or its
+            # liveness check sees the released row and undoes itself
             k.pool.release(key)
             self._release_seq += 1
             k.released_at[idx] = self._release_seq
+            cni_owned = bool(m.get("cni"))
             ip = m.get("podIP") or (pod.get("status") or {}).get("podIP")
-        if ip and self.ippool.contains(ip):
-            # recycle pool-allocated IPs (pod_controller.go:334-337)
+        if cni_owned:
+            # cni.Remove on Deleted (pod_controller.go:329-343), as an
+            # executor job: this runs on the ingest path (the tick thread,
+            # or a lane's drain holding its stage lock), which must never
+            # wait on a provider. CNI DEL is idempotent, so a replay is
+            # safe; with the executor shut down (a stop racing the last
+            # drain) it runs inline rather than leak the provider's IP
+            ns_ = m.get("namespace") or "default"
+            name_ = m.get("name") or ""
+            uid_ = (pod.get("metadata") or {}).get("uid") or ""
+            if not self._submit(self._cni_remove_job, ns_, name_, uid_, count_drop=False):
+                self._cni_remove_job(ns_, name_, uid_)
+        elif ip and self.ippool.contains(ip):
+            # recycle pool-allocated IPs (pod_controller.go:334-337), also
+            # under --enable-cni with no provider
             self.ippool.put(ip)
         if node_name and node_name in self.pods_by_node:
             self.pods_by_node[node_name].discard(key)
         k.buffer.stage_init(idx, False)
+
+    def _cni_remove_job(self, ns: str, name: str, uid: str) -> None:
+        """The executor half of the Deleted event's CNI teardown."""
+        try:
+            if cni.available():
+                # kwoklint: disable=blocking-under-lock -- runs on the executor; the only under-lock caller is _pod_deleted's fallback once the executor is shut down, where leaking the provider's IP across a restart is worse than one blocking call on the closing drain
+                cni.remove(ns, name, uid)
+        except Exception:
+            logger.exception("cni remove failed")
 
     def _update_pods_on_node(self, node_name: str) -> None:
         """Re-evaluate pods bound to a node whose managed-ness changed
@@ -3080,10 +3255,10 @@ class ClusterEngine:
 
     # ------------------------------------------------------------------ emit
 
-    def _submit(self, fn, *args) -> bool:
+    def _submit(self, fn, *args, count_drop: bool = True) -> bool:
         """Run fn on the patch executor (inline in synchronous mode).
         Returns False when the executor is already shut down (the job is
-        dropped and counted)."""
+        dropped, and counted unless ``count_drop`` is False)."""
         if self._executor is None:
             fn(*args)  # synchronous mode (tests call tick_once directly)
             return True
@@ -3091,7 +3266,8 @@ class ClusterEngine:
             self._executor.submit(self._safe, fn, *args)
             return True
         except RuntimeError:
-            self._inc("dropped_jobs_total")
+            if count_drop:
+                self._inc("dropped_jobs_total")
             return False
 
     @staticmethod
@@ -3276,9 +3452,10 @@ class ClusterEngine:
         default) a columnar gather and ONE fused render-and-send job
         (``_emit_pods_tpl``); under ``KWOK_TPU_NATIVE_EMIT=0`` a per-row
         meta gather, the generic native render and a pump send. Returns
-        the rows that take the Python path: readiness gates, rows whose
-        target phase is already on the server (the no-op merge check)
-        and rows without state. Runs on the thread that owns the rows, so
+        the rows that take the Python path: rows of a live CNI provider
+        (provider I/O), readiness gates, rows whose target phase is
+        already on the server (the no-op merge check) and rows without
+        state. Runs on the thread that owns the rows, so
         none vanishes mid-batch."""
         if self._emit_tpl is not None:
             return self._emit_pods_tpl(k, idxs)
@@ -3294,6 +3471,7 @@ class ClusterEngine:
         ictrs: list[bytes] = []
         paths: list[str] = []
         phase_names: list[str] = []
+        cni_live = self._cni_live()
         base = self._pump_base
         node_ip = self.config.node_ip
         pod_kind = self._POD_KIND
@@ -3306,7 +3484,7 @@ class ClusterEngine:
             phase_name = self._pod_phases[int(k.phase_h[idx])]
             if phase_name == "Gone":
                 continue
-            if m.get("rgates") or m.get("phase_str") == phase_name:
+            if cni_live or m.get("rgates") or m.get("phase_str") == phase_name:
                 slow.append(idx)
                 continue
             ip = m.get("podIP")
@@ -3352,9 +3530,10 @@ class ClusterEngine:
         """The template emit gather: classify rows off the staged byte
         columns (no meta walk, no per-row encode, one ``now`` per batch)
         and hand ONE job to the executor whose body is a single render
-        and send C call. The slow-path rows are ``_emit_pods_native``'s.
-        (Rows of a live CNI provider would take the slow path too; the
-        port has no CNI, ROADMAP item 14.)"""
+        and send C call. The slow-path rows are ``_emit_pods_native``'s:
+        under a live CNI provider, every row."""
+        if self._cni_live():
+            return list(idxs)
         pool = k.pool
         ef = pool.eflags
         srv = pool.srv_phase
@@ -3696,19 +3875,101 @@ class ClusterEngine:
                 m["podIP"] = ip
         return ip
 
+    def _cni_live(self) -> bool:
+        return self.config.enable_cni and cni.available()
+
+    def _needs_full_path(self) -> bool:
+        """Whether native records must take the full parse (see the
+        record gate in ``__init__``)."""
+        return (
+            self._disregard_annotation is not None
+            or self._disregard_label is not None
+            or self._cni_live()
+        )
+
     def _render_pod(self, idx: int):
-        """The pod's rendered status (IP from the pool), or None."""
+        """The pod's rendered status, or None. For executor jobs only: it
+        may enter the CNI provider (network I/O), which the ingest path
+        (the tick thread, a lane's drain under its stage lock) must never
+        do; that path renders with ``_render_pod_ingest``."""
         pre = self._render_pod_pre(idx)
         if pre is None:
             return None
         m, phase_name = pre
-        ip = self._pool_ip(m, idx)
-        if ip is None:
-            return None
+        ip = m.get("podIP")
+        if not ip and self._cni_live():
+            # configurePod's cni.Setup branch (pod_controller.go:382-391);
+            # the pool serves when the provider fails
+            ip, row_gone = self._cni_allocate(m, idx)
+            if row_gone or (ip is None and m.get("cni_pending")):
+                return None  # deleted mid-setup, or another job mid-setup
+        if not ip:
+            ip = self._pool_ip(m, idx)
+            if ip is None:
+                return None
         return render_pod_status(
             self._pod_obj(m) or {}, phase_name, int(self.pods.cond_h[idx]),
             self.config.node_ip, ip,
         )
+
+    def _render_pod_ingest(self, idx: int):
+        """The ingest path's render, which never enters the CNI provider.
+        Returns (rendered, defer): defer means the row needs the provider,
+        and the caller hands the work to an executor job."""
+        pre = self._render_pod_pre(idx)
+        if pre is None:
+            return None, False
+        m, phase_name = pre
+        ip = m.get("podIP")
+        if not ip:
+            if self._cni_live():
+                return None, True
+            ip = self._pool_ip(m, idx)
+            if ip is None:
+                return None, False
+        return render_pod_status(
+            self._pod_obj(m) or {}, phase_name, int(self.pods.cond_h[idx]),
+            self.config.node_ip, ip,
+        ), False
+
+    def _cni_allocate(self, m: dict, idx: int) -> "tuple[str | None, bool]":
+        """A pod IP from the CNI provider: (ip, row_gone). The provider
+        call runs outside every lock (it may wait on the network);
+        ``_alloc_lock`` guards the pending flag and the commit, which
+        checks the row is still this pod's: a delete racing the setup
+        either sees the committed ``cni`` flag (and removes) or the commit
+        sees the released row (and undoes its own allocation)."""
+        ns = m.get("namespace") or "default"
+        name = m.get("name") or ""
+        uid = ckpt_mod.row_uid(m)
+        with self._alloc_lock:
+            if m.get("podIP"):
+                return m["podIP"], False
+            if m.get("cni_pending"):
+                return None, False
+            m["cni_pending"] = True
+        try:
+            ips = cni.setup(ns, name, uid)
+        except Exception:
+            logger.exception("cni setup failed; the IP pool serves")
+            ips = None
+        undo = False
+        with self._alloc_lock:
+            m.pop("cni_pending", None)
+            if not ips:
+                return None, self.pods.pool.meta[idx] is not m
+            if self.pods.pool.meta[idx] is m:  # still this pod's row
+                m["podIP"] = ips[0]
+                m["cni"] = True
+            else:
+                undo = True
+        if undo:  # deleted mid-setup: release the fresh allocation
+            try:
+                cni.remove(ns, name, uid)
+            except Exception:
+                logger.exception("cni remove (undo) failed")
+            return None, True
+        return ips[0], False
 
     def _close_ingest_span(self, idx: int, now: float) -> None:
         """Close a sampled pod's ``pod.ingest_to_patch`` span at its

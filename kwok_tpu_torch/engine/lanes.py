@@ -68,7 +68,7 @@ from collections import deque
 import numpy as np
 
 from kwok_tpu_torch.edge.render import now_rfc3339
-from kwok_tpu_torch.engine.engine import ClusterEngine, _warm_scatter
+from kwok_tpu_torch.engine.engine import ClusterEngine, _event_count, _warm_scatter
 from kwok_tpu_torch.engine.rowpool import shard_of
 from kwok_tpu_torch.locks import reclaimable
 from kwok_tpu_torch.ops.state import new_row_state, regrow_stacked
@@ -95,6 +95,9 @@ _MIN_LANE_ROWS = 1024
 # Minimum seconds between shed-clear stream resyncs (drain_loop): bounds
 # the full-LIST rate when a resync's own re-list burst re-trips shedding.
 _SHED_RESYNC_MIN_S = 5.0
+
+# routed items that take stage-lock holds of their own, slice by slice
+_SLICED = ("RECB", "LIST")
 
 
 @dataclasses.dataclass
@@ -167,6 +170,10 @@ class _LaneEngine(ClusterEngine):
         # the startup gate lives on the parent: RESYNC markers broadcast
         # to every lane, and the kind counts once all lanes applied theirs
         self._lane_set.parent._mark_resync(kind, self._lane_index)
+
+    def _list_superseded(self, kind: str, seq: int) -> bool:
+        # the parent's watch thread fetches the re-lists
+        return self._lane_set.parent._list_superseded(kind, seq)
 
 
 class ShardLane:
@@ -253,7 +260,11 @@ class ShardLane:
         than _BURST (a reconnect flood can put a whole window in one lane)
         goes in _BURST slices, each under a hold of its own, so the
         coordinator's buffer swap waits no longer than on the per-event
-        path; per-key order is the slice order."""
+        path; per-key order is the slice order. A LIST (this lane's share
+        of a re-list) goes the same way, and stops where a newer re-list
+        of its kind supersedes it."""
+        if item[1] == "LIST":
+            return self._apply_list(item[0], *item[2])
         if item[1] == "RECB":
             batch, idx, lo, hi = item[2]
             e = self.engine
@@ -268,6 +279,21 @@ class ShardLane:
             return n
         with self.stage_lock:
             return self._apply_item(item)
+
+    def _apply_list(self, kind: str, seq: int, objs: list) -> int:
+        e = self.engine
+        step = self._BURST
+        for lo in range(0, len(objs), step):
+            with self.stage_lock:
+                if e._list_superseded(kind, seq):
+                    return lo
+                e._apply_listed(kind, objs[lo:lo + step])
+            if self.swap_waiting:
+                self._yield_stage()
+        with self.stage_lock:
+            if not e._list_superseded(kind, seq):
+                e._resync(kind, objs)
+        return len(objs) + 1
 
     _EMPTY = object()  # drain_loop's sentinel: the queue is momentarily dry
 
@@ -301,9 +327,9 @@ class ShardLane:
             t0 = time.perf_counter()
             n = 0
             while item is not empty and not stop:
-                if item[1] == "RECB":
+                if item[1] in _SLICED:
                     # sub-batches take their own (sliced) holds; a RECB
-                    # ends a burst hold, so its holds never nest in one
+                    # or LIST ends a burst hold, so its holds never nest
                     n += self._apply_locked(item)
                     if n >= self._BURST:
                         item = empty
@@ -323,7 +349,7 @@ class ShardLane:
                         if item is None:
                             stop = True
                             break
-                        if item is empty or item[1] == "RECB":
+                        if item is empty or item[1] in _SLICED:
                             break
             if self.swap_waiting:
                 self._yield_stage()
@@ -459,6 +485,9 @@ class LaneSet:
             e = lane.engine
             e._executor = executor
             e._running = True
+            # the record gate as the parent's start() evaluated it (a CNI
+            # provider loads after the lanes are built)
+            e._record_needs_full_path = self.parent._record_needs_full_path
             # the pump now, outside every lock: the emit worker runs
             # _process_emit under the lane's stage_lock, where a lazy
             # build would open its connections while the drain worker
@@ -577,13 +606,27 @@ class LaneSet:
         """One parent-queue item into the drain: raw lines are counted by
         the flush that parses them, every other event here."""
         if item[1] not in ("RAW", "RAWB", "GEN"):
-            self.parent.telemetry.inc_kind("watch_events_total", item[0])
+            self.parent.telemetry.inc_kind(
+                "watch_events_total", item[0], _event_count(item[1], item[2]))
         self.parent._drain_apply(item, raw_buf, self.route, self.n)
 
     def route(self, kind: str, type_: str, obj) -> None:
         """Partition one parsed event to its key's lane. RESYNC snapshots
-        broadcast (each lane prunes only keys it owns)."""
+        broadcast (each lane prunes only keys it owns); a re-list's LIST
+        goes to every lane as its own share (its objects, its prune), and
+        is never shed: it is what heals shedding."""
         t = time.monotonic()
+        if type_ == "LIST":
+            seq, objs = obj
+            shares: list = [[] for _ in self.lanes]
+            for o in objs:
+                key = self._key_of(kind, type_, o)
+                if key is not None:
+                    shares[shard_of(key, self.n)].append(o)
+            for lane, share in zip(self.lanes, shares):
+                lane.q.put((kind, type_, (seq, share), t))
+            self.events_routed += 1
+            return
         if type_ == "RESYNC":
             for lane in self.lanes:
                 lane.q.put((kind, type_, obj, t))

@@ -93,8 +93,9 @@ def build_parser(defaults) -> argparse.ArgumentParser:
     p.add_argument("--server-address", default=o.serverAddress,
                    help="healthz/metrics address, e.g. 0.0.0.0:10247")
     p.add_argument("--enable-cni", type=_bool, default=o.enableCNI,
-                   help="CNI pod networking (refused when true: ROADMAP "
-                   "item 14)")
+                   help="pod IPs from the CNI provider named by "
+                   "KWOK_TPU_CNI_PROVIDER ('module' or 'module:attr' with "
+                   "setup/remove); the IP pool without one")
     p.add_argument("--tick-interval", type=float, default=o.tickInterval)
     p.add_argument("--tick-substeps", type=int, default=o.tickSubsteps,
                    help="simulated ticks fused into one device dispatch")
@@ -197,8 +198,6 @@ def refusals(args, masters: list[str]) -> list[str]:
     if args.ha_role in ("primary", "standby"):
         out.append(f"--ha-role {args.ha_role} needs HA and the lease "
                    "calls: ROADMAP item 12")
-    if args.enable_cni:
-        out.append("--enable-cni true needs CNI: ROADMAP item 14")
     return out
 
 
@@ -282,6 +281,7 @@ def _engine_config(args, stages: list[Stage], device: str):
         disregard_status_with_label_selector=args.disregard_status_with_label_selector,
         cidr=args.cidr,
         node_ip=args.node_ip,
+        enable_cni=args.enable_cni,
         tick_interval=args.tick_interval,
         tick_substeps=args.tick_substeps,
         heartbeat_interval=args.heartbeat_interval,
@@ -384,6 +384,11 @@ def main(argv=None, stop_event: threading.Event | None = None) -> int:
     refused = refusals(args, masters)
     if refused:
         raise SystemExit("not supported by kwok_tpu_torch yet: " + "; ".join(refused))
+    if args.enable_cni:
+        from kwok_tpu_torch import cni
+
+        if cni.load_from_env():
+            logger.info("cni provider loaded from KWOK_TPU_CNI_PROVIDER")
     device = engine_device()
     clients = [
         HttpKubeClient.from_kubeconfig(args.kubeconfig or None, m)

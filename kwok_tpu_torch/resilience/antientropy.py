@@ -33,7 +33,11 @@ diffs it against local state:
 - **repair**: per row, by re-ingest through the engine's own queue: a
   fresh ``ADDED`` re-runs the upsert + repair-render tier (which
   re-patches the engine-owned status back onto the server), a synthetic
-  ``DELETED`` releases a ghost row. Never wholesale.
+  ``DELETED`` releases a ghost row. Never wholesale. A divergence
+  re-confirmed while its repair is still queued behind the drain (same
+  server revision, nothing ingested for the row since) is in flight: it
+  neither counts nor queues again (``kwok_tpu`` counts it, and a backlog
+  of three cycles degrades the engine).
 
 Exports ``kwok_drift_detected_total{kind=,reason=}``,
 ``kwok_drift_repaired_total`` and ``kwok_audit_pass_seconds`` on the
@@ -121,6 +125,14 @@ def _addressable(*parts) -> bool:
     )
 
 
+def _srv_rv(obj) -> int:
+    """The server object's resourceVersion (0: gone or unparseable)."""
+    try:
+        return int(((obj or {}).get("metadata") or {}).get("resourceVersion") or 0)
+    except (TypeError, ValueError):
+        return 0
+
+
 class AntiEntropyAuditor:
     """One engine's background drift detector/repairer.
 
@@ -153,6 +165,9 @@ class AntiEntropyAuditor:
         self.shard_n = int(getattr(engine, "_lane_n", 1))
         self._ae_lock = reclaimable()
         self._cursor: dict[str, str] = {"nodes": "", "pods": ""}
+        # the revision of the snapshot the last window showed (a paged
+        # LIST's pages show their first page's; 0: unknown)
+        self._window_rv: dict[str, int] = {"nodes": 0, "pods": 0}
         self._cycle_seen: dict[str, set] = {"nodes": set(), "pods": set()}
         # completed scan cycles per kind: the streak bookkeeping's clock.
         # Streaks must be judged per CYCLE, not per pass — on a cluster
@@ -162,6 +177,11 @@ class AntiEntropyAuditor:
         self._cycles: dict[str, int] = {"nodes": 0, "pods": 0}
         # (kind, key, reason) -> [confirm_count, cycle_no at last confirm]
         self._streaks: dict[tuple, list] = {}
+        # (kind, key, reason) -> [server rv, row view, the row's (obj,
+        # raw) when the repair was queued, cycle_no at last confirm] of
+        # the repair last queued for it (_in_flight); pruned as the
+        # streaks are
+        self._repairs: dict[tuple, list] = {}
         self._passes = 0
         r = engine.telemetry.registry
         self._detected = r.counter(
@@ -269,6 +289,15 @@ class AntiEntropyAuditor:
         out: list[tuple] = []
         capped = False
         seen = self._cycle_seen[kind]
+        gaps: dict = {}  # key -> row rv minus listed rv, for double-apply
+        # a row may hold writes the window's snapshot predates: a revision
+        # past the snapshot's but within what the engine's watch has
+        # received is no evidence of a double apply (a continuation page
+        # shows its cycle's first page, so on a busy store most rows are
+        # past it). kwok_tpu flags them all and re-checks each with a GET
+        with self._ae_lock:
+            snap_rv = self._window_rv[kind]
+        received = self.engine._watch_rv.get(kind, 0) if snap_rv else 0
         for obj in items:
             meta = obj.get("metadata") or {}
             name = meta.get("name")
@@ -290,11 +319,27 @@ class AntiEntropyAuditor:
             with self._ae_lock:
                 seen.add(key)
             reason = self._classify(kind, key, obj)
+            if reason == "double-apply":
+                view = self._row_view(kind, key)
+                row_rv = view[1] if view else 0
+                if snap_rv < row_rv <= received:
+                    continue
+                gaps[key] = row_rv - _srv_rv(obj)
             if reason is not None:
-                if len(out) >= _MAX_SUSPECTS:
-                    capped = True
-                    break
                 out.append((kind, key, reason, ns, name))
+        if len(out) > _MAX_SUSPECTS:
+            # more suspects than one pass re-checks: the strongest
+            # evidence first. A continuation page serves the snapshot of
+            # its cycle's first page, so on a busy store every row written
+            # since looks a little ahead of it (double-apply by a small
+            # margin) and is thrown out by the re-check; in key order
+            # those crowd out real divergences for a whole cycle.
+            # kwok_tpu keeps the first ones in key order and stops
+            # classifying there (the rest of the window also misses the
+            # cycle's seen set and turns into ghost suspects)
+            capped = True
+            out.sort(key=lambda s: (s[2] == "double-apply", -gaps.get(s[1], 0)))
+            del out[_MAX_SUSPECTS:]
         if cycle_done:
             # the scan covered the whole keyspace: rows the server never
             # returned are ghost suspects (verified per row by the
@@ -339,6 +384,7 @@ class AntiEntropyAuditor:
             cont = self._cursor[kind]
         items: list[dict] = []
         restarted = False
+        window_rv = 0
         for _ in range(self.max_pages):
             try:
                 objs, cont = page(
@@ -355,10 +401,12 @@ class AntiEntropyAuditor:
                 cont = ""
                 break
             items.extend(objs)
+            window_rv = getattr(objs, "rv", 0)
             if not cont:
                 break
         with self._ae_lock:
             self._cursor[kind] = cont
+            self._window_rv[kind] = window_rv
             if restarted:
                 self._cycle_seen[kind].clear()
         return items, (not cont and not restarted)
@@ -387,17 +435,20 @@ class AntiEntropyAuditor:
 
     # ----------------------------------------------------------- classify
 
+    def _owner(self, key):
+        """The engine whose rows hold ``key`` (its lane's under threaded
+        lanes)."""
+        lanes = self.engine._lanes
+        if lanes is not None:
+            return lanes.lanes[shard_of(key, lanes.n)].engine
+        return self.engine
+
     def _row_view(self, kind: str, key):
         """(uid, rv, phase_name, node) of the engine's row (node: a pod's
         binding, "" for a node row), or None. Reads are
         GIL-atomic dict/array ops; a torn read only creates a suspect the
         settle re-check throws out."""
-        eng = self.engine
-        lanes = eng._lanes
-        if lanes is not None:
-            e = lanes.lanes[shard_of(key, lanes.n)].engine
-        else:
-            e = eng
+        e = self._owner(key)
         k = e.pods if kind == "pods" else e.nodes
         idx = k.pool.lookup(key)
         if idx is None:
@@ -492,6 +543,16 @@ class AntiEntropyAuditor:
                 # as ghost-row — equal reasons — and is confirmed here;
                 # any other re-classification is an in-flight transient.)
                 return False
+        srv_rv = _srv_rv(fresh)
+        view = self._row_view(kind, key)
+        refs = self._row_refs(kind, key)
+        ent = (kind, key, confirmed_reason)
+        with self._ae_lock:
+            prev = self._repairs.get(ent)
+        if prev is not None and self._in_flight(kind, key, prev, srv_rv, view, refs):
+            with self._ae_lock:
+                prev[3] = self._cycles[kind]
+            return False
         self._detected.labels(kind=kind, reason=confirmed_reason).inc()
         logger.warning(
             "drift detected (%s %s): %s; repairing via re-ingest",
@@ -509,7 +570,37 @@ class AntiEntropyAuditor:
             # revision (the double-apply/rewind case)
             eng._q.put((kind, ADDED, fresh, t))
         self._repaired.inc()
+        with self._ae_lock:
+            self._repairs[ent] = [srv_rv, view, refs, self._cycles[kind]]
         return True
+
+    def _row_refs(self, kind: str, key):
+        """The row's parsed object and raw line, the objects themselves
+        (every ingest of the row replaces one of them), or None without a
+        row."""
+        e = self._owner(key)
+        k = e.pods if kind == "pods" else e.nodes
+        idx = k.pool.lookup(key)
+        if idx is None:
+            return None
+        m = k.pool.meta[idx] or {}
+        return m.get("obj"), m.get("raw")
+
+    def _in_flight(self, kind, key, prev, srv_rv, view, refs) -> bool:
+        """The repair queued for this divergence has not landed: the
+        server shows the same revision, and nothing has been ingested for
+        the row since (no row still, or the very same object and raw
+        line), while a worker drains the engine's queue (an engine driven
+        by hand has none: its repair lands only when its caller drains,
+        so each re-confirmation counts)."""
+        if prev[0] != srv_rv or prev[1] != view:
+            return False
+        if not any(t.is_alive() for t in self.engine._threads):
+            return False
+        then = prev[2]
+        if then is None or refs is None:
+            return then is None and refs is None
+        return refs[0] is then[0] and refs[1] is then[1]
 
     def _account(self, confirmed: list) -> None:
         """Streak bookkeeping, keyed per scan CYCLE (not per pass): on a
@@ -536,6 +627,10 @@ class AntiEntropyAuditor:
             self._streaks = {
                 ent: rec for ent, rec in self._streaks.items()
                 if self._cycles[ent[0]] < rec[1] + 2
+            }
+            self._repairs = {
+                ent: rec for ent, rec in self._repairs.items()
+                if self._cycles[ent[0]] < rec[3] + 2
             }
             worst = max((r[0] for r in self._streaks.values()), default=0)
             stuck = sum(

@@ -497,6 +497,148 @@ def test_twin(name, monkeypatch):
     assert got == ref
 
 
+# ------------------------------------------------ repairs behind the drain
+
+
+def missed_pod_behind_held_lanes(L):
+    """A missed pod (on the server, no row) on 2 threaded lanes whose
+    drains are held for five audit cycles, then released."""
+    kube = L.FakeKube()
+    eng = L.engine(kube, drain_shards=2, tick_interval=0.02)
+    eng.start()
+    try:
+        kube.create("nodes", make_node("hl-n"))
+        for i in range(4):
+            kube.create("pods", make_pod(f"hl{i}", node="hl-n"))
+        assert _wait(lambda: all(_phase(kube, f"hl{i}") == "Running" for i in range(4)))
+        L.missed(kube, make_pod("hl-missed", node="hl-n"))
+        aud = _auditor(L, eng)
+        locks = [lane.stage_lock for lane in eng._lanes.lanes]
+        for lock in locks:
+            lock.acquire()
+        try:
+            worst = 0
+            for _ in range(5):  # five passes, five full cycles (no paging)
+                aud.pass_once()
+                worst = max([worst] + [v[0] for v in aud.snapshot()["streaks"].values()])
+            held = {"repaired": aud.repaired_total, "detected": aud.detected_total(),
+                    "worst_streak": worst, "degraded": eng.degraded}
+        finally:
+            for lock in locks:
+                lock.release()
+        running = _wait(lambda: _phase(kube, "hl-missed") == "Running")
+        for _ in range(3):
+            aud.pass_once()
+        return {"held": held, "running": running,
+                "streaks": aud.snapshot()["streaks"], "degraded": eng.degraded}
+    finally:
+        eng.stop()
+
+
+def test_repair_queued_behind_held_lanes_is_in_flight_not_reconfirmed():
+    """``kwok_tpu`` re-confirms the missed pod on every cycle while its
+    repair waits behind the held drains, queues a repair each time and
+    degrades after three; the port queues one repair and stays healthy,
+    and both heal once the drains resume."""
+    ref = missed_pod_behind_held_lanes(LIBS["jax"])
+    assert ref["held"]["repaired"] == 5 and ref["held"]["degraded"]
+    got = missed_pod_behind_held_lanes(LIBS["torch"])
+    assert got["held"] == {"repaired": 1, "detected": 1, "worst_streak": 1,
+                           "degraded": False}
+    assert got["running"] and got["streaks"] == {} and not got["degraded"]
+    assert ref["running"]
+
+
+def crowded_window(L):
+    """One window of 71 pods: the first 70 in key order have rows a few
+    revisions ahead of the listed snapshot (written since the cycle's
+    first page; a fresh GET shows the row's revision), the last is
+    Running on the engine and Pending on the server. The suspects (70
+    double-apply, 1 stale-row) exceed one pass's re-check budget."""
+    kube = L.FakeKube()
+    eng = _sync_engine(L, kube)
+    kube.create("nodes", make_node("ae-n"))
+    eng._ingest("nodes", "ADDED", kube.get("nodes", None, "ae-n"))
+    pods, fresh = [], {}
+    for i in range(71):
+        o = make_pod(f"cw{i:02d}", node="ae-n")
+        o["metadata"].update(uid=f"u{i}", resourceVersion=str(100 + i))
+        eng._ingest("pods", "ADDED", o)
+        pods.append(o)
+    for o in pods[:70]:
+        name = o["metadata"]["name"]
+        idx = eng.pods.pool.lookup(("default", name))
+        eng.pods.pool.meta[idx]["rv"] = int(o["metadata"]["resourceVersion"]) + 5
+        f = json.loads(json.dumps(o))
+        f["metadata"]["resourceVersion"] = str(eng.pods.pool.meta[idx]["rv"])
+        fresh[name] = f
+    idx = eng.pods.pool.lookup(("default", "cw70"))
+    eng.pods.phase_h[idx] = eng._pod_phase_ids["Running"]
+
+    class Client(_PagingClient):
+        def get(self, kind, ns, name):
+            return fresh.get(name) or super().get(kind, ns, name)
+
+    eng.client = Client(pods)
+    aud = L.Auditor(eng, 0.5, page_size=256, max_pages=1, settle_s=0.01)
+    aud.pass_once()
+    return {r: aud.detected_total(kind="pods", reason=r) for r in REASONS}
+
+
+def stale_snapshot_window(L):
+    """One window of a paged LIST whose snapshot is at revision 170 while
+    the engine's watch has received up to 300: 70 rows hold writes past
+    the snapshot (100 revisions past their listed ones), one row sits a
+    million revisions past its listed one (ahead of anything the server
+    sent). The double-apply suspects of one scan."""
+    from kwok_tpu_torch.edge.httpclient import ListPage
+
+    kube = L.FakeKube()
+    eng = _sync_engine(L, kube)
+    kube.create("nodes", make_node("ae-n"))
+    eng._ingest("nodes", "ADDED", kube.get("nodes", None, "ae-n"))
+    pods = []
+    for i in range(71):
+        o = make_pod(f"ss{i:02d}", node="ae-n")
+        o["metadata"].update(uid=f"u{i}", resourceVersion=str(100 + i))
+        eng._ingest("pods", "ADDED", o)
+        pods.append(o)
+        idx = eng.pods.pool.lookup(("default", o["metadata"]["name"]))
+        eng.pods.pool.meta[idx]["rv"] = 100 + i + (100 if i < 70 else 1_000_000)
+    eng._watch_rv = {"pods": 300, "nodes": 300}
+
+    class Client(_PagingClient):
+        def list_page(self, kind, *, limit, cont="", **sel):
+            items, token = super().list_page(kind, limit=limit, cont=cont, **sel)
+            page = ListPage(items)
+            page.rv = 170
+            return page, token
+
+    eng.client = Client(pods)
+    aud = L.Auditor(eng, 0.5, page_size=256, max_pages=1, settle_s=0.01)
+    return sorted(str(s[1]) for s in aud._scan_kind("pods") if s[2] == "double-apply")
+
+
+def test_rows_past_a_stale_snapshot_are_no_double_apply_suspects():
+    """``kwok_tpu`` flags every row written since its cycle's first page
+    up to the budget, in key order, and the one row ahead of anything the
+    server sent is past it; the port keeps only that row."""
+    ref = stale_snapshot_window(LIBS["jax"])
+    assert len(ref) == 64 and str(("default", "ss70")) not in ref  # the budget, in key order
+    assert stale_snapshot_window(LIBS["torch"]) == [str(("default", "ss70"))]
+
+
+def test_crowded_window_re_checks_the_strongest_suspects_first():
+    """``kwok_tpu`` re-checks the first 64 suspects in key order: the 64
+    stale-snapshot ones, all thrown out, and the real stale row waits a
+    whole cycle. The port re-checks the real divergences first and the
+    double-applies by how far the row is ahead."""
+    ref = crowded_window(LIBS["jax"])
+    got = crowded_window(LIBS["torch"])
+    assert ref == {r: 0 for r in REASONS}
+    assert got == {**{r: 0 for r in REASONS}, "stale-row": 1}
+
+
 # -------------------------------------------------------------- list_page
 
 

@@ -170,7 +170,8 @@ REFUSED = {
     "audit-interval": (["--audit-interval", "5"], {}, None),
     # accepted since item 13a (None): the spec reaches the fault plane
     "faults": (["--faults", "seed=1;pump.drop=0.1"], {}, None),
-    "enable-cni": (["--enable-cni", "true"], {}, 14),
+    # accepted since item 14 (None): pod IPs from the CNI provider
+    "enable-cni": (["--enable-cni", "true"], {}, None),
     # a federation runs on one card: its stacked state over several is 9b
     "two-masters": (TWO + ["--use-mesh", "true"], {}, "9b"),
     "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, "9b"),
@@ -179,7 +180,7 @@ REFUSED = {
     "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, None),
     "env-faults": ([], {"KWOK_FAULTS": "seed=1"}, None),
     "env-tpu-faults": ([], {"KWOK_TPU_FAULTS": "seed=1"}, None),
-    "env-enable-cni": ([], {"KWOK_ENABLE_CNI": "true"}, 14),
+    "env-enable-cni": ([], {"KWOK_ENABLE_CNI": "true"}, None),
 }
 
 
@@ -205,6 +206,29 @@ def accepted_fault_spec(extra, env, monkeypatch):
     # the spec the plane runs is the one given, as kwok_tpu parses it
     assert eng._faults.spec.render() == JaxSpec.parse(text).render()
     return cfg
+
+
+def accepted_cni(extra, env, monkeypatch) -> list:
+    """EngineConfig.enable_cni that an accepted ``--enable-cni`` form
+    gives, through the port's CLI and through kwok_tpu's."""
+    from kwok_tpu.config.types import KwokConfigurationOptions as JaxOptions
+    from kwok_tpu.config.types import apply_env_overrides as jax_env
+    from kwok_tpu_torch.config.types import apply_env_overrides
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    out = []
+    for lib in ("torch", "jax"):
+        opts = KwokConfigurationOptions() if lib == "torch" else JaxOptions()
+        (apply_env_overrides if lib == "torch" else jax_env)(opts)
+        mod = tcli if lib == "torch" else jcli
+        args = mod.build_parser(opts).parse_args(extra + ["--manage-all-nodes", "true"])
+        if lib == "torch":
+            assert tcli.refusals(args, ["http://127.0.0.1:1"]) == []
+            out.append(tcli._engine_config(args, [], "cpu").enable_cni)
+        else:
+            out.append(jcli._engine_config(args, []).enable_cni)
+    return out
 
 
 def audit_intervals(extra, env, monkeypatch, options=None) -> list:
@@ -273,6 +297,9 @@ def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
         # KWOK_TPU_AUDIT_INTERVAL stays the engine's own fallback
         assert cfg_value == (0.0 if "KWOK_TPU_AUDIT_INTERVAL" in env else given)
         assert resolved == given
+        return
+    if item is None and "cni" in name:
+        assert accepted_cni(extra, env, monkeypatch) == [True, True]
         return
     if item is None:
         cfg = accepted_fault_spec(extra, env, monkeypatch)

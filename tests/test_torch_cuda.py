@@ -181,6 +181,59 @@ def test_threaded_engine_on_card(card):
     assert cuda_tick.tick_steps.launches > before
 
 
+def test_cni_provider_on_threaded_lanes_on_card(card):
+    """--enable-cni's engine path on 2 threaded lanes on the card: every
+    pod Running with its provider IP (all distinct, none from the pool),
+    one remove per deleted pod, the kernel launched."""
+    from kwok_tpu_torch import cni
+
+    setups, removes = {}, []
+
+    def setup(ns, name, uid):
+        ip = f"100.64.{len(setups) // 250}.{len(setups) % 250 + 1}"
+        setups[name] = ip
+        return [ip]
+
+    cni.register(setup, lambda ns, name, uid: removes.append(name))
+    server = FakeKube()
+    eng = ClusterEngine(server, EngineConfig(manage_all_nodes=True, tick_interval=0.02,
+                                             drain_shards=2, enable_cni=True))
+    before = cuda_tick.tick_steps.launches
+    eng.start()
+    try:
+        for i in range(10):
+            server.create("nodes", {"metadata": {"name": f"n{i}"}})
+        for i in range(200):
+            server.create("pods", {
+                "metadata": {"name": f"p{i}", "namespace": "default"},
+                "spec": {"nodeName": f"n{i % 10}"},
+                "status": {"phase": "Pending"},
+            })
+        deadline = time.time() + 60
+
+        def running():
+            return [p for p in server.list("pods")
+                    if (p.get("status") or {}).get("phase") == "Running"
+                    and (p.get("status") or {}).get("podIP")]
+
+        while time.time() < deadline and len(running()) < 200:
+            time.sleep(0.05)
+        pods = running()
+        assert len(pods) == 200
+        assert all(p["status"]["podIP"] == setups[p["metadata"]["name"]] for p in pods)
+        assert len({p["status"]["podIP"] for p in pods}) == 200
+        for i in range(20):
+            server.delete("pods", "default", f"p{i}")
+        while time.time() < deadline and len(removes) < 20:
+            time.sleep(0.05)
+        time.sleep(0.5)
+        assert sorted(removes) == sorted(f"p{i}" for i in range(20))
+    finally:
+        eng.stop()
+        cni._provider = None
+    assert cuda_tick.tick_steps.launches > before
+
+
 def test_killed_drain_worker_restarts_on_card(card):
     """Threaded lanes on the card under the fault plane: a pill in lane
     0's drain worker mid-churn is absorbed by the watchdog, the worker

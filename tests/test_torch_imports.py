@@ -1,5 +1,6 @@
 """The port stands alone: no module of kwok_tpu_torch/ and no line of
-chip_smoke.py, mock_ab.py or drift_rig.py imports jax (or any jax* package) or kwok_tpu, and a "cuda"
+chip_smoke.py, smoke_cni.py, mock_ab.py, mock_convoy.py or drift_rig.py
+imports jax (or any jax* package) or kwok_tpu, and a "cuda"
 engine on a host without a card raises instead of running on the CPU."""
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "kwok_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "mock_ab.py", ROOT / "drift_rig.py"]
+    ROOT / "chip_smoke.py", ROOT / "smoke_cni.py", ROOT / "mock_ab.py",
+    ROOT / "mock_convoy.py", ROOT / "drift_rig.py"]
 
 
 def imported_modules(path: pathlib.Path) -> list[str]:
@@ -43,14 +45,14 @@ LANE_AND_RESILIENCE_MODULES = (
     "engine/lanes.py", "resilience/__init__.py", "resilience/policy.py",
     "resilience/checkpoint.py", "telemetry/lanes.py",
     "engine/proclanes.py", "engine/shm.py", "resilience/watchdog.py",
-    "resilience/antientropy.py",
+    "resilience/antientropy.py", "cni/__init__.py",
 )
 
 
 @pytest.mark.parametrize("rel", LANE_AND_RESILIENCE_MODULES)
 def test_lane_and_resilience_modules_are_walked_and_import(rel):
     """The AST walk above covers the lane (threaded and process),
-    shared-memory, resilience and lane-telemetry modules, and each
+    shared-memory, resilience, lane-telemetry and CNI modules, and each
     imports without jax or kwok_tpu loaded for it."""
     import importlib
 

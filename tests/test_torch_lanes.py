@@ -199,6 +199,112 @@ def test_threaded_lanes_end_to_end_with_regrow(monkeypatch):
         assert len(busy) > 1, stage
 
 
+# ---------------------------------------------------------- re-lists
+
+
+def relist_rig(pods=1000, lanes=4):
+    """An unstarted engine on ``lanes`` threaded lanes over the port's
+    FakeKube holding one node and ``pods`` pods bound to it."""
+    kube = PortFakeKube()
+    eng = engine("torch", kube, drain_shards=lanes, initial_capacity=2 * pods)
+    kube.create("nodes", make_node("rn"))
+    for i in range(pods):
+        kube.create("pods", make_pod(f"rl{i}", node="rn"))
+    return kube, eng
+
+
+def route_parent_queue(eng):
+    """The router's share of a drain: the parent queue onto the lane
+    queues, nothing applied."""
+    lanes = eng._lanes
+    raw: dict = {}
+    while not eng._q.empty():
+        item = eng._q.get_nowait()
+        if item is not None:
+            lanes._route_item(item, raw)
+    eng._drain_flush(raw, lanes.route, lanes.n)
+
+
+def test_unchanged_relist_stages_no_row():
+    """A re-list whose objects all carry the uid and revision their rows
+    hold stages nothing (they stay in the prune's snapshot: no row goes)."""
+    kube, eng = relist_rig()
+    lanes = eng._lanes
+    eng._relist("nodes", {}, False)
+    for _ in range(2):  # ingest, then the rows at the server's revisions
+        eng._relist("pods", {}, False)
+        lanes.tick_once()
+    eng._relist("pods", {}, False)
+    lanes.drain_inline()
+    staged = sum(ln.engine.pods.buffer.pending for ln in lanes.lanes)
+    rows = sum(len(list(ln.engine.pods.pool.keys())) for ln in lanes.lanes)
+    assert (staged, rows) == (0, 1000)
+
+
+def test_unchanged_relist_still_repairs_a_lost_status_patch():
+    """A pod whose server status went back to Pending at the revision its
+    row holds (a status patch that never landed) is the one row a re-list
+    stages, and it is patched back to Running, as the re-list's ADDED
+    repair does in kwok_tpu."""
+    import drift_rig
+
+    kube, eng = relist_rig(pods=50)
+    lanes = eng._lanes
+    eng._relist("nodes", {}, False)
+    for _ in range(2):
+        eng._relist("pods", {}, False)
+        lanes.tick_once()
+    rv = kube.get("pods", "default", "rl7")["metadata"]["resourceVersion"]
+    assert drift_rig.silent_patch(kube, "pods", "default", "rl7",
+                                  lambda o: o["status"].update(phase="Pending"))
+    assert kube.get("pods", "default", "rl7")["metadata"]["resourceVersion"] == rv
+    eng._relist("pods", {}, False)
+    lanes.drain_inline()
+    assert sum(ln.engine.pods.buffer.pending for ln in lanes.lanes) == 1
+    assert kube.get("pods", "default", "rl7")["status"]["phase"] == "Running"
+
+
+def test_unchanged_relist_rebinds_a_garbled_node_binding():
+    """A row that a garbled watch line left bound to a node that does not
+    exist, at the server's uid and revision, is rebound by a re-list (the
+    full ADDED path), as in kwok_tpu, where every re-listed object takes
+    it."""
+    from kwok_tpu_torch.engine.rowpool import shard_of as port_shard_of
+
+    kube, eng = relist_rig(pods=50)
+    lanes = eng._lanes
+    eng._relist("nodes", {}, False)
+    for _ in range(2):
+        eng._relist("pods", {}, False)
+        lanes.tick_once()
+    key = ("default", "rl9")
+    k = lanes.lanes[port_shard_of(key, lanes.n)].engine.pods
+    k.pool.meta[k.pool.lookup(key)]["node"] = "r\udce0n"
+    eng._relist("pods", {}, False)
+    lanes.drain_inline()
+    assert k.pool.meta[k.pool.lookup(key)]["node"] == "rn"
+
+
+def test_back_to_back_relists_leave_one_list_queued():
+    """Two re-lists of 1,000 pods routed while no lane drains: at most one
+    list's items are queued, and draining applies only the newer list."""
+    kube, eng = relist_rig()
+    lanes = eng._lanes
+    upserts = []
+    for ln in lanes.lanes:
+        orig = ln.engine._pod_upsert
+        ln.engine._pod_upsert = lambda pod, orig=orig: (upserts.append(1), orig(pod))
+    eng._relist("nodes", {}, False)
+    eng._relist("pods", {}, False)
+    eng._relist("pods", {}, False)
+    route_parent_queue(eng)
+    queued = sum(ln.q.qsize() for ln in lanes.lanes)
+    assert queued <= 1000 + lanes.n
+    lanes.drain_inline()
+    assert len(upserts) == 1000
+    assert sum(len(list(ln.engine.pods.pool.keys())) for ln in lanes.lanes) == 1000
+
+
 # ---------------------------------------------------------- shedding
 
 

@@ -596,6 +596,91 @@ def test_engine_scenario_matches_jax(name):
     assert got["torch"] == got["jax"]
 
 
+# ------------------------------------------------ rewinds under held lanes
+
+
+def _lane_of(lib, eng, key):
+    from kwok_tpu.engine.rowpool import shard_of as jax_shard_of
+    from kwok_tpu_torch.engine.rowpool import shard_of
+
+    lanes = eng._lanes
+    return lanes.lanes[(jax_shard_of if lib == "jax" else shard_of)(key, lanes.n)]
+
+
+def rewind_row_under_held_lane(lib):
+    """One pod row's tracked revision above the server's (a garbled line
+    that parsed) on 2 threaded lanes, its lane's drain held so the
+    correcting re-list stays queued, then three re-lists of every stream,
+    each after the rewind window: the rv rewinds counted."""
+    store = jmock.FakeKube()
+    client = Client(store, lib)
+    eng = start_engine(lib, client, drain_shards=2)
+    try:
+        settle(client, eng, store, 4)
+        key = ("default", "p0")
+        srv_rv = int(store.get("pods", "default", "p0")["metadata"]["resourceVersion"])
+        lane = _lane_of(lib, eng, key)
+        k = lane.engine.pods
+        with lane.stage_lock:
+            k.pool.meta[k.pool.lookup(key)]["rv"] = srv_rv + 1000
+            for _ in range(3):
+                eng._rv_rewind_at = float("-inf")  # as if the window had passed
+                t0 = time.monotonic()
+                eng.resync_streams()
+                assert wait_for(lambda: client.count("pods", t0) and client.count("nodes", t0))
+                time.sleep(0.1)
+            rewinds = eng.metrics["rv_rewinds_total"]
+        # the drain resumes: the queued re-list corrects the row
+        assert wait_for(lambda: k.pool.meta[k.pool.lookup(key)]["rv"] == srv_rv)
+        assert wait_for(lambda: len(running(store)) == 4)
+        return rewinds
+    finally:
+        eng.stop()
+
+
+def test_one_rewound_row_causes_one_rewind_however_long_the_lane_is_held():
+    """``kwok_tpu`` notes the same row's rewind on every re-list the window
+    lets through (a re-list loop while the correction is queued); the port
+    notes it once per (kind, key, tracked revision)."""
+    assert rewind_row_under_held_lane("jax") >= 2
+    assert rewind_row_under_held_lane("torch") == 1
+
+
+def test_store_restore_under_held_lanes_rewinds_once_and_relists_every_stream_once():
+    """A true store restore with every lane's drain held and no rewind
+    window: one rewind, then exactly one forced re-list of each stream,
+    however long the corrections stay queued."""
+    store = jmock.FakeKube()
+    client = Client(store, "torch")
+    eng = start_engine("torch", client, drain_shards=2)
+    eng._RV_REWIND_MIN_S = 0.0
+    try:
+        store.create("nodes", make_node("n0"))
+        for i in range(6):
+            store.create("pods", make_pod(f"p{i}", node="n0"))
+        snap = store.dump()
+        assert wait_for(lambda: len(running(store)) == 6)
+        time.sleep(0.2)
+        locks = [lane.stage_lock for lane in eng._lanes.lanes]
+        for lock in locks:
+            lock.acquire()
+        try:
+            store.load(snap)
+            assert wait_for(lambda: eng.metrics["rv_rewinds_total"] >= 1)
+            at = eng._rv_rewind_at
+            assert wait_for(lambda: client.count("nodes", at) and client.count("pods", at))
+            time.sleep(1.0)
+            assert eng.metrics["rv_rewinds_total"] == 1
+            assert relists(client, at) == {"nodes": 1, "pods": 1}
+        finally:
+            for lock in locks:
+                lock.release()
+        assert wait_for(lambda: len(running(store)) == 6)
+        assert len(eng.rv_rewind_log) == 1
+    finally:
+        eng.stop()
+
+
 # -------------------------------------------------------- other topologies
 
 
