@@ -236,7 +236,11 @@ result line then):
    next cycle ends); not degraded 3 intervals later; the kernel
    bit-exact at the engine's capacities. Every 5 s the phase logs the
    pods Running, the queue depths, re-lists, rv rewinds, audit passes and
-   the mock's CPU seconds. The storm restores no store, so no row may
+   the mock's CPU seconds; when the pods Running and the store's
+   revision stand still STALL_DUMP_S while pods are left, it logs the
+   mock's threads (CPU over 1 s from /proc/<pid>/task, wchan where the
+   host has it) and GET /rig/threads (each connection thread's request
+   and age, the store locks held), at most twice. The storm restores no store, so no row may
    cause a second rv rewind (the engine's rv_rewind_log names the (kind,
    key) of each). Reported: pods/s against the CLI phase's,
    the mock's and this process's CPU seconds in the storm, audit passes
@@ -268,6 +272,29 @@ result line then):
    heartbeats and deletes; every pod patch takes the per-pod path under
    a live provider); launches > 0; the kernel bit-exact at the engine's
    capacities. Reported: pods/s and kwok CPU seconds per 1,000 pods
+   against the CLI phase's.
+
+13. HA (ROADMAP item 12, run after 12): a warm-standby pair through
+   kwok's entry point, each cli.main in a process of its own (HA_MAIN) on
+   auto threaded lanes with the CLI phase's Stage file, --lease-duration
+   2 and one --checkpoint-dir (checkpoints every 1 s): --ha-role primary
+   --ha-identity a, then --ha-role standby --ha-identity b, against a
+   native mock under --rig-routes holding 10,000 nodes; 25,000 pods from
+   the CLI phase's creator. Two arms: (a) the primary SIGKILLed once half
+   the pods are Running; (b) SIGSTOPped at the same point and SIGCONTed
+   once the standby leads (the zombie). Hard checks: before the
+   takeover the standby answers /readyz 503 with ha_standby, reports
+   kwok_ha_role{role="standby"} 1, 0 status patches and 0 kernel
+   launches; every pod Running with a distinct pod IP; no pod patched
+   Running twice (the mock's GET /rig/writes); the standby ends leader
+   with kwok_lease_transitions_total 1, /readyz 200, launches > 0 and the
+   kernel bit-exact at its stacked capacities (checked in its process
+   once main returned); in (b) the zombie ends role lost with
+   ha_lost_lease and its late writes fenced (kwok_ha_fenced_writes_total
+   or the mock's 409s > 0); every live process exits 0 on SIGTERM; the
+   RTO (the kill or stop until the standby's /readyz 200) below the
+   restart phase's restart_recovery_seconds in this call. Reported: the
+   RTO, kwok_ha_takeover_seconds, rows refined at takeover and pods/s
    against the CLI phase's.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -396,6 +423,17 @@ DRIFT_PROCS_REPAIR_S = 60.0
 # the cli_python_mock phase's pods, cut from 25,000 to keep the script
 # inside its time
 PY_MOCK_PODS = 5_000
+# the ha phase (ROADMAP item 12): a warm-standby pair through main at the
+# CLI phase's width, its lease held 2 s (--lease-duration)
+HA_NODES = 10_000
+HA_PODS = 25_000
+HA_LEASE_S = 2
+HA_DEADLINE_S = 300.0
+HA_TAKEOVER_S = 60.0  # the kill until the standby's /readyz 200, at most
+HA_DEPOSE_S = 30.0  # SIGCONT until the zombie reports role lost, at most
+# a drift run whose pods and store revision stand still this long dumps
+# the native mock's threads (GET /rig/threads, /proc/<pid>/task)
+STALL_DUMP_S = 20.0
 TRACE_PODS = 10_000  # the trace phase's pods, cut from 25,000 likewise
 DEVICE = "cuda"
 # the native mock apiserver's binary (kwok_tpu_torch/native/apiserver.cc),
@@ -2413,6 +2451,49 @@ def progress_logger(sample, stop: threading.Event, every: float = 5.0) -> None:
     threading.Thread(target=loop, name="drift-progress", daemon=True).start()
 
 
+def thread_cpu(pid: int) -> dict:
+    """Each thread of ``pid``: its CPU ticks, its state letter and its
+    wchan, from /proc/<pid>/task/*/{stat,wchan}. A host without wchan
+    files, or one that hides them, leaves the wchan empty: the stat line
+    alone names the hot threads."""
+    out = {}
+    try:
+        tids = os.listdir(f"/proc/{pid}/task")
+    except OSError:
+        return out
+    for tid in tids:
+        try:
+            with open(f"/proc/{pid}/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue  # the thread ended
+        wchan = ""
+        try:
+            with open(f"/proc/{pid}/task/{tid}/wchan") as f:
+                wchan = f.read().strip()
+        except OSError:
+            pass
+        out[int(tid)] = (int(fields[11]) + int(fields[12]), fields[0], wchan)
+    return out
+
+
+def mock_stall_dump(url: str, pid: int) -> dict:
+    """What a stalled native mock is doing: its threads' CPU over 1 s
+    (the hottest 8), and GET /rig/threads (each connection thread's
+    request and age, and the store locks held at that moment)."""
+    a = thread_cpu(pid)
+    time.sleep(1.0)
+    b = thread_cpu(pid)
+    hot = sorted(((b[t][0] - a.get(t, (b[t][0],))[0], t, b[t][1], b[t][2]) for t in b),
+                 reverse=True)[:8]
+    code, text = http_get(url + "/rig/threads")
+    census = json.loads(text) if code == 200 else {"error": code}
+    busy = sorted((t for t in census.get("threads", []) if t.get("busy")),
+                  key=lambda t: -t["age_s"])
+    return {"threads": len(b), "hot": hot, "held": census.get("held"),
+            "busy": busy[:16], "connections": len(census.get("threads", []))}
+
+
 def drift_lanes(cli_run):
     """Phase 11a: the storm, then seeded divergence (see the module
     docstring)."""
@@ -2492,8 +2573,26 @@ def drift_lanes(cli_run):
 
         threading.Thread(target=depth_poll, name="drift-depth", daemon=True).start()
 
+        stall = {"key": None, "since": time.monotonic(), "passes": -1,
+                 "passes_since": time.monotonic(), "dumps": []}
+
         def sample() -> str:
             st = rig.state()
+            now = time.monotonic()
+            key = (st["running"], st["rv"])
+            if key != stall["key"]:
+                stall["key"], stall["since"] = key, now
+            passes = aud.snapshot()["passes"]
+            if passes != stall["passes"]:
+                stall["passes"], stall["passes_since"] = passes, now
+            # the pods and the revision stand still with pods left, or
+            # the auditor's passes (one a second) stopped
+            if len(stall["dumps"]) < 2 and (
+                    (st["running"] < st["pods"] and now - stall["since"] > STALL_DUMP_S)
+                    or now - stall["passes_since"] > STALL_DUMP_S):
+                dump = mock_stall_dump(url, mock.pid)
+                stall["dumps"].append(dump)
+                log(f"drift: the mock stands still: {json.dumps(dump)}")
             q = [ln.q.qsize() for ln in lanes]
             em = [ln.emit_q.qsize() for ln in lanes]
             m = eng.metrics
@@ -2602,7 +2701,8 @@ def drift_lanes(cli_run):
         while aud._cycles["pods"] == cycles0:
             if time.monotonic() - t_wait > 2 * DRIFT_REPAIR_S:
                 raise AssertionError(f"the pods scan did not finish a cycle in "
-                                     f"{2 * DRIFT_REPAIR_S} s")
+                                     f"{2 * DRIFT_REPAIR_S} s; the mock: "
+                                     f"{json.dumps(mock_stall_dump(url, mock.pid))}")
             time.sleep(0.05)
         info["cycle_wait_s"] = time.monotonic() - t_wait
         # seeded divergence, faults off
@@ -2686,6 +2786,7 @@ def drift_lanes(cli_run):
             "peak_lane_queue_items": depth_peak[0],
             "relists_routed": len(listed),
             "objects_per_relist": (sum(listed) / len(listed)) if listed else 0.0,
+            "stall_dumps": stall["dumps"],
         })
     finally:
         stop_progress.set()
@@ -2923,6 +3024,317 @@ def cni_phase(cli_run):
         "kernel_launches": launches, "capacities": caps,
         "kernel_ms_at_capacities": shape_ms, "plain_ms_at_capacities": shape_plain_ms,
     }
+
+
+# kwok's entry point in a process of its own for the ha phase (cli.main as
+# python -m kwok_tpu_torch.kwok runs it): every 50 ms it writes its
+# kernel launches and the rows its takeover refined to the file that
+# KWOK_SMOKE_HA_STATUS names; once main has returned it holds the kernel
+# against its plain version at its engine's stacked capacities and
+# prints the launches and that check on a line of its own
+HA_MAIN = """
+import json, os, sys, threading, time
+import kwok_tpu_torch.engine as engine_mod
+from kwok_tpu_torch.kwok import cli
+from kwok_tpu_torch.ops import cuda_tick
+engines = []
+class Recorded(engine_mod.ClusterEngine):
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        engines.append(self)
+engine_mod.ClusterEngine = Recorded
+path = os.environ["KWOK_SMOKE_HA_STATUS"]
+def report():
+    e = engines[0] if engines else None
+    r = e._restore if e is not None else None
+    doc = {"launches": cuda_tick.tick_steps.launches,
+           "refined": e.metrics.get("restore_refined_rows") if e is not None else None,
+           "matched": r.matched if r is not None else None}
+    with open(path + ".tmp", "w") as f:
+        json.dump(doc, f)
+    os.replace(path + ".tmp", path)
+def beat():
+    while True:
+        report()
+        time.sleep(0.05)
+threading.Thread(target=beat, name="ha-status", daemon=True).start()
+rc = cli.main(sys.argv[1:])
+out = {"rc": rc, "launches": cuda_tick.tick_steps.launches}
+if engines and out["launches"]:
+    import torch
+    import chip_smoke
+    caps, ms, plain_ms, _wire = chip_smoke.engine_shape_check(torch, engines[0], rearm=True)
+    out.update(capacities=caps, kernel_ms=ms, plain_ms=plain_ms)
+print("ha-main " + json.dumps(out), flush=True)
+sys.exit(rc)
+"""
+
+
+def readyz(base: str):
+    """(status, reason) of GET /readyz; the reason is the status line's
+    text (a degraded engine names its reasons there)."""
+    try:
+        with urllib.request.urlopen(base + "/readyz", timeout=10) as r:
+            return r.status, r.reason
+    except urllib.error.HTTPError as e:
+        return e.code, str(e.reason)
+    except OSError:
+        return None, ""
+
+
+def checkpoint_classes(path: str) -> dict:
+    """The pod entries of a checkpoint file by what a restore does with
+    them: ``timer`` (a delay residue), ``fired`` (no timer, gen above 0)
+    and ``unarmed`` (no timer, gen 0), each split by the recorded phase
+    id."""
+    try:
+        with open(path) as f:
+            pods = json.load(f)["kinds"]["pods"]
+    except (OSError, ValueError, KeyError):
+        return {}
+    out: dict = {}
+    for _uid, _rv, fire, _hb, gen, phase in pods.values():
+        cls = "timer" if fire is not None else ("fired" if gen else "unarmed")
+        key = f"{cls}/phase{phase}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def ha_diag(url: str, rig, procs: dict, status) -> dict:
+    """What an ha arm that failed leaves to read: the mock's pods not
+    Running (a sample with their phase and revision), its Running-patch
+    census, and each kwok process's HA, write and queue series."""
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+
+    out: dict = {}
+    try:
+        out["state"] = rig.state()
+        out["writes"] = json.loads(http_get(url + "/rig/writes")[1])
+        client = HttpKubeClient(url)
+        pods = client.list("pods")
+        client.close()
+        stuck = [p for p in pods if not running(p)]
+        out["not_running"] = len(stuck)
+        out["stuck_sample"] = [
+            {"name": p["metadata"]["name"], "rv": p["metadata"].get("resourceVersion"),
+             "phase": (p.get("status") or {}).get("phase"),
+             "node": (p.get("spec") or {}).get("nodeName")} for p in stuck[:8]]
+    except Exception as e:  # the dump is best effort: the arm has failed already
+        out["mock_error"] = repr(e)
+    keep = ("kwok_ha_", "kwok_lease_", "kwok_status_patches_total", "kwok_degraded",
+            "kwok_watch_relists_total", "kwok_lane_queue_depth", "kwok_pump_")
+    for name, k in procs.items():
+        if name == "gone" or k["proc"].poll() is not None:
+            continue
+        code, text = http_get(k["base"] + "/metrics")
+        out[name] = {"readyz": readyz(k["base"]), "status": status(k),
+                     "metrics": {s: v for s, v in parse_metrics(text).items()
+                                 if s.startswith(keep)} if code == 200 else code}
+    return out
+
+
+def ha_arm(arm: str, cli_run, restart) -> dict:
+    """One arm of the ha phase: a primary and a standby through main on
+    auto threaded lanes against one native mock under --rig-routes, the
+    primary SIGKILLed (``sigkill``) or SIGSTOPped and later SIGCONTed
+    (``sigstop``, the zombie) once half the pods are Running."""
+    import signal
+
+    from kwok_tpu_torch.edge.httpclient import HttpKubeClient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix=f"kwok-ha-{arm}-")
+    stage_path = os.path.join(workdir, "stages.json")
+    with open(stage_path, "w") as f:
+        f.write("---\n".join(json.dumps(d) + "\n" for d in stage_documents()))
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    os.mkdir(ckpt_dir)
+    mock = subprocess.Popen(mock_command("native") + ["--rig-routes"], cwd=here,
+                            stdout=subprocess.PIPE, text=True)
+    procs: dict = {}
+    outs: dict = {}
+    info: dict = {"arm": arm, "nodes": HA_NODES, "pods": HA_PODS, "lease_s": HA_LEASE_S}
+    try:
+        url = mock_url(mock)
+        check_mock(url, "native")
+        import drift_rig
+
+        rig = drift_rig.RigClient(url)
+        deadline = time.monotonic() + HA_DEADLINE_S
+        proc, _span = spawn_creator(url, "nodes", HA_NODES, nodes=HA_NODES)
+        join_creator(proc, deadline)
+
+        def start(role: str, ident: str) -> dict:
+            port = free_port()
+            status = os.path.join(workdir, f"{ident}.status.json")
+            p = subprocess.Popen(
+                [sys.executable, "-c", HA_MAIN, "--master", url,
+                 "--kubeconfig", os.path.join(workdir, "no-kubeconfig"),
+                 "--manage-all-nodes", "true", "--server-address", f"127.0.0.1:{port}",
+                 "--cidr", "10.0.0.1/16", "--config", stage_path, "--ha-role", role,
+                 "--ha-identity", ident, "--lease-duration", str(HA_LEASE_S),
+                 "--checkpoint-dir", ckpt_dir, "--checkpoint-interval", "1"],
+                cwd=here, stdout=subprocess.PIPE, text=True,
+                env={**os.environ, "KWOK_SMOKE_HA_STATUS": status})
+            return {"proc": p, "base": f"http://127.0.0.1:{port}", "status": status}
+
+        def status(k: dict) -> dict:
+            try:
+                with open(k["status"]) as f:
+                    return json.load(f)
+            except (OSError, ValueError):
+                return {}
+
+        def metrics(k: dict) -> dict:
+            code, text = http_get(k["base"] + "/metrics")
+            if code != 200:
+                raise AssertionError(f"{arm}: kwok /metrics answered {code}")
+            return parse_metrics(text)
+
+        def wait(pred, what: str, limit: float, every: float = 0.02) -> float:
+            t0 = time.monotonic()
+            while not pred():
+                if time.monotonic() - t0 > limit or time.monotonic() > deadline:
+                    raise AssertionError(f"{arm}: {what} not within {limit} s")
+                for k in procs.values():
+                    if k["proc"].poll() is not None and k is not procs.get("gone"):
+                        raise AssertionError(f"{arm}: a kwok process exited "
+                                             f"{k['proc'].returncode} while waiting for {what}")
+                time.sleep(every)
+            return time.monotonic() - t0
+
+        a = procs["a"] = start("primary", "a")
+        wait(lambda: readyz(a["base"])[0] == 200, "the primary's /readyz 200", 120.0)
+        b = procs["b"] = start("standby", "b")
+        wait(lambda: "ha_standby" in readyz(b["base"])[1], "the standby's ha_standby", 120.0)
+
+        def silent_standby(when: str) -> dict:
+            m = metrics(b)
+            seen = {"readyz": readyz(b["base"]),
+                    "role_standby": m.get('kwok_ha_role{role="standby"}'),
+                    "status_patches": m.get("kwok_status_patches_total", 0.0),
+                    "launches": status(b).get("launches")}
+            if (seen["readyz"][0] != 503 or "ha_standby" not in seen["readyz"][1]
+                    or seen["role_standby"] != 1 or seen["status_patches"] != 0
+                    or seen["launches"] != 0):
+                raise AssertionError(f"{arm}: the standby {when} is not silent: {seen}")
+            return seen
+
+        info["standby_at_ready"] = silent_standby("at its start")
+        t_first = time.time()
+        creator, span = spawn_creator(url, "pods", HA_PODS, nodes=HA_NODES)
+        wait(lambda: rig.state()["running"] >= HA_PODS // 2, "half the pods Running", 120.0,
+             every=0.1)
+        info["standby_before_kill"] = silent_standby("before the takeover")
+        info["running_at_kill"] = rig.state()["running"]
+        sig = signal.SIGKILL if arm == "sigkill" else signal.SIGSTOP
+        t_kill = time.monotonic()
+        os.kill(a["proc"].pid, sig)
+        procs["gone"] = a  # killed, or stopped until SIGCONT: not polled
+        info["rto_s"] = wait(lambda: readyz(b["base"])[0] == 200,
+                             "the standby's /readyz 200", HA_TAKEOVER_S)
+        t_led = time.monotonic()
+        info["primary_checkpoint"] = checkpoint_classes(os.path.join(ckpt_dir, "a.ckpt.json"))
+        if arm == "sigstop":
+            os.kill(a["proc"].pid, signal.SIGCONT)
+            procs.pop("gone")
+            info["stopped_s"] = time.monotonic() - t_kill
+            info["depose_s"] = wait(
+                lambda: metrics(a).get('kwok_ha_role{role="lost"}') == 1
+                and "ha_lost_lease" in readyz(a["base"])[1],
+                "the zombie's role lost and ha_lost_lease", HA_DEPOSE_S)
+        join_creator(creator, deadline)
+        wait(lambda: rig.state()["running"] == HA_PODS, "every pod Running", 180.0, every=0.1)
+        t_running = time.time()
+        info["pod_create_s"] = span[1] - span[0]
+        info["create_to_running_pods_per_s"] = HA_PODS / (t_running - t_first)
+        info["cli_phase_pods_per_s"] = cli_run["create_to_running_pods_per_s"]
+        info["takeover_to_running_s"] = time.monotonic() - t_led
+        client = HttpKubeClient(url)
+        pods = client.list("pods")
+        client.close()
+        ips = [(p.get("status") or {}).get("podIP") for p in pods]
+        if len(pods) != HA_PODS or not all(ips) or len(set(ips)) != HA_PODS:
+            raise AssertionError(f"{arm}: {len(pods)} pods, {len(set(ips))} distinct pod IPs")
+        writes = json.loads(http_get(url + "/rig/writes")[1])
+        info["running_patches"] = writes
+        if writes["most"] != 1 or writes["running_patched_pods"] != HA_PODS:
+            raise AssertionError(f"{arm}: a pod patched Running twice or not at all: {writes}")
+        mb = metrics(b)
+        info["standby_end"] = {
+            "readyz": readyz(b["base"]), "role_leader": mb.get('kwok_ha_role{role="leader"}'),
+            "lease_transitions": mb.get("kwok_lease_transitions_total"),
+            "takeover_s": mb.get("kwok_ha_takeover_seconds"),
+            "fenced_writes": mb.get("kwok_ha_fenced_writes_total"),
+            "status_patches": mb.get("kwok_status_patches_total"), **status(b)}
+        se = info["standby_end"]
+        if (se["readyz"][0] != 200 or se["role_leader"] != 1 or se["lease_transitions"] != 1
+                or not se.get("launches")):
+            raise AssertionError(f"{arm}: the standby after the takeover: {se}")
+        if arm == "sigstop":
+            ma = metrics(a)
+            info["zombie"] = {"readyz": readyz(a["base"]),
+                              "role_lost": ma.get('kwok_ha_role{role="lost"}'),
+                              "fenced_writes": ma.get("kwok_ha_fenced_writes_total", 0.0),
+                              "mock_fenced_409": writes["fenced_409"]}
+            z = info["zombie"]
+            if z["role_lost"] != 1 or "ha_lost_lease" not in z["readyz"][1] or not (
+                    z["fenced_writes"] > 0 or z["mock_fenced_409"] > 0):
+                raise AssertionError(f"{arm}: the zombie was not fenced and deposed: {z}")
+        info["restart_recovery_s"] = restart["restart_recovery_seconds"]
+        if info["rto_s"] >= restart["restart_recovery_seconds"]:
+            raise AssertionError(f"{arm}: failover took {info['rto_s']:.3f} s, not less than a "
+                                 f"cold restart's {restart['restart_recovery_seconds']:.3f} s")
+    except AssertionError:
+        if "status" in locals():  # the kwok processes had started
+            log(f"ha-diag {json.dumps(ha_diag(url, rig, procs, status))}")
+        raise
+    finally:
+        for k in procs.values():
+            p = k["proc"]
+            if p.poll() is None:
+                p.send_signal(signal.SIGCONT)  # a stopped process must see its SIGTERM
+                p.terminate()
+        for name, k in procs.items():
+            if name == "gone":
+                continue
+            p = k["proc"]
+            try:
+                out, _ = p.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate(timeout=30)
+            line = [ln for ln in (out or "").splitlines() if ln.startswith("ha-main ")]
+            outs[name] = {"returncode": p.returncode,
+                          **(json.loads(line[-1].split(" ", 1)[1]) if line else {})}
+        mock.terminate()
+        try:
+            mock.wait(30)
+        except subprocess.TimeoutExpired:
+            mock.kill()
+            mock.wait(30)
+    if arm == "sigkill":
+        outs.pop("a", None)  # killed: it prints nothing
+    info["exits"] = outs
+    for name, o in outs.items():
+        if o.get("returncode") != 0 or o.get("rc") != 0:
+            raise AssertionError(f"{arm}: kwok {name} did not exit 0 on SIGTERM: {o}")
+    sb = outs["b"]
+    if sb.get("launches", 0) <= 0 or "kernel_ms" not in sb:
+        raise AssertionError(f"{arm}: the standby launched no tick kernel after the takeover: {sb}")
+    info["kernel_launches"] = sum(o.get("launches", 0) for o in outs.values())
+    log(f"ha ({arm}): RTO {info['rto_s']:.3f} s against a {HA_LEASE_S} s lease and a cold "
+        f"restart's {info['restart_recovery_s']:.3f} s; kernel at the standby's capacities "
+        f"{sb['capacities']}: checked, {sb['kernel_ms']:.4f} ms")
+    return info
+
+
+def ha_phase(cli_run, restart) -> dict:
+    """Phase 13: warm-standby HA through main, two arms (see the module
+    docstring)."""
+    out = {arm: ha_arm(arm, cli_run, restart) for arm in ("sigkill", "sigstop")}
+    out["kernel_launches"] = sum(a["kernel_launches"] for a in out.values())
+    return out
 
 
 def member_stage_documents() -> list[dict]:
@@ -3212,6 +3624,7 @@ def main() -> int:
     chaos = timed("chaos", chaos_phase, cli_run)
     drift = timed("drift", drift_phase, cli_run)
     cni_run = timed("cni", cni_phase, cli_run)
+    ha = timed("ha", ha_phase, cli_run, restart)
     fed = timed("federation", fed_phase, cli_run)
     print(f"phase seconds: {json.dumps(phase_s)}; since main began {time.monotonic() - t_main:.1f} s",
           flush=True)
@@ -3313,6 +3726,19 @@ def main() -> int:
           f"{cni_run['kwok_cpu_s_per_1000_pods']:.2f} s per 1,000 pods against "
           f"{cni_run['cli_phase_kwok_cpu_s_per_1000_pods']:.2f}, {cni_run['cni_setups']} "
           f"setups, {cni_run['cni_removes']} removes ({card})", flush=True)
+    for arm in ("sigkill", "sigstop"):
+        h = ha[arm]
+        se = h["standby_end"]
+        print(f"ha ({arm}, {n_lanes} lanes, --lease-duration {HA_LEASE_S}): RTO "
+              f"{h['rto_s']:.3f} s (kill until the standby's /readyz 200) against a cold "
+              f"restart's {h['restart_recovery_s']:.3f} s, kwok_ha_takeover_seconds "
+              f"{se['takeover_s']:.3f}, rows refined {se.get('refined')} (matched "
+              f"{se.get('matched')}), {h['running_at_kill']} pods Running at the kill, "
+              f"{h['create_to_running_pods_per_s']:.1f} pods/s against the cli phase's "
+              f"{h['cli_phase_pods_per_s']:.1f}, Running patches {h['running_patches']}, "
+              f"standby launches {h['exits']['b']['launches']}"
+              + (f"; zombie {h['zombie']}, deposed {h['depose_s']:.3f} s after SIGCONT"
+                 if arm == "sigstop" else "") + f" ({card})", flush=True)
     tp, tw = traced["profile"], traced["profile_window"]
     print(f"trace ({n_lanes} lanes, profiled ticks {tw['ticks'][0]}-{tw['ticks'][1]} on "
           f"{tw['thread']}, {tw['wall_s']:.3f} s): device busy share {tp['busy_share']:.6f}, "
@@ -3352,7 +3778,8 @@ def main() -> int:
                      + py_mock["kernel_launches"] + ab_off["kernel_launches"]
                      + watch["kernel_launches"] + procs["kernel_launches"]
                      + chaos["kernel_launches"] + drift["kernel_launches"]
-                     + cni_run["kernel_launches"] + fed["kernel_launches"]),
+                     + cni_run["kernel_launches"] + ha["kernel_launches"]
+                     + fed["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"],
@@ -3369,7 +3796,7 @@ def main() -> int:
             "ingest_ab_off": ab_off["kernel_launches"], "watch": watch["kernel_launches"],
             "procs": procs["kernel_launches"], "chaos": chaos["kernel_launches"],
             "drift": drift["kernel_launches"], "cni": cni_run["kernel_launches"],
-            "federation": fed["kernel_launches"],
+            "ha": ha["kernel_launches"], "federation": fed["kernel_launches"],
         },
         "watch_capacities": watch["capacities"],
         "watch_ms": watch["kernel_ms_at_capacities"],

@@ -83,6 +83,10 @@ class HttpKubeClient:
         self.server = server.rstrip("/")
         self.token = token
         self.timeout = timeout
+        # extra headers on every unary request: the HA plane plants its
+        # fencing claim here (resilience/ha.py FENCE_HEADER), so the
+        # servers reject a deposed holder's writes at processing time
+        self.extra_headers: dict[str, str] = {}
         # what a lane process (engine/proclanes.py) needs to open the same
         # client: plain values, carried in its spawn arguments
         self.connection_args = {
@@ -260,6 +264,8 @@ class HttpKubeClient:
             headers["Content-Type"] = content_type
         if self.token:
             headers["Authorization"] = f"Bearer {self.token}"
+        if self.extra_headers:
+            headers.update(self.extra_headers)
         for attempt in (0, 1):
             conn = None
             try:
@@ -419,6 +425,59 @@ class HttpKubeClient:
             "DELETE",
             self._url(kind, namespace, name),
             None if grace_seconds is None else {"gracePeriodSeconds": grace_seconds},
+        )
+
+    # ------------------------------------------- coordination.k8s.io leases
+
+    def _lease_url(self, namespace: str, name: str | None = None) -> str:
+        url = (
+            f"{self.server}/apis/coordination.k8s.io/v1/namespaces/"
+            f"{namespace}/leases"
+        )
+        return url + (f"/{name}" if name else "")
+
+    def _lease_call(self, method, url, body=None,
+                    content_type="application/json"):
+        """One lease call -> ``(status_code, parsed_doc | None)``. A
+        denial (409 Conflict or AlreadyExists) is an answer the elector
+        switches on every poll, not an exception; transport failures
+        still raise."""
+        try:
+            doc = self._json(method, url, body, content_type)
+        except urllib.error.HTTPError as e:
+            try:
+                doc = json.loads(str(e.reason) or "null")
+            except ValueError:
+                doc = None
+            return e.code, doc
+        if doc is None:
+            return 404, None
+        return (201 if method == "POST" else 200), doc
+
+    def lease_get(self, namespace, name):
+        """GET the Lease -> (code, doc); 404 means it does not exist."""
+        return self._lease_call("GET", self._lease_url(namespace, name))
+
+    def lease_create(self, namespace, name, spec):
+        """POST a fresh Lease (the first acquisition; leaseTransitions
+        starts at 0) -> (201, doc), or (409, Status) when it exists."""
+        return self._lease_call(
+            "POST", self._lease_url(namespace),
+            {
+                "apiVersion": "coordination.k8s.io/v1",
+                "kind": "Lease",
+                "metadata": {"name": name, "namespace": namespace},
+                "spec": dict(spec or {}),
+            },
+        )
+
+    def lease_renew(self, namespace, name, spec):
+        """PATCH to renew or acquire -> (200, doc), (409, Status) while
+        another holder's lease has not expired, or (404, None)."""
+        return self._lease_call(
+            "PATCH", self._lease_url(namespace, name),
+            {"spec": dict(spec or {})},
+            "application/merge-patch+json",
         )
 
     def healthz(self) -> bool:

@@ -56,9 +56,20 @@ does not decode, and the observability routes of the native server: ``GET
 band and watch terminations by reason, then the per-phase request timing
 families), ``GET /debug/flight`` (the ring of recent request records,
 ``"server": "mock"``) and ``GET /debug/watchers`` (``watchers_doc``);
-``KWOK_TPU_APISERVER_TIMING=0`` turns the clock stamps off. It is the
-front of ``kwok_tpu.edge.mockserver`` cut to those routes: no TLS, audit,
-leases or RBAC (ROADMAP items 12 and 16). On those routes it answers as
+``KWOK_TPU_APISERVER_TIMING=0`` turns the clock stamps off.
+
+The leases of ``coordination.k8s.io/v1`` are ``kwok_tpu``'s minimal
+dialect (create, GET, PATCH to renew or acquire; no list, watch or
+delete), arbitrated by the server's clock, with the discovery documents
+of ``/apis`` (the native server's, which also names the groups only
+that server stores) and ``/apis/coordination.k8s.io/v1``. A mutating
+request that carries ``FENCING_HEADER`` commits only while the lease it
+names is held by the identity it names; otherwise it answers 409, and
+the claim is checked and the write committed under one hold of the
+store lock, which a takeover PATCH takes too, so a takeover cannot fall
+between the two. It is the front
+of ``kwok_tpu.edge.mockserver`` cut to those routes: no TLS, audit or
+RBAC (ROADMAP item 16). On those routes it answers as
 the native mock apiserver (``kwok_tpu_torch/native/apiserver.cc``) does,
 status bodies included (``tests/test_torch_apiserver.py`` holds the two
 to each other). Run it alone with
@@ -149,6 +160,49 @@ SNAPSHOT_KINDS = ("nodes", "pods", "roles", "rolebindings", "clusterroles",
 
 def _dumps(obj) -> bytes:
     return json.dumps(obj, separators=(",", ":")).encode()
+
+
+class NoMergeKey(Exception):
+    """A status patch whose element of a merge list lacks the merge key
+    (HTTP 500, the real apiserver's strategicpatch ErrNoMergeKey); the
+    argument is the element as JSON."""
+
+
+_MERGE_LISTS = ("conditions", "addresses")
+
+
+def _no_merge_key(orig, patch, field: str = "") -> "str | None":
+    """The first element of ``patch`` that a strategic merge into
+    ``orig`` would append to an existing merge list without its ``type``
+    key, as JSON, or None: the native server's ``no_merge_key``. Such an
+    element is never merged, so an echo of the list doubles it."""
+    if isinstance(patch, dict) and isinstance(orig, dict):
+        if isinstance(patch.get("$patch"), str):
+            return None  # replace / delete: no merge
+        for k, v in patch.items():
+            if k == "$patch" or v is None or k not in orig:
+                continue
+            bad = _no_merge_key(orig[k], v, k)
+            if bad is not None:
+                return bad
+        return None
+    if isinstance(patch, list) and isinstance(orig, list) and field in _MERGE_LISTS:
+        if any(isinstance(i, dict) and i.get("$patch") == "replace" for i in patch):
+            return None
+        for item in patch:
+            if not isinstance(item, dict) or "$patch" in item:
+                continue
+            if "type" not in item:
+                return _dumps(item).decode()
+            if not isinstance(item["type"], str):
+                continue
+            for existing in orig:
+                if isinstance(existing, dict) and existing.get("type") == item["type"]:
+                    bad = _no_merge_key(existing, item, "")
+                    if bad is not None:
+                        return bad
+                    break
+    return None
 
 
 class AlreadyExists(Exception):
@@ -281,6 +335,12 @@ class FakeKube:
         # (tests tighten them, a rig widens the window)
         self.watch_backlog = WATCH_BACKLOG
         self.rv_window = RV_WINDOW
+        # coordination.k8s.io/v1 leases, keyed (namespace, name), under
+        # the store lock; each keeps the wall epochs its expiry reads
+        # beside the rendered stamps. Outside the watch and snapshot
+        # machinery: leadership is polled, and a restored store must not
+        # bring back an old holder
+        self._leases: dict[tuple[str, str], dict] = {}
 
     @staticmethod
     def _key(namespace, name) -> tuple[str, str]:
@@ -565,9 +625,11 @@ class FakeKube:
             obj = self._objs[kind].get(self._key(namespace, name))
             if obj is None:
                 return None
-            obj["status"] = strategic_merge(
-                obj.get("status") or {}, patch.get("status", patch)
-            )
+            current = obj.get("status") or {}
+            bad = _no_merge_key(current, patch.get("status", patch))
+            if bad is not None:
+                raise NoMergeKey(bad)
+            obj["status"] = strategic_merge(current, patch.get("status", patch))
             return self._commit_locked(kind, self._key(namespace, name), obj, MODIFIED)
 
     def patch_meta_bytes(self, kind: str, namespace, name: str, patch: dict):
@@ -704,6 +766,136 @@ class FakeKube:
             self.delete_count += 1
             self._commit_locked(kind, key, obj, DELETED)
 
+    # -- coordination.k8s.io/v1 leases ---------------------------------------
+    #
+    # The server's clock is the one authority: it stamps acquireTime and
+    # renewTime when it takes the write and judges expiry by its own wall
+    # clock, so a standby keeps PATCHing with its own identity and is
+    # answered 409 until the lease has expired (client-go's leader
+    # election with the Update replaced by a PATCH the server arbitrates).
+
+    def _lease_render(self, ns: str, name: str, lease: dict) -> bytes:
+        return _dumps({
+            "kind": "Lease",
+            "apiVersion": "coordination.k8s.io/v1",
+            "metadata": {
+                "name": name,
+                "namespace": ns,
+                "creationTimestamp": lease["created"],
+                "uid": lease["uid"],
+                "resourceVersion": str(lease["rv"]),
+            },
+            "spec": {
+                "holderIdentity": lease["holder"],
+                "leaseDurationSeconds": lease["duration"],
+                "acquireTime": lease["acquire_str"],
+                "renewTime": lease["renew_str"],
+                "leaseTransitions": lease["transitions"],
+            },
+        })
+
+    @staticmethod
+    def _lease_spec(spec) -> tuple[str, int]:
+        """(holderIdentity, leaseDurationSeconds) of a request's spec,
+        read as the native server reads it: a spec that is not an object
+        reads empty, numbers truncate, a string parses its leading
+        integer ("2.5" -> 2), booleans and infinities read 0."""
+        if not isinstance(spec, dict):
+            return "", 0
+        holder = spec.get("holderIdentity")
+        holder = holder if isinstance(holder, str) else ""
+        raw = spec.get("leaseDurationSeconds")
+        duration = 0
+        if isinstance(raw, bool):
+            duration = 0
+        elif isinstance(raw, (int, float)):
+            try:
+                duration = int(raw)
+            except (OverflowError, ValueError):  # inf, nan
+                duration = 0
+        elif isinstance(raw, str):
+            m = re.match(r"\s*[-+]?\d+", raw)
+            duration = int(m.group()) if m else 0
+        return holder, duration
+
+    @staticmethod
+    def _lease_expired(lease: dict, now: float) -> bool:
+        """Expiry on the server's clock: a lease with no holder is
+        vacant; otherwise it expires once renewTime + duration has passed
+        (a duration <= 0 can be taken at once)."""
+        if not lease["holder"]:
+            return True
+        return now >= lease["renew"] + max(0, lease["duration"])
+
+    def lease_create(self, ns: str, name: str, spec) -> tuple[int, bytes]:
+        """POST .../leases: acquire by creating (leaseTransitions 0); an
+        existing lease answers 409 AlreadyExists."""
+        holder, duration = self._lease_spec(spec)
+        with self._lock:
+            key = (ns or "", name)
+            if key in self._leases:
+                return 409, _dumps(_status(
+                    409, "AlreadyExists", f'leases "{name}" already exists'))
+            now = time.time()
+            stamp = now_rfc3339()
+            self._rv += 1  # lease writes share the store's clock
+            rv = self._rv
+            lease = {
+                "holder": holder, "duration": duration,
+                "acquire": now, "renew": now, "transitions": 0,
+                "created": stamp, "uid": f"uid-{rv}", "rv": rv,
+                "acquire_str": stamp, "renew_str": stamp,
+            }
+            self._leases[key] = lease
+            return 201, self._lease_render(ns, name, lease)
+
+    def lease_get(self, ns: str, name: str) -> tuple[int, bytes]:
+        with self._lock:
+            lease = self._leases.get((ns or "", name))
+            if lease is None:
+                return 404, NOT_FOUND
+            return 200, self._lease_render(ns, name, lease)
+
+    def lease_renew(self, ns: str, name: str, spec) -> tuple[int, bytes]:
+        """PATCH .../leases/NAME, renew or acquire: the same holder
+        renews; another holder gets 409 Conflict while the lease has not
+        expired (a standby's early grab, a revived zombie's renew), and
+        takes it once it has (leaseTransitions + 1)."""
+        holder, duration = self._lease_spec(spec)
+        with self._lock:
+            lease = self._leases.get((ns or "", name))
+            if lease is None:
+                return 404, NOT_FOUND
+            now = time.time()
+            if holder != lease["holder"] and not self._lease_expired(lease, now):
+                return 409, _dumps(_status(
+                    409, "Conflict",
+                    f'lease "{ns}/{name}" is held by "{lease["holder"]}" '
+                    "and has not expired"))
+            stamp = now_rfc3339()
+            if holder != lease["holder"]:
+                lease["holder"] = holder
+                lease["acquire"] = now
+                lease["acquire_str"] = stamp
+                lease["transitions"] += 1
+            lease["renew"] = now
+            lease["renew_str"] = stamp
+            if duration > 0:
+                lease["duration"] = duration
+            self._rv += 1
+            lease["rv"] = self._rv
+            return 200, self._lease_render(ns, name, lease)
+
+    def lease_held(self, ns: str, name: str, holder: str) -> bool:
+        """The fencing check: is the lease held by ``holder`` and
+        unexpired on the server's clock? The HTTP front holds the store
+        lock across the check and the write it guards."""
+        with self._lock:
+            lease = self._leases.get((ns or "", name))
+            if lease is None or lease["holder"] != holder:
+                return False
+            return not self._lease_expired(lease, time.time())
+
     def count(self, kind: str, where=None) -> int:
         """Objects of ``kind`` (those for which ``where(obj)`` is true,
         when given), counted in place without copying the store."""
@@ -729,6 +921,38 @@ VERSION = {
 # the native server's bare Status answers
 NOT_FOUND = b'{"kind":"Status","code":404}'
 BAD_REQUEST = b'{"kind":"Status","code":400}'
+
+# coordination.k8s.io/v1 leases: outside _PATHS, so exempt from admission
+# and phase timing as every path that is not a resource's
+_LEASE_PATHS = re.compile(
+    r"^/apis/coordination\.k8s\.io/v1"
+    r"/namespaces/(?P<ns>[^/]+)/leases(?:/(?P<name>[^/]+))?$"
+)
+
+#: a mutating request may carry this header naming the lease its writer
+#: believes it holds, as ``<namespace>/<name>/<holderIdentity>``; the
+#: write answers 409 unless that lease is held by that identity now
+#: (server-side fencing: a revived zombie's in-flight writes die here)
+FENCING_HEADER = "X-Kwok-Lease-Holder"
+
+# discovery documents beyond /version, the native server's bytes
+DISCOVERY = {
+    "/apis": {
+        "kind": "APIGroupList", "apiVersion": "v1",
+        "groups": [
+            {"name": g, "versions": [{"groupVersion": f"{g}/v1", "version": "v1"}],
+             "preferredVersion": {"groupVersion": f"{g}/v1", "version": "v1"}}
+            for g in ("rbac.authorization.k8s.io", "events.k8s.io", "coordination.k8s.io")
+        ],
+    },
+    "/apis/coordination.k8s.io/v1": {
+        "kind": "APIResourceList",
+        "groupVersion": "coordination.k8s.io/v1",
+        # create, get and patch only: leadership is polled, never watched
+        "resources": [{"name": "leases", "singularName": "", "namespaced": True,
+                       "kind": "Lease", "verbs": ["create", "get", "patch"]}],
+    },
+}
 
 
 def _status(code: int, reason: str = "", message: str = "") -> dict:
@@ -1090,6 +1314,44 @@ class HttpFakeApiserver:
                     if band is not None:
                         adm.release(band)
 
+            def _lease_route(self, path: str):
+                """(namespace, name or "") of a lease path, else None."""
+                m = _LEASE_PATHS.match(path)
+                if m is None:
+                    return None
+                return (urllib.parse.unquote(m.group("ns")),
+                        urllib.parse.unquote(m.group("name") or ""))
+
+            def _fenced_commit(self, fn):
+                """Server-side write fencing: a request carrying
+                FENCING_HEADER (``ns/name/holder``) runs ``fn`` only
+                while that lease is held by that identity, checked and
+                committed under one hold of the store lock (reentrant:
+                the store call takes it again). Returns
+                (fenced, result); the caller sends the 409 after the
+                lock is released. The claim splits as the native
+                server's does: no slash leaves every field empty, no
+                second slash leaves name and holder empty."""
+                hdr = self.headers.get(FENCING_HEADER)
+                if not hdr:
+                    return False, fn()
+                ns, sep, rest = hdr.partition("/")
+                if not sep:
+                    ns = ""
+                name, sep2, holder = rest.partition("/")
+                if not sep2:
+                    name = holder = ""
+                with store._lock:
+                    if not (name and holder and store.lease_held(ns, name, holder)):
+                        self._fence_claim = (ns, name, holder)
+                        return True, None
+                    return False, fn()
+
+            def _send_fencing_409(self) -> None:
+                ns, name, holder = self._fence_claim
+                self._send_json(_status(
+                    409, "Conflict", f"fencing lease {ns}/{name} is not held by {holder}"), 409)
+
             def do_GET(self):  # noqa: N802
                 self._admitted(self._do_get)
 
@@ -1121,6 +1383,18 @@ class HttpFakeApiserver:
                 if path == "/snapshot":
                     # the mock's `etcdctl snapshot save`
                     self._send_json(store.dump())
+                    return
+                if path in DISCOVERY:
+                    self._send_json(DISCOVERY[path])
+                    return
+                lease = self._lease_route(path)
+                if lease is not None:
+                    ns, name = lease
+                    if not name:
+                        self._send_body(NOT_FOUND, 404)  # no lease LIST
+                        return
+                    code, body = store.lease_get(ns, name)
+                    self._send_body(body, code)
                     return
                 route = self._route(named=None)
                 if route is None:
@@ -1240,6 +1514,19 @@ class HttpFakeApiserver:
                         self.rfile.read(n)
                     self._send_json({"compactedRevision": store.compact()})
                     return
+                lease = self._lease_route(urllib.parse.urlparse(self.path).path)
+                if lease is not None:
+                    obj = self._body()
+                    if lease[1]:
+                        self._send_body(NOT_FOUND, 404)  # create is a collection POST
+                        return
+                    name = (obj.get("metadata") or {}).get("name") if isinstance(obj, dict) else None
+                    if not name or not isinstance(name, str):
+                        self._send_body(BAD_REQUEST, 400)
+                        return
+                    code, body = store.lease_create(lease[0], name, obj.get("spec"))
+                    self._send_body(body, code)
+                    return
                 route = self._route(named=False)
                 if route is None:
                     return
@@ -1250,20 +1537,37 @@ class HttpFakeApiserver:
                     return
                 if m.group("ns"):
                     obj.setdefault("metadata", {})["namespace"] = m.group("ns")
-                if not (obj.get("metadata") or {}).get("name"):
-                    self._send_body(BAD_REQUEST, 400)
-                    return
+                named = bool((obj.get("metadata") or {}).get("name"))
                 try:
-                    body = self._commit(store.create_bytes, m.group("kind"), obj)
+                    fenced, body = self._fenced_commit(
+                        lambda: self._commit(store.create_bytes, m.group("kind"), obj)
+                        if named else None)
                 except AlreadyExists as e:
                     self._send_json(_status(409, "AlreadyExists", str(e)), 409)
                     return
-                self._send_body(body, 201)
+                if fenced:
+                    self._send_fencing_409()
+                elif body is None:
+                    self._send_body(BAD_REQUEST, 400)
+                else:
+                    self._send_body(body, 201)
 
             def do_PATCH(self):  # noqa: N802
                 self._admitted(self._do_patch)
 
             def _do_patch(self):
+                lease = self._lease_route(urllib.parse.urlparse(self.path).path)
+                if lease is not None and lease[1]:
+                    # renew or acquire; a body that is JSON but not an
+                    # object reads as an empty spec, none at all is a 400
+                    patch = self._body()
+                    if patch is None:
+                        self._send_body(BAD_REQUEST, 400)
+                        return
+                    code, body = store.lease_renew(
+                        lease[0], lease[1], patch.get("spec") if isinstance(patch, dict) else None)
+                    self._send_body(body, code)
+                    return
                 route = self._route()
                 if route is None:
                     return
@@ -1273,11 +1577,18 @@ class HttpFakeApiserver:
                 if not isinstance(patch, dict):
                     self._send_body(BAD_REQUEST, 400)
                     return
-                if m.group("sub") == "status":
-                    body = self._commit(store.patch_status_bytes, kind, ns, name, patch)
-                else:
-                    body = self._commit(store.patch_meta_bytes, kind, ns, name, patch)
-                if body is None:
+                write = store.patch_status_bytes if m.group("sub") == "status" else store.patch_meta_bytes
+                try:
+                    fenced, body = self._fenced_commit(
+                        lambda: self._commit(write, kind, ns, name, patch))
+                except NoMergeKey as e:
+                    self._send_json(_status(
+                        500, "InternalError",
+                        f"map: {e.args[0]} does not contain declared merge key: type"), 500)
+                    return
+                if fenced:
+                    self._send_fencing_409()
+                elif body is None:
                     self._send_body(NOT_FOUND, 404)
                 else:
                     self._send_body(body)
@@ -1292,11 +1603,14 @@ class HttpFakeApiserver:
                 m, _q = route
                 opts = self._body()
                 grace = opts.get("gracePeriodSeconds") if isinstance(opts, dict) else None
-                self._commit(
+                fenced, _r = self._fenced_commit(lambda: self._commit(
                     store.delete,
                     m.group("kind"), m.group("ns"), m.group("name"),
                     grace_seconds=None if grace is None else int(grace),
-                )
+                ))
+                if fenced:
+                    self._send_fencing_409()
+                    return
                 self._send_json({"kind": "Status", "status": "Success"})
 
             def do_PUT(self):  # noqa: N802

@@ -80,9 +80,16 @@ through ``_q``. Lane engines never audit (the parent's auditor reads
 their rows); under process lanes each lane process audits its own shard
 and the parent mirrors their ``drift`` flags.
 
+With ``ha_role`` ("primary" or "standby") the warm-standby plane of
+``resilience/ha.py`` runs as the supervised ``kwok-ha`` worker: the
+client and the pumps are fenced on holding the lease, and while this
+engine does not lead, ``_ha_hold`` keeps the tick loop observe-only (the
+staged rows reach the device state, ``tick.cu`` never launches, nothing
+is written). Lane engines share the parent's plane.
+
 Names and logic of the ingest, tick and emit methods follow the JAX
-package's engine so each has its counterpart there. The mesh, HA and CNI
-are not part of this engine.
+package's engine so each has its counterpart there. The mesh is not part
+of this engine.
 
 Telemetry is ``telemetry/engine_metrics.EngineTelemetry``: typed handles
 on a labeled registry (``registry``, rendered by ``metrics_text()``;
@@ -182,6 +189,7 @@ from kwok_tpu_torch.ops.updates import (
 )
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
 from kwok_tpu_torch.resilience import faults as resilience_faults
+from kwok_tpu_torch.resilience import ha as resilience_ha
 from kwok_tpu_torch.resilience.policy import (
     PATCH_RETRY,
     PUMP_RESEND,
@@ -294,6 +302,25 @@ class EngineConfig:
     # default; falls back to KWOK_TPU_AUDIT_INTERVAL); negative = off even
     # under the env var (lane engines). Off means no thread and no LISTs
     audit_interval: float = 0.0
+    # warm-standby HA (resilience/ha.py): "" = off (no elector, nothing
+    # wrapped, no fence check). "primary" takes the coordination.k8s.io
+    # Lease at start and serves while it renews it; "standby" runs
+    # observe-only (watches and ingests, arms and writes nothing), tails
+    # the primary's checkpoint and takes over when the lease expires.
+    # Every outward write of an HA engine is fenced on holding the
+    # lease, in the engine and on the server
+    ha_role: str = ""
+    # the lease's holderIdentity and, under HA, this engine's checkpoint
+    # name (<dir>/<identity>.ckpt.json: the lease names the holder, so
+    # the standby knows which file to tail). "" = hostname-pid
+    ha_identity: str = ""
+    lease_name: str = "kwok-tpu-engine"
+    lease_namespace: str = "kube-system"
+    # seconds (whole on the wire): how long a dead primary goes
+    # unserved at most before the standby may take the lease
+    lease_duration: float = 2.0
+    # the renew cadence; 0 = lease_duration / 3 (client-go's)
+    lease_renew_interval: float = 0.0
     # watchdog budget: more than this many restarts of one worker (a
     # watch thread, a lane worker, a lane process respawn, the router,
     # the supervisor) within the window degrades the engine (/readyz 503)
@@ -334,6 +361,11 @@ class EngineConfig:
         ):
             # controller.go:98 "no nodes are managed"
             raise ValueError("no nodes are managed")
+        if self.lane_procs and self.ha_role:
+            raise ValueError(
+                "lane_procs + ha_role is not supported (the lease fence "
+                "cannot span lane processes yet)"
+            )
 
 
 def _selector_bits(table, extra: tuple[str, ...]) -> dict[str, int]:
@@ -497,6 +529,18 @@ class ClusterEngine:
                 # instance attribute only when the spec asks, so the
                 # unfaulted _now stays a two-op method
                 self._now = self._skewed_now
+        # warm-standby HA: None unless ha_role is set. The fence wraps
+        # outside the fault plane (chaos injects into the transport, the
+        # fence decides whether a write may try at all). Lane engines are
+        # built with ha_role="" and share the parent's plane, so an
+        # engine has one elector and one fence
+        self._ha = resilience_ha.from_config(config)
+        if self._ha is not None:
+            client = self._ha.wrap_client(client)
+        # the observe-only gate: True while an HA engine does not lead.
+        # The tick loops flush staged rows into the device state but
+        # never launch the kernel; the plane opens it at takeover
+        self._ha_hold = self._ha is not None
         self.client = client
         self.config = config
         self._n_lanes = resolve_drain_shards(
@@ -640,6 +684,10 @@ class ClusterEngine:
         # package); a lane process writes lane<i>, a federation member
         # member<i>
         self._ckpt_name = "engine"
+        if self._ha is not None:
+            # under HA the lease's holderIdentity names the checkpoint:
+            # the standby learns which file to tail from the lease
+            self._ckpt_name = self._ha.identity
         # appended to the watch threads' names (a federation member's
         # "-m<i>" says whose watch a thread is)
         self._worker_suffix = ""
@@ -946,6 +994,11 @@ class ClusterEngine:
                 on_exhausted=self._worker_budget_exhausted,
                 on_restart=self._worker_restarted_resync,
             )
+        if self._ha is not None:
+            # bound before any worker: the kwok_ha_* families, the serve
+            # gate held (/readyz 503, reason ha_standby, until this engine
+            # leads) and the fencing claim in the client's headers
+            self._ha.bind(self)
         self._executor = ThreadPoolExecutor(
             max_workers=self.config.parallelism, thread_name_prefix="kwok-patch"
         )
@@ -1003,6 +1056,10 @@ class ClusterEngine:
         t = threading.Thread(target=loop, name="kwok-tick", daemon=True)
         t.start()
         self._threads.append(t)
+        if self._ha is not None:
+            # the elector, supervised: a crashed cycle restarts in place
+            # and the fence deadline, on the plane, survives it
+            self._threads.append(self._watchdog.spawn(self._ha.run, name="kwok-ha"))
         if self._audit_interval > 0 and self._proc is not None:
             # the parent holds no rows to diff: each lane process audits
             # its own hash shard (the interval rides the lane spec) and
@@ -1034,7 +1091,14 @@ class ClusterEngine:
         """One all-inactive fused dispatch at startup: on a CUDA device it
         builds and loads the tick kernel's library (an nvcc build on a
         cold cache), and it warms the pinned wire's D2H path, so neither
-        lands in the serving path."""
+        lands in the serving path. A standby launches nothing until it
+        leads (resilience/ha.py): it builds and loads the library only."""
+        if self._ha_hold:
+            if self.device.type == "cuda":
+                from kwok_tpu_torch.ops import cuda_tick
+
+                cuda_tick.tick_steps.library()
+            return
         _outs, wire = self._get_fused()((self.nodes.state, self.pods.state), 0.0)
         np.asarray(wire)
 
@@ -1221,6 +1285,10 @@ class ClusterEngine:
             # next pass re-lists its window anyway, and a full stream
             # resync per audit crash would be pure cost
             return
+        if name.startswith("kwok-ha"):
+            # the elector's state lives on the plane and survives the
+            # restart; it touches no rows
+            return
         self.resync_streams()
         if self._lanes is not None:
             while True:
@@ -1381,12 +1449,23 @@ class ClusterEngine:
             return 1 if t.name.startswith("kwok-emit") else 2
 
         for t in sorted(self._threads, key=join_rank):
+            if t.name == "kwok-ha":
+                # a leader keeps renewing while the drain's writes go out,
+                # or its fence would lapse under them: stopped below
+                continue
             t.join(timeout=(
                 60 if t.name == "kwok-tick"
                 else 30 if t.name.startswith("kwok-emit") else 5
             ))
         if self._executor is not None:
             self._executor.shutdown(wait=True)
+        if self._ha is not None:
+            # every drain write is out: renewals stop, the fence lapses
+            # and a paired standby takes over within one lease duration
+            self._ha.stop()
+            for t in self._threads:
+                if t.name == "kwok-ha":
+                    t.join(timeout=5)
         if self._pump is not None:
             self._pump.close()
             self._pump = None
@@ -2902,6 +2981,10 @@ class ClusterEngine:
                     if item is None:
                         if not self._running:
                             return
+                        # an explicit wake (the HA plane's, when it opens
+                        # the gate on a quiet cluster): end the window so
+                        # the dispatch re-reads _idle_wake
+                        deadline = min(deadline, time.monotonic())
                         continue
                     if not got_event:
                         got_event = True
@@ -3098,10 +3181,10 @@ class ClusterEngine:
         t0 = time.perf_counter()
         kinds = {}
         for k, kind in ((self.nodes, "nodes"), (self.pods, "pods")):
-            fire, hb, gen = gather_deadlines(k.state)
+            fire, hb, gen, phase = gather_deadlines(k.state)
             staged = k.buffer.staged_rows() if k.buffer.pending else frozenset()
             kinds[kind] = ckpt_mod.gather_rows(
-                kind, k.pool, k.phase_h, fire, hb, gen, staged, now
+                kind, k.pool, phase, fire, hb, gen, staged, now
             )
         self.telemetry.note(
             "checkpoint_snapshot_seconds_last", time.perf_counter() - t0
@@ -3138,6 +3221,25 @@ class ClusterEngine:
         """First half of a tick: flush staged ingest writes and dispatch the
         fused kernel. Returns a _PendingTick whose wire lands on the host
         asynchronously, or None when nothing is on the device."""
+        if self._ha_hold:
+            # an observe-only standby (resilience/ha.py): staged rows
+            # reach the device state (the state stays current, the
+            # buffers bounded), but the kernel never launches: nothing
+            # arms, fires or is written. At takeover the next dispatch
+            # arms every row, and the checkpoint refine then overwrites
+            # the matched rows with the dead primary's residues
+            for k in (self.nodes, self.pods):
+                if k.buffer.pending:
+                    k.state = k.buffer.flush(k.state)
+            tel = self.telemetry
+            tel.set_gauge("nodes_managed", len(self.nodes.pool))
+            tel.set_gauge("pods_managed", len(self.pods.pool))
+            self._idle_wake = None  # no timer can be due while held
+            if not self._ha_hold:
+                # the takeover opened the gate while this ran: keep the
+                # plane's wake (it clears _ha_hold before writing 0.0)
+                self._idle_wake = 0.0
+            return None
         if self._profiler is not None:
             self._profiler.step(self.telemetry.ticks_total)
         t0 = time.perf_counter()
@@ -3320,8 +3422,9 @@ class ClusterEngine:
         WARNING): those keep the executor's one job per object. Under a
         fault plane each connection group is a ``FaultyPump``; a process
         lane's ``_pump_wrap`` goes outside it, so its replay slot sees
-        exactly the frames that reach the plane. The HA fence's wrap
-        (ROADMAP item 12) would go between the two; the CLI refuses HA."""
+        exactly the frames that reach the plane. Under HA every request
+        carries the fencing claim, and the fence's wrap goes between the
+        two: a write the fence drops never reaches the fault plane."""
         if self._pump_tried:
             return self._pump
         self._pump_tried = True
@@ -3337,6 +3440,11 @@ class ClusterEngine:
             return None
         token = getattr(self.client, "token", None)
         extra = f"Authorization: Bearer {token}\r\n" if token else ""
+        if self._ha is not None:
+            # the servers check the claim under their store lock, so a
+            # revived zombie's batches die there even when they passed
+            # FencedPump before the pause
+            extra += self._ha.fence_header_line()
         try:
             pumps = [
                 self._codec.Pump(host, int(port), nconn=self._pump_nconn,
@@ -3347,6 +3455,10 @@ class ClusterEngine:
                 # pump.cc's failure contract on demand (drops, short
                 # writes, delays)
                 pumps = [self._faults.wrap_pump(p) for p in pumps]
+            if self._ha is not None:
+                # outside the fault plane: a write the fence drops never
+                # reaches the chaos layer, let alone the wire
+                pumps = [self._ha.wrap_pump(p) for p in pumps]
             if self._pump_wrap is not None:
                 # outermost: a process lane's replay slot must see exactly
                 # the frames that go on the wire

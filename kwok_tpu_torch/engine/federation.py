@@ -734,11 +734,11 @@ class FederatedEngine:
         t0 = time.perf_counter()
         kinds: dict = {}
         for kind in _KINDS:
-            fire, hb, gen = gather_deadlines(g.stacked[kind])
+            fire, hb, gen, phase = gather_deadlines(g.stacked[kind])
             k = e.nodes if kind == "nodes" else e.pods
             staged = k.buffer.staged_rows() if k.buffer.pending else frozenset()
             kinds[kind] = ckpt_mod.gather_rows(
-                kind, k.pool, k.phase_h, fire, hb, gen, staged, now,
+                kind, k.pool, phase, fire, hb, gen, staged, now,
                 offset=c * g.r,
             )
         e.telemetry.note(

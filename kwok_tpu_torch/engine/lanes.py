@@ -193,11 +193,16 @@ class ShardLane:
             trace_dump="",  # one dump, the parent's
             faults="off",  # ONE fault plane, the parent's (shared below)
             audit_interval=-1.0,  # ONE auditor, the parent's (env-proof)
+            ha_role="",  # ONE lease plane and fence, the parent's (below)
         )
         self.engine = _LaneEngine(lane_set, index, cfg)
         # the parent's plane is THE engine-wide one: lane pumps draw from
         # the same seeded decision streams
         self.engine._faults = parent._faults
+        # the parent's HA plane fences this lane's pump group too (the
+        # client is the parent's, fenced already); a lane never
+        # dispatches, so its own _ha_hold stays False
+        self.engine._ha = parent._ha
         self.q: "queue.SimpleQueue" = queue.SimpleQueue()
         # queue.Queue (not SimpleQueue): the emit worker's replay claim
         # (emit_loop) peeks under the queue's own condition before popping
@@ -509,7 +514,13 @@ class LaneSet:
             self.stacked[kind] = _warm_scatter(self.stacked[kind])
 
     def _warm_tick(self) -> None:
-        _outs, wire = self.parent._get_fused()(
+        parent = self.parent
+        if parent._ha_hold:
+            # a standby launches nothing until it leads: the single-lane
+            # warm-up builds and loads the library without a launch
+            ClusterEngine._warm_tick(parent)
+            return
+        _outs, wire = parent._get_fused()(
             (self.stacked["nodes"], self.stacked["pods"]), 0.0
         )
         np.asarray(wire)  # complete (and warm) the wire's D2H path
@@ -765,6 +776,11 @@ class LaneSet:
                         deadline = min(wake, time.monotonic() + parent._IDLE_MAX)
                     deadline = parent._idle_deadline(deadline)
                 while parent._running:
+                    wake = parent._idle_wake
+                    if wake is not None and wake < deadline:
+                        # an explicit wake (the HA plane's takeover on a
+                        # quiet cluster) ends the idle sleep
+                        deadline = wake
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
                         break
@@ -904,14 +920,14 @@ class LaneSet:
         t0 = time.perf_counter()
         kinds: dict = {}
         for kind in _KINDS:
-            fire, hb, gen = gather_deadlines(self.stacked[kind])
+            fire, hb, gen, phase = gather_deadlines(self.stacked[kind])
             ents: dict = {}
             for li, lane in enumerate(self.lanes):
                 k = self._lane_kind(lane, kind)
                 with self._claim(lane):
                     staged = k.buffer.staged_rows() if k.buffer.pending else frozenset()
                     ents.update(ckpt_mod.gather_rows(
-                        kind, k.pool, k.phase_h, fire, hb, gen, staged, now,
+                        kind, k.pool, phase, fire, hb, gen, staged, now,
                         offset=li * self.r,
                     ))
             kinds[kind] = ents
@@ -922,11 +938,45 @@ class LaneSet:
 
     # ----------------------------------------------------- dispatch/consume
 
+    def _hold(self) -> None:
+        """The observe-only standby's dispatch (resilience/ha.py): every
+        lane's staged rows reach the stacked state, swapped out under the
+        stage lock as the live path swaps them, but the kernel never
+        launches: nothing arms, fires or is written."""
+        parent = self.parent
+        self._ensure_stacked()
+        swapped: list[tuple[int, str, UpdateBuffer]] = []
+        want = self.r
+        for li, lane in enumerate(self.lanes):
+            e = lane.engine
+            with self._claim(lane):
+                for kind, k in (("nodes", e.nodes), ("pods", e.pods)):
+                    want = max(want, k.capacity)
+                    if k.buffer.pending:
+                        swapped.append((li, kind, k.buffer))
+                        k.buffer = UpdateBuffer()
+        if want > self.r:
+            self._regrow(want)
+        r = self.r
+        for li, kind, buf in swapped:
+            self.stacked[kind] = buf.flush(self.stacked[kind], offset=li * r, rows=r)
+        tel = parent.telemetry
+        tel.set_gauge("nodes_managed", sum(len(ln.engine.nodes.pool) for ln in self.lanes))
+        tel.set_gauge("pods_managed", sum(len(ln.engine.pods.pool) for ln in self.lanes))
+        parent._idle_wake = None  # no timer can be due while held
+        if not parent._ha_hold:
+            # the takeover opened the gate while this ran: keep the
+            # plane's wake (it clears _ha_hold before writing 0.0)
+            parent._idle_wake = 0.0
+        return None
+
     def dispatch(self) -> "_LanePending | None":
         """Flush every lane's staged writes into the stacked state and
         launch the fused kernel (the single-lane _tick_dispatch, minus
         drain and emit)."""
         parent = self.parent
+        if parent._ha_hold:
+            return self._hold()
         if parent._profiler is not None:
             parent._profiler.step(parent.telemetry.ticks_total)
         t0 = time.perf_counter()

@@ -498,6 +498,7 @@ def _make_lane_engine(spec: dict):
         # "off" builds none even under an inherited KWOK_TPU_FAULTS
         faults=spec.get("faults") or "off",
         audit_interval=audit if audit > 0 else -1.0,
+        ha_role="",  # the parent refuses lane_procs with ha_role
     )
     e = cls(HttpKubeClient(**spec["client"]), cfg)
     e._lane_index = index

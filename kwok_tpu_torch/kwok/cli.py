@@ -22,6 +22,12 @@ engine's fallback) the deterministic fault plane
 (``resilience/faults.py``). A comma-separated ``--master`` runs a federation
 (``engine/federation.py``): one member engine per apiserver, with
 per-member Stage files from the positional ``--member-config`` flags.
+``--ha-role primary|standby`` (or KWOK_HA_ROLE) runs one engine of a
+warm-standby pair (``resilience/ha.py``) on the lease that
+``--lease-name``/``--lease-namespace`` name, held ``--lease-duration``
+seconds and renewed every ``--lease-renew-interval`` as
+``--ha-identity`` (KWOK_HA_IDENTITY, KWOK_LEASE_*); it is refused with
+``--lane-procs`` and with several masters, as in ``kwok_tpu``.
 ``--trace-dump`` (or KWOK_TPU_TRACE) writes the span trace at stop,
 ``--trace-sample-every`` sets the ingest->patch span sampling,
 ``--profile-dir`` writes a torch.profiler trace of ticks 2-102, and
@@ -158,8 +164,11 @@ def build_parser(defaults) -> argparse.ArgumentParser:
                    "(no thread, no LISTs)")
     p.add_argument("--ha-role", default=o.haRole,
                    choices=["", "off", "primary", "standby"],
-                   help="warm-standby HA (refused as primary or standby: "
-                   "ROADMAP item 12). KWOK_HA_ROLE works too")
+                   help="warm-standby HA (resilience/ha.py): the primary "
+                   "serves while it renews a coordination.k8s.io Lease, "
+                   "the standby watches observe-only and takes over when "
+                   "the lease expires; every write is fenced on the "
+                   "lease. KWOK_HA_ROLE works too")
     p.add_argument("--ha-identity", default=o.haIdentity,
                    help="lease holderIdentity under HA")
     p.add_argument("--lease-name", default=o.leaseName,
@@ -195,9 +204,6 @@ def refusals(args, masters: list[str]) -> list[str]:
     if args.use_mesh:
         out.append("--use-mesh true splits rows across cards (a "
                    "federation's stacked state too): ROADMAP item 9b")
-    if args.ha_role in ("primary", "standby"):
-        out.append(f"--ha-role {args.ha_role} needs HA and the lease "
-                   "calls: ROADMAP item 12")
     return out
 
 
@@ -293,6 +299,12 @@ def _engine_config(args, stages: list[Stage], device: str):
         shed_queue_depth=args.shed_queue_depth,
         faults=args.faults,
         audit_interval=args.audit_interval,
+        ha_role="" if args.ha_role == "off" else args.ha_role,
+        ha_identity=args.ha_identity,
+        lease_name=args.lease_name,
+        lease_namespace=args.lease_namespace,
+        lease_duration=args.lease_duration,
+        lease_renew_interval=args.lease_renew_interval,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_interval=args.checkpoint_interval,
         profile_dir=args.profile_dir,

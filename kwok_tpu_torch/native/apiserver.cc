@@ -783,6 +783,63 @@ static JVal merge_value(const JVal& orig, const JVal& patch,
   return sanitize_patch(patch, field);
 }
 
+// The real apiserver's strategic merge fails a patch when an element it
+// merges into an existing merge list (conditions, addresses) lacks the
+// merge key (strategicpatch ErrNoMergeKey, a 500). Appending such an
+// element instead, as merge_value alone does, let a node's addresses
+// grow without end: a garbled watch line that renamed an element's
+// "type" key reached the engine, which echoes the addresses it holds,
+// finds its own merge of them always "changed" and patches them back,
+// so every round trip doubled the list until one patch held the nodes
+// shard lock for minutes. Walks the patch as merge_value would and
+// returns the first such element as JSON, or "" when the merge is sound.
+static std::string no_merge_key(const JVal& orig, const JVal& patch,
+                                const std::string& field) {
+  if (patch.type == JVal::OBJ && orig.type == JVal::OBJ) {
+    if (patch_directive(patch)) return "";  // replace / delete: no merge
+    for (const auto& kv : patch.obj) {
+      if (kv.first == "$patch" || kv.second.type == JVal::NUL) continue;
+      if (const JVal* cur = orig.find(kv.first)) {
+        std::string bad = no_merge_key(*cur, kv.second, kv.first);
+        if (!bad.empty()) return bad;
+      }
+    }
+    return "";
+  }
+  if (patch.type == JVal::ARR && orig.type == JVal::ARR &&
+      merge_list_field(field)) {
+    for (const auto& item : patch.arr) {
+      const JVal* d = patch_directive(item);
+      if (d && d->s == "replace") return "";
+    }
+    for (const auto& item : patch.arr) {
+      if (item.type != JVal::OBJ || item.find("$patch")) continue;
+      const JVal* ik = item.find("type");
+      if (!ik) return dumps(item);
+      if (ik->type != JVal::STR) continue;
+      for (const auto& existing : orig.arr) {
+        const JVal* ek =
+            existing.type == JVal::OBJ ? existing.find("type") : nullptr;
+        if (ek && ek->type == JVal::STR && ek->s == ik->s) {
+          std::string bad = no_merge_key(existing, item, "");
+          if (!bad.empty()) return bad;
+          break;
+        }
+      }
+    }
+  }
+  return "";
+}
+
+static std::string no_merge_key_status(const std::string& element) {
+  std::string out =
+      "{\"kind\":\"Status\",\"apiVersion\":\"v1\",\"status\":\"Failure\","
+      "\"message\":\"";
+  json_escape(out, "map: " + element + " does not contain declared merge key: type");
+  out += "\",\"reason\":\"InternalError\",\"code\":500}";
+  return out;
+}
+
 // ----------------------------------------------------------------- store
 
 static std::string now_rfc3339() {
@@ -1103,6 +1160,19 @@ static int rv_window() { return rv_window_cell().load(std::memory_order_relaxed)
 
 // --rig-routes: serve the drift rig's /rig/ routes (rig_route below)
 static bool g_rig_routes = false;
+// under --rig-routes, GET /rig/writes: the status patches that set each
+// pod's phase to Running (a pod patched Running twice shows a double
+// fire) and the mutating requests the lease fence answered 409
+static std::mutex g_rig_writes_mu;  // leaf: guards g_rig_running
+static std::map<std::string, long> g_rig_running;  // "ns/name" -> patches
+static std::atomic<long> g_rig_fenced{0};
+static void rig_note_status(int kind, const std::string& ns,
+                            const std::string& name, const JVal& status) {
+  if (!g_rig_routes || kind != 1 || field_str(status, "phase") != "Running")
+    return;
+  std::lock_guard<std::mutex> lk(g_rig_writes_mu);
+  g_rig_running[ns + "/" + name]++;
+}
 
 // watch-cache entry: ring position is the store clock at emit time (NOT
 // the object's own rv — events-cap evictions re-emit old objects and the
@@ -2439,7 +2509,137 @@ void App::persist() {
 // "create", "kind", "namespace", "name", "phase" | "object"}; POST
 // /rig/window {"events"}; POST /rig/stop-watches; GET /rig/state (the
 // pods Running with a pod IP, the pods, the first names not Running, the
-// watch terminations by reason, the revision).
+// watch terminations by reason, the revision); GET /rig/threads (the
+// connection-thread census below); GET /rig/writes (the pods' Running
+// status patches and the fence's 409s, noted by rig_note_status and the
+// fencing answer).
+//
+// The census: under --rig-routes every connection thread registers a
+// slot, and notes each request it takes (method, path, the moment it
+// began) and clears it before it reads the next. GET /rig/threads lists
+// the slots with each thread's CPU seconds from /proc/self/task, and the
+// store locks held at that moment (a failed try_lock: the store's clock,
+// ring, lease and registry locks and every shard's), so a stalled mock
+// names the request that spins or holds a lock. Without the flag a
+// thread takes no slot and notes nothing.
+struct CensusSlot {
+  long tid = 0;
+  std::mutex mu;  // leaf: guards method, path, t0_ns
+  std::string method, path;
+  uint64_t t0_ns = 0;  // 0: between requests
+  bool on = false;
+
+  CensusSlot();
+  ~CensusSlot();
+  bool idle() {
+    if (on) {
+      std::lock_guard<std::mutex> lk(mu);
+      t0_ns = 0;
+    }
+    return true;
+  }
+  void busy(const Request& req) {
+    if (!on) return;
+    std::lock_guard<std::mutex> lk(mu);
+    method = req.method;
+    path = req.query.empty() ? req.path : req.path + "?" + req.query;
+    t0_ns = now_ns();
+  }
+};
+static std::mutex g_census_mu;  // leaf: guards g_census
+static std::set<CensusSlot*> g_census;
+
+CensusSlot::CensusSlot() {
+  if (!g_rig_routes) return;
+  on = true;
+  tid = (long)gettid();
+  std::lock_guard<std::mutex> lk(g_census_mu);
+  g_census.insert(this);
+}
+
+CensusSlot::~CensusSlot() {
+  if (!on) return;
+  std::lock_guard<std::mutex> lk(g_census_mu);
+  g_census.erase(this);
+}
+
+// utime + stime of one of this process's threads, in seconds (-1: gone)
+static double thread_cpu_s(long tid) {
+  char fn[64];
+  snprintf(fn, sizeof fn, "/proc/self/task/%ld/stat", tid);
+  FILE* f = fopen(fn, "r");
+  if (!f) return -1;
+  char buf[1024];
+  size_t n = fread(buf, 1, sizeof buf - 1, f);
+  fclose(f);
+  buf[n] = 0;
+  const char* r = strrchr(buf, ')');
+  if (!r) return -1;
+  // fields after the command: state is the first; utime, stime the 12th, 13th
+  unsigned long ut = 0, st = 0;
+  if (sscanf(r + 2, "%*c %*d %*d %*d %*d %*d %*u %*u %*u %*u %*u %lu %lu",
+             &ut, &st) != 2)
+    return -1;
+  return (double)(ut + st) / (double)sysconf(_SC_CLK_TCK);
+}
+
+static std::string census_json(Store& store) {
+  std::vector<std::string> held;
+  auto probe = [&held](std::mutex& m, const std::string& name) {
+    if (m.try_lock()) m.unlock();
+    else held.push_back(name);
+  };
+  probe(store.mu, "mu");
+  probe(store.ring_mu, "ring_mu");
+  probe(store.lease_mu, "lease_mu");
+  if (store.shards_mu.try_lock()) {
+    std::vector<std::pair<std::string, ShardPtr>> shards;
+    for (int k = 0; k < NKINDS; k++)
+      for (auto& ns_sh : store.shards[k])
+        shards.emplace_back(std::string(KIND_NAMES[k]) + "/" + ns_sh.first,
+                            ns_sh.second);
+    store.shards_mu.unlock();
+    for (auto& s : shards) probe(s.second->smu, "shard " + s.first);
+  } else {
+    held.push_back("shards_mu");
+  }
+  uint64_t now = now_ns();
+  std::string out = "{\"held\":[";
+  for (size_t i = 0; i < held.size(); i++) {
+    if (i) out += ',';
+    out += '"';
+    json_escape(out, held[i]);
+    out += '"';
+  }
+  out += "],\"threads\":[";
+  std::lock_guard<std::mutex> lk(g_census_mu);
+  bool first = true;
+  for (CensusSlot* c : g_census) {
+    std::string method, path;
+    uint64_t t0;
+    {
+      std::lock_guard<std::mutex> cl(c->mu);
+      method = c->method;
+      path = c->path;
+      t0 = c->t0_ns;
+    }
+    if (!first) out += ',';
+    first = false;
+    char num[160];
+    snprintf(num, sizeof num, "{\"tid\":%ld,\"cpu_s\":%.2f,\"busy\":%s,\"age_s\":%.3f,",
+             c->tid, thread_cpu_s(c->tid), t0 ? "true" : "false",
+             t0 ? (double)(now - t0) / 1e9 : 0.0);
+    out += num;
+    out += "\"method\":\"";
+    json_escape(out, method);
+    out += "\",\"path\":\"";
+    json_escape(out, path.substr(0, 240));
+    out += "\"}";
+  }
+  out += "]}";
+  return out;
+}
+
 static std::string rig_route(Store& store, const Request& req, int& code) {
   static const std::string ok_true = "{\"ok\":true}";
   static const std::string ok_false = "{\"ok\":false}";
@@ -2478,6 +2678,24 @@ static std::string rig_route(Store& store, const Request& req, int& code) {
            std::to_string(g_watch_term_slow.load()) + ",\"deadline\":" +
            std::to_string(g_watch_term_deadline.load()) +
            "},\"rv\":" + std::to_string(rv) + "}";
+    return out;
+  }
+  if (req.method == "GET" && req.path == "/rig/threads") return census_json(store);
+  if (req.method == "GET" && req.path == "/rig/writes") {
+    std::lock_guard<std::mutex> lk(g_rig_writes_mu);
+    long most = 0, twice = 0;
+    std::string out = "{\"running_patched_pods\":" +
+                      std::to_string(g_rig_running.size()) + ",\"twice\":[";
+    for (auto& kv : g_rig_running) {
+      most = std::max(most, kv.second);
+      if (kv.second < 2) continue;
+      if (twice++) out += ',';
+      out += '"';
+      json_escape(out, kv.first);
+      out += '"';
+    }
+    out += "],\"most\":" + std::to_string(most) + ",\"fenced_409\":" +
+           std::to_string(g_rig_fenced.load()) + "}";
     return out;
   }
   if (req.method != "POST") {
@@ -2966,6 +3184,7 @@ bool App::handle_request(ConnIO& io, Request& req) {
            !lease_expired(it->second, wall_unix_s());
   };
   auto fencing_409 = [&]() {
+    g_rig_fenced.fetch_add(1);
     std::string body =
         "{\"kind\":\"Status\",\"apiVersion\":\"v1\",\"status\":"
         "\"Failure\",\"message\":\"fencing lease ";
@@ -3730,6 +3949,7 @@ bool App::handle_request(ConnIO& io, Request& req) {
           if (it != sh->objs.end()) {
             found = true;
             JVal obj = it->second->obj;  // copy-on-write
+            std::string bad_merge;  // an element missing its merge key
             if (m.status) {
               // strategic-merge on the status subresource; accept
               // either a {"status": {...}} wrapper or a bare status
@@ -3741,7 +3961,11 @@ bool App::handle_request(ConnIO& io, Request& req) {
               cur_status.type = JVal::OBJ;
               if (const JVal* cs = obj.find("status"))
                 if (cs->type == JVal::OBJ) cur_status = *cs;
-              obj.set("status", merge_value(cur_status, spv, ""));
+              bad_merge = no_merge_key(cur_status, spv, "");
+              if (bad_merge.empty()) {
+                obj.set("status", merge_value(cur_status, spv, ""));
+                rig_note_status(m.kind, m.ns, m.name, spv);
+              }
             } else {
               // merge-patch on metadata + spec with null deletion;
               // top-level key replace within each section
@@ -3759,14 +3983,19 @@ bool App::handle_request(ConnIO& io, Request& req) {
                 }
               }
             }
-            EntryPtr prev = it->second;
-            std::lock_guard<std::mutex> lk(store.mu);
-            EntryPtr e = store.commit_locked(
-                m.kind, "MODIFIED", std::move(obj), key, std::move(prev),
-                pt.on ? &pt.us[PH_FANOUT] : nullptr, sh.get());
-            it->second = e;
-            body = e->bytes;
-            committed = true;
+            if (!bad_merge.empty()) {
+              code = 500;
+              body = no_merge_key_status(bad_merge);
+            } else {
+              EntryPtr prev = it->second;
+              std::lock_guard<std::mutex> lk(store.mu);
+              EntryPtr e = store.commit_locked(
+                  m.kind, "MODIFIED", std::move(obj), key, std::move(prev),
+                  pt.on ? &pt.us[PH_FANOUT] : nullptr, sh.get());
+              it->second = e;
+              body = e->bytes;
+              committed = true;
+            }
           }
         }
         if (!found) {
@@ -4030,7 +4259,14 @@ static bool apply_write_locked(Store& store, Shard& sh, const PathMatch& m,
       cur_status.type = JVal::OBJ;
       if (const JVal* cs = obj.find("status"))
         if (cs->type == JVal::OBJ) cur_status = *cs;
+      std::string bad = no_merge_key(cur_status, spv, "");
+      if (!bad.empty()) {
+        *code = 500;
+        *resp = no_merge_key_status(bad);
+        return false;
+      }
       obj.set("status", merge_value(cur_status, spv, ""));
+      rig_note_status(m.kind, m.ns, m.name, spv);
     } else {
       for (const char* section : {"metadata", "spec"}) {
         const JVal* sec_patch =
@@ -4219,12 +4455,14 @@ size_t App::exec_write_batch(ConnIO& io, std::vector<Request>& batch) {
 }
 
 void App::handle_conn(int fd) {
+  CensusSlot census;  // GET /rig/threads (--rig-routes only)
   int one = 1;
   setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof one);
   ConnIO io;
   io.fd = fd;
   Request req;
-  while (!stopping.load() && read_request(io, req)) {
+  while (!stopping.load() && census.idle() && read_request(io, req)) {
+    census.busy(req);
     // batched write transactions (ISSUE 13): when the socket read that
     // carried this request brought MORE complete batchable writes (the
     // native pump pipelines whole frames), absorb the run into one

@@ -20,10 +20,10 @@ changing the state: the pipelined engine keeps several wires in flight.
 
 For the threaded lanes (``engine/lanes.py``) ``lane_views`` carves an
 unpacked stacked wire into per-lane slices, and ``gather_deadlines``
-copies the timer fields to the host for a checkpoint. The JAX package's
-``prefetch`` and ``to_host`` have no counterpart: a ``Wire`` starts its
-copy at dispatch, and the lanes regrow their stacked state on the device
-(``ops/state.regrow_stacked``).
+copies the timer fields and the phase to the host for a checkpoint. The
+JAX package's ``prefetch`` and ``to_host`` have no counterpart: a
+``Wire`` starts its copy at dispatch, and the lanes regrow their stacked
+state on the device (``ops/state.regrow_stacked``).
 """
 
 from __future__ import annotations
@@ -251,14 +251,17 @@ def lane_views(masks, rows, n_lanes: int, r: int):
 
 
 def gather_deadlines(state: RowState):
-    """Host numpy copies of the device-owned timer fields ``(fire_at,
-    hb_due, gen)`` — the checkpoint gather (resilience/checkpoint.py).
+    """Host numpy copies of the device-owned fields a checkpoint records,
+    ``(fire_at, hb_due, gen, phase)`` (resilience/checkpoint.py). The
+    phase is the device's too: a row the last dispatch fired holds its
+    new phase here before the host mirror (``phase_h``) catches up at
+    the consume, and the entry must describe one moment of the row.
 
-    On a CUDA device the three copies go out together on the current
+    On a CUDA device the four copies go out together on the current
     stream (the tick thread's: they read the state its queued dispatches
     produce) into pinned buffers, one event marks their end, and the host
     waits once. Call it on the thread that owns the state."""
-    fields = (state.fire_at, state.hb_due, state.gen)
+    fields = (state.fire_at, state.hb_due, state.gen, state.phase)
     if state.device.type != "cuda":
         return tuple(t.numpy().copy() for t in fields)
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in fields]

@@ -19,4 +19,8 @@
   resumes matching rows' Stage delays after a restart. The file format is
   ``kwok_tpu.resilience.checkpoint``'s: a file written by either package
   restores in the other.
+- ``ha``: warm-standby HA (``EngineConfig.ha_role``, ``--ha-role``): the
+  lease elector, the write fence on the client and the pumps, the
+  observe-only hold and the takeover from the primary's checkpoint;
+  ``kwok_tpu.resilience.ha``'s lease dialect and fencing header.
 """

@@ -114,7 +114,7 @@ def _residue(deadline: float, now: float):
 def gather_rows(
     kind: str,
     pool,
-    phase_h,
+    phase: np.ndarray,
     fire: np.ndarray,
     hb: np.ndarray,
     gen: np.ndarray,
@@ -124,6 +124,17 @@ def gather_rows(
 ) -> dict:
     """One kind's checkpoint rows: ``{key: [uid, rv, fire_res, hb_res,
     gen, phase]}`` over every pooled row whose device state is current.
+
+    ``phase`` is the device's phase array, read with ``fire``, ``hb`` and
+    ``gen`` (``ops/tick.gather_deadlines``), not the host mirror: the
+    gather runs between a dispatch and its consume, when a row the
+    dispatch fired has its new phase, no timer and a bumped ``gen`` on
+    the device but still its old phase on the host. With the mirror's
+    phase such a row would read "Pending, nothing armed"; if its patch
+    never left (the engine died first), a restore would match it and
+    overwrite its fresh arm with "no timer", leaving the pod Pending for
+    good. With the device's phase the entry is stale and the row re-arms
+    fresh.
 
     ``staged`` is the set of row indices with a staged-but-unflushed init
     (UpdateBuffer.staged_rows): their device slots still describe a
@@ -149,7 +160,7 @@ def gather_rows(
             _residue(float(fire[di]), now),
             _residue(float(hb[di]), now),
             int(gen[di]),
-            int(phase_h[idx]),
+            int(phase[di]),
         ]
     return ents
 

@@ -41,6 +41,7 @@ import json
 import logging
 import os
 import pathlib
+import re
 import signal
 import subprocess
 import sys
@@ -871,7 +872,232 @@ def rig_routes(which):
 rig_routes.own_server = True
 
 
+_LEASES = "/apis/coordination.k8s.io/v1/namespaces/kube-system/leases"
+_STAMP = re.compile(rb"\d{4}-\d\d-\d\dT\d\d:\d\d:\d\dZ")
+
+
+def lease_call(url: str, method: str, path: str, body=None, headers=None) -> list:
+    """[status code, the body's bytes with every RFC 3339 stamp masked]
+    of one request: the lease twins compare bytes, not parsed JSON."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            code, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read()
+    return [code, _STAMP.sub(b"<stamp>", raw).decode()]
+
+
+def lease_dialect(url):
+    """``kwok_tpu``'s ``_drive_lease_dialect``: a miss, a create and a
+    duplicate, a GET, a renew, another holder's grab of the unexpired
+    lease, fenced writes (the holder's commits, another's gets 409),
+    the takeover once the lease expired on the server's clock (1 s), the
+    deposed holder's renew and the zombie's fenced write. Bytes with the
+    stamps masked, uids and revisions included."""
+    lease = {"apiVersion": "coordination.k8s.io/v1", "kind": "Lease",
+             "metadata": {"name": "eng", "namespace": "kube-system"},
+             "spec": {"holderIdentity": "alpha", "leaseDurationSeconds": 1}}
+    renew = {"spec": {"holderIdentity": "alpha", "leaseDurationSeconds": 1}}
+    steal = {"spec": {"holderIdentity": "beta", "leaseDurationSeconds": 1}}
+    node = {"apiVersion": "v1", "kind": "Node", "metadata": {"name": "ln"}}
+    patch = {"status": {"phase": "X"}}
+    alpha = {"X-Kwok-Lease-Holder": "kube-system/eng/alpha"}
+    out = {
+        "get_missing": lease_call(url, "GET", _LEASES + "/eng"),
+        "create": lease_call(url, "POST", _LEASES, lease),
+        "create_duplicate": lease_call(url, "POST", _LEASES, lease),
+        "get": lease_call(url, "GET", _LEASES + "/eng"),
+        "renew": lease_call(url, "PATCH", _LEASES + "/eng", renew),
+        "steal_unexpired_conflict": lease_call(url, "PATCH", _LEASES + "/eng", steal),
+        "fenced_create_held": lease_call(url, "POST", "/api/v1/nodes", node, alpha),
+        "fenced_patch_wrong_holder": lease_call(
+            url, "PATCH", "/api/v1/nodes/ln/status", patch,
+            {"X-Kwok-Lease-Holder": "kube-system/eng/beta"}),
+        "fenced_delete_missing_claim": lease_call(
+            url, "DELETE", "/api/v1/nodes/ln", None, {"X-Kwok-Lease-Holder": "kube-system/nope/alpha"}),
+    }
+    time.sleep(1.15)
+    out["expiry_acquire"] = lease_call(url, "PATCH", _LEASES + "/eng", steal)
+    out["deposed_holder_conflict"] = lease_call(url, "PATCH", _LEASES + "/eng", renew)
+    out["zombie_fenced_patch"] = lease_call(url, "PATCH", "/api/v1/nodes/ln/status", patch, alpha)
+    out["node_untouched"] = call(url, "GET", "/api/v1/nodes/ln")[1].get("status")
+    codes = {k: v[0] for k, v in out.items() if k != "node_untouched"}
+    assert codes == {"get_missing": 404, "create": 201, "create_duplicate": 409, "get": 200,
+                     "renew": 200, "steal_unexpired_conflict": 409, "fenced_create_held": 201,
+                     "fenced_patch_wrong_holder": 409, "fenced_delete_missing_claim": 409,
+                     "expiry_acquire": 200, "deposed_holder_conflict": 409,
+                     "zombie_fenced_patch": 409}, codes
+    acquired = json.loads(out["expiry_acquire"][1])["spec"]
+    assert (acquired["holderIdentity"], acquired["leaseTransitions"]) == ("beta", 1)
+    assert "fencing lease kube-system/eng is not held by beta" in out["fenced_patch_wrong_holder"][1]
+    assert out["node_untouched"] is None
+    return out
+
+
+def lease_discovery(url):
+    """/apis names coordination.k8s.io, and the group's resource list
+    serves create, get and patch on leases; the lease collection has no
+    GET, a named lease no POST."""
+    out = {path: lease_call(url, "GET", path)
+           for path in ("/apis", "/apis/coordination.k8s.io/v1")}
+    out["list"] = lease_call(url, "GET", _LEASES)
+    out["post_named"] = lease_call(url, "POST", _LEASES + "/x", {"metadata": {"name": "x"}})
+    doc = json.loads(out["/apis/coordination.k8s.io/v1"][1])
+    assert doc["resources"][0]["verbs"] == ["create", "get", "patch"]
+    assert (out["list"][0], out["post_named"][0]) == (404, 404)
+    return out
+
+
+def lease_hostile(url):
+    """Bodies of the wrong shape (an array, string and boolean
+    durations, no body) and malformed fencing claims answer alike and
+    leave the handler serving."""
+    out = [
+        lease_call(url, "POST", _LEASES, [1]),
+        lease_call(url, "POST", _LEASES, {"metadata": {"name": "hb"},
+                                          "spec": {"holderIdentity": "a",
+                                                   "leaseDurationSeconds": "2.5"}}),
+        lease_call(url, "PATCH", _LEASES + "/hb", [1]),
+        lease_call(url, "PATCH", _LEASES + "/hb", {"spec": {"holderIdentity": "a",
+                                                            "leaseDurationSeconds": True}}),
+        lease_call(url, "PATCH", _LEASES + "/hb"),
+        lease_call(url, "PATCH", "/api/v1/nodes/hn/status", {"status": {"phase": "X"}},
+                   {"X-Kwok-Lease-Holder": "a/b"}),
+        lease_call(url, "PATCH", "/api/v1/nodes/hn/status", {"status": {"phase": "X"}},
+                   {"X-Kwok-Lease-Holder": "garbage"}),
+        lease_call(url, "GET", _LEASES + "/hb"),
+    ]
+    assert [c for c, _ in out] == [400, 201, 409, 200, 400, 409, 409, 200]
+    assert json.loads(out[1][1])["spec"]["leaseDurationSeconds"] == 2
+    return out
+
+
+TYPELESS = {"address": "10.0.0.1", "tyqe": "InternalIP"}  # "type" renamed by a garble
+
+
+def merge_key_missing(url):
+    """A status patch whose element of an existing merge list lacks the
+    merge key fails with the real apiserver's 500 and changes nothing;
+    into a list the object does not hold yet it is taken as it comes; a
+    replace directive and keyed elements merge as before."""
+    node = make_node("mk")
+    node["status"] = {"addresses": [dict(TYPELESS)]}
+    out = {"create": lease_call(url, "POST", "/api/v1/nodes", node)[0]}
+    path = "/api/v1/nodes/mk/status"
+    out["echo"] = lease_call(url, "PATCH", path, {"status": {"addresses": [dict(TYPELESS)]}})
+    out["fresh_list"] = lease_call(url, "PATCH", path, {"status": {"conditions": [{"reason": "x"}]}})[0]
+    out["into_it"] = lease_call(url, "PATCH", path, {"status": {"conditions": [{"reason": "y"}]}})[0]
+    out["keyed"] = lease_call(url, "PATCH", path, {"status": {"addresses": [
+        {"type": "Hostname", "address": "mk"}]}})[0]
+    out["replace"] = lease_call(url, "PATCH", path, {"status": {"addresses": [
+        {"$patch": "replace"}, {"type": "InternalIP", "address": "10.0.0.2"}]}})[0]
+    out["after_replace"] = lease_call(url, "PATCH", path, {"status": {"addresses": [dict(TYPELESS)]}})[0]
+    out["stored"] = call(url, "GET", "/api/v1/nodes/mk")[1]["status"]
+    assert out["echo"][0] == 500 and "does not contain declared merge key: type" in out["echo"][1]
+    assert (out["fresh_list"], out["into_it"], out["keyed"], out["replace"],
+            out["after_replace"]) == (200, 500, 200, 200, 500)
+    assert out["stored"]["addresses"] == [{"type": "InternalIP", "address": "10.0.0.2"}]
+    return out
+
+
+def _echo_rounds(url, rounds: int = 12) -> list:
+    """The engine's node-status loop by hand, with the port's own render
+    and check (edge/render.py, edge/merge.py): GET the node, render its
+    status (which echoes the addresses it holds), PATCH it when the check
+    says it changed; the addresses' length after each round."""
+    from kwok_tpu_torch.edge.merge import node_status_patch_needed
+    from kwok_tpu_torch.edge.render import now_rfc3339, render_node_status
+    from kwok_tpu_torch.engine.engine import _NODE_READY_BITS
+
+    node = make_node("echo")
+    node["status"] = {"addresses": [dict(TYPELESS)]}
+    c = HttpKubeClient(url, timeout=20)
+    c.create("nodes", node)
+    lens = []
+    for _ in range(rounds):
+        node = c.get("nodes", None, "echo")
+        rendered = render_node_status(node, _NODE_READY_BITS, "10.0.0.1",
+                                      now_rfc3339(), now_rfc3339())
+        if node_status_patch_needed(node.get("status") or {}, rendered):
+            try:
+                c.patch_status("nodes", None, "echo", {"status": rendered})
+            except urllib.error.HTTPError as e:
+                assert e.code == 500
+        lens.append(len(c.get("nodes", None, "echo")["status"]["addresses"]))
+    c.close()
+    return lens
+
+
+def test_echoed_address_without_merge_key_does_not_double(binary):
+    """The drift phase's stall (ROADMAP §3): a garbled watch line that
+    renamed a node address's "type" key left an element the native
+    server appended on every status patch instead of merging; the engine
+    echoes the addresses it holds and its own check merges the same way,
+    so each round trip doubled the list (kwok_tpu's server keeps the
+    fault: 12 rounds leave 4,096 elements) until one patch held the nodes
+    shard for minutes. The port's server answers such a patch 500, as the
+    real apiserver does, and the node keeps its one address."""
+    from kwok_tpu import native as jnative
+
+    port = Server("native")
+    try:
+        assert _echo_rounds(port.url) == [1] * 12
+    finally:
+        port.stop()
+    ref_bin = jnative.apiserver_binary()
+    if ref_bin is None:
+        pytest.skip("kwok_tpu's native server did not build")
+    ref = Server("native", binary=ref_bin)
+    try:
+        assert _echo_rounds(ref.url) == [2 ** (i + 1) for i in range(12)]
+    finally:
+        ref.stop()
+
+
+def test_engine_holding_an_address_without_merge_key_keeps_the_server_live(binary):
+    """The port's engine on two threaded lanes against the port's native
+    server, a node stored with an address whose "type" key is renamed:
+    the node still turns Ready, its heartbeats land, its addresses stay
+    one, and the server answers a LIST at once."""
+    from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
+
+    srv = Server("native", env={"KWOK_TPU_BOOKMARK_INTERVAL": "0"})
+    eng = None
+    try:
+        c = HttpKubeClient(srv.url, timeout=10)
+        node = make_node("echo")
+        node["status"] = {"addresses": [dict(TYPELESS)]}
+        c.create("nodes", node)
+        eng = ClusterEngine(HttpKubeClient(srv.url), EngineConfig(
+            manage_all_nodes=True, drain_shards=2, tick_interval=0.02,
+            heartbeat_interval=0.2, device="cpu"))
+        eng.start()
+        deadline = time.time() + 30
+        while time.time() < deadline and eng.metrics.get("heartbeats_total", 0) < 5:
+            time.sleep(0.05)
+        got = c.get("nodes", None, "echo")["status"]
+        t0 = time.time()
+        c.list("nodes")
+        listed_s = time.time() - t0
+        c.close()
+    finally:
+        if eng is not None:
+            eng.stop()
+        srv.stop()
+    assert eng.metrics.get("heartbeats_total", 0) >= 5
+    assert got["addresses"] == [TYPELESS]
+    assert any(x.get("type") == "Ready" and x.get("status") == "True"
+               for x in got["conditions"])
+    assert listed_s < 2.0
+
+
 TWINS = {
+    "merge_key_missing": (merge_key_missing, None),
+    "lease_dialect": (lease_dialect, None), "lease_discovery": (lease_discovery, None),
+    "lease_hostile": (lease_hostile, None),
     "crud": (crud, None), "merge": (merge, None), "selectors": (selectors, None),
     "watch_filtering": (watch_filtering, None), "graceful_deletion": (graceful_deletion, None),
     "pagination": (pagination, None), "resume_and_410": (resume_and_410, None),
@@ -902,6 +1128,53 @@ def run_twin(which: str, name: str):
 def test_twin(binary, name):
     ref = run_twin("native", name)
     assert run_twin("python", name) == ref
+
+
+def test_rig_census_and_writes_on_the_native_server(binary):
+    """The native server's port-only rig routes (--rig-routes): GET
+    /rig/threads lists each connection thread's request and age and the
+    store locks held at that moment; GET /rig/writes counts the status
+    patches that set a pod Running (a second one for a pod shows in
+    "twice") and the writes the lease fence answered 409. Without the
+    flag neither route is served."""
+    srv = Server("native", ["--rig-routes"])
+    try:
+        url = srv.url
+        c = HttpKubeClient(url)
+        c.create("nodes", make_node("wn"))
+        for name in ("wp0", "wp1"):
+            c.create("pods", make_pod(name, "wn"))
+        running = {"status": {"phase": "Running", "podIP": "10.0.0.9"}}
+        c.patch_status("pods", "default", "wp0", running)
+        c.patch_status("pods", "default", "wp0", running)
+        c.patch_status("pods", "default", "wp1", running)
+        c.patch_status("pods", "default", "wp1", {"status": {"podIP": "10.0.0.8"}})
+        lease_call(url, "POST", _LEASES, {"metadata": {"name": "eng"},
+                                          "spec": {"holderIdentity": "a",
+                                                   "leaseDurationSeconds": 30}})
+        assert lease_call(url, "PATCH", "/api/v1/namespaces/default/pods/wp1/status",
+                          running, {"X-Kwok-Lease-Holder": "kube-system/eng/b"})[0] == 409
+        writes = call(url, "GET", "/rig/writes")[1]
+        w = c.watch("pods")
+        time.sleep(0.2)
+        census = call(url, "GET", "/rig/threads")[1]
+        w.stop()
+        c.close()
+    finally:
+        srv.stop()
+    assert writes == {"running_patched_pods": 2, "twice": ["default/wp0"], "most": 2,
+                      "fenced_409": 1}
+    assert census["held"] == []
+    busy = [t for t in census["threads"] if t["busy"]]
+    assert any(t["path"] == "/rig/threads" and t["method"] == "GET" for t in busy)
+    assert any("watch=" in t["path"] and t["age_s"] > 0 for t in busy)
+    assert all(t["tid"] > 0 and t["cpu_s"] >= 0 for t in census["threads"])
+    plain = Server("native")
+    try:
+        assert call(plain.url, "GET", "/rig/threads")[0] == 404
+        assert call(plain.url, "GET", "/rig/writes")[0] == 404
+    finally:
+        plain.stop()
 
 
 # ---------------------------------------------------------------- loader

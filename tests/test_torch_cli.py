@@ -164,8 +164,9 @@ TWO = ["--master", "http://127.0.0.1:1,http://127.0.0.1:2"]
 
 REFUSED = {
     "use-mesh": (["--use-mesh", "true"], {}, "9b"),
-    "ha-primary": (["--ha-role", "primary"], {}, 12),
-    "ha-standby": (["--ha-role", "standby"], {}, 12),
+    # accepted since item 12 (None): the role reaches the HA plane
+    "ha-primary": (["--ha-role", "primary"], {}, None),
+    "ha-standby": (["--ha-role", "standby"], {}, None),
     # accepted since item 13b (None): the interval reaches the auditor
     "audit-interval": (["--audit-interval", "5"], {}, None),
     # accepted since item 13a (None): the spec reaches the fault plane
@@ -175,7 +176,7 @@ REFUSED = {
     # a federation runs on one card: its stacked state over several is 9b
     "two-masters": (TWO + ["--use-mesh", "true"], {}, "9b"),
     "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, "9b"),
-    "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, 12),
+    "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, None),
     "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, None),
     "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, None),
     "env-faults": ([], {"KWOK_FAULTS": "seed=1"}, None),
@@ -228,6 +229,43 @@ def accepted_cni(extra, env, monkeypatch) -> list:
             out.append(tcli._engine_config(args, [], "cpu").enable_cni)
         else:
             out.append(jcli._engine_config(args, []).enable_cni)
+    return out
+
+
+def accepted_ha(extra, env, monkeypatch) -> list:
+    """The HA fields of EngineConfig that an accepted ``--ha-role`` form
+    gives with the identity and lease flags (and KWOK_LEASE_DURATION),
+    through the port's CLI and through kwok_tpu's; the port's engine
+    builds its plane from them."""
+    from kwok_tpu.config.types import KwokConfigurationOptions as JaxOptions
+    from kwok_tpu.config.types import apply_env_overrides as jax_env
+    from kwok_tpu_torch.config.types import apply_env_overrides
+    from kwok_tpu_torch.engine import ClusterEngine
+    from kwok_tpu_torch.resilience.ha import FencedClient
+
+    monkeypatch.setenv("KWOK_LEASE_DURATION", "3")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    flags = extra + ["--manage-all-nodes", "true", "--ha-identity", "ident-a",
+                     "--lease-name", "lz", "--lease-namespace", "ns-z",
+                     "--lease-renew-interval", "0.5"]
+    out = []
+    for lib in ("torch", "jax"):
+        opts = KwokConfigurationOptions() if lib == "torch" else JaxOptions()
+        (apply_env_overrides if lib == "torch" else jax_env)(opts)
+        mod = tcli if lib == "torch" else jcli
+        args = mod.build_parser(opts).parse_args(flags)
+        if lib == "torch":
+            assert tcli.refusals(args, ["http://127.0.0.1:1"]) == []
+            cfg = tcli._engine_config(args, [], "cpu")
+            eng = ClusterEngine(PortFakeKube(), cfg)
+            assert isinstance(eng.client, FencedClient) and eng._ha_hold
+            assert (eng._ha.role, eng._ha.identity, eng._ckpt_name) == (
+                cfg.ha_role, "ident-a", "ident-a")
+        else:
+            cfg = jcli._engine_config(args, [])
+        out.append((cfg.ha_role, cfg.ha_identity, cfg.lease_name, cfg.lease_namespace,
+                    cfg.lease_duration, cfg.lease_renew_interval))
     return out
 
 
@@ -300,6 +338,10 @@ def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
         return
     if item is None and "cni" in name:
         assert accepted_cni(extra, env, monkeypatch) == [True, True]
+        return
+    if item is None and "ha" in name:
+        role = (extra[1:2] or list(env.values()))[0]
+        assert accepted_ha(extra, env, monkeypatch) == [(role, "ident-a", "lz", "ns-z", 3.0, 0.5)] * 2
         return
     if item is None:
         cfg = accepted_fault_spec(extra, env, monkeypatch)

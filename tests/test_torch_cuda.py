@@ -234,6 +234,74 @@ def test_cni_provider_on_threaded_lanes_on_card(card):
     assert cuda_tick.tick_steps.launches > before
 
 
+def test_ha_standby_holds_then_takes_over_on_card(card):
+    """A warm standby on 2 threaded lanes on the card: while a ghost
+    primary renews the lease, its rows reach the stacked state and
+    tick.cu never launches, nothing is written; when the ghost stops, it
+    takes over, launches and runs every pod, and the kernel is held
+    bit-exact against its plain version at the stacked state it leaves."""
+    import threading
+
+    server = FakeKube()
+    lease = ("kube-system", "kwok-tpu-engine")
+    ghost = {"holderIdentity": "ghost", "leaseDurationSeconds": 2}
+    assert server.lease_create(*lease, ghost)[0] == 201
+    alive = threading.Event()
+    alive.set()
+
+    def renew():
+        while alive.is_set():
+            server.lease_renew(*lease, ghost)
+            time.sleep(0.2)
+
+    threading.Thread(target=renew, daemon=True).start()
+    eng = ClusterEngine(server, EngineConfig(manage_all_nodes=True, tick_interval=0.02,
+                                             drain_shards=2, ha_role="standby",
+                                             ha_identity="b", lease_duration=2.0,
+                                             checkpoint_dir="off"))
+    eng.start()
+    try:
+        before = cuda_tick.tick_steps.launches
+        for i in range(10):
+            server.create("nodes", {"metadata": {"name": f"n{i}"}})
+        for i in range(200):
+            server.create("pods", {
+                "metadata": {"name": f"p{i}", "namespace": "default"},
+                "spec": {"nodeName": f"n{i % 10}"},
+                "status": {"phase": "Pending"},
+            })
+        deadline = time.time() + 60
+        while time.time() < deadline and eng.metrics.get("pods_managed", 0) < 200:
+            time.sleep(0.05)
+        time.sleep(1.0)
+        assert eng.metrics.get("pods_managed", 0) == 200 and eng._ha_hold
+        assert cuda_tick.tick_steps.launches == before
+        stacked = eng._lanes.stacked["pods"]
+        assert int(stacked.active.sum()) == 200 and stacked.active.device.type == "cuda"
+        assert not any((p.get("status") or {}).get("phase") == "Running"
+                       for p in server.list("pods"))
+        alive.clear()
+        while time.time() < deadline and sum(
+                (p.get("status") or {}).get("phase") == "Running"
+                for p in server.list("pods")) < 200:
+            time.sleep(0.05)
+        assert eng._ha.leading and not eng._ha_hold and not eng.degraded
+        assert sum((p.get("status") or {}).get("phase") == "Running"
+                   for p in server.list("pods")) == 200
+        assert cuda_tick.tick_steps.launches > before
+        fused = eng._get_fused()
+        for spec, st in zip(fused.specs, (eng._lanes.stacked["nodes"], stacked)):
+            outs = {}
+            for name, fn in (("kernel", cuda_tick.tick_steps), ("plain", cuda_tick.tick_steps_plain)):
+                s = ts.RowState(*(t.clone() for t in st))
+                outs[name] = (s, fn(s, spec, eng._now() + 1.0, cuda_tick.SEED_BASE, 1, 0.05))
+            for f in FIELDS:
+                assert torch.equal(getattr(outs["kernel"][0], f), getattr(outs["plain"][0], f)), f
+    finally:
+        alive.clear()
+        eng.stop()
+
+
 def test_killed_drain_worker_restarts_on_card(card):
     """Threaded lanes on the card under the fault plane: a pill in lane
     0's drain worker mid-churn is absorbed by the watchdog, the worker

@@ -133,6 +133,17 @@ PORT_REPAIRS = {
       }
     }
     if (p < end) p++;  // closing quote"""),
+        # a status patch whose element of a merge list (conditions,
+        # addresses) lacks the merge key was appended, never merged; the
+        # engine echoes a node's addresses, so each round trip doubled the
+        # list and one patch held the nodes shard for minutes (the drift
+        # phase's stall): it now fails as the real apiserver's does (500)
+        ('// ----------------------------------------------------------------- store\n',
+         '// The real apiserver\'s strategic merge fails a patch when an element it\n// merges into an existing merge list (conditions, addresses) lacks the\n// merge key (strategicpatch ErrNoMergeKey, a 500). Appending such an\n// element instead, as merge_value alone does, let a node\'s addresses\n// grow without end: a garbled watch line that renamed an element\'s\n// "type" key reached the engine, which echoes the addresses it holds,\n// finds its own merge of them always "changed" and patches them back,\n// so every round trip doubled the list until one patch held the nodes\n// shard lock for minutes. Walks the patch as merge_value would and\n// returns the first such element as JSON, or "" when the merge is sound.\nstatic std::string no_merge_key(const JVal& orig, const JVal& patch,\n                                const std::string& field) {\n  if (patch.type == JVal::OBJ && orig.type == JVal::OBJ) {\n    if (patch_directive(patch)) return "";  // replace / delete: no merge\n    for (const auto& kv : patch.obj) {\n      if (kv.first == "$patch" || kv.second.type == JVal::NUL) continue;\n      if (const JVal* cur = orig.find(kv.first)) {\n        std::string bad = no_merge_key(*cur, kv.second, kv.first);\n        if (!bad.empty()) return bad;\n      }\n    }\n    return "";\n  }\n  if (patch.type == JVal::ARR && orig.type == JVal::ARR &&\n      merge_list_field(field)) {\n    for (const auto& item : patch.arr) {\n      const JVal* d = patch_directive(item);\n      if (d && d->s == "replace") return "";\n    }\n    for (const auto& item : patch.arr) {\n      if (item.type != JVal::OBJ || item.find("$patch")) continue;\n      const JVal* ik = item.find("type");\n      if (!ik) return dumps(item);\n      if (ik->type != JVal::STR) continue;\n      for (const auto& existing : orig.arr) {\n        const JVal* ek =\n            existing.type == JVal::OBJ ? existing.find("type") : nullptr;\n        if (ek && ek->type == JVal::STR && ek->s == ik->s) {\n          std::string bad = no_merge_key(existing, item, "");\n          if (!bad.empty()) return bad;\n          break;\n        }\n      }\n    }\n  }\n  return "";\n}\n\nstatic std::string no_merge_key_status(const std::string& element) {\n  std::string out =\n      "{\\"kind\\":\\"Status\\",\\"apiVersion\\":\\"v1\\",\\"status\\":\\"Failure\\","\n      "\\"message\\":\\"";\n  json_escape(out, "map: " + element + " does not contain declared merge key: type");\n  out += "\\",\\"reason\\":\\"InternalError\\",\\"code\\":500}";\n  return out;\n}\n\n// ----------------------------------------------------------------- store\n'),
+        ('            JVal obj = it->second->obj;  // copy-on-write\n            if (m.status) {\n              // strategic-merge on the status subresource; accept\n              // either a {"status": {...}} wrapper or a bare status\n              // document\n              const JVal* sp =\n                  patch.is_obj() ? patch.find("status") : nullptr;\n              const JVal& spv = sp ? *sp : patch;\n              JVal cur_status;\n              cur_status.type = JVal::OBJ;\n              if (const JVal* cs = obj.find("status"))\n                if (cs->type == JVal::OBJ) cur_status = *cs;\n              obj.set("status", merge_value(cur_status, spv, ""));\n            } else {\n              // merge-patch on metadata + spec with null deletion;\n              // top-level key replace within each section\n              // (mockserver.patch_meta)\n              for (const char* section : {"metadata", "spec"}) {\n                const JVal* sec_patch =\n                    patch.is_obj() ? patch.find(section) : nullptr;\n                if (!sec_patch || sec_patch->type != JVal::OBJ ||\n                    sec_patch->obj.empty())\n                  continue;\n                JVal& sec = obj.get_or_insert_obj(section);\n                for (const auto& kv : sec_patch->obj) {\n                  if (kv.second.type == JVal::NUL) sec.erase(kv.first);\n                  else sec.set(kv.first, kv.second);\n                }\n              }\n            }\n            EntryPtr prev = it->second;\n            std::lock_guard<std::mutex> lk(store.mu);\n            EntryPtr e = store.commit_locked(\n                m.kind, "MODIFIED", std::move(obj), key, std::move(prev),\n                pt.on ? &pt.us[PH_FANOUT] : nullptr, sh.get());\n            it->second = e;\n            body = e->bytes;\n            committed = true;\n          }\n',
+         '            JVal obj = it->second->obj;  // copy-on-write\n            std::string bad_merge;  // an element missing its merge key\n            if (m.status) {\n              // strategic-merge on the status subresource; accept\n              // either a {"status": {...}} wrapper or a bare status\n              // document\n              const JVal* sp =\n                  patch.is_obj() ? patch.find("status") : nullptr;\n              const JVal& spv = sp ? *sp : patch;\n              JVal cur_status;\n              cur_status.type = JVal::OBJ;\n              if (const JVal* cs = obj.find("status"))\n                if (cs->type == JVal::OBJ) cur_status = *cs;\n              bad_merge = no_merge_key(cur_status, spv, "");\n              if (bad_merge.empty()) {\n                obj.set("status", merge_value(cur_status, spv, ""));\n                rig_note_status(m.kind, m.ns, m.name, spv);\n              }\n            } else {\n              // merge-patch on metadata + spec with null deletion;\n              // top-level key replace within each section\n              // (mockserver.patch_meta)\n              for (const char* section : {"metadata", "spec"}) {\n                const JVal* sec_patch =\n                    patch.is_obj() ? patch.find(section) : nullptr;\n                if (!sec_patch || sec_patch->type != JVal::OBJ ||\n                    sec_patch->obj.empty())\n                  continue;\n                JVal& sec = obj.get_or_insert_obj(section);\n                for (const auto& kv : sec_patch->obj) {\n                  if (kv.second.type == JVal::NUL) sec.erase(kv.first);\n                  else sec.set(kv.first, kv.second);\n                }\n              }\n            }\n            if (!bad_merge.empty()) {\n              code = 500;\n              body = no_merge_key_status(bad_merge);\n            } else {\n              EntryPtr prev = it->second;\n              std::lock_guard<std::mutex> lk(store.mu);\n              EntryPtr e = store.commit_locked(\n                  m.kind, "MODIFIED", std::move(obj), key, std::move(prev),\n                  pt.on ? &pt.us[PH_FANOUT] : nullptr, sh.get());\n              it->second = e;\n              body = e->bytes;\n              committed = true;\n            }\n          }\n'),
+        ('    JVal obj = it->second->obj;  // copy-on-write\n    if (m.status) {\n      const JVal* sp = body.is_obj() ? body.find("status") : nullptr;\n      const JVal& spv = sp ? *sp : body;\n      JVal cur_status;\n      cur_status.type = JVal::OBJ;\n      if (const JVal* cs = obj.find("status"))\n        if (cs->type == JVal::OBJ) cur_status = *cs;\n      obj.set("status", merge_value(cur_status, spv, ""));\n    } else {\n      for (const char* section : {"metadata", "spec"}) {\n        const JVal* sec_patch =\n            body.is_obj() ? body.find(section) : nullptr;\n        if (!sec_patch || sec_patch->type != JVal::OBJ ||\n            sec_patch->obj.empty())\n          continue;\n        JVal& sec = obj.get_or_insert_obj(section);\n        for (const auto& kv : sec_patch->obj) {\n          if (kv.second.type == JVal::NUL) sec.erase(kv.first);\n          else sec.set(kv.first, kv.second);\n        }\n      }\n    }\n    EntryPtr prev = it->second;\n    EntryPtr e = store.commit_locked(m.kind, "MODIFIED", std::move(obj),\n                                     key, std::move(prev), fan, &sh);\n    it->second = e;\n    *code = 200;\n    *resp = e->bytes;\n    return true;\n  }\n',
+         '    JVal obj = it->second->obj;  // copy-on-write\n    if (m.status) {\n      const JVal* sp = body.is_obj() ? body.find("status") : nullptr;\n      const JVal& spv = sp ? *sp : body;\n      JVal cur_status;\n      cur_status.type = JVal::OBJ;\n      if (const JVal* cs = obj.find("status"))\n        if (cs->type == JVal::OBJ) cur_status = *cs;\n      std::string bad = no_merge_key(cur_status, spv, "");\n      if (!bad.empty()) {\n        *code = 500;\n        *resp = no_merge_key_status(bad);\n        return false;\n      }\n      obj.set("status", merge_value(cur_status, spv, ""));\n      rig_note_status(m.kind, m.ns, m.name, spv);\n    } else {\n      for (const char* section : {"metadata", "spec"}) {\n        const JVal* sec_patch =\n            body.is_obj() ? body.find(section) : nullptr;\n        if (!sec_patch || sec_patch->type != JVal::OBJ ||\n            sec_patch->obj.empty())\n          continue;\n        JVal& sec = obj.get_or_insert_obj(section);\n        for (const auto& kv : sec_patch->obj) {\n          if (kv.second.type == JVal::NUL) sec.erase(kv.first);\n          else sec.set(kv.first, kv.second);\n        }\n      }\n    }\n    EntryPtr prev = it->second;\n    EntryPtr e = store.commit_locked(m.kind, "MODIFIED", std::move(obj),\n                                     key, std::move(prev), fan, &sh);\n    it->second = e;\n    *code = 200;\n    *resp = e->bytes;\n    return true;\n  }\n'),
     ],
     "ingest.cc": [
         # an unterminated string (a watch line cut mid-string) left its
@@ -166,9 +177,11 @@ uint64_t fp_value(Cursor& c);"""),
 
 # the port's additions to its copies: each (reference text, port text).
 # The drift rig's routes of the native mock (--rig-routes, off by
-# default; drift_rig.py and chip_smoke.py's drift phase): a window the
-# rig can set, the flag, the dispatch, and the routes themselves, the
-# block between the two marker lines of apiserver.cc
+# default; drift_rig.py and chip_smoke.py's drift and ha phases): a
+# window the rig can set, the flag, the dispatch, the notes behind GET
+# /rig/writes and the connection-thread census behind GET /rig/threads,
+# and the routes themselves, the block between the two marker lines of
+# apiserver.cc
 RIG_BEGIN, RIG_END = "// >>> the port's drift rig routes\n", "// <<< the port's drift rig routes\n"
 
 
@@ -196,7 +209,35 @@ PORT_ADDITIONS = {
 static int rv_window() { return rv_window_cell().load(std::memory_order_relaxed); }
 
 // --rig-routes: serve the drift rig's /rig/ routes (rig_route below)
-static bool g_rig_routes = false;"""),
+static bool g_rig_routes = false;
+// under --rig-routes, GET /rig/writes: the status patches that set each
+// pod's phase to Running (a pod patched Running twice shows a double
+// fire) and the mutating requests the lease fence answered 409
+static std::mutex g_rig_writes_mu;  // leaf: guards g_rig_running
+static std::map<std::string, long> g_rig_running;  // "ns/name" -> patches
+static std::atomic<long> g_rig_fenced{0};
+static void rig_note_status(int kind, const std::string& ns,
+                            const std::string& name, const JVal& status) {
+  if (!g_rig_routes || kind != 1 || field_str(status, "phase") != "Running")
+    return;
+  std::lock_guard<std::mutex> lk(g_rig_writes_mu);
+  g_rig_running[ns + "/" + name]++;
+}"""),
+        # the rig's note of fenced writes (the Running status patches are
+        # noted inside the merge-key repair's blocks, in PORT_REPAIRS)
+        ("""  auto fencing_409 = [&]() {
+""", """  auto fencing_409 = [&]() {
+    g_rig_fenced.fetch_add(1);
+"""),
+        # the census's slot of each connection thread (GET /rig/threads)
+        ("""void App::handle_conn(int fd) {
+  int one = 1;""", """void App::handle_conn(int fd) {
+  CensusSlot census;  // GET /rig/threads (--rig-routes only)
+  int one = 1;"""),
+        ("""  while (!stopping.load() && read_request(io, req)) {
+""", """  while (!stopping.load() && census.idle() && read_request(io, req)) {
+    census.busy(req);
+"""),
         ("""    return respond(200,
                    "{\\"compactedRevision\\":" + std::to_string(crv) + "}");
   }
