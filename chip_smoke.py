@@ -18,6 +18,16 @@ result line then):
    bit-exact. Chaos rules: fire_at to rtol 1e-6, rows that differ in any
    field at most 1e-5 of the rows. Kernel, plain and wire D2H times are
    taken with CUDA events.
+2b. Graft: the port's twin of __graft_entry__.entry()
+   (kwok_tpu_torch.graft): 65,536 pod rows seeded as the reference seeds
+   them, chaos rules (mean 5 s), K=1. Its main path, three dispatches of
+   its step, runs with the launch count zeroed just before and read just
+   after (it must read 3); each dispatch is then held against the plain
+   version from a copy of its starting state (fire_at rtol 1e-6, at most
+   1e-5 of the rows differing). With the card kept busy by a device-side
+   sleep, pack_wire must return before the stream drains (no host sync
+   on the dispatch path). Kernel and plain times by CUDA events, beside
+   the byte bound; the launches join the kernels line.
 3. Engine: the port's threaded single-lane ClusterEngine (the normal
    start() path, device="cuda") against the port's in-memory FakeKube
    holding 10,000 nodes and 25,000 pods bound round-robin: every node
@@ -109,8 +119,9 @@ result line then):
    kwok_tpu_torch.edge.mockserver --port 0; its /debug/flight must
    name the server "mock"),
    the apiserver of every HTTP phase before the native one: the numbers
-   that compare with earlier runs. The same checks, at PY_MOCK_PODS =
-   5,000 pods (cut from 25,000 to keep the script inside its time).
+   that compare with earlier runs. The same checks, at PY_MOCK_NODES =
+   2,500 nodes and PY_MOCK_PODS = 2,500 pods (cut from 10,000 nodes and
+   25,000 pods, then 5,000 pods, to keep the script inside its time).
    In every HTTP phase, once /readyz is 200, each mock's GET
    /debug/watchers must pass check_watchers and, outside the fault
    phases, hold the engine's two watches.
@@ -253,11 +264,11 @@ result line then):
    every pod was Running. (b) Process lanes over HTTP: kwok's entry point
    (cli.main) in a process of its own with --lane-procs true
    --drain-shards 2 --audit-interval 1.0 against an in-process Python
-   mock, 1,000 nodes and 2,500 pods (cut from 2,000 and 5,000 to keep the
-   script inside its time), then 4 stale rows, 4 ghosts and 4
+   mock, 500 nodes and 1,250 pods (cut from 2,000 and 5,000, then 1,000
+   and 2,500, to keep the script inside its time), then 4 stale rows, 4 ghosts and 4
    missed events seeded: the parent's /metrics must show the lanes'
    kwok_drift_detected_total summed, at least 4 for each, the stale and
-   missed pods Running and kwok_pods_managed back at 2,500 within 60 s,
+   missed pods Running and kwok_pods_managed back at 1,250 within 60 s,
    /readyz 200 at the end, the process exiting 0 with lane kernel
    launches > 0. A part that fails fails the run.
 
@@ -410,19 +421,21 @@ DRIFT_SEEDS = {  # pod index -> the divergence seeded there
 DRIFT_CYCLE = -(-DRIFT_PODS // (256 * 4))
 DRIFT_REPAIR_S = (DRIFT_CYCLE + 1) * DRIFT_AUDIT_S + 3.0
 DRIFT_GHOST_REPAIR_S = (2 * DRIFT_CYCLE + 1) * DRIFT_AUDIT_S + 3.0
-# part (b), cut from 2,000 nodes and 5,000 pods (after cli_python_mock)
-# to keep the script inside 900 s with part (a) at full width
-DRIFT_PROCS_NODES = 1_000
-DRIFT_PROCS_PODS = 2_500
+# part (b), cut from 2,000 nodes and 5,000 pods, then 1,000 and 2,500
+# (each after cli_python_mock), to keep the script inside its time with
+# part (a) at full width
+DRIFT_PROCS_NODES = 500
+DRIFT_PROCS_PODS = 1_250
 DRIFT_PROCS_SEEDS = {
-    **{i: "stale-row" for i in (10, 700, 1_250, 2_400)},
-    **{i: "ghost-row" for i in (20, 710, 1_260, 2_410)},
-    **{i: "missed-event" for i in (30, 720, 1_280, 2_430)},
+    **{i: "stale-row" for i in (10, 350, 625, 1_200)},
+    **{i: "ghost-row" for i in (20, 355, 630, 1_205)},
+    **{i: "missed-event" for i in (30, 360, 640, 1_215)},
 }
 DRIFT_PROCS_REPAIR_S = 60.0
-# the cli_python_mock phase's pods, cut from 25,000 to keep the script
-# inside its time
-PY_MOCK_PODS = 5_000
+# the cli_python_mock phase's nodes and pods, cut from 10,000 and 25,000
+# (pods to 5,000, then both to 2,500) to keep the script inside its time
+PY_MOCK_NODES = 2_500
+PY_MOCK_PODS = 2_500
 # the ha phase (ROADMAP item 12): a warm-standby pair through main at the
 # CLI phase's width, its lease held 2 s (--lease-duration)
 HA_NODES = 10_000
@@ -575,6 +588,106 @@ def kernel_phase(torch, np):
                 f"plain {plain_ms:.3f} ms, wire D2H {wire_ms:.4f} ms, "
                 f"bound {max(t_bytes, t_ops):.4f} ms")
     return configs, max_abs_err
+
+
+def graft_phase(torch, np):
+    """The graft twin (kwok_tpu_torch.graft.entry, the flagship step of
+    __graft_entry__.entry): its main path is three dispatches of its step
+    on the card from the seeded 65,536-row state, with the launch count
+    zeroed just before and read just after; each dispatch is then held
+    against the plain version on a copy of the state it started from
+    (fire_at rtol 1e-6, at most 1e-5 of the rows differing in any field
+    or mask). Then, with the card kept busy by a device-side sleep, the
+    dispatch's wire (pack_wire) must be enqueued while the stream is
+    still running: no host sync on the dispatch path. Kernel and plain
+    times are CUDA events around the launch."""
+    from kwok_tpu_torch import graft
+    from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.ops.state import TickOutputs
+    from kwok_tpu_torch.ops.tick import pack_wire
+
+    step, (state, now0, seed) = graft.entry()
+    nows = (now0, 1.0, 6.0)
+    starts = []
+    cuda_tick.tick_steps.launches = 0
+    outs = []
+    for n, now in enumerate(nows):
+        starts.append(clone(state))
+        outs.append(step(state, now, seed + n))
+        outs[-1] = (clone(state),) + tuple(outs[-1])
+    launches = cuda_tick.tick_steps.launches
+    if launches != len(nows):
+        raise AssertionError(f"graft: {launches} launches for {len(nows)} dispatches")
+    fields = ("phase", "cond_bits", "pending_rule", "hb_due", "gen")
+    max_abs_err = 0.0
+    rows = graft.ROWS
+    for n, (now, st0, (kst, kd, kx, kh, kc)) in enumerate(zip(nows, starts, outs)):
+        pst = clone(st0)
+        pd, px, ph, pc = cuda_tick.tick_steps_plain(pst, step.spec, now, seed + n, 1, 0.0)
+        kf, pf = kst.fire_at, pst.fire_at
+        if not torch.equal(torch.isinf(kf), torch.isinf(pf)):
+            raise AssertionError(f"graft dispatch {n}: +inf fire_at positions differ")
+        fin = ~torch.isinf(kf)
+        if bool(fin.any()):
+            diff = (kf[fin] - pf[fin]).abs()
+            max_abs_err = max(max_abs_err, float(diff.max()))
+            rel = float((diff / pf[fin].abs().clamp(min=1e-30)).max())
+            if rel > 1e-6:
+                raise AssertionError(f"graft dispatch {n}: fire_at rel err {rel}")
+        differ = torch.zeros_like(kd)
+        for f in fields:
+            differ |= getattr(kst, f) != getattr(pst, f)
+        for km, pm in ((kd, pd), (kx, px), (kh, ph)):
+            differ |= km != pm
+        nd, limit = int(differ.sum()), int(1e-5 * rows)
+        if nd > limit or int((kc - pc).abs().max()) > limit:
+            raise AssertionError(f"graft dispatch {n}: {nd} rows differ (limit {limit})")
+    # no host sync on the dispatch path: with the stream busy for ~0.1 s,
+    # pack_wire must return before the stream drains
+    kst, kd, kx, kh, kc = outs[-1]
+    wire_outs = [TickOutputs(kst, kd, kx, kh, kc[0], kc[1])]
+    pack_wire(wire_outs)  # its kernels loaded before the timed call
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t = time.perf_counter()
+    pack_wire(wire_outs)
+    pack_host_ms = (time.perf_counter() - t) * 1e3
+    busy_after = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    if not busy_after:
+        raise AssertionError(f"graft: pack_wire waited for the card ({pack_host_ms:.3f} ms)")
+    # CUDA events around one launch from the seeded state, and the plain
+    # version on the same inputs
+    times = {"kernel": [], "plain": []}
+    fresh = graft.seeded_pod_state(rows, DEVICE)
+    for path in ("kernel", "plain", "kernel", "plain"):
+        fn = cuda_tick.tick_steps if path == "kernel" else cuda_tick.tick_steps_plain
+        for rep in range(20 if path == "kernel" else 3):
+            st = clone(fresh)
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            e0.record()
+            fn(st, step.spec, 0.0, seed, 1, 0.0)
+            e1.record()
+            torch.cuda.synchronize()
+            times[path].append(e0.elapsed_time(e1))
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    t_bytes = rows * ROW_BYTES / HBM_BYTES_PER_S * 1e3
+    ops = tick_ops(step.spec, rows, 1)
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    cfg = {
+        "rules": "graft chaos (mean 5 s)", "substeps": 1, "rows": rows,
+        "ms": med(times["kernel"]), "plain_ms": med(times["plain"]),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": rows * ROW_BYTES, "ops": ops, "launches": launches,
+        "max_abs_err": max_abs_err, "pack_wire_host_ms_while_busy": pack_host_ms,
+    }
+    log(f"graft: checked; kernel {cfg['ms']:.4f} ms, plain {cfg['plain_ms']:.3f} ms, "
+        f"bound {cfg['bound_ms']:.5f} ms, pack_wire {pack_host_ms:.3f} ms on the host "
+        "while the card was busy")
+    return cfg
 
 
 def time_dispatch(torch, node_spec, pod_spec, steps, states, now, reps: int = 20):
@@ -3552,13 +3665,12 @@ def main() -> int:
 
     from kwok_tpu_torch.ops import cuda_tick
 
-    from kwok_tpu_torch import native
-
-    global APISERVER
+    from kwok_tpu_torch import graft, native
 
     print(card_line(), flush=True)
     # g++ (the native library, the native mock apiserver) and nvcc (the
-    # tick kernel), all at once
+    # tick kernel), all at once; the phases before the first HTTP one
+    # need no apiserver, so its build is joined only there
     t0 = time.perf_counter()
     native_build: dict = {}
 
@@ -3573,29 +3685,44 @@ def main() -> int:
         b.start()
     cuda_tick.tick_steps.library()
     build_s = time.perf_counter() - t0
-    for b in builders:
-        b.join()
+    builders[0].join()
     print(f"build: nvcc {cuda_tick.NVCC_FLAGS[1]} tick.cu in {build_s:.2f} s", flush=True)
     log(cuda_tick.tick_steps.build_log)
     if native_build.get("lib") is None:
         raise AssertionError("the native library did not build (see the WARNING above)")
     print(f"build: g++ {' '.join(native.CXX_FLAGS)} native library in {native_build['lib_s']:.2f} s",
           flush=True)
-    # no fallback to the Python mock: a phase that should measure kwok
-    # against the native server must not quietly run another one
-    APISERVER = native_build.get("apiserver")
-    if APISERVER is None:
-        log(native.apiserver_build_log)
-        raise AssertionError("the native mock apiserver did not build (see the WARNING above)")
-    print(f"build: g++ {' '.join(native.APISERVER_FLAGS)} native apiserver in "
-          f"{native_build['apiserver_s']:.2f} s", flush=True)
 
+    def apiserver_built() -> None:
+        """Join the apiserver's build; no fallback to the Python mock: a
+        phase that should measure kwok against the native server must not
+        quietly run another one."""
+        global APISERVER
+        builders[1].join()
+        APISERVER = native_build.get("apiserver")
+        if APISERVER is None:
+            log(native.apiserver_build_log)
+            raise AssertionError("the native mock apiserver did not build (see the WARNING above)")
+        print(f"build: g++ {' '.join(native.APISERVER_FLAGS)} native apiserver in "
+              f"{native_build['apiserver_s']:.2f} s", flush=True)
+
+    phase_s: dict = {"build": time.perf_counter() - t0}
+    t = time.monotonic()
     configs, max_abs_err = kernel_phase(torch, np)
+    phase_s["kernel"] = time.monotonic() - t
+    t = time.monotonic()
+    graft_cfg = graft_phase(torch, np)
+    phase_s["graft"] = time.monotonic() - t
+    configs.append(graft_cfg)
+    max_abs_err = max(max_abs_err, graft_cfg["max_abs_err"])
     for c in configs:
         print(json.dumps({"kernel_config": c}), flush=True)
+    print(f"graft ({graft.ROWS} pod rows, chaos rules, K=1): kernel {graft_cfg['ms']:.4f} ms, "
+          f"bound {graft_cfg['bound_ms']:.5f} ms ({graft_cfg['bound_by']}), plain "
+          f"{graft_cfg['plain_ms']:.3f} ms, {graft_cfg['launches']} launches, pack_wire "
+          f"{graft_cfg['pack_wire_host_ms_while_busy']:.3f} ms on the host while the card "
+          f"was busy ({card_line()})", flush=True)
     from kwok_tpu_torch.config.types import resolve_drain_shards
-
-    phase_s: dict = {}
 
     def timed(name: str, fn, *args, **sizes):
         """Run one phase (under ``sized(**sizes)`` when sizes are given),
@@ -3615,9 +3742,13 @@ def main() -> int:
     print(f"lanes: {n_lanes} (cpu_count {os.cpu_count()})", flush=True)
     lanes_run = timed("lanes_engine", engine_phase, n_lanes)
     restart = timed("restart", restart_phase)
+    t = time.monotonic()
+    apiserver_built()
+    phase_s["apiserver_wait"] = time.monotonic() - t
     cli_run = timed("cli", cli_phase)
     traced = timed("trace", trace_phase, cli_run, CLI_PODS=TRACE_PODS)
-    py_mock = timed("cli_python_mock", lambda: cli_phase(mock="python"), CLI_PODS=PY_MOCK_PODS)
+    py_mock = timed("cli_python_mock", lambda: cli_phase(mock="python"),
+                    CLI_NODES=PY_MOCK_NODES, CLI_PODS=PY_MOCK_PODS)
     ab_off = timed("ingest_ab_off", lambda: cli_phase(native_off=True))
     watch = timed("watch", watch_phase, cli_run)
     procs = timed("procs", procs_phase, cli_run)
@@ -3772,7 +3903,8 @@ def main() -> int:
         "route": "cuda",
         "source": "kwok_tpu_torch/csrc/tick.cu",
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
-        "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
+        "launches": (graft_cfg["launches"]
+                     + engine["kernel_launches"] + lanes_run["kernel_launches"]
                      + restart["kernel_launches"] + cli_run["kernel_launches"]
                      + traced["kernel_launches"]
                      + py_mock["kernel_launches"] + ab_off["kernel_launches"]
@@ -3789,6 +3921,7 @@ def main() -> int:
         "wire_d2h_ms": main_cfg["wire_d2h_ms"],
         "shape": f"{POD_ROWS} pod + {NODE_ROWS} node rows, default rules, K=1",
         "launches_by_phase": {
+            "graft": graft_cfg["launches"],
             "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
             "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
             "trace": traced["kernel_launches"],
@@ -3810,6 +3943,10 @@ def main() -> int:
         "lane_process_bound_ms": procs["bound_ms_at_capacities"],
         "lane_process_ms": procs["kernel_ms_at_capacities"],
         "lane_process_plain_ms": procs["plain_ms_at_capacities"],
+        "graft_rows": graft_cfg["rows"],
+        "graft_ms": graft_cfg["ms"],
+        "graft_plain_ms": graft_cfg["plain_ms"],
+        "graft_bound_ms": graft_cfg["bound_ms"],
         "federation_groups": [
             {k: g[k] for k in ("members", "capacities", "dispatches", "kernel_ms_at_capacities",
                                "plain_ms_at_capacities", "bound_ms_at_capacities")}

@@ -446,6 +446,7 @@ class _PumpGroup:
         self._next += 1
         p, lock = self._pumps[self._next % n]
         with lock:
+            # kwoklint: disable=blocking-under-lock -- the batches must ride ONE connection group back to back (a finalizer strip answered before its delete goes out); this leaf lock is that ordering, and nothing is acquired under it
             return [p.send(reqs) for reqs in batches]
 
     def close(self) -> None:
@@ -1002,8 +1003,8 @@ class ClusterEngine:
         self._executor = ThreadPoolExecutor(
             max_workers=self.config.parallelism, thread_name_prefix="kwok-patch"
         )
-        # armed before any worker exists; afterwards only the device
-        # thread finishes it (_mark_resync takes _ckpt_lock)
+        # _mark_resync takes _ckpt_lock
+        # kwoklint: lockfree=_startup_pending,_startup_lanes,_startup_flush_wait,_restore,ready -- armed here on the caller's thread before any worker of this engine starts (the watches, kwok-tick and the lanes' workers are spawned below; a federation spawns kwok-fed-tick only after its members' start()); afterwards only the one device-owning loop (kwok-tick, or kwok-fed-tick for a member) finishes the gate, _restore swaps elsewhere take _ckpt_lock, and stop() repeats its ready/_startup_pending stores once that loop is joined
         self._startup_pending = {"nodes", "pods"}
         self._startup_lanes = {}
         self._startup_flush_wait = False
@@ -1457,6 +1458,10 @@ class ClusterEngine:
                 60 if t.name == "kwok-tick"
                 else 30 if t.name.startswith("kwok-emit") else 5
             ))
+        # again, now that the device loop is joined: a startup gate it
+        # finished between the stores above and its exit set ready back
+        self.ready = False
+        self._startup_pending = None
         if self._executor is not None:
             self._executor.shutdown(wait=True)
         if self._ha is not None:
@@ -2648,6 +2653,7 @@ class ClusterEngine:
                        "fp_expect", "expect_phase"):
             m.pop(fp_key, None)
         if self._trace_every:
+            # kwoklint: lockfree=_trace_n -- sampling cadence only: a lost racy increment shifts which event is traced (flush_cols, _pod_upsert and _pod_upsert_record_apply read it modulo _trace_every), never what is patched, and the ingest path must not take a lock for it
             self._trace_n += 1
             if self._trace_n % self._trace_every == 0:
                 # sampled end-to-end trace: the patch ack closes the span
@@ -3140,6 +3146,7 @@ class ClusterEngine:
         ck = self._ckpt
         if ck is None:
             return
+        # kwoklint: lockfree=_ckpt_dirty -- only the one device-owning loop calls _ckpt_due: an engine's own kwok-tick, or for a federation member (started with run_tick_loop=False, so it has no kwok-tick) the federation's kwok-fed-tick; the two never serve one engine
         self._ckpt_dirty = self._ckpt_dirty or dispatched
         if self._ckpt_dirty and ck.due():
             self._ckpt_dirty = False
@@ -3425,6 +3432,7 @@ class ClusterEngine:
         exactly the frames that reach the plane. Under HA every request
         carries the fencing claim, and the fence's wrap goes between the
         two: a write the fence drops never reaches the fault plane."""
+        # kwoklint: lockfree=_pump,_pump_tried,_pump_base,_pump_base_b -- built once per engine before any contending worker: LaneSet.prepare primes each lane engine and FederatedEngine.start each member before their workers spawn, and a single-lane engine's only caller is its own kwok-tick; stop() clears _pump after it has joined the workers and shut the executor down
         if self._pump_tried:
             return self._pump
         self._pump_tried = True
@@ -3447,6 +3455,7 @@ class ClusterEngine:
             extra += self._ha.fence_header_line()
         try:
             pumps = [
+                # kwoklint: disable=blocking-under-lock -- memoized via _pump_tried: the lane emit workers (the only callers under a lock, stage_lock in ShardLane._process_emit) run on lane engines that LaneSet.prepare primed before any worker started; every other caller holds no lock
                 self._codec.Pump(host, int(port), nconn=self._pump_nconn,
                                  header_extra=extra)
                 for _ in range(self._pump_groups)

@@ -634,6 +634,7 @@ class WatchReader:
     def __del__(self):
         try:
             self.close()
+        # kwoklint: disable=silent-except -- __del__ can run at interpreter shutdown, where logging and imports are unsafe; close() only calls kwok_watch_close on the stream's handle and closes its owner, and a failed close leaks a dying fd
         except Exception:  # interpreter shutdown: the fd dies with us
             pass
 
@@ -889,6 +890,7 @@ class Pump:
     def __del__(self):
         try:
             self.close()
+        # kwoklint: disable=silent-except -- __del__ can run at interpreter shutdown, where logging and imports are unsafe; close() only calls kwok_pump_close on the handle, and a failed close leaks fds that die with the process
         except Exception:  # interpreter shutdown: the fds die with us
             pass
 

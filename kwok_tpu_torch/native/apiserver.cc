@@ -2524,7 +2524,7 @@ void App::persist() {
 // thread takes no slot and notes nothing.
 struct CensusSlot {
   long tid = 0;
-  std::mutex mu;  // leaf: guards method, path, t0_ns
+  std::mutex slot_mu;  // leaf: guards method, path, t0_ns
   std::string method, path;
   uint64_t t0_ns = 0;  // 0: between requests
   bool on = false;
@@ -2533,14 +2533,14 @@ struct CensusSlot {
   ~CensusSlot();
   bool idle() {
     if (on) {
-      std::lock_guard<std::mutex> lk(mu);
+      std::lock_guard<std::mutex> lk(slot_mu);
       t0_ns = 0;
     }
     return true;
   }
   void busy(const Request& req) {
     if (!on) return;
-    std::lock_guard<std::mutex> lk(mu);
+    std::lock_guard<std::mutex> lk(slot_mu);
     method = req.method;
     path = req.query.empty() ? req.path : req.path + "?" + req.query;
     t0_ns = now_ns();
@@ -2618,7 +2618,7 @@ static std::string census_json(Store& store) {
     std::string method, path;
     uint64_t t0;
     {
-      std::lock_guard<std::mutex> cl(c->mu);
+      std::lock_guard<std::mutex> cl(c->slot_mu);
       method = c->method;
       path = c->path;
       t0 = c->t0_ns;

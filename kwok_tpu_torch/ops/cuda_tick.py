@@ -446,9 +446,11 @@ class TickSteps:
         self.check(state)
         dev = state.device
         if dev.type == "cpu":
+            # kwoklint: disable=kernel-purity -- CPU tensors only: the plain version's host scalars and small tables are copies within host memory, and a CUDA tensor never reaches this call
             return tick_steps_plain(state, spec, now0, seed, steps, dt)
         if dev.type != "cuda":
             raise ValueError(f"tick kernel runs on cuda tensors, got {dev}")
+        # kwoklint: disable=kernel-purity -- the build and load run once per process, under _lock: ClusterEngine._warm_tick, LaneSet._warm_tick and FederatedEngine._warm_ticks load the library before any worker starts, and ProcLaneSet.prepare builds it, so at most a process-lane coordinator's first dispatch loads it (a dlopen); later dispatches read the loaded library back
         lib = self.library()
         cap = state.capacity
         with torch.cuda.device(dev):

@@ -41,8 +41,6 @@ INF = float("inf")
 # the host clock) before `now` crosses this.
 REBASE_AFTER = 131072.0
 
-_MSB_FIRST = (128, 64, 32, 16, 8, 4, 2, 1)
-
 
 def rebase_times(state: RowState, shift: float) -> RowState:
     """Shift the engine-time fields down by ``shift`` seconds, in place
@@ -58,7 +56,10 @@ def next_due(state: RowState) -> torch.Tensor:
     across active rows, as a 0-d float32 tensor; +inf when nothing is
     scheduled. The host tick loop sleeps until then."""
     dev = state.device
-    inf = torch.tensor(INF, dtype=torch.float32, device=dev)
+    # a fill, not torch.tensor(INF, device=...): a host value copied onto
+    # the card is followed by a stream sync, which would make every
+    # dispatch wait for its own kernels here
+    inf = torch.full((), INF, dtype=torch.float32, device=dev)
     if state.capacity == 0:
         return inf
     armed = state.active & (state.pending_rule >= 0)
@@ -74,7 +75,10 @@ def packbits(bits: torch.Tensor) -> torch.Tensor:
     nbytes = (n + 7) // 8
     b = torch.zeros(nbytes * 8, dtype=torch.uint8, device=bits.device)
     b[:n] = bits.to(torch.uint8)
-    w = torch.tensor(_MSB_FIRST, dtype=torch.uint8, device=bits.device)
+    # bit j of a byte is worth 2**(7-j); the weights come from arange on
+    # the device, as a host table would be copied and synced each call
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
+    w = torch.bitwise_left_shift(torch.ones_like(shifts), shifts)
     return (b.view(nbytes, 8) * w).sum(dim=1, dtype=torch.int32).to(torch.uint8)
 
 

@@ -11,7 +11,10 @@ card tensors: every state field, mask and counter bit-exact for constant,
 uniform and weighted delays; exponential delays go through ``logf``, so
 their ``fire_at`` is held to rtol 1e-6 and the rows that differ in any
 field to 1e-3 of the capacity. Capacities include ragged ones (not a
-multiple of the 256-thread block) to exercise the masked tail.
+multiple of the 256-thread block) to exercise the masked tail. The graft
+twin (``kwok_tpu_torch.graft``) launches the kernel at its full 65,536
+rows, and a dispatch's wire (``pack_wire``) is enqueued without waiting
+for the stream, where a host constant copied to the card would wait.
 """
 
 from __future__ import annotations
@@ -136,6 +139,65 @@ def test_fused_wire_on_card_matches_cpu(card):
         _, cw = on_cpu(cs, now)
         np.testing.assert_array_equal(np.asarray(gw), np.asarray(cw))
         assert gw.is_ready()
+
+
+def test_graft_twin_launches_the_kernel_at_full_width(card):
+    """kwok_tpu_torch.graft.entry() on the card: 65,536 pod rows on the
+    chaos rules, three dispatches of its step, each a launch of tick.cu,
+    held against the plain version on a copy of its starting state."""
+    from kwok_tpu_torch import graft
+
+    step, (state, now0, seed) = graft.entry()
+    assert state.capacity == 65_536 and state.device.type == "cuda"
+    for n, now in enumerate((now0, 1.0, 6.0)):
+        start = ts.RowState(*(t.clone() for t in state))
+        before = cuda_tick.tick_steps.launches
+        kd, kx, kh, kc = step(state, now, seed + n)
+        assert cuda_tick.tick_steps.launches == before + 1
+        pd, px, ph, pc = cuda_tick.tick_steps_plain(start, step.spec, now, seed + n, 1, 0.0)
+        torch.cuda.synchronize()
+        k, p = ts.to_numpy(state), ts.to_numpy(start)
+        np.testing.assert_allclose(k.fire_at, p.fire_at, rtol=1e-6)
+        differ = np.zeros(state.capacity, bool)
+        for f in ("phase", "cond_bits", "pending_rule", "hb_due", "gen"):
+            differ |= getattr(k, f) != getattr(p, f)
+        for a, b in ((kd, pd), (kx, px), (kh, ph)):
+            differ |= (a != b).cpu().numpy()
+        assert differ.sum() <= 1e-5 * state.capacity
+
+
+def _busy_for(seconds_hint: float) -> None:
+    """Queue a device-side sleep long enough that the stream is still
+    running when a non-blocking host call returns."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * seconds_hint))
+
+
+def test_host_constant_copied_to_the_card_waits_for_the_stream(card):
+    """The premise of the dispatch path's purity rule: torch.tensor of a
+    host value onto the card is a pageable copy that PyTorch follows with a
+    stream sync, so the host waits for the queued work."""
+    _busy_for(0.2)
+    torch.tensor(float("inf"), dtype=torch.float32, device=card)
+    assert torch.cuda.current_stream().query()
+
+
+def test_pack_wire_does_not_wait_for_the_stream(card):
+    """next_due and packbits build their constants on the card: a
+    dispatch's wire is enqueued while the stream is still running."""
+    from kwok_tpu_torch.ops.state import TickOutputs
+    from kwok_tpu_torch.ops.tick import next_due, pack_wire
+
+    spec = SPECS["chaos"]()
+    st = ts.from_numpy(population(70_000, 3), card)
+    d, x, h, c = cuda_tick.tick_steps(st, spec, 0.0, cuda_tick.SEED_BASE + 1, 1, 0.05)
+    outs = [TickOutputs(st, d, x, h, c[0], c[1])]
+    pack_wire(outs)  # kernels loaded before the check
+    _busy_for(0.2)
+    next_due(st)
+    pack_wire(outs)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
 
 
 def test_wrapper_rejects_mixed_devices(card):

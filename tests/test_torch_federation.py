@@ -487,9 +487,10 @@ def stacked_pod_deadlines(lib: str, fed) -> dict:
 @pytest.mark.parametrize("writer,reader", [("jax", "torch"), ("torch", "jax")])
 def test_member_checkpoint_restores_across_packages(writer, reader, tmp_path):
     """Members' pods under a constant 30 s Pending -> Running rule:
-    ``writer``'s federation checkpoints them into member<i>.ckpt.json and
-    stops; ``reader``'s federation on the same stores and directory
-    refines every pod's fire_at to within 0.5 s of its residue."""
+    once ``writer``'s federation has armed them it stops, writing them
+    into member<i>.ckpt.json; ``reader``'s federation on the same stores
+    and directory refines every pod's fire_at to within 0.5 s of its
+    residue."""
     servers = [FakeKube(), FakeKube()]
 
     def start(lib):
@@ -508,15 +509,29 @@ def test_member_checkpoint_restores_across_packages(writer, reader, tmp_path):
                 return False
         return True
 
+    def armed():
+        # every member's node and pods ingested and no staged row left:
+        # the dispatch that flushed a pod on its managed node armed it,
+        # and the final checkpoint at stop, taken after the last
+        # dispatch, holds it
+        return all(len(e.nodes.pool) == 1 and len(e.pods.pool) == 4
+                   and not e.nodes.buffer.pending and not e.pods.buffer.pending
+                   for e in fed.engines)
+
     fed = start(writer)
     try:
         for c, s in enumerate(servers):
             s.create("nodes", make_node(f"c{c}-n0"))
             for i in range(4):
                 s.create("pods", make_pod(f"c{c}-p{i}", node=f"c{c}-n0"))
-        assert wait_for(covered)
+        # a condition, not the periodic file: kwok_tpu's federation writes
+        # a checkpoint only when one is due as a dispatch is consumed, so
+        # when the arming dispatch lands inside the interval its idle loop
+        # sleeps until the pods' 30 s timers before the next one
+        assert wait_for(armed)
     finally:
         fed.stop()
+    assert covered()
     residues = {}
     for c in range(2):
         for key, v in jckpt.load(str(tmp_path), f"member{c}")["kinds"]["pods"].items():

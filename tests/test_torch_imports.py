@@ -62,6 +62,26 @@ def test_lane_and_resilience_modules_are_walked_and_import(rel):
     importlib.import_module(mod)
 
 
+TOOLING_MODULES = tuple(
+    f"analysis/{m}.py" for m in (
+        "__init__", "__main__", "core", "hygiene", "locks", "races", "spawnonly",
+        "shmproto", "metrics_doc", "purity", "cclint", "witness", "witness_shm",
+    )
+) + ("graft.py",)
+
+
+@pytest.mark.parametrize("rel", TOOLING_MODULES)
+def test_tooling_modules_are_walked_and_import(rel):
+    """The AST walk above covers the port's kwoklint and the graft twin,
+    and each imports without jax or kwok_tpu loaded for it."""
+    import importlib
+
+    path = ROOT / "kwok_tpu_torch" / rel
+    assert path in PORT_FILES
+    mod = "kwok_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(".__init__")
+    importlib.import_module(mod)
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in imported_modules(path) if forbidden(m)]
