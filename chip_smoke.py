@@ -218,13 +218,15 @@ result line then):
    0's capacities. A part that fails fails the run.
 
 11. Drift (ROADMAP item 13b, run after 10): the anti-entropy auditor.
-   (a) Threaded lanes at the CLI phase's width: the native mock under
+   (a) Threaded lanes at half the CLI phase's width (cut from 10,000
+   nodes and 25,000 pods when the mesh phase took the script past 850 s):
+   the native mock under
    --rig-routes (routes that change its store behind the engine's back,
    driven by drift_rig.py; its 16,384-event watch backlog cap on),
-   10,000 nodes, a ClusterEngine in this process on the card with auto
+   5,000 nodes, a ClusterEngine in this process on the card with auto
    lanes, audit_interval 1.0 and kwok_tpu's drift-soak
    storm DRIFT_SPEC (seed 42: garbled, truncated, duplicated and stale
-   watch lines and LIST bodies, a skewed clock, stream cuts). 25,000 pods
+   watch lines and LIST bodies, a skewed clock, stream cuts). 12,500 pods
    are created in two halves 1 s apart by the CLI phase's creator (a
    spawned process, 8 keep-alive connections); 2.5 s after the last, the
    storm closes (rates cleared, the watch cache compacted, every watch
@@ -246,9 +248,9 @@ result line then):
    4 for each reason; every seeded object must be repaired (Running on
    the server, the ghost row gone, the missed row present, the row
    revision the server's), the stale, missed and double-applied ones
-   within (25 + 1) x 1.0 s + 3 s = 29 s of the seeding (a scan cycle of
-   ceil(25,000 / (256 x 4)) windows and a pass), the ghosts within
-   (2 x 25 + 1) x 1.0 s + 3 s = 54 s (they become suspects only when the
+   within (13 + 1) x 1.0 s + 3 s = 17 s of the seeding (a scan cycle of
+   ceil(12,500 / (256 x 4)) windows and a pass), the ghosts within
+   (2 x 13 + 1) x 1.0 s + 3 s = 30 s (they become suspects only when the
    next cycle ends); not degraded 3 intervals later; the kernel
    bit-exact at the engine's capacities. Every 5 s the phase logs the
    pods Running, the queue depths, re-lists, rv rewinds, audit passes and
@@ -352,6 +354,27 @@ result line then):
    against the CLI phase's, and the mock's failed TLS handshakes (from
    its stop line; the refused probe is one).
 
+15. Mesh (ROADMAP item 9b, the row split, run after 8): torch.cuda.
+   device_count() and each of MESH_SHARDS = 4 shards' card (round-robin
+   over the visible cards: all four on one card of a one-card host) are
+   printed first. (a) The kernel phase's 1,048,576 pod + 10,240 node rows
+   split into the 4 shards, for the default and the chaos rules at K=1
+   and K=16: three dispatches each, every wire byte for byte against the
+   unsplit MultiTickKernel on the same inputs and then every state field
+   equal (any differing byte fails the run), 8 launches per split
+   dispatch; then ms per dispatch, split and unsplit (CUDA events, median
+   of 40 in turns), beside the byte bound. (b) ClusterEngine(use_mesh=
+   True) over the 4 shards in process, auto threaded lanes, the engine
+   phase's 10,000 nodes and 12,500 pods against FakeKube: every pod
+   Running with a distinct IP, the 500 graceful deletes gone, the stacked
+   states split, launches > 0 on every shard, the kernel bit-exact at the
+   split stacked capacities. (c) python -m kwok_tpu_torch.kwok
+   --use-mesh true through start_cli at 1,000 nodes and 2,500 pods (the
+   mesh: every visible card once): /readyz 503 then 200, every pod
+   Running, kwok_pump_requests_total > 0, the log names the mesh's
+   devices, launches > 0, the kernel bit-exact at its capacities. The
+   federation phase (8) runs over the mesh of every visible card too.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -436,8 +459,10 @@ CHAOS_PROCS_SPEC = "seed=5;shm.desc_garble=0.02;shm.desc_drop=0.02"
 # --rig-routes, whose routes make the silent changes (drift_rig.py drives
 # them). The Python mock, in process or in a process of its own, fell
 # behind the engine's patches at this width (PERF.md §6)
-DRIFT_NODES = 10_000
-DRIFT_PODS = 25_000
+# part (a) at half the CLI phase's width, cut from 10,000 nodes and
+# 25,000 pods when the mesh phase took the script past 850 s
+DRIFT_NODES = 5_000
+DRIFT_PODS = 12_500
 DRIFT_SPEC = ("seed=42;wire.garble=0.08;wire.truncate=0.02;wire.dup=0.10;"
               "wire.stale=0.10;clock.jump=0.5:0.3;watch.cut=0.005")
 DRIFT_AUDIT_S = 1.0  # --audit-interval
@@ -454,10 +479,10 @@ DRIFT_DEADLINE_S = 420.0  # from the engine's start until every pod is Running
 DRIFT_DRAIN_S = 180.0  # after every pod is Running, until every lane's queues are empty at once
 DRIFT_DEGRADED_WAIT_S = 120.0  # after that, until a drift streak the storm left has cleared
 DRIFT_SEEDS = {  # pod index -> the divergence seeded there
-    **{i: "stale-row" for i in (10, 500, 12_500, 24_900)},
-    **{i: "ghost-row" for i in (20, 510, 12_510, 24_910)},
-    **{i: "double-apply" for i in (30, 520, 12_520, 24_920)},
-    **{i: "missed-event" for i in (40, 530, 12_530, 24_940)},
+    **{i: "stale-row" for i in (10, 500, 6_250, 12_400)},
+    **{i: "ghost-row" for i in (20, 510, 6_260, 12_410)},
+    **{i: "double-apply" for i in (30, 520, 6_270, 12_420)},
+    **{i: "missed-event" for i in (40, 530, 6_280, 12_440)},
 }
 # the repair bounds in seconds: one scan cycle of ceil(pods / (256 x 4))
 # windows plus a pass, at one pass per DRIFT_AUDIT_S, and 3 s; a ghost
@@ -499,6 +524,13 @@ AB_OFF_PODS = 12_500  # the native A/B's off arm, cut from 25,000 likewise
 # the process-lanes, chaos and CNI phases' pods, cut from 25,000 likewise
 # (their fixed waits stay)
 HALF_PODS = 12_500
+# the mesh phase: 4 shards round-robin over the visible cards (all four
+# on one card of a one-card host); its entry-point leg at a tenth of the
+# CLI phase's width
+MESH_SHARDS = 4
+MESH_CLI_NODES = 1_000
+MESH_CLI_PODS = 2_500
+MESH_REPS = 20  # timed dispatches per turn (two turns each: median of 40)
 DEVICE = "cuda"
 # the native mock apiserver's binary (kwok_tpu_torch/native/apiserver.cc),
 # built once by main(); every HTTP phase but the cli_python_mock arm runs it
@@ -541,6 +573,14 @@ def make_states(np, seed: int):
     Observed or Ready with the heartbeat bit set."""
     from kwok_tpu_torch.ops import state as ts
 
+    nodes, pods = host_states(np, seed)
+    return ts.from_numpy(nodes, DEVICE), ts.from_numpy(pods, DEVICE)
+
+
+def host_states(np, seed: int):
+    """``make_states``' populations as numpy states, on the host."""
+    from kwok_tpu_torch.ops import state as ts
+
     rng = np.random.default_rng(seed)
     pods = ts.to_numpy(ts.new_row_state(POD_ROWS, "cpu"))
     pods.active[: POD_ROWS - 1000] = True
@@ -552,7 +592,7 @@ def make_states(np, seed: int):
     nodes.phase[:] = rng.choice([0, 1], NODE_ROWS)
     nodes.sel_bits[:] = 0b11
     nodes.hb_due[:] = (rng.random(NODE_ROWS) * 0.5).astype(np.float32)
-    return ts.from_numpy(nodes, DEVICE), ts.from_numpy(pods, DEVICE)
+    return nodes, pods
 
 
 def clone(state):
@@ -817,10 +857,15 @@ def engine_shape_check(torch, eng, rearm: bool = False, states=None, fire_after:
     from kwok_tpu_torch.ops.state import TickOutputs
     from kwok_tpu_torch.ops.tick import pack_wire
 
+    from kwok_tpu_torch.ops import state as ts
+
     torch.cuda.synchronize()
     fused = eng._get_fused()
     if states is None:
         states = engine_states(eng)
+    # a state split over a mesh is held whole: one card state per kind
+    states = tuple(ts.from_numpy(ts.to_numpy(s), DEVICE) if isinstance(s, ts.SplitState) else s
+                   for s in states)
     if rearm:
         states = (states[0], rearmed(states[1], eng._pod_phase_ids["Pending"]))
     now = eng._now()
@@ -852,18 +897,20 @@ def engine_shape_check(torch, eng, rearm: bool = False, states=None, fire_after:
     return caps, ms, plain_ms, wire_ms
 
 
-def engine_phase(drain_shards: int = 1):
+def engine_phase(drain_shards: int = 1, use_mesh: bool = False):
     from kwok_tpu_torch.edge.mockserver import FakeKube
     from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
     from kwok_tpu_torch.ops import cuda_tick
 
     server = FakeKube()
     cfg = EngineConfig(manage_all_nodes=True, cidr="10.0.0.1/16",
-                       drain_shards=drain_shards, device=DEVICE)
+                       drain_shards=drain_shards, use_mesh=use_mesh, device=DEVICE)
     eng = ClusterEngine(server, cfg)
     lanes = eng._lanes
     if (lanes.n if lanes is not None else 1) != drain_shards:
         raise AssertionError(f"asked for {drain_shards} lanes, got {lanes}")
+    if (eng._mesh is not None) != use_mesh:
+        raise AssertionError(f"use_mesh={use_mesh} but the engine's mesh is {eng._mesh}")
     r0 = lanes.r if lanes is not None else 0
     cuda_tick.tick_steps.launches = 0
     t0 = time.monotonic()
@@ -940,6 +987,16 @@ def engine_phase(drain_shards: int = 1):
                      "lane_pods": [len(ln.engine.pods.pool) for ln in lanes.lanes]}
     import torch
 
+    if use_mesh:
+        from kwok_tpu_torch.ops.state import SplitState
+
+        split = engine_states(eng)
+        if not all(isinstance(st, SplitState) and st.mesh is eng._mesh for st in split):
+            raise AssertionError("the engine's stacked states are not split over its mesh")
+        if not all(n > 0 for n in eng._mesh.launches):
+            raise AssertionError(f"a shard never launched: {eng._mesh.launches}")
+        lane_info["shards"] = [str(d) for d in eng._mesh.devices]
+        lane_info["shard_launches"] = list(eng._mesh.launches)
     caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng)
     log(f"kernel at the engine's capacities {caps} ({drain_shards} lanes): checked; kernel "
         f"{shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
@@ -2409,6 +2466,10 @@ def chaos_fed():
         fed = run["engine"]
         if not hasattr(fed, "groups") or len(fed.engines) != n:
             raise AssertionError(f"--master with {n} URLs did not run a federation of {n}")
+        from kwok_tpu_torch.parallel.mesh import local_devices
+
+        if fed.mesh.devices != tuple(local_devices(DEVICE)):
+            raise AssertionError(f"the federation's mesh {fed.mesh} is not every visible card")
         planes = [e._faults for e in fed.engines]
         if any(p is None for p in planes):
             raise AssertionError("a member built no fault plane")
@@ -3571,6 +3632,10 @@ def fed_phase(cli_run):
         fed = run["engine"]
         if not hasattr(fed, "groups") or len(fed.engines) != n:
             raise AssertionError(f"--master with {n} URLs did not run a federation of {n}")
+        from kwok_tpu_torch.parallel.mesh import local_devices
+
+        if fed.mesh.devices != tuple(local_devices(DEVICE)):
+            raise AssertionError(f"the federation's mesh {fed.mesh} is not every visible card")
         parts = [[fed.engines.index(e) for e in g.engines] for g in fed.groups]
         if sorted(parts) != [sorted(set(range(n)) - FED_MEMBER_CONFIG), sorted(FED_MEMBER_CONFIG)]:
             raise AssertionError(f"rule-set groups {parts}")
@@ -3683,6 +3748,7 @@ def fed_phase(cli_run):
         "watch_relists": summed(m, "kwok_watch_relists_total"),
         "members": n, "nodes": n * FED_NODES, "pods": total, "deleted": FED_DELETES,
         "connections_per_member": FED_CONNS, "groups": groups,
+        "mesh": [str(d) for d in fed.mesh.devices],
         "pod_capacities_start": caps_start,
         "create_to_running_pods_per_s": total / window,
         "pod_create_s": t_created - t_pods, "create_to_running_s": window,
@@ -3706,6 +3772,200 @@ def fed_phase(cli_run):
                                  - summed(m0, "kwok_tick_seconds_sum")) / n,
         "trace_labels": labels, "trace_span_names": sorted(trace_spans),
     }
+
+
+def mesh_devices(n: int) -> list:
+    """``n`` shards round-robin over the visible cards."""
+    from kwok_tpu_torch.parallel.mesh import local_devices
+
+    visible = local_devices(DEVICE)
+    return [visible[i % len(visible)] for i in range(n)]
+
+
+class shards_of:
+    """``parallel.mesh.local_devices`` names MESH_SHARDS shards round-robin
+    over the visible cards for one block, so an engine built inside it
+    with ``use_mesh`` splits its rows into that many shards (several on
+    one card of a host with fewer cards)."""
+
+    def __enter__(self):
+        from kwok_tpu_torch.parallel import mesh as mesh_mod
+
+        self.mod, self.real = mesh_mod, mesh_mod.local_devices
+        devs = mesh_devices(MESH_SHARDS)
+        mesh_mod.local_devices = lambda device="cuda": list(devs)
+        return devs
+
+    def __exit__(self, *exc) -> None:
+        self.mod.local_devices = self.real
+
+
+def time_fused(torch, kern, states, now: float, reps: int) -> list:
+    """CUDA-event ms of ``reps`` whole dispatches of ``kern`` (launches,
+    gathers, the wire and its D2H copy) at engine time ``now``; a
+    device-side sleep queued first keeps the card busy while the host
+    enqueues, so the events time the device work."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        e0.record()
+        kern(states, now)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def mesh_kernel_leg(torch, np) -> list:
+    """(a) The split dispatch against the unsplit one at the kernel
+    phase's shapes (each kind padded to a multiple of MESH_SHARDS), over
+    MESH_SHARDS shards round-robin on the visible cards: three dispatches
+    per rule set and K, each wire byte for byte and then every state
+    field equal; then ms per dispatch of both (CUDA events, median of
+    2 x MESH_REPS, in turns unsplit, split, split, unsplit)."""
+    from kwok_tpu_torch.models import compile_rules, default_node_rules, default_pod_rules
+    from kwok_tpu_torch.models.defaults import chaos_pod_rules
+    from kwok_tpu_torch.models.lifecycle import ResourceKind
+    from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.ops import state as ts
+    from kwok_tpu_torch.ops.tick import MultiTickKernel
+    from kwok_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
+
+    mesh = make_mesh(devices=mesh_devices(MESH_SHARDS))
+    ntab = compile_rules(default_node_rules(), ResourceKind.NODE)
+    pod_tabs = {"default": compile_rules(default_pod_rules(), ResourceKind.POD),
+                "chaos": compile_rules(chaos_pod_rules(5.0), ResourceKind.POD)}
+    caps = [pad_to_multiple(NODE_ROWS, mesh), pad_to_multiple(POD_ROWS, mesh)]
+    if caps != [NODE_ROWS, POD_ROWS]:
+        raise AssertionError(f"the kernel phase's rows {NODE_ROWS}, {POD_ROWS} do not split in "
+                             f"{MESH_SHARDS}")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    configs = []
+    for rname, ptab in pod_tabs.items():
+        for steps in SUBSTEPS:
+            specs = [(ntab, 30.0, (), 1), (ptab, 30.0, (), -1)]
+            one = MultiTickKernel(specs, steps=steps, dt=DT, device=DEVICE)
+            split = MultiTickKernel(specs, steps=steps, dt=DT, mesh=mesh)
+            hosts = host_states(np, seed=steps)
+            a = tuple(ts.from_numpy(h, DEVICE) for h in hosts)
+            b = tuple(split.place(h) for h in hosts)
+            split_launches = 0
+            for n, now in enumerate((0.0, 0.8, 6.0), start=1):
+                _, wa = one(a, now)
+                before = cuda_tick.tick_steps.launches
+                _, wb = split(b, now)
+                split_launches += cuda_tick.tick_steps.launches - before
+                if cuda_tick.tick_steps.launches - before != 2 * MESH_SHARDS:
+                    raise AssertionError(f"mesh {rname} K={steps}: a split dispatch launched "
+                                         f"{cuda_tick.tick_steps.launches - before} times")
+                wa, wb = np.asarray(wa), np.asarray(wb)
+                if wa.shape != wb.shape or not np.array_equal(wa, wb):
+                    nd = int((wa != wb).sum()) if wa.shape == wb.shape else -1
+                    raise AssertionError(f"mesh {rname} K={steps} dispatch {n}: the split wire "
+                                         f"differs from the unsplit one in {nd} bytes")
+            for kind, x, y in zip(("nodes", "pods"), a, b):
+                hx, hy = ts.to_numpy(x), ts.to_numpy(y)
+                for f in ts.RowState._fields:
+                    if not np.array_equal(getattr(hx, f), getattr(hy, f)):
+                        raise AssertionError(f"mesh {rname} K={steps} {kind}: {f} differs")
+            times = {"unsplit": [], "split": []}
+            for path in ("unsplit", "split", "split", "unsplit"):
+                kern, states = (one, a) if path == "unsplit" else (split, b)
+                times[path] += time_fused(torch, kern, states, 0.8, MESH_REPS)
+            bound = byte_bound_ms(caps)
+            configs.append({
+                "rules": rname, "substeps": steps, "rows": sum(caps), "shards": MESH_SHARDS,
+                "split_ms": med(times["split"]), "unsplit_ms": med(times["unsplit"]),
+                "bound_ms": bound, "bound_by": "bytes", "split_launches": split_launches,
+                "wire_identical": True,
+            })
+            log(f"mesh {rname} K={steps}: split wire and state identical to the unsplit ones; "
+                f"dispatch {configs[-1]['split_ms']:.4f} ms split, "
+                f"{configs[-1]['unsplit_ms']:.4f} ms unsplit, bound {bound:.4f} ms")
+    return configs
+
+
+def mesh_cli_leg() -> dict:
+    """(c) ``python -m kwok_tpu_torch.kwok --use-mesh true`` through
+    start_cli at MESH_CLI_NODES nodes and MESH_CLI_PODS pods: the mesh
+    holds every visible card once."""
+    import logging
+
+    import torch
+
+    from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.ops.state import SplitState
+    from kwok_tpu_torch.parallel.mesh import local_devices
+
+    lines: list = []
+
+    class Keep(logging.Handler):
+        def emit(self, record) -> None:
+            lines.append(record.getMessage())
+
+    keep = Keep(logging.INFO)
+    engine_log = logging.getLogger("kwok_tpu_torch.engine")
+    engine_log.addHandler(keep)
+    cuda_tick.tick_steps.launches = 0
+    try:
+        with sized(CLI_NODES=MESH_CLI_NODES, CLI_PODS=MESH_CLI_PODS):
+            run = start_cli(["--use-mesh", "true"])
+            try:
+                eng = run["engine"]
+                want = tuple(local_devices(DEVICE))
+                if eng._mesh is None or eng._mesh.devices != want:
+                    raise AssertionError(f"--use-mesh true: mesh {eng._mesh}, want {want}")
+                load = drive_pods(run)
+                pods = load["client"].list("pods")
+                m = scrape(run)
+            finally:
+                stop_cli(run)
+            check_final_pods(pods, m)
+    finally:
+        engine_log.removeHandler(keep)
+    launches = cuda_tick.tick_steps.launches
+    if launches <= 0:
+        raise AssertionError("the --use-mesh CLI ran without launching the tick kernel")
+    if m["kwok_pump_requests_total"] <= 0:
+        raise AssertionError("the --use-mesh CLI shipped nothing through the pump")
+    names = ", ".join(str(d) for d in eng._mesh.devices)
+    said = [ln for ln in lines if ln.startswith("row split over") and ln.endswith(names)]
+    if not said:
+        raise AssertionError(f"the log never named the mesh's devices ({names})")
+    if not all(isinstance(st, SplitState) for st in engine_states(eng)):
+        raise AssertionError("the CLI engine's stacked states are not split")
+    caps, ms, plain_ms, wire_ms = engine_shape_check(torch, eng, rearm=True)
+    return {
+        **load["report"], "kernel_launches": launches,
+        "shards": [str(d) for d in eng._mesh.devices], "shard_launches": list(eng._mesh.launches),
+        "log_line": said[0], "readyz_503_polls": run["readyz"].count(503),
+        "pump_requests": m["kwok_pump_requests_total"],
+        "capacities": caps, "kernel_ms_at_capacities": ms, "plain_ms_at_capacities": plain_ms,
+        "wire_d2h_ms_at_capacities": wire_ms, "bound_ms_at_capacities": byte_bound_ms(caps),
+    }
+
+
+def mesh_phase() -> dict:
+    """The row split (ROADMAP item 9b), three legs: (a) the split kernel
+    dispatch against the unsplit one, (b) ClusterEngine(use_mesh=True)
+    over MESH_SHARDS shards in process at the engine phase's width with
+    auto threaded lanes, (c) the entry point with --use-mesh true."""
+    import numpy as np
+    import torch
+
+    from kwok_tpu_torch.config.types import resolve_drain_shards
+
+    print(f"mesh: torch.cuda.device_count() {torch.cuda.device_count()}", flush=True)
+    for i, d in enumerate(mesh_devices(MESH_SHARDS)):
+        print(f"mesh: shard {i} on {d} ({torch.cuda.get_device_name(d)})", flush=True)
+    kernel = mesh_kernel_leg(torch, np)
+    with shards_of():
+        engine = engine_phase(resolve_drain_shards(0), use_mesh=True)
+    cli = mesh_cli_leg()
+    return {"kernel": kernel, "engine": engine, "cli": cli,
+            "kernel_launches": engine["kernel_launches"] + cli["kernel_launches"]}
 
 
 KWOKCTL_NAME = "smoke"
@@ -4197,6 +4457,7 @@ def main() -> int:
     cni_run = timed("cni", cni_phase, cli_run, CLI_PODS=HALF_PODS)
     ha = timed("ha", ha_phase, cli_run, restart)
     fed = timed("federation", fed_phase, cli_run)
+    mesh = timed("mesh", mesh_phase)
     kwokctl_run = timed("kwokctl", kwokctl_phase, cli_run)
     print(f"phase seconds: {json.dumps(phase_s)}; since main began {time.monotonic() - t_main:.1f} s",
           flush=True)
@@ -4266,6 +4527,16 @@ def main() -> int:
                       f"kernel {g['kernel_ms_at_capacities']:.4f} ms" for g in fed["groups"])
           + f" ({card})", flush=True)
 
+    me, mc = mesh["engine"], mesh["cli"]
+    print(f"mesh ({MESH_SHARDS} shards on {', '.join(me['shards'])}): "
+          + ", ".join(f"{c['rules']} K={c['substeps']} split {c['split_ms']:.4f} ms against "
+                      f"unsplit {c['unsplit_ms']:.4f} ms (bound {c['bound_ms']:.4f})"
+                      for c in mesh["kernel"])
+          + f", wires byte-identical; engine {me['create_to_running_pods_per_s']:.1f} pods/s "
+          f"with {me['lanes']} lanes, shard launches {me['shard_launches']}, kernel "
+          f"{me['kernel_ms_at_capacities']:.4f} ms at {me['capacities']}; --use-mesh true "
+          f"({', '.join(mc['shards'])}) {mc['create_to_running_pods_per_s']:.1f} pods/s "
+          f"({mc['pods']} pods), {mc['kernel_launches']} launches ({card})", flush=True)
     cl, cf, cp = chaos["lanes"], chaos["federation"], chaos["procs"]
     print(f"chaos ({n_lanes} lanes, {CHAOS_SPEC}): {cl['create_to_running_pods_per_s']:.1f} "
           f"pods/s create->Running against the cli phase's {cl['cli_phase_pods_per_s']:.1f} "
@@ -4365,7 +4636,8 @@ def main() -> int:
                      + watch["kernel_launches"] + procs["kernel_launches"]
                      + chaos["kernel_launches"] + drift["kernel_launches"]
                      + cni_run["kernel_launches"] + ha["kernel_launches"]
-                     + fed["kernel_launches"] + kwokctl_run["kernel_launches"]
+                     + fed["kernel_launches"] + mesh["kernel_launches"]
+                     + kwokctl_run["kernel_launches"]
                      + kwokctl_run["tls_arm"]["kernel_launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_cfg["ms"],
@@ -4385,6 +4657,8 @@ def main() -> int:
             "procs": procs["kernel_launches"], "chaos": chaos["kernel_launches"],
             "drift": drift["kernel_launches"], "cni": cni_run["kernel_launches"],
             "ha": ha["kernel_launches"], "federation": fed["kernel_launches"],
+            "mesh_engine": mesh["engine"]["kernel_launches"],
+            "mesh_cli": mesh["cli"]["kernel_launches"],
             "kwokctl": kwokctl_run["kernel_launches"],
             "kwokctl_tls": kwokctl_run["tls_arm"]["kernel_launches"],
         },
@@ -4413,6 +4687,21 @@ def main() -> int:
                                "plain_ms_at_capacities", "bound_ms_at_capacities")}
             for g in fed["groups"]],
         "configs": configs,
+        # the row split (mesh phase): split against unsplit dispatches,
+        # and the launches per shard on its engine and entry-point legs
+        "split_configs": mesh["kernel"],
+        "mesh_engine_shards": mesh["engine"]["shards"],
+        "mesh_engine_shard_launches": mesh["engine"]["shard_launches"],
+        "mesh_engine_capacities": mesh["engine"]["capacities"],
+        "mesh_engine_ms": mesh["engine"]["kernel_ms_at_capacities"],
+        "mesh_engine_plain_ms": mesh["engine"]["plain_ms_at_capacities"],
+        "mesh_engine_bound_ms": byte_bound_ms(mesh["engine"]["capacities"]),
+        "mesh_cli_shards": mesh["cli"]["shards"],
+        "mesh_cli_shard_launches": mesh["cli"]["shard_launches"],
+        "mesh_cli_capacities": mesh["cli"]["capacities"],
+        "mesh_cli_ms": mesh["cli"]["kernel_ms_at_capacities"],
+        "mesh_cli_plain_ms": mesh["cli"]["plain_ms_at_capacities"],
+        "mesh_cli_bound_ms": mesh["cli"]["bound_ms_at_capacities"],
     }]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

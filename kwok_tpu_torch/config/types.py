@@ -46,6 +46,7 @@ class KwokConfigurationOptions:
     heartbeatInterval: float = 30.0
     parallelism: int = 16
     initialCapacity: int = 4096
+    # split every kind's rows over the visible cards (KWOK_USE_MESH)
     useMesh: bool = False
     # Host-lane sharding of the drain+emit pipeline: number of
     # hash-partitioned ShardLanes. 0 = auto (auto_drain_shards: cpu_count

@@ -31,6 +31,11 @@
 //   is masked, so any capacity is accepted;
 // - the rule table (11 words x 32 rules) sits in shared memory.
 //
+// Row base. The counter hash draws from the GLOBAL row id, row_base + row:
+// under the row split (kwok_tpu_torch/parallel/) each shard is launched on
+// its own rows with row_base at its first global row, so a split dispatch
+// draws exactly what the unsplit one draws (the Pallas kernel's gid).
+//
 // Arithmetic. The file is compiled with -fmad=false and the float steps
 // that decide a transition use the _rn intrinsics as well, so
 // now0 + s*dt, a + (b-a)*u and the weighted sums round exactly like the
@@ -90,8 +95,8 @@ __device__ __forceinline__ bool bit_set(uint32_t word, int bit) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-tick_kernel(int cap, int steps, float now0, float dt, uint32_t seed,
-            int num_rules, int has_weights, float hb_interval,
+tick_kernel(int cap, int row_base, int steps, float now0, float dt,
+            uint32_t seed, int num_rules, int has_weights, float hb_interval,
             uint32_t hb_phase_mask, int hb_sel_bit,
             const int32_t* __restrict__ rules,
             const uint8_t* __restrict__ active,
@@ -134,7 +139,8 @@ tick_kernel(int cap, int steps, float now0, float dt, uint32_t seed,
     float hd = hb_due[row];
     int g = gen[row];
     bool dirty_acc = false, del_acc = false, hb_acc = false;
-    const uint32_t gid = static_cast<uint32_t>(row);
+    const uint32_t gid =
+        static_cast<uint32_t>(row_base) + static_cast<uint32_t>(row);
     const float ivl = hb_interval;
 
     for (int s = 0; s < steps; ++s) {
@@ -275,9 +281,10 @@ extern "C" {
 // Words in the rule table the caller packs: kRuleRows rows of kMaxRules.
 int kwok_tick_table_words() { return kRuleRows * kMaxRules; }
 
-// Launch on `stream`; `counts` must hold two zeroed int32. Returns
-// cudaGetLastError() after the launch (0 = launched).
-int kwok_tick_launch(int cap, int steps, float now0, float dt,
+// Launch on `stream`; `counts` must hold two zeroed int32; `row_base` is
+// the global id of row 0 (0 unless the rows are one shard of a split).
+// Returns cudaGetLastError() after the launch (0 = launched).
+int kwok_tick_launch(int cap, int row_base, int steps, float now0, float dt,
                      unsigned int seed, int num_rules, int has_weights,
                      float hb_interval, unsigned int hb_phase_mask,
                      int hb_sel_bit, const void* rules, const void* active,
@@ -286,12 +293,13 @@ int kwok_tick_launch(int cap, int steps, float now0, float dt,
                      void* hb_due, void* gen, void* o_dirty, void* o_deleted,
                      void* o_hb, void* counts, void* stream) {
   if (cap <= 0) return 0;
+  if (row_base < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (num_rules < 0 || num_rules > kMaxRules) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = (cap + kThreads - 1) / kThreads;
   tick_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cap, steps, now0, dt, seed, num_rules, has_weights, hb_interval,
+      cap, row_base, steps, now0, dt, seed, num_rules, has_weights, hb_interval,
       hb_phase_mask, hb_sel_bit, static_cast<const int32_t*>(rules),
       static_cast<const uint8_t*>(active),
       static_cast<const uint8_t*>(has_deletion),

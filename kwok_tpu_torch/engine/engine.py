@@ -88,8 +88,17 @@ staged rows reach the device state, ``tick.cu`` never launches, nothing
 is written). Lane engines share the parent's plane.
 
 Names and logic of the ingest, tick and emit methods follow the JAX
-package's engine so each has its counterpart there. The mesh is not part
-of this engine.
+package's engine so each has its counterpart there.
+
+With ``use_mesh`` every kind's device rows are a ``SplitState`` over
+``parallel.mesh.make_mesh`` of the engine's device type (every visible
+card once; the CPU once): capacities are padded to a multiple of the
+mesh's size, the fused dispatch launches the kernel once per shard
+(``parallel/sharded_tick.py``) and gathers the wire on the first card,
+and the ingest scatters, the refine, the checkpoint gather, the epoch
+rebase and the grow work shard by shard. The threaded lanes split their
+stacked state the same way; process lanes refuse it, as ``kwok_tpu``
+does.
 
 Telemetry is ``telemetry/engine_metrics.EngineTelemetry``: typed handles
 on a labeled registry (``registry``, rendered by ``metrics_text()``;
@@ -171,7 +180,14 @@ from kwok_tpu_torch.models.lifecycle import (
     LifecycleRule,
     ResourceKind,
 )
-from kwok_tpu_torch.ops.state import RowState, grow as grow_state, new_row_state
+from kwok_tpu_torch.ops.state import (
+    RowState,
+    field_numpy,
+    new_row_state,
+    new_split_state,
+)
+from kwok_tpu_torch.ops.state import grow as grow_state
+from kwok_tpu_torch.parallel import mesh as mesh_mod
 from kwok_tpu_torch.ops.tick import (
     REBASE_AFTER,
     MultiTickKernel,
@@ -289,8 +305,12 @@ class EngineConfig:
     max_drain_shards: int = 0
     # process lanes (engine/proclanes.py): with more than one lane, each
     # lane is a spawned process running the single-lane engine over its
-    # hash shard; needs an HTTP apiserver
+    # hash shard; needs an HTTP apiserver. Refused with use_mesh
     lane_procs: bool = False
+    # split every kind's rows over the mesh of the engine's device type
+    # (parallel/mesh.make_mesh: each visible card once; the CPU once):
+    # one tick launch per shard, the wire gathered on the first card
+    use_mesh: bool = False
     # deterministic fault-injection spec (resilience/faults.py grammar).
     # "" = disabled (falls back to KWOK_TPU_FAULTS); the literal "off"
     # disables even under the env var (lane engines). When set, the
@@ -361,6 +381,11 @@ class EngineConfig:
         ):
             # controller.go:98 "no nodes are managed"
             raise ValueError("no nodes are managed")
+        if self.lane_procs and self.use_mesh:
+            raise ValueError(
+                "lane_procs is host-CPU sharding; use_mesh owns device "
+                "placement — configure one or the other"
+            )
         if self.lane_procs and self.ha_role:
             raise ValueError(
                 "lane_procs + ha_role is not supported (the lease fence "
@@ -460,12 +485,16 @@ class _Kind:
     thread owns them: a lane's rows live in the coordinator's stacked
     state) and host bookkeeping."""
 
-    def __init__(self, table, capacity: int, device: "torch.device | None"):
+    def __init__(self, table, capacity: int, device: "torch.device | None",
+                 mesh=None):
         self.table = table
         self.capacity = capacity
-        self.state: "RowState | None" = (
-            new_row_state(capacity, device) if device is not None else None
-        )
+        if device is None:
+            self.state = None
+        elif mesh is not None:
+            self.state = new_split_state(capacity, mesh)
+        else:
+            self.state = new_row_state(capacity, device)
         self.pool = RowPool(capacity)
         self.buffer = UpdateBuffer()
         self.phase_h = np.zeros(capacity, np.int32)
@@ -550,6 +579,14 @@ class ClusterEngine:
         # process lanes: the lane processes own every row and stream, so
         # this engine touches no device at all
         proc = self._owns_device and self._n_lanes > 1 and config.lane_procs
+        # the row split's mesh: owned by the engine that owns the device
+        # rows (lane and federation members hold none)
+        self._mesh = None
+        if config.use_mesh and self._owns_device:
+            self._mesh = mesh_mod.make_mesh(devices=mesh_mod.local_devices(self.device))
+            self.device = self._mesh.devices[0]
+            logger.info("row split over %d shards: %s", self._mesh.size,
+                        ", ".join(str(d) for d in self._mesh.devices))
         self.ippool = IPPool(config.cidr)
 
         self._manage_annotation = parse_selector(
@@ -595,13 +632,13 @@ class ClusterEngine:
         # under lanes the LaneSet owns all rows: the engine's own kinds
         # stay host-only at a token capacity, and a lane's kinds are
         # host-only (its device rows are a slice of the stacked state)
-        cap = config.initial_capacity
+        cap = self._pad(config.initial_capacity)
         if self._n_lanes > 1:
             cap = min(cap, 1024)
         dev = self.device if self._owns_device and self._n_lanes <= 1 else None
         with self._device_ctx():
-            self.nodes = _Kind(ntab, cap, dev)
-            self.pods = _Kind(ptab, cap, dev)
+            self.nodes = _Kind(ntab, cap, dev, self._mesh)
+            self.pods = _Kind(ptab, cap, dev, self._mesh)
 
         self.node_has: set[str] = set()  # nodesSets (need-heartbeat membership)
         self.pods_by_node: dict[str, set[tuple[str, str]]] = {}
@@ -1231,8 +1268,14 @@ class ClusterEngine:
             self._fused = MultiTickKernel(
                 self._fused_specs, steps=steps,
                 dt=self.config.tick_interval / steps, device=self.device,
+                mesh=self._mesh,
             )
         return self._fused
+
+    def _pad(self, rows: int) -> int:
+        """``rows`` padded to a multiple of the mesh's size (unchanged
+        without a mesh)."""
+        return rows if self._mesh is None else mesh_mod.pad_to_multiple(rows, self._mesh)
 
     # minimum seconds between two integrity-doubt re-lists
     _WIRE_RESYNC_MIN_S = 5.0
@@ -3021,7 +3064,7 @@ class ClusterEngine:
     # ------------------------------------------------------------------ grow
 
     def _grow(self, k: _Kind) -> None:
-        new_cap = max(k.capacity * 2, 1024)
+        new_cap = self._pad(max(k.capacity * 2, 1024))
         logger.info("growing row pool %d -> %d", k.capacity, new_cap)
         with self._device_ctx():
             k.grow(new_cap)
@@ -3276,7 +3319,7 @@ class ClusterEngine:
             # an entry with a delay residue is consumed only once the
             # kernel ARMED its row (finite fire_at): refining earlier is
             # undone by the arming re-arm itself
-            cur_fire = k.state.fire_at.cpu().numpy()
+            cur_fire = field_numpy(k.state, "fire_at")
             idx, fire, hb, gen = r.match_kind(
                 kind, k.pool, staged, now, phase_h=k.phase_h, fire=cur_fire,
             )

@@ -1,5 +1,5 @@
-"""FederatedEngine: N simulated clusters from one process on one card (the
-port of ``kwok_tpu.engine.federation``; BASELINE config 5).
+"""FederatedEngine: N simulated clusters from one process over a mesh of
+cards (the port of ``kwok_tpu.engine.federation``; BASELINE config 5).
 
   member 0: watches ─> queue ─┐                 ┌─> member 0 executor
   member 1: watches ─> queue ─┤  federated tick │─> member 1 executor
@@ -21,11 +21,12 @@ the wire to emit. Members that share a compiled rule set, selector bits,
 heartbeat interval, tick interval and substeps share a group; each
 distinct set gets its own stacked state and kernel specs.
 
-The JAX package shards each group's stacked state over the device mesh;
-here it lives whole on one card (``n_devices = 1`` in the padding, until
-the multi-card row split of ROADMAP item 9b). Rows are independent and
-the counters are summed per member on the host, so the semantics are the
-same.
+Each group's stacked state is split over the federation's mesh
+(``parallel/``; by default every visible card once, or the CPU once for
+a CPU federation), as the JAX package shards it over its device mesh:
+each group's row count per cluster is padded so that the stack splits
+evenly (``_pad_cluster_capacity``), the dispatch launches the kernel once
+per shard and kind, and a member's slice may straddle shards.
 
 Member failover: ONE watchdog supervises every member's watch threads
 (``kwok-watch-<kind>-m<i>``). A crashed one restarts in place on its own
@@ -67,7 +68,7 @@ from kwok_tpu_torch.edge.kubeclient import KubeClient
 from kwok_tpu_torch.edge.render import now_rfc3339
 from kwok_tpu_torch.engine.engine import ClusterEngine, EngineConfig, _warm_scatter
 from kwok_tpu_torch.models.defaults import SEL_HEARTBEAT
-from kwok_tpu_torch.ops.state import RowState, new_row_state, regrow_stacked
+from kwok_tpu_torch.ops.state import SplitState, field_numpy, new_split_state, regrow_stacked
 from kwok_tpu_torch.ops.tick import (
     REBASE_AFTER,
     MultiTickKernel,
@@ -76,6 +77,7 @@ from kwok_tpu_torch.ops.tick import (
     unpack_wire,
 )
 from kwok_tpu_torch.ops.updates import refine_flush
+from kwok_tpu_torch.parallel import mesh as mesh_mod
 from kwok_tpu_torch.resilience import checkpoint as ckpt_mod
 from kwok_tpu_torch.resilience.watchdog import Watchdog
 from kwok_tpu_torch.telemetry.engine_metrics import EngineTelemetry
@@ -86,10 +88,6 @@ from kwok_tpu_torch.workers import spawn_worker
 logger = logging.getLogger("kwok_tpu_torch.federation")
 
 _KINDS = ("nodes", "pods")
-
-# Cards the stacked row axis is split over: one until the multi-card row
-# split (ROADMAP item 9b).
-_N_DEVICES = 1
 
 # Values every member records once per federated tick: the federation's
 # ``metrics`` un-sums them (emit and drain work is per member and stays
@@ -187,7 +185,7 @@ class _Group:
     """Members sharing one compiled rule set: one stacked state per kind
     and one set of kernel specs (one dispatch per group per tick)."""
 
-    def __init__(self, engines, cfg: EngineConfig, device: torch.device):
+    def __init__(self, engines, cfg: EngineConfig, mesh):
         self.engines = engines  # member engines, federation order preserved
         self.r = 0  # rows per cluster; set by alloc
         # kernel-launch counter: the registry child set by FederatedEngine
@@ -206,9 +204,10 @@ class _Group:
             ],
             steps=steps,
             dt=cfg.tick_interval / steps,
-            device=device,
+            mesh=mesh,
         )
-        self.stacked: dict[str, RowState] = {}
+        self.mesh = mesh
+        self.stacked: dict[str, SplitState] = {}
 
     @property
     def dispatches(self) -> int:
@@ -218,9 +217,7 @@ class _Group:
     def alloc(self, r: int) -> None:
         self.r = r
         cap = r * len(self.engines)
-        self.stacked = {
-            kind: new_row_state(cap, self.fused.device) for kind in _KINDS
-        }
+        self.stacked = {kind: new_split_state(cap, self.mesh) for kind in _KINDS}
 
 
 class FederatedEngine:
@@ -235,6 +232,7 @@ class FederatedEngine:
         self,
         clients: list[KubeClient],
         config: EngineConfig,
+        mesh=None,
         member_configs: "list[EngineConfig] | None" = None,
     ) -> None:
         if not clients:
@@ -269,14 +267,24 @@ class FederatedEngine:
                 client,
                 dataclasses.replace(
                     cfg, initial_capacity=base_capacity, drain_shards=1,
-                    lane_procs=False, device=config.device,
+                    lane_procs=False, use_mesh=False, device=config.device,
                 ),
                 i,
                 self.registry,
             )
             for i, (client, cfg) in enumerate(zip(clients, cfgs))
         ]
-        self.device = self.engines[0].device
+        if mesh is None:
+            mesh = mesh_mod.make_mesh(devices=mesh_mod.local_devices(self.engines[0].device))
+        if mesh.devices[0].type != self.engines[0].device.type:
+            raise ValueError(
+                f"a {self.engines[0].device.type} federation cannot split "
+                f"its rows over {mesh}"
+            )
+        self.mesh = mesh
+        self.device = mesh.devices[0]
+        logger.info("federation rows split over %d shards: %s", mesh.size,
+                    ", ".join(str(d) for d in mesh.devices))
         # every device operation of the federation runs on this stream
         # (the federated tick thread's); the stacked states are allocated
         # on it too
@@ -308,9 +316,9 @@ class FederatedEngine:
         with self._device_ctx():
             for members in by_key.values():
                 g = _Group(
-                    [self.engines[i] for i in members], cfgs[members[0]], self.device
+                    [self.engines[i] for i in members], cfgs[members[0]], mesh
                 )
-                g.alloc(_pad_cluster_capacity(base_capacity, len(members), _N_DEVICES))
+                g.alloc(_pad_cluster_capacity(base_capacity, len(members), mesh.size))
                 self.groups.append(g)
         for g in self.groups:
             for e in g.engines:
@@ -718,7 +726,7 @@ class FederatedEngine:
                 continue
             k = e.nodes if kind == "nodes" else e.pods
             staged = k.buffer.staged_rows() if k.buffer.pending else frozenset()
-            cur_fire = g.stacked[kind].fire_at.cpu().numpy()
+            cur_fire = field_numpy(g.stacked[kind], "fire_at")
             idx, fire, hb, gen = r.match_kind(
                 kind, k.pool, staged, now, phase_h=k.phase_h, fire=cur_fire,
                 offset=c * g.r,
@@ -926,14 +934,14 @@ class FederatedEngine:
     def _maybe_regrow(self) -> None:
         """If any member's pool grew (ClusterEngine._grow during ingest),
         rebuild that member's GROUP at the new common per-cluster capacity
-        on the card (``ops/state.regrow_stacked``: member c's rows move to
-        offset c * new_r); other groups keep their size."""
+        (``ops/state.regrow_stacked``: member c's rows move to offset
+        c * new_r, re-split over the mesh); other groups keep their size."""
         for g in self.groups:
             want = max(k.capacity for e in g.engines for k in (e.nodes, e.pods))
             if want <= g.r:
                 continue
             n = len(g.engines)
-            new_r = _pad_cluster_capacity(want, n, _N_DEVICES)
+            new_r = _pad_cluster_capacity(want, n, self.mesh.size)
             logger.info(
                 "federation regrow (%d-member group): %d -> %d rows/cluster",
                 n, g.r, new_r,

@@ -21,6 +21,9 @@ of ``kwok_tpu.engine.lanes``).
 Lane ``i`` owns rows ``[i*r, (i+1)*r)`` of each stacked state. Only the
 coordinator allocates, flushes, launches and reads on the device, all on
 the engine's stream; drain and emit workers never touch the device.
+Under ``use_mesh`` the stacked state is split over the parent's mesh
+(``r`` and every regrow padded to a multiple of its size; a lane's rows
+may straddle two shards) and each shard's work runs on its own stream.
 
 Ordering: a key always maps to the same lane (``rowpool.shard_of``), lane
 queues are FIFO, and the coordinator hands wire slices to lanes in
@@ -71,7 +74,12 @@ from kwok_tpu_torch.edge.render import now_rfc3339
 from kwok_tpu_torch.engine.engine import ClusterEngine, _event_count, _warm_scatter
 from kwok_tpu_torch.engine.rowpool import shard_of
 from kwok_tpu_torch.locks import reclaimable
-from kwok_tpu_torch.ops.state import new_row_state, regrow_stacked
+from kwok_tpu_torch.ops.state import (
+    field_numpy,
+    new_row_state,
+    new_split_state,
+    regrow_stacked,
+)
 from kwok_tpu_torch.ops.tick import (
     REBASE_AFTER,
     gather_deadlines,
@@ -470,10 +478,12 @@ class LaneSet:
         self.n = int(n)
         # per-lane row budget: an even split PLUS 25% slack (crc32 spreads
         # keys only statistically evenly)
-        self.r = max(
+        # under the row split every lane's slice is a multiple of the
+        # mesh's size, so the stacked rows split evenly
+        self.r = parent._pad(max(
             _MIN_LANE_ROWS,
             -(-int(parent.config.initial_capacity) * 5 // (4 * self.n)),
-        )
+        ))
         self.lanes = [ShardLane(self, i, self.r) for i in range(self.n)]
         self.stacked: dict = {}
         # bumped by the router per routed event; the tick loop's
@@ -505,8 +515,13 @@ class LaneSet:
     def _ensure_stacked(self) -> None:
         if not self.stacked:
             cap = self.r * self.n
+            mesh = self.parent._mesh
             self.stacked = {
-                kind: new_row_state(cap, self.parent.device) for kind in _KINDS
+                kind: (
+                    new_split_state(cap, mesh) if mesh is not None
+                    else new_row_state(cap, self.parent.device)
+                )
+                for kind in _KINDS
             }
 
     def _warm_scatters(self) -> None:
@@ -895,7 +910,7 @@ class LaneSet:
             state = self.stacked[kind]
             # an entry with a delay residue is consumed only once its row
             # is ARMED (finite fire_at): see ClusterEngine._ckpt_refine
-            cur_fire = state.fire_at.cpu().numpy()
+            cur_fire = field_numpy(state, "fire_at")
             runs = []
             for li, lane in enumerate(self.lanes):
                 k = self._lane_kind(lane, kind)
@@ -1099,7 +1114,7 @@ class LaneSet:
         """A lane's pool grew past the per-lane row budget: grow every
         lane to the new common capacity and regrow the stacked state on
         the device (each lane's rows move to its new offset)."""
-        new_r = want
+        new_r = self.parent._pad(want)
         logger.info("lane regrow (%d lanes): %d -> %d rows/lane", self.n, self.r, new_r)
         for lane in self.lanes:
             with self._claim(lane):

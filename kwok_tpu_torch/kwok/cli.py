@@ -10,9 +10,12 @@ flag defaults, so unset flags inherit them). The engine runs on the CUDA
 device unless ``KWOK_TPU_PLATFORM=cpu``; without a card and without that
 variable the CLI exits non-zero with the engine's error.
 
-A flag value that would switch on a subsystem the port does not have yet
-exits non-zero with a message naming the ROADMAP item that brings it; so
-do its KWOK_TPU_* environment twins. ``--drain-shards`` (default 0 =
+The port runs every flag value ``kwok_tpu`` does (``refusals`` stays for
+a later item: a flag value that needs a subsystem the port lacks exits
+non-zero naming the ROADMAP item). ``--use-mesh true`` (or
+KWOK_USE_MESH=true) splits every kind's rows over the mesh of the
+engine's device type (``parallel/``: each visible card once); it is
+refused with ``--lane-procs``, as in ``kwok_tpu``. ``--drain-shards`` (default 0 =
 auto) runs the threaded lanes, and with ``--lane-procs true`` (or
 KWOK_LANE_PROCS=true) each lane is a process of its own
 (``engine/proclanes.py``; it needs the HTTP ``--master``);
@@ -119,7 +122,8 @@ def build_parser(defaults) -> argparse.ArgumentParser:
     p.add_argument("--initial-capacity", type=int, default=o.initialCapacity)
     p.add_argument("--use-mesh", type=_bool, default=o.useMesh,
                    help="shard cluster state across all local devices "
-                   "(refused when true: ROADMAP item 9b)")
+                   "(every visible card once; the CPU once under "
+                   "KWOK_TPU_PLATFORM=cpu)")
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of ticks 2-102 here "
                    "(a lane process writes <dir>/lane<i>)")
@@ -199,12 +203,9 @@ _bool = parse_bool
 def refusals(args, masters: list[str]) -> list[str]:
     """Why this invocation asks for a subsystem the port does not have yet,
     one message per flag (or KWOK_TPU_* twin), each naming the ROADMAP item
-    that brings it. Empty when the engine can run it."""
-    out = []
-    if args.use_mesh:
-        out.append("--use-mesh true splits rows across cards (a "
-                   "federation's stacked state too): ROADMAP item 9b")
-    return out
+    that brings it. Empty when the engine can run it: since item 9b (the
+    row split) the port runs every flag value ``kwok_tpu`` does."""
+    return []
 
 
 def check_federation(args, masters: list[str]) -> None:
@@ -293,6 +294,7 @@ def _engine_config(args, stages: list[Stage], device: str):
         heartbeat_interval=args.heartbeat_interval,
         parallelism=args.parallelism,
         initial_capacity=args.initial_capacity,
+        use_mesh=args.use_mesh,
         lane_procs=args.lane_procs,
         worker_restart_budget=args.worker_restart_budget,
         worker_restart_window=args.worker_restart_window,

@@ -21,7 +21,10 @@ buffers). Seeds follow ``PallasTickKernel``: dispatch n draws from seed
 stream index is the flat row id, so a port dispatch and a
 ``PallasTickKernel(interpret=True)`` call under the same seed agree bit
 for bit wherever the arithmetic allows (exponential delays go through
-``log`` and agree to an ulp-level tolerance).
+``log`` and agree to an ulp-level tolerance). ``row_base`` makes that id
+global under the row split (``parallel/sharded_tick.py``): a shard
+launched on its own rows with ``row_base`` at its first global row draws
+what the unsplit launch draws for those rows.
 """
 
 from __future__ import annotations
@@ -173,9 +176,10 @@ def _f32(x: float) -> float:
 
 def tick_steps_plain(
     state: RowState, spec: TickSpec, now0: float, seed: int, steps: int,
-    dt: float,
+    dt: float, row_base: int = 0,
 ):
-    """K substeps of one kind in plain torch, updating ``state`` in place.
+    """K substeps of one kind in plain torch, updating ``state`` in place;
+    row ``j`` draws as global row ``row_base + j``.
 
     Returns ``(dirty, deleted, hb_fired, counts)``: three bool masks OR'd
     over the substeps and int32 ``[transitions, heartbeats]``. The
@@ -194,7 +198,7 @@ def tick_steps_plain(
     fire = state.fire_at.clone()
     hb_due = state.hb_due.clone()
     gen = state.gen.clone()
-    gid = torch.arange(cap, dtype=torch.int64, device=dev)
+    gid = torch.arange(cap, dtype=torch.int64, device=dev) + int(row_base)
     seed = int(seed) & _M32
     tb = spec.table
     nr = spec.num_rules
@@ -377,7 +381,8 @@ def build_library() -> tuple[str, str]:
 
 
 class TickSteps:
-    """The tick wrapper: ``tick_steps(state, spec, now0, seed, steps, dt)``.
+    """The tick wrapper: ``tick_steps(state, spec, now0, seed, steps, dt,
+    row_base=0)``.
 
     ``launches`` counts kernel launches (CUDA tensors only; the plain
     version on CPU tensors adds nothing). ``build_log`` keeps nvcc's
@@ -406,7 +411,7 @@ class TickSteps:
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
                 )
                 lib.kwok_tick_launch.argtypes = [
-                    ci, ci, cf, cf, cu, ci, ci, cf, cu, ci,
+                    ci, ci, ci, cf, cf, cu, ci, ci, cf, cu, ci,
                 ] + [vp] * 15
                 lib.kwok_tick_launch.restype = ci
                 lib.kwok_tick_table_words.argtypes = []
@@ -421,13 +426,16 @@ class TickSteps:
             return self._lib
 
     @staticmethod
-    def check(state: RowState) -> None:
+    def check(state: RowState, row_base: int = 0) -> None:
         """Raise unless every field lies on one device, has the layout's
-        dtype, is contiguous and 1-D, and all share one capacity."""
+        dtype, is contiguous and 1-D, and all share one capacity, and the
+        global row ids ``[row_base, row_base + capacity)`` fit an int32."""
         dev = state.device
         cap = state.capacity
-        if cap >= 2**31:
-            raise ValueError(f"capacity {cap} exceeds the kernel's int32 row index")
+        if row_base < 0 or row_base + cap >= 2**31:
+            raise ValueError(
+                f"rows [{row_base}, {row_base + cap}) exceed the kernel's int32 row index"
+            )
         for name in RowState._fields:
             t = getattr(state, name)
             if t.device != dev:
@@ -441,13 +449,14 @@ class TickSteps:
 
     def __call__(
         self, state: RowState, spec: TickSpec, now0: float, seed: int,
-        steps: int, dt: float,
+        steps: int, dt: float, row_base: int = 0,
     ):
-        self.check(state)
+        row_base = int(row_base)
+        self.check(state, row_base)
         dev = state.device
         if dev.type == "cpu":
             # kwoklint: disable=kernel-purity -- CPU tensors only: the plain version's host scalars and small tables are copies within host memory, and a CUDA tensor never reaches this call
-            return tick_steps_plain(state, spec, now0, seed, steps, dt)
+            return tick_steps_plain(state, spec, now0, seed, steps, dt, row_base)
         if dev.type != "cuda":
             raise ValueError(f"tick kernel runs on cuda tensors, got {dev}")
         # kwoklint: disable=kernel-purity -- the build and load run once per process, under _lock: ClusterEngine._warm_tick, LaneSet._warm_tick and FederatedEngine._warm_ticks load the library before any worker starts, and ProcLaneSet.prepare builds it, so at most a process-lane coordinator's first dispatch loads it (a dlopen); later dispatches read the loaded library back
@@ -461,7 +470,7 @@ class TickSteps:
             hb = torch.empty(cap, dtype=torch.uint8, device=dev)
             counts = torch.zeros(2, dtype=torch.int32, device=dev)
             err = lib.kwok_tick_launch(
-                cap, int(steps), float(np.float32(now0)), float(np.float32(dt)),
+                cap, row_base, int(steps), float(np.float32(now0)), float(np.float32(dt)),
                 int(seed) & _M32, spec.num_rules, int(spec.has_weights),
                 float(np.float32(spec.hb_interval)), spec.hb_phase_mask & _M32,
                 spec.hb_sel_bit,

@@ -21,6 +21,15 @@ by value and the little-endian bytes on the wire are identical.
 JAX replaced the state functionally (donated buffers); the port updates
 these tensors in place — the tick kernel and the ingest scatters write
 into the same storage.
+
+Under the row split (``parallel/``) a kind's rows are a ``SplitState``:
+one ``RowState`` per shard of a mesh, shard ``i`` holding global rows
+``[i*rows, (i+1)*rows)`` on the mesh's device ``i``. The state ops here,
+in ``ops/updates.py`` and ``ops/tick.py`` take either; on a split state
+each works shard by shard on the shard's stream (``mesh.on(i)``). A
+capacity change moves rows between shards, so ``grow`` and
+``regrow_stacked`` re-lay a split state out through the host, as the JAX
+package does (``to_host``, then ``place``).
 """
 
 from __future__ import annotations
@@ -96,6 +105,48 @@ class TickOutputs(NamedTuple):
     heartbeats: torch.Tensor  # int32 scalar
 
 
+class SplitState:
+    """One kind's rows split over a mesh (``parallel/mesh.py``): shard
+    ``i`` is a ``RowState`` of ``rows`` rows on ``mesh.devices[i]``
+    holding global rows ``[base(i), base(i) + rows)``."""
+
+    def __init__(self, mesh, shards) -> None:
+        shards = list(shards)
+        if len(shards) != mesh.size:
+            raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
+        rows = {s.capacity for s in shards}
+        if len(rows) != 1:
+            raise ValueError(f"shards of unequal rows: {sorted(rows)}")
+        for s, dev in zip(shards, mesh.devices):
+            if s.device != dev:
+                raise ValueError(f"a shard on {s.device}, its mesh device is {dev}")
+        self.mesh = mesh
+        self.shards = shards
+        self.rows = rows.pop()
+
+    @property
+    def capacity(self) -> int:
+        return self.rows * len(self.shards)
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device: where a dispatch gathers its wire."""
+        return self.mesh.devices[0]
+
+    def base(self, i: int) -> int:
+        """Global row id of shard ``i``'s first row."""
+        return i * self.rows
+
+    def each(self, fn) -> list:
+        """``fn(shard)`` for every shard in row order, each on its own
+        stream; the results."""
+        out = []
+        for i, shard in enumerate(self.shards):
+            with self.mesh.on(i):
+                out.append(fn(shard))
+        return out
+
+
 def new_row_state(capacity: int, device) -> RowState:
     """Fresh empty state of ``capacity`` rows on ``device``."""
     dev = torch.device(device)
@@ -114,28 +165,80 @@ def new_row_state(capacity: int, device) -> RowState:
     )
 
 
-def grow(state: RowState, new_capacity: int) -> RowState:
+def new_split_state(capacity: int, mesh) -> SplitState:
+    """Fresh empty state of ``capacity`` rows split over ``mesh``;
+    ``capacity`` must be a multiple of the mesh's size
+    (``parallel.mesh.pad_to_multiple``)."""
+    rows = _shard_rows(capacity, mesh)
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        with mesh.on(i):
+            shards.append(new_row_state(rows, dev))
+    return SplitState(mesh, shards)
+
+
+def _shard_rows(capacity: int, mesh) -> int:
+    if capacity % mesh.size:
+        raise ValueError(
+            f"{capacity} rows do not split evenly over {mesh.size} shards "
+            "(pad with parallel.mesh.pad_to_multiple)"
+        )
+    return capacity // mesh.size
+
+
+def split_rows(state, mesh) -> SplitState:
+    """``state`` (a torch ``RowState``, a ``SplitState`` or a numpy state
+    in ``kwok_tpu.ops.state``'s layout) placed on ``mesh``: shard ``i``
+    gets global rows ``[i*c/d, (i+1)*c/d)`` on ``mesh.devices[i]``."""
+    if isinstance(state, SplitState) or torch.is_tensor(state.active):
+        host = to_numpy(state)
+    else:
+        host = state
+    rows = _shard_rows(int(np.asarray(host.active).shape[0]), mesh)
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        lo = i * rows
+        part = RowState(*(np.asarray(a)[lo : lo + rows] for a in host))
+        with mesh.on(i):
+            shards.append(from_numpy(part, dev))
+    return SplitState(mesh, shards)
+
+
+def _through_host(state: SplitState, fn) -> SplitState:
+    """``fn`` applied to a host copy of ``state`` as one CPU RowState,
+    placed back on the mesh."""
+    return split_rows(fn(from_numpy(to_numpy(state), "cpu")), state.mesh)
+
+
+def grow(state, new_capacity: int):
     """Capacity growth on the state's own device: a fresh state of
     ``new_capacity`` rows with the old rows copied into its prefix. The
-    old tensors are left as they were (callers drop them)."""
+    old tensors are left as they were (callers drop them). A split state
+    is re-laid out over its mesh."""
     old = state.capacity
     if new_capacity <= old:
         return state
+    if isinstance(state, SplitState):
+        return _through_host(state, lambda s: grow(s, new_capacity))
     out = new_row_state(new_capacity, state.device)
     for name in RowState._fields:
         getattr(out, name)[:old].copy_(getattr(state, name))
     return out
 
 
-def regrow_stacked(state: RowState, n: int, new_rows: int) -> RowState:
+def regrow_stacked(state, n: int, new_rows: int):
     """A stacked state of ``n`` equal slices (lane ``i`` owns rows
     ``[i*r, (i+1)*r)``) regrown to ``new_rows`` rows per slice, on the
     state's own device and the current stream: each field is viewed as
     ``[n, r]`` and copied into the first ``r`` columns of a fresh state
-    viewed as ``[n, new_rows]``; the new rows start empty."""
+    viewed as ``[n, new_rows]``; the new rows start empty. A split state
+    is re-laid out over its mesh (the slices and the shards need not
+    line up)."""
     old_rows = state.capacity // n
     if new_rows <= old_rows:
         return state
+    if isinstance(state, SplitState):
+        return _through_host(state, lambda s: regrow_stacked(s, n, new_rows))
     out = new_row_state(n * new_rows, state.device)
     for name in RowState._fields:
         getattr(out, name).view(n, new_rows)[:, :old_rows].copy_(
@@ -159,10 +262,13 @@ def from_numpy(state, device) -> RowState:
     return RowState(**fields)
 
 
-def to_numpy(state: RowState) -> RowState:
+def to_numpy(state) -> RowState:
     """Host numpy copies of every field in the JAX package's dtypes
     (cond/sel bits viewed back as uint32), as a RowState of numpy arrays
-    — the layout ``kwok_tpu.ops.state`` uses on the host."""
+    — the layout ``kwok_tpu.ops.state`` uses on the host. A split state
+    comes back whole, its shards in row order."""
+    if isinstance(state, SplitState):
+        return RowState(*(np.concatenate(f) for f in zip(*state.each(to_numpy))))
     fields = {}
     for name in RowState._fields:
         # .numpy() of a CPU tensor shares its memory: copy, so later
@@ -172,3 +278,11 @@ def to_numpy(state: RowState) -> RowState:
             a = a.view(np.uint32)
         fields[name] = a
     return RowState(**fields)
+
+
+def field_numpy(state, name: str) -> np.ndarray:
+    """Host copy of one field (the state's own dtype; a split state's
+    shards in row order)."""
+    if isinstance(state, SplitState):
+        return np.concatenate(state.each(lambda s: field_numpy(s, name)))
+    return getattr(state, name).cpu().numpy()

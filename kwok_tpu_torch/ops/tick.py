@@ -14,6 +14,12 @@ byte, so ``unpack_wire`` (a verbatim copy) reads it:
     general);
   - per kind, phase as uint8 rows, then cond as little-endian uint32 rows.
 
+With ``mesh`` (``parallel/mesh.py``) the states are split over the
+mesh's shards and the dispatch is ``parallel/sharded_tick.tick_split``:
+one launch per shard and kind, the counters summed and the masks and
+rows gathered on the first shard's device, then the same ``pack_wire``,
+so the wire is byte for byte the unsplit one's.
+
 The state tensors are updated in place (JAX donated them). The wire is a
 fresh tensor, so it stays self-contained while later dispatches keep
 changing the state: the pipelined engine keeps several wires in flight.
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 
 from kwok_tpu_torch.ops import cuda_tick
-from kwok_tpu_torch.ops.state import RowState, TickOutputs
+from kwok_tpu_torch.ops.state import RowState, SplitState, TickOutputs
 
 INF = float("inf")
 
@@ -42,9 +48,12 @@ INF = float("inf")
 REBASE_AFTER = 131072.0
 
 
-def rebase_times(state: RowState, shift: float) -> RowState:
+def rebase_times(state, shift: float):
     """Shift the engine-time fields down by ``shift`` seconds, in place
     (epoch rebase). +inf sentinels stay +inf."""
+    if isinstance(state, SplitState):
+        state.each(lambda shard: rebase_times(shard, shift))
+        return state
     s = float(np.float32(shift))
     state.fire_at.sub_(s)
     state.hb_due.sub_(s)
@@ -82,19 +91,25 @@ def packbits(bits: torch.Tensor) -> torch.Tensor:
     return (b.view(nbytes, 8) * w).sum(dim=1, dtype=torch.int32).to(torch.uint8)
 
 
-def pack_wire(outs) -> torch.Tensor:
+def pack_wire(outs, dues=None, rows=None) -> torch.Tensor:
     """The pack_rows wire of a dispatch's per-kind TickOutputs, as one
-    uint8 tensor on their device."""
+    uint8 tensor on their device. ``dues`` (0-d ``next_due`` per kind)
+    and ``rows`` (``(phase, cond_bits)`` per kind) default to those of
+    the outputs' states; a split dispatch passes them gathered."""
     counters = torch.stack(
         [o.transitions for o in outs] + [o.heartbeats for o in outs]
     ).to(torch.int32)
-    dues = torch.stack([next_due(o.state) for o in outs]).to(torch.float32)
+    if dues is None:
+        dues = [next_due(o.state) for o in outs]
+    if rows is None:
+        rows = [(o.state.phase, o.state.cond_bits) for o in outs]
+    dues = torch.stack(dues).to(torch.float32)
     parts = [counters.view(torch.uint8), dues.view(torch.uint8)]
     for o in outs:
         parts.append(packbits(torch.cat([o.dirty, o.deleted, o.hb_fired])))
-    for o in outs:
-        parts.append(o.state.phase.to(torch.uint8))
-        parts.append(o.state.cond_bits.view(torch.uint8))
+    for phase, cond in rows:
+        parts.append(phase.to(torch.uint8))
+        parts.append(cond.view(torch.uint8))
     return torch.cat(parts)
 
 
@@ -139,12 +154,24 @@ class MultiTickKernel:
     ``__call__(states, now)`` advances every kind ``steps`` substeps of
     ``dt`` starting at ``now`` (state updated in place) and returns
     ``(outs, wire)``: per-kind TickOutputs and the dispatch's ``Wire``.
-    Dispatch n draws every kind's delays from seed ``0x5EEDC0DE + n``."""
+    Dispatch n draws every kind's delays from seed ``0x5EEDC0DE + n``.
+
+    With ``mesh`` the states are ``SplitState``s over it (``place``
+    splits one) and each kind launches once per shard; its outputs'
+    masks and counters lie on the mesh's first device, ``self.device``.
+    """
 
     def __init__(
         self, specs, steps: int = 1, dt: float = 0.0, device="cuda",
+        mesh=None,
     ) -> None:
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else torch.device(device)
+        self._split = None
+        if mesh is not None:
+            from kwok_tpu_torch.parallel.sharded_tick import tick_split
+
+            self._split = tick_split
         self.specs = [
             cuda_tick.TickSpec(table, hb_interval, hb_phases, hb_sel_bit)
             for table, hb_interval, hb_phases, hb_sel_bit in specs
@@ -153,13 +180,21 @@ class MultiTickKernel:
         self.dt = float(dt)
         self._step_n = 0
 
-    def place(self, state: RowState) -> RowState:
-        """``state`` on this kernel's device (a copy unless already there)."""
+    def place(self, state):
+        """``state`` on this kernel's device (a copy unless already
+        there), or split over its mesh."""
+        if self.mesh is not None:
+            from kwok_tpu_torch.parallel.mesh import row_sharding
+
+            return row_sharding(self.mesh)(state)
         return RowState(*(t.to(self.device) for t in state))
 
     def __call__(self, states, now: float):
         self._step_n += 1
         seed = (cuda_tick.SEED_BASE + self._step_n) & 0xFFFFFFFF
+        if self._split is not None:
+            outs, wire = self._split(states, self.specs, now, seed, self.steps, self.dt)
+            return outs, Wire(wire)
         outs = []
         for st, spec in zip(states, self.specs):
             dirty, deleted, hb, counts = cuda_tick.tick_steps(
@@ -254,7 +289,7 @@ def lane_views(masks, rows, n_lanes: int, r: int):
     return out
 
 
-def gather_deadlines(state: RowState):
+def gather_deadlines(state):
     """Host numpy copies of the device-owned fields a checkpoint records,
     ``(fire_at, hb_due, gen, phase)`` (resilience/checkpoint.py). The
     phase is the device's too: a row the last dispatch fired holds its
@@ -263,15 +298,24 @@ def gather_deadlines(state: RowState):
 
     On a CUDA device the four copies go out together on the current
     stream (the tick thread's: they read the state its queued dispatches
-    produce) into pinned buffers, one event marks their end, and the host
-    waits once. Call it on the thread that owns the state."""
-    fields = (state.fire_at, state.hb_due, state.gen, state.phase)
-    if state.device.type != "cuda":
-        return tuple(t.numpy().copy() for t in fields)
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in fields]
-    for h, t in zip(host, fields):
-        h.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(state.device))
-    done.synchronize()
-    return tuple(h.numpy() for h in host)
+    produce; a split state's shards on their own streams) into pinned
+    buffers, an event marks each stream's end, and the host waits once
+    for all of them. Call it on the thread that owns the state."""
+    events = []
+
+    def start(s: RowState) -> list:
+        fields = (s.fire_at, s.hb_due, s.gen, s.phase)
+        if s.device.type != "cuda":
+            return [t.numpy().copy() for t in fields]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in fields]
+        for h, t in zip(host, fields):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(s.device))
+        events.append(done)
+        return [h.numpy() for h in host]
+
+    parts = state.each(start) if isinstance(state, SplitState) else [start(state)]
+    for done in events:
+        done.synchronize()
+    return tuple(np.concatenate(f) for f in zip(*parts))

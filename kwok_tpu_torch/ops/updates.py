@@ -22,6 +22,12 @@ from XLA are made explicit on the host, where the indices are numpy:
 stacked state (one slice of ``rows`` rows per lane, ``engine/lanes.py``)
 drops out-of-range lane indices BEFORE shifting them by the lane's
 offset, so a stray index can never land in the next lane's rows.
+
+Each scatter also takes a ``SplitState`` (``parallel/``): the batch's
+written positions are found over the global rows as above, then each
+shard takes the ones that fall in its rows, moved down by its base, on
+its own stream. The lane offset of a stacked flush is applied first, so
+a lane's rows may straddle shards.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from kwok_tpu_torch.ops.state import RowState
+from kwok_tpu_torch.ops.state import RowState, SplitState
 
 INF = float("inf")
 
@@ -74,15 +80,38 @@ def _shift(idx, offset: int, rows: "int | None") -> np.ndarray:
     return np.where(keep, idx + offset, -1)
 
 
-def init_rows(state: RowState, b: InitBatch) -> RowState:
-    """(Re)initialize rows ``b.idx`` in place; timers and pending rule
-    reset (-1 / +inf / +inf / gen 0). Returns ``state``."""
-    idx = np.asarray(b.idx, np.int64)
+def _scatter(state, idx: np.ndarray, write):
+    """Call ``write(rows, row_idx, pos)`` with the positions ``pos`` into
+    the batch that are written (``_last_writers``) and their row indices
+    ``row_idx`` into ``rows``: the state itself, or each shard of a split
+    state in turn (indices moved down by its base, on its stream).
+    Returns ``state``."""
     pos = _last_writers(idx, state.capacity)
     if not pos.size:
         return state
+    if not isinstance(state, SplitState):
+        write(state, idx[pos], pos)
+        return state
+    g = idx[pos]
+    shard_of = g // state.rows
+    for i, shard in enumerate(state.shards):
+        sel = np.nonzero(shard_of == i)[0]
+        if sel.size:
+            with state.mesh.on(i):
+                write(shard, g[sel] - state.base(i), pos[sel])
+    return state
+
+
+def init_rows(state, b: InitBatch):
+    """(Re)initialize rows ``b.idx`` in place; timers and pending rule
+    reset (-1 / +inf / +inf / gen 0). Returns ``state``."""
+    return _scatter(state, np.asarray(b.idx, np.int64),
+                    lambda rows, i, pos: _init_rows(rows, b, i, pos))
+
+
+def _init_rows(state: RowState, b: InitBatch, row_idx, pos) -> None:
     cols = np.empty((6, pos.size), np.int64)
-    cols[0] = idx[pos]
+    cols[0] = row_idx
     cols[1] = np.asarray(b.active, bool)[pos]
     cols[2] = np.asarray(b.phase, np.int32)[pos]
     # uint32 bits -> int32 bit pattern (the state's layout)
@@ -100,25 +129,24 @@ def init_rows(state: RowState, b: InitBatch) -> RowState:
     state.fire_at.index_fill_(0, i, INF)
     state.hb_due.index_fill_(0, i, INF)
     state.gen.index_fill_(0, i, 0)
-    return state
 
 
-def update_rows(state: RowState, b: UpdateBatch) -> RowState:
+def update_rows(state, b: UpdateBatch):
     """Overwrite the matching inputs (sel_bits, has_deletion) of rows
     ``b.idx`` in place. Returns ``state``."""
-    idx = np.asarray(b.idx, np.int64)
-    pos = _last_writers(idx, state.capacity)
-    if not pos.size:
-        return state
+    return _scatter(state, np.asarray(b.idx, np.int64),
+                    lambda rows, i, pos: _update_rows(rows, b, i, pos))
+
+
+def _update_rows(state: RowState, b: UpdateBatch, row_idx, pos) -> None:
     cols = np.empty((3, pos.size), np.int64)
-    cols[0] = idx[pos]
+    cols[0] = row_idx
     cols[1] = np.asarray(b.sel_bits, np.uint32)[pos].view(np.int32)
     cols[2] = np.asarray(b.has_deletion, bool)[pos]
     dev = torch.from_numpy(cols).to(state.device)
     i = dev[0]
     state.sel_bits[i] = dev[1].to(torch.int32)
     state.has_deletion[i] = dev[2].to(torch.bool)
-    return state
 
 
 class RefineBatch(NamedTuple):
@@ -134,21 +162,21 @@ class RefineBatch(NamedTuple):
     gen: np.ndarray  # int32
 
 
-def refine_rows(state: RowState, b: RefineBatch) -> RowState:
+def refine_rows(state, b: RefineBatch):
     """Overwrite (fire_at, hb_due, gen) of rows ``b.idx`` in place.
     Returns ``state``."""
-    idx = np.asarray(b.idx, np.int64)
-    pos = _last_writers(idx, state.capacity)
-    if not pos.size:
-        return state
+    return _scatter(state, np.asarray(b.idx, np.int64),
+                    lambda rows, i, pos: _refine_rows(rows, b, i, pos))
+
+
+def _refine_rows(state: RowState, b: RefineBatch, row_idx, pos) -> None:
     dev = state.device
-    i = torch.from_numpy(idx[pos]).to(dev)
+    i = torch.from_numpy(np.ascontiguousarray(row_idx)).to(dev)
     state.fire_at[i] = torch.from_numpy(
         np.asarray(b.fire_at, np.float32)[pos]).to(dev)
     state.hb_due[i] = torch.from_numpy(
         np.asarray(b.hb_due, np.float32)[pos]).to(dev)
     state.gen[i] = torch.from_numpy(np.asarray(b.gen, np.int32)[pos]).to(dev)
-    return state
 
 
 def refine_flush(

@@ -163,7 +163,10 @@ def test_parsers_have_the_same_flags_and_defaults():
 TWO = ["--master", "http://127.0.0.1:1,http://127.0.0.1:2"]
 
 REFUSED = {
-    "use-mesh": (["--use-mesh", "true"], {}, "9b"),
+    # accepted since item 9b (None): rows split over the mesh
+    "use-mesh": (["--use-mesh", "true"], {}, None),
+    # refused as kwok_tpu refuses it (EngineConfig.validate)
+    "lane-procs-use-mesh": (["--lane-procs", "true", "--use-mesh", "true"], {}, "kwok_tpu"),
     # accepted since item 12 (None): the role reaches the HA plane
     "ha-primary": (["--ha-role", "primary"], {}, None),
     "ha-standby": (["--ha-role", "standby"], {}, None),
@@ -173,9 +176,9 @@ REFUSED = {
     "faults": (["--faults", "seed=1;pump.drop=0.1"], {}, None),
     # accepted since item 14 (None): pod IPs from the CNI provider
     "enable-cni": (["--enable-cni", "true"], {}, None),
-    # a federation runs on one card: its stacked state over several is 9b
-    "two-masters": (TWO + ["--use-mesh", "true"], {}, "9b"),
-    "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, "9b"),
+    # a federation splits its groups' stacked states over its mesh
+    "two-masters": (TWO + ["--use-mesh", "true"], {}, None),
+    "env-use-mesh": ([], {"KWOK_USE_MESH": "true"}, None),
     "env-ha-role": ([], {"KWOK_HA_ROLE": "standby"}, None),
     "env-audit-interval": ([], {"KWOK_AUDIT_INTERVAL": "2"}, None),
     "env-tpu-audit-interval": ([], {"KWOK_TPU_AUDIT_INTERVAL": "2"}, None),
@@ -269,6 +272,46 @@ def accepted_ha(extra, env, monkeypatch) -> list:
     return out
 
 
+def accepted_mesh(extra, env, monkeypatch) -> list:
+    """EngineConfig.use_mesh that an accepted ``--use-mesh`` form gives,
+    through the port's CLI and through kwok_tpu's; the port's engine (or,
+    with several masters, its federation) splits its rows over the CPU
+    mesh that ``KWOK_TPU_PLATFORM=cpu`` asks for."""
+    from kwok_tpu.config.types import KwokConfigurationOptions as JaxOptions
+    from kwok_tpu.config.types import apply_env_overrides as jax_env
+    from kwok_tpu_torch.config.types import apply_env_overrides
+    from kwok_tpu_torch.engine import ClusterEngine, FederatedEngine
+    from kwok_tpu_torch.ops.state import SplitState
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    masters = ["http://127.0.0.1:1", "http://127.0.0.1:2"] if extra[:1] == ["--master"] \
+        else ["http://127.0.0.1:1"]
+    out = []
+    for lib in ("torch", "jax"):
+        opts = KwokConfigurationOptions() if lib == "torch" else JaxOptions()
+        (apply_env_overrides if lib == "torch" else jax_env)(opts)
+        mod = tcli if lib == "torch" else jcli
+        args = mod.build_parser(opts).parse_args(extra + ["--manage-all-nodes", "true"])
+        if lib == "jax":
+            out.append(jcli._engine_config(args, []).use_mesh)
+            continue
+        assert tcli.refusals(args, masters) == []
+        cfg = tcli._engine_config(args, [], "cpu")
+        out.append(cfg.use_mesh)
+        if len(masters) > 1:
+            fed = FederatedEngine([PortFakeKube(), PortFakeKube()], cfg)
+            assert fed.mesh.devices == (torch.device("cpu"),)
+            assert all(isinstance(st, SplitState) for g in fed.groups
+                       for st in g.stacked.values())
+            assert not any(e.config.use_mesh for e in fed.engines)
+        else:
+            eng = ClusterEngine(PortFakeKube(), cfg)
+            assert eng._mesh.devices == (torch.device("cpu"),)
+            assert eng._get_fused().mesh is eng._mesh
+    return out
+
+
 def audit_intervals(extra, env, monkeypatch, options=None) -> list:
     """(EngineConfig.audit_interval, the engine's resolved
     _audit_interval) that an accepted ``--audit-interval`` form gives,
@@ -339,6 +382,9 @@ def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
     if item is None and "cni" in name:
         assert accepted_cni(extra, env, monkeypatch) == [True, True]
         return
+    if item is None and ("--use-mesh" in extra or "KWOK_USE_MESH" in env):
+        assert accepted_mesh(extra, env, monkeypatch) == [True, True]
+        return
     if item is None and "ha" in name:
         role = (extra[1:2] or list(env.values()))[0]
         assert accepted_ha(extra, env, monkeypatch) == [(role, "ident-a", "lz", "ns-z", 3.0, 0.5)] * 2
@@ -356,6 +402,14 @@ def test_refused_flag_exits_naming_roadmap_item(name, tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as e:
         tcli.main(base_args(tmp_path, "http://127.0.0.1:1") + extra)
     assert isinstance(e.value.code, str), e.value.code  # exit status 1
+    if item == "kwok_tpu":
+        # the reference's own refusal, word for word
+        from kwok_tpu.engine import EngineConfig as JaxConfig
+
+        with pytest.raises(ValueError) as ref:
+            JaxConfig(manage_all_nodes=True, lane_procs=True, use_mesh=True).validate()
+        assert e.value.code == f"kwok: {ref.value}"
+        return
     assert f"ROADMAP item {item}" in e.value.code
 
 

@@ -141,6 +141,37 @@ def test_fused_wire_on_card_matches_cpu(card):
         assert gw.is_ready()
 
 
+def test_split_dispatch_on_card_equals_unsplit(card):
+    """4 shards of one card (a mesh may repeat a device), each launched on
+    its own stream with its row base: under the exponential chaos rules
+    the wire and the state equal the unsplit dispatch's bit for bit, and
+    each dispatch launches once per shard and kind."""
+    from kwok_tpu_torch.parallel.mesh import make_mesh
+
+    specs = [
+        (tm.compile_rules(tm.default_node_rules(), tm.ResourceKind.NODE), 2.0, (), 1),
+        (tm.compile_rules(chaos_pod_rules(mean_run_seconds=1.0), tm.ResourceKind.POD),
+         2.0, (), -1),
+    ]
+    mesh = make_mesh(devices=[card] * 4)
+    caps = (4 * 257, 4 * 1025)
+    hosts = [population(c, seed=c) for c in caps]
+    one = MultiTickKernel(specs, steps=16, dt=0.05, device=card)
+    split = MultiTickKernel(specs, steps=16, dt=0.05, mesh=mesh)
+    a = tuple(ts.from_numpy(h, card) for h in hosts)
+    b = tuple(split.place(h) for h in hosts)
+    for now in (0.0, 0.9, 1.8, 2.7):
+        _, wa = one(a, now)
+        before = cuda_tick.tick_steps.launches
+        _, wb = split(b, now)
+        assert cuda_tick.tick_steps.launches - before == 2 * mesh.size
+        np.testing.assert_array_equal(np.asarray(wb), np.asarray(wa))
+    for x, y in zip(a, b):
+        hx, hy = ts.to_numpy(x), ts.to_numpy(y)
+        for f in ts.RowState._fields:
+            np.testing.assert_array_equal(getattr(hy, f), getattr(hx, f), err_msg=f)
+
+
 def test_graft_twin_launches_the_kernel_at_full_width(card):
     """kwok_tpu_torch.graft.entry() on the card: 65,536 pod rows on the
     chaos rules, three dispatches of its step, each a launch of tick.cu,
@@ -687,8 +718,10 @@ def test_federation_on_card(card, tmp_path):
     assert {"member0.ckpt.json", "member1.ckpt.json"} <= set(os.listdir(tmp_path))
     for g in fed.groups:
         assert all(st.device.type == "cuda" for st in g.stacked.values())
-        k_states = [type(st)(*(t.clone() for t in st)) for st in (g.stacked["nodes"], g.stacked["pods"])]
-        p_states = [type(st)(*(t.clone() for t in st)) for st in (g.stacked["nodes"], g.stacked["pods"])]
+        # the stacked states are split over the federation's mesh: held
+        # whole, as one card state each
+        k_states = [ts.from_numpy(ts.to_numpy(g.stacked[k]), card) for k in ("nodes", "pods")]
+        p_states = [ts.from_numpy(ts.to_numpy(g.stacked[k]), card) for k in ("nodes", "pods")]
         for spec, ks, ps in zip(g.fused.specs, k_states, p_states):
             k = cuda_tick.tick_steps(ks, spec, 5.0, cuda_tick.SEED_BASE, 1, 0.02)
             p = cuda_tick.tick_steps_plain(ps, spec, 5.0, cuda_tick.SEED_BASE, 1, 0.02)

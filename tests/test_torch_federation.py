@@ -4,7 +4,9 @@ kwok_tpu.engine.federation on the CPU.
 Each package runs on its own apiserver stores; the port with
 ``device="cpu"`` (the plain tick), the JAX package as
 tests/test_federation.py runs it, on a one-device mesh where the stacked
-layouts are compared (the port pads for one card, ``n_devices = 1``).
+layouts are compared (the port's default mesh is the CPU once, so its
+groups' stacked states are split into one shard;
+tests/test_torch_sharded.py runs both over 8).
 
 - ``_pad_cluster_capacity`` over a grid of (r, n, d), compared exactly.
 - The oracle: the same per-member script (nodes, pods, a status revert,
@@ -353,13 +355,15 @@ def test_shared_epoch_rebase_shifts_every_group():
     fed._epoch -= REBASE_AFTER + 10.0
     for e in fed.engines:
         e._epoch = fed._epoch
+    # a group's stacked state is split over the federation's mesh (one
+    # shard of the CPU here): row 0 is the first shard's row 0
     for g in fed.groups:
-        g.stacked["nodes"].hb_due[0] = REBASE_AFTER + 40.0
+        g.stacked["nodes"].shards[0].hb_due[0] = REBASE_AFTER + 40.0
     fed.tick_once()
     assert all(e._epoch == fed._epoch for e in fed.engines)
     assert fed.metrics["epoch_rebases_total"] == 1
     for g in fed.groups:
-        assert abs(float(g.stacked["nodes"].hb_due[0]) - 30.0) < 0.5
+        assert abs(float(g.stacked["nodes"].shards[0].hb_due[0]) - 30.0) < 0.5
         assert g.dispatches == 0  # no rows: empty groups dispatch nothing
 
 

@@ -83,6 +83,21 @@ def test_tooling_modules_are_walked_and_import(rel):
     importlib.import_module(mod)
 
 
+PARALLEL_MODULES = tuple(f"parallel/{m}.py" for m in ("__init__", "mesh", "sharded_tick"))
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_parallel_modules_are_walked_and_import(rel):
+    """The AST walk above covers the row split's package, and each module
+    imports without jax or kwok_tpu loaded for it."""
+    import importlib
+
+    path = ROOT / "kwok_tpu_torch" / rel
+    assert path in PORT_FILES
+    mod = "kwok_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(".__init__")
+    importlib.import_module(mod)
+
+
 KWOKCTL_MODULES = tuple(
     f"kwokctl/{m}.py" for m in (
         "__init__", "__main__", "cli", "components", "consts", "download",
