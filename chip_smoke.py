@@ -11,13 +11,22 @@ result line then):
    kwok_tpu_torch/csrc/tick.cu from the checkout, all at once (build
    times and the ptxas report are printed). A native server that does
    not build fails the run: no phase falls back to the Python mock.
-2. Kernel: the tick kernel against its plain torch version on the card at
-   1,048,576 pod rows + 10,240 node rows, for the constant default rule
-   set and the exponential chaos set, at K=1 and K=16 substeps (dt=0.05).
-   Constant rules: every state field, mask, counter and the packed wire
-   bit-exact. Chaos rules: fire_at to rtol 1e-6, rows that differ in any
-   field at most 1e-5 of the rows. Kernel, plain and wire D2H times are
-   taken with CUDA events.
+2. Kernel: the SASS of the build (cuobjdump -sass, sass_bound.py): each
+   entry's substep loop and the shortest path through it, per functional
+   unit (printed), which sets the operation bound. Then both entries of
+   kwok_tpu_torch/csrc/tick.cu against their plain torch version on the
+   card at 1,048,576 pod rows + 10,240 node rows, for the constant
+   default rule set and the exponential chaos set, at K=1 and K=16
+   substeps (dt=0.05): the fused dispatch (tick_dispatch: one launch
+   ticks both kinds and writes the packed wire, a one-block epilogue
+   completes it) and the per-kind entry (tick_steps). Constant rules:
+   the fused wire byte for byte against the plain wire (tick_steps_plain
+   per kind, then pack_wire), every state field, mask and counter
+   bit-exact. Chaos rules: fire_at and next_due to rtol 1e-6, rows that
+   differ in any field, mask or wire row at most 1e-5 of the rows. The
+   two entries' states equal bit for bit under both. Times by CUDA
+   events: the fused launches, the whole dispatch (with the wire's D2H
+   copy), the per-kind launches, the plain version, the D2H copy alone.
 2b. Graft: the port's twin of __graft_entry__.entry()
    (kwok_tpu_torch.graft): 65,536 pod rows seeded as the reference seeds
    them, chaos rules (mean 5 s), K=1. Its main path, three dispatches of
@@ -27,7 +36,7 @@ result line then):
    1e-5 of the rows differing). With the card kept busy by a device-side
    sleep, pack_wire must return before the stream drains (no host sync
    on the dispatch path). Kernel and plain times by CUDA events, beside
-   the byte bound; the launches join the kernels line.
+   the bound; the launches join the kernels line as the per-kind entry's.
 3. Engine: the port's threaded single-lane ClusterEngine (the normal
    start() path, device="cuda") against the port's in-memory FakeKube
    holding 10,000 nodes and ENGINE_PODS = 12,500 pods (cut from 25,000)
@@ -361,9 +370,11 @@ result line then):
    split into the 4 shards, for the default and the chaos rules at K=1
    and K=16: three dispatches each, every wire byte for byte against the
    unsplit MultiTickKernel on the same inputs and then every state field
-   equal (any differing byte fails the run), 8 launches per split
-   dispatch; then ms per dispatch, split and unsplit (CUDA events, median
-   of 40 in turns), beside the byte bound. (b) ClusterEngine(use_mesh=
+   equal (any differing byte fails the run), 4 launches per split
+   dispatch (one fused launch per shard); then ms per dispatch, split
+   and unsplit (CUDA events, median of 40 in turns), beside the byte
+   bound; then graft.dryrun_multichip(4) on the card (its federation's
+   pods all reach Running). (b) ClusterEngine(use_mesh=
    True) over the 4 shards in process, auto threaded lanes, the engine
    phase's 10,000 nodes and 12,500 pods against FakeKube: every pod
    Running with a distinct IP, the 500 graceful deletes gone, the stacked
@@ -375,8 +386,9 @@ result line then):
    devices, launches > 0, the kernel bit-exact at its capacities. The
    federation phase (8) runs over the mesh of every visible card too.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}: the fused entry
+(tick_dispatch, every engine phase's launches) and the per-kind entry
+(tick, the graft phase's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -537,10 +549,12 @@ DEVICE = "cuda"
 APISERVER: "str | None" = None
 MOCK_START_S = 30.0  # a mock apiserver's start until its "listening on" line
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
-# bytes a row moves per dispatch: reads 2x1 B bools + 7x4 B fields,
-# writes 6x4 B fields + 3x1 B masks (csrc/tick.cu)
-ROW_BYTES = 30 + 27
+# bytes a row moves per fused dispatch (csrc/tick.cu): reads 2x1 B bools
+# + 7x4 B fields, writes 6x4 B fields back and 5 B and 3 bits of wire
+ROW_BYTES = 30 + 24 + 5 + 3 / 8
+# ... and per launch of the per-kind entry: the same reads and state
+# writes, and 3x1 B masks
+ROW_BYTES_PER_KIND = 30 + 27
 
 
 def log(msg: str) -> None:
@@ -553,18 +567,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
-
-
-def tick_ops(spec, rows: int, steps: int) -> int:
-    """Arithmetic/logic operations the tick does on these inputs: per row
-    and substep, 8 per rule for the match and first-match select, 15 per
-    hash draw (one, two when weighted), 8 per rule for the weighted pass,
-    10 for the delay, 10 for the fire, 12 for the heartbeat wheel."""
-    r = spec.num_rules
-    per = 8 * r + 15 + 10 + 10 + 12
-    if spec.has_weights:
-        per += 15 + 8 * r
-    return per * rows * steps
 
 
 def make_states(np, seed: int):
@@ -599,13 +601,30 @@ def clone(state):
     return type(state)(*(t.clone() for t in state))
 
 
-def kernel_phase(torch, np):
+def kernel_phase(torch, np, sass: dict):
+    """Both entries of csrc/tick.cu at 10,240 + 1,048,576 rows, default
+    and chaos rules, K = 1 and 16, three dispatches each from copies of
+    one state: the fused dispatch (``tick_dispatch``: one launch for both
+    kinds that writes the wire, and its epilogue) and the per-kind entry
+    (``tick_steps``), each held against the plain version
+    (``tick_steps_plain`` per kind, then ``pack_wire``). Default rules:
+    the fused wire equals the plain wire byte for byte, and every state
+    field of both entries and the per-kind masks equal the plain ones.
+    Chaos rules: fire_at rtol 1e-6, next_due rtol 1e-6, at most 1e-5 of
+    the rows differing in any field, mask, wire row or counter. Under
+    every rule set the two entries' states are equal bit for bit (they
+    share one substep function). Then ``time_dispatch``'s times against
+    the byte bound and the operation bound of ``sass`` (the build's
+    per-substep instruction counts, ``sass_bound.py``)."""
     from kwok_tpu_torch.models import compile_rules, default_node_rules, default_pod_rules
     from kwok_tpu_torch.models.defaults import chaos_pod_rules
     from kwok_tpu_torch.models.lifecycle import ResourceKind
     from kwok_tpu_torch.ops import cuda_tick
     from kwok_tpu_torch.ops.state import TickOutputs
-    from kwok_tpu_torch.ops.tick import pack_wire
+    from kwok_tpu_torch.ops.cuda_tick import pack_wire
+    from kwok_tpu_torch.ops.tick import unpack_wire
+
+    import sass_bound
 
     ntab = compile_rules(default_node_rules(), ResourceKind.NODE)
     node_spec = cuda_tick.TickSpec(ntab, 30.0, (), 1)
@@ -615,29 +634,37 @@ def kernel_phase(torch, np):
         "chaos": cuda_tick.TickSpec(
             compile_rules(chaos_pod_rules(5.0), ResourceKind.POD), 30.0, (), -1),
     }
-    fields = ("phase", "cond_bits", "pending_rule", "hb_due", "gen")
-    rows_total = POD_ROWS + NODE_ROWS
+    caps = [NODE_ROWS, POD_ROWS]
+    rows_total = sum(caps)
     configs = []
     max_abs_err = 0.0
     for rname, pod_spec in rule_sets.items():
+        specs = (node_spec, pod_spec)
+        exact = rname == "default"
+        limit = 0 if exact else int(1e-5 * rows_total)
         for steps in SUBSTEPS:
             nodes0, pods0 = make_states(np, seed=steps)
             # three dispatches: fresh arming, firing, later completions
             for n, now in enumerate((0.0, 0.8, 6.0), start=1):
                 seed = cuda_tick.SEED_BASE + n
-                outs = {}
-                for path in ("kernel", "plain"):
-                    res = []
-                    for spec, st0 in ((node_spec, nodes0), (pod_spec, pods0)):
-                        st = clone(st0)
-                        fn = cuda_tick.tick_steps if path == "kernel" else cuda_tick.tick_steps_plain
-                        d, x, h, c = fn(st, spec, now, seed, steps, DT)
-                        res.append(TickOutputs(st, d, x, h, c[0], c[1]))
-                    outs[path] = (res, pack_wire(res))
-                (kres, kwire), (pres, pwire) = outs["kernel"], outs["plain"]
-                exact = rname == "default"
-                for kind, ko, po in zip(("nodes", "pods"), kres, pres):
-                    kf, pf = ko.state.fire_at, po.state.fire_at
+                fused = [clone(nodes0), clone(pods0)]
+                per_kind = [clone(nodes0), clone(pods0)]
+                plain = [clone(nodes0), clone(pods0)]
+                _, kwire = cuda_tick.tick_dispatch(fused, specs, now, seed, steps, DT)
+                kres = [cuda_tick.tick_steps(st, spec, now, seed, steps, DT)
+                        for st, spec in zip(per_kind, specs)]
+                pres = []
+                for st, spec in zip(plain, specs):
+                    d, x, h, c = cuda_tick.tick_steps_plain(st, spec, now, seed, steps, DT)
+                    pres.append(TickOutputs(st, d, x, h, c[0], c[1]))
+                pwire = pack_wire(pres)
+                torch.cuda.synchronize()
+                for kind, fs, ks, (kd, kx, kh, kc), po in zip(
+                        ("nodes", "pods"), fused, per_kind, kres, pres):
+                    for f in fs._fields:
+                        if not torch.equal(getattr(fs, f), getattr(ks, f)):
+                            raise AssertionError(f"{rname} K={steps} {kind}: the entries' {f} differ")
+                    kf, pf = fs.fire_at, po.state.fire_at
                     if not torch.equal(torch.isinf(kf), torch.isinf(pf)):
                         raise AssertionError(f"{rname} K={steps} {kind}: +inf fire_at positions differ")
                     fin = ~torch.isinf(kf)
@@ -646,42 +673,60 @@ def kernel_phase(torch, np):
                     rel = (kf[fin] - pf[fin]).abs() / pf[fin].abs().clamp(min=1e-30)
                     if bool(fin.any()) and float(rel.max()) > (0.0 if exact else 1e-6):
                         raise AssertionError(f"{rname} K={steps} {kind}: fire_at rel err {float(rel.max())}")
-                    differ = torch.zeros_like(ko.dirty)
-                    for f in fields:
-                        differ |= getattr(ko.state, f) != getattr(po.state, f)
-                    for m in ("dirty", "deleted", "hb_fired"):
-                        differ |= getattr(ko, m) != getattr(po, m)
+                    differ = torch.zeros_like(kd)
+                    for f in ("phase", "cond_bits", "pending_rule", "hb_due", "gen"):
+                        differ |= getattr(fs, f) != getattr(po.state, f)
+                    for km, pm in ((kd, po.dirty), (kx, po.deleted), (kh, po.hb_fired)):
+                        differ |= km != pm
                     nd = int(differ.sum())
-                    cap = ko.dirty.shape[0]
-                    limit = 0 if exact else int(1e-5 * cap)
                     if nd > limit:
                         raise AssertionError(f"{rname} K={steps} {kind}: {nd} rows differ (limit {limit})")
-                    dt_ = abs(int(ko.transitions) - int(po.transitions))
-                    dh = abs(int(ko.heartbeats) - int(po.heartbeats))
-                    if dt_ > limit or dh > limit:
+                    if int((kc - torch.stack([po.transitions, po.heartbeats])).abs().max()) > limit:
                         raise AssertionError(f"{rname} K={steps} {kind}: counters differ")
-                if exact and not torch.equal(kwire, pwire):
-                    raise AssertionError(f"{rname} K={steps}: wire bytes differ")
-                nodes0, pods0 = kres[0].state, kres[1].state
-            ms, plain_ms, wire_ms = time_dispatch(
-                torch, node_spec, pod_spec, steps, make_states(np, seed=99), 0.8)
-            ops = tick_ops(node_spec, NODE_ROWS, steps) + tick_ops(pod_spec, POD_ROWS, steps)
+                if exact:
+                    if not torch.equal(kwire, pwire):
+                        raise AssertionError(f"{rname} K={steps}: wire bytes differ")
+                else:
+                    kc_, km_, kd_, kr_ = unpack_wire(kwire.cpu().numpy(), caps, lazy=False, rows=True)
+                    pc_, pm_, pd_, pr_ = unpack_wire(pwire.cpu().numpy(), caps, lazy=False, rows=True)
+                    kr_, pr_ = kr_(), pr_()
+                    if int(np.abs(kc_.astype(np.int64) - pc_).max()) > limit:
+                        raise AssertionError(f"{rname} K={steps}: wire counters differ")
+                    if not np.allclose(kd_, pd_, rtol=1e-6, atol=0.0):
+                        raise AssertionError(f"{rname} K={steps}: next_due {kd_} against {pd_}")
+                    for k, cap in enumerate(caps):
+                        differ = np.zeros(cap, bool)
+                        for a, b in zip(km_[k] + kr_[k], pm_[k] + pr_[k]):
+                            differ |= a != b
+                        if int(differ.sum()) > limit:
+                            raise AssertionError(f"{rname} K={steps} kind {k}: {int(differ.sum())} "
+                                                 f"wire rows differ (limit {limit})")
+                nodes0, pods0 = fused
+            t = time_dispatch(torch, node_spec, pod_spec, steps, make_states(np, seed=99), 0.8)
             t_bytes = rows_total * ROW_BYTES / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / FP32_OPS_PER_S * 1e3
+            t_ops, unit = sass_bound.bound_ms(sass["fused_tick_kernel"], rows_total, steps)
+            per_kind_bytes = rows_total * ROW_BYTES_PER_KIND / HBM_BYTES_PER_S * 1e3
+            pk_ops, _pk_unit = sass_bound.bound_ms(sass["tick_kernel"], rows_total, steps)
             configs.append({
                 "rules": rname, "substeps": steps, "rows": rows_total,
-                "ms": ms, "plain_ms": plain_ms, "wire_d2h_ms": wire_ms,
+                "ms": t["fused_ms"], "dispatch_ms": t["dispatch_ms"],
+                "plain_ms": t["plain_ms"], "wire_d2h_ms": t["wire_d2h_ms"],
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": rows_total * ROW_BYTES, "ops": ops,
+                "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops, "ops_bound_unit": unit,
+                "bytes": rows_total * ROW_BYTES,
+                "per_kind_ms": t["per_kind_ms"], "per_kind_plain_ms": t["plain_tick_ms"],
+                "per_kind_bound_ms": max(per_kind_bytes, pk_ops),
+                "per_kind_bound_by": "bytes" if per_kind_bytes >= pk_ops else "operations",
             })
-            log(f"kernel {rname} K={steps}: checked; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.3f} ms, wire D2H {wire_ms:.4f} ms, "
-                f"bound {max(t_bytes, t_ops):.4f} ms")
+            log(f"kernel {rname} K={steps}: checked; fused {t['fused_ms']:.4f} ms (bound "
+                f"{max(t_bytes, t_ops):.4f}: bytes {t_bytes:.4f}, {unit} {t_ops:.4f}), whole "
+                f"dispatch {t['dispatch_ms']:.4f} ms, per-kind {t['per_kind_ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.3f} ms, wire D2H {t['wire_d2h_ms']:.4f} ms")
     return configs, max_abs_err
 
 
-def graft_phase(torch, np):
+def graft_phase(torch, np, sass: dict):
     """The graft twin (kwok_tpu_torch.graft.entry, the flagship step of
     __graft_entry__.entry): its main path is three dispatches of its step
     on the card from the seeded 65,536-row state, with the launch count
@@ -692,10 +737,12 @@ def graft_phase(torch, np):
     dispatch's wire (pack_wire) must be enqueued while the stream is
     still running: no host sync on the dispatch path. Kernel and plain
     times are CUDA events around the launch."""
+    import sass_bound
+
     from kwok_tpu_torch import graft
     from kwok_tpu_torch.ops import cuda_tick
     from kwok_tpu_torch.ops.state import TickOutputs
-    from kwok_tpu_torch.ops.tick import pack_wire
+    from kwok_tpu_torch.ops.cuda_tick import pack_wire
 
     step, (state, now0, seed) = graft.entry()
     nows = (now0, 1.0, 6.0)
@@ -764,15 +811,15 @@ def graft_phase(torch, np):
             torch.cuda.synchronize()
             times[path].append(e0.elapsed_time(e1))
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
-    t_bytes = rows * ROW_BYTES / HBM_BYTES_PER_S * 1e3
-    ops = tick_ops(step.spec, rows, 1)
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = rows * ROW_BYTES_PER_KIND / HBM_BYTES_PER_S * 1e3
+    t_ops, unit = sass_bound.bound_ms(sass["tick_kernel"], rows, 1)
     cfg = {
         "rules": "graft chaos (mean 5 s)", "substeps": 1, "rows": rows,
         "ms": med(times["kernel"]), "plain_ms": med(times["plain"]),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": rows * ROW_BYTES, "ops": ops, "launches": launches,
+        "bytes": rows * ROW_BYTES_PER_KIND, "ops_bound_ms": t_ops, "ops_bound_unit": unit,
+        "launches": launches,
         "max_abs_err": max_abs_err, "pack_wire_host_ms_while_busy": pack_host_ms,
     }
     log(f"graft: checked; kernel {cfg['ms']:.4f} ms, plain {cfg['plain_ms']:.3f} ms, "
@@ -781,46 +828,71 @@ def graft_phase(torch, np):
     return cfg
 
 
-def time_dispatch(torch, node_spec, pod_spec, steps, states, now, reps: int = 20):
-    """Median ms of one dispatch's kernel launches (nodes + pods) on
-    ``states`` at engine time ``now``, of the plain version on the same
-    inputs, and of the wire's D2H copy (CUDA events). Each rep starts from
-    the same state, copied outside the timed window; at full size the
-    ~60 MB state does not fit the 50 MB L2. A device-side sleep queued
-    first keeps the card busy while the host enqueues, so the events time
-    the device work, not the enqueue."""
+def time_dispatch(torch, node_spec, pod_spec, steps, states, now, reps: int = 20) -> dict:
+    """Median ms (CUDA events) on ``states`` at engine time ``now`` of:
+    ``fused_ms``, the fused dispatch's two launches (``tick_dispatch``:
+    the kernel for both kinds and its epilogue); ``dispatch_ms``, the
+    whole dispatch (those launches and the wire's D2H copy into pinned
+    memory, as ``MultiTickKernel`` runs it); ``per_kind_ms``, the per-kind
+    entry's two launches (nodes + pods); ``plain_ms``, the plain version
+    (``tick_steps_plain`` per kind, then ``pack_wire``) and
+    ``plain_tick_ms``, its ticks alone (the per-kind entry's plain
+    version); and ``wire_d2h_ms``, the wire's D2H copy alone. Each rep starts from the
+    same state, copied outside the timed window; at full size the ~60 MB
+    state does not fit the 50 MB L2. A device-side sleep queued first
+    keeps the card busy while the host enqueues, so the events time the
+    device work, not the enqueue."""
     from kwok_tpu_torch.ops import cuda_tick
     from kwok_tpu_torch.ops.state import TickOutputs
-    from kwok_tpu_torch.ops.tick import Wire, pack_wire
+    from kwok_tpu_torch.ops.tick import Wire
 
-    nodes0, pods0 = states
-    times = {"kernel": [], "plain": [], "wire": []}
-    for path in ("kernel", "plain", "kernel", "plain"):
-        fn = cuda_tick.tick_steps if path == "kernel" else cuda_tick.tick_steps_plain
-        for rep in range(reps if path == "kernel" else 3):
-            n, p = clone(nodes0), clone(pods0)
+    specs = (node_spec, pod_spec)
+
+    def fused(sts, seed):
+        return cuda_tick.tick_dispatch(sts, specs, now, seed, steps, DT)[1]
+
+    def dispatch(sts, seed):
+        Wire(fused(sts, seed))
+
+    def per_kind(sts, seed):
+        for st, spec in zip(sts, specs):
+            cuda_tick.tick_steps(st, spec, now, seed, steps, DT)
+
+    def plain_tick(sts, seed):
+        return [cuda_tick.tick_steps_plain(st, spec, now, seed, steps, DT)
+                for st, spec in zip(sts, specs)]
+
+    def plain(sts, seed):
+        outs = [TickOutputs(st, d, x, h, c[0], c[1])
+                for st, (d, x, h, c) in zip(sts, plain_tick(sts, seed))]
+        cuda_tick.pack_wire(outs)
+
+    paths = {"fused": fused, "dispatch": dispatch, "per_kind": per_kind,
+             "plain_tick": plain_tick, "plain": plain}
+    times: dict = {name: [] for name in (*paths, "wire_d2h")}
+    order = list(paths)
+    for path in order + order[::-1]:
+        fn = paths[path]
+        for rep in range(3 if path.startswith("plain") else reps):
+            sts = [clone(st) for st in states]
             torch.cuda.synchronize()
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(2_000_000)
             e0.record()
-            dn = fn(n, node_spec, now, cuda_tick.SEED_BASE + rep, steps, DT)
-            dp = fn(p, pod_spec, now, cuda_tick.SEED_BASE + rep, steps, DT)
+            out = fn(sts, cuda_tick.SEED_BASE + rep)
             e1.record()
-            if path == "kernel":
-                outs = [TickOutputs(n, *dn[:3], dn[3][0], dn[3][1]),
-                        TickOutputs(p, *dp[:3], dp[3][0], dp[3][1])]
-                dev_wire = pack_wire(outs)
+            if path == "fused":
                 w0, w1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 torch.cuda._sleep(1_000_000)
                 w0.record()
-                Wire(dev_wire)
+                Wire(out)
                 w1.record()
             torch.cuda.synchronize()
             times[path].append(e0.elapsed_time(e1))
-            if path == "kernel":
-                times["wire"].append(w0.elapsed_time(w1))
+            if path == "fused":
+                times["wire_d2h"].append(w0.elapsed_time(w1))
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
-    return med(times["kernel"]), med(times["plain"]), med(times["wire"])
+    return {f"{name}_ms": med(xs) for name, xs in times.items()}
 
 
 def rearmed(state, pending_phase: int):
@@ -842,20 +914,24 @@ def engine_states(eng):
     return (eng.nodes.state, eng.pods.state)
 
 
-def engine_shape_check(torch, eng, rearm: bool = False, states=None, fire_after: float = 1.0):
-    """The tick kernel against its plain version at the shapes an engine
-    run gave it: the engine's grown capacities, its rule tables and the
-    rows it left on the card, K=1 dispatches at its clock, bit-exact (the
-    -fmad=false build makes constant, uniform and weighted draws exact).
-    With ``rearm``, half the pod rows are put back in Pending first and a
-    second dispatch ``fire_after`` s later fires them. Returns the
-    capacities and the kernel, plain and wire D2H ms there. Runs after the
-    engine's launch count was read. ``states`` replaces the engine's own
-    (process lanes keep theirs in the lane processes, a federation one
-    stacked state per group)."""
+def engine_shape_check(torch, eng, rearm: bool = False, states=None, fire_after: float = 1.0,
+                       timings: "dict | None" = None):
+    """The tick kernel's two entries against their plain version at the
+    shapes an engine run gave it: the engine's grown capacities, its rule
+    tables and the rows it left on the card, K=1 dispatches at its clock,
+    bit-exact (the -fmad=false build makes constant, uniform and weighted
+    draws exact): the fused dispatch's wire against the plain wire, and
+    both entries' states and the per-kind entry's masks against the plain
+    ones. With ``rearm``, half the pod rows are put back in Pending first
+    and a second dispatch ``fire_after`` s later fires them. Returns the
+    capacities and the fused dispatch's launches', the plain version's
+    and the wire D2H's ms there (``timings``, when given, takes every
+    time of ``time_dispatch``). Runs after the engine's launch count was
+    read. ``states`` replaces the engine's own (process lanes keep theirs
+    in the lane processes, a federation one stacked state per group)."""
     from kwok_tpu_torch.ops import cuda_tick
     from kwok_tpu_torch.ops.state import TickOutputs
-    from kwok_tpu_torch.ops.tick import pack_wire
+    from kwok_tpu_torch.ops.cuda_tick import pack_wire
 
     from kwok_tpu_torch.ops import state as ts
 
@@ -869,32 +945,36 @@ def engine_shape_check(torch, eng, rearm: bool = False, states=None, fire_after:
     if rearm:
         states = (states[0], rearmed(states[1], eng._pod_phase_ids["Pending"]))
     now = eng._now()
-    starts = {"kernel": [clone(s) for s in states], "plain": [clone(s) for s in states]}
+    starts = {path: [clone(s) for s in states] for path in ("fused", "per_kind", "plain")}
     for n, at in enumerate((now, now + fire_after) if rearm else (now,), start=1):
-        wires = {}
-        for path, fn in (("kernel", cuda_tick.tick_steps), ("plain", cuda_tick.tick_steps_plain)):
-            outs = []
+        seed = cuda_tick.SEED_BASE + n
+        _, fwire = cuda_tick.tick_dispatch(
+            starts["fused"], fused.specs, at, seed, fused.steps, fused.dt)
+        outs = {"per_kind": [], "plain": []}
+        for path, fn in (("per_kind", cuda_tick.tick_steps), ("plain", cuda_tick.tick_steps_plain)):
             for spec, st in zip(fused.specs, starts[path]):
-                d, x, h, c = fn(st, spec, at, cuda_tick.SEED_BASE + n, fused.steps, fused.dt)
-                outs.append(TickOutputs(st, d, x, h, c[0], c[1]))
-            wires[path] = outs, pack_wire(outs)
+                d, x, h, c = fn(st, spec, at, seed, fused.steps, fused.dt)
+                outs[path].append(TickOutputs(st, d, x, h, c[0], c[1]))
+        pwire = pack_wire(outs["plain"])
         torch.cuda.synchronize()
-        (kres, kwire), (pres, pwire) = wires["kernel"], wires["plain"]
-        for kind, ko, po in zip(("nodes", "pods"), kres, pres):
-            for f in ko.state._fields:
-                if not torch.equal(getattr(ko.state, f), getattr(po.state, f)):
-                    raise AssertionError(f"engine shapes {kind} dispatch {n}: {f} differs")
+        for kind, fs, ko, po in zip(("nodes", "pods"), starts["fused"], outs["per_kind"],
+                                    outs["plain"]):
+            for f in po.state._fields:
+                for entry, st in (("fused", fs), ("per-kind", ko.state)):
+                    if not torch.equal(getattr(st, f), getattr(po.state, f)):
+                        raise AssertionError(f"engine shapes {kind} dispatch {n}: {entry} {f} differs")
             for m in ("dirty", "deleted", "hb_fired", "transitions", "heartbeats"):
                 if not torch.equal(getattr(ko, m), getattr(po, m)):
                     raise AssertionError(f"engine shapes {kind} dispatch {n}: {m} differs")
-        if not torch.equal(kwire, pwire):
+        if not torch.equal(fwire, pwire):
             raise AssertionError(f"engine shapes dispatch {n}: wire bytes differ")
-        if rearm and n == 2 and int(kres[1].transitions) == 0:
+        if rearm and n == 2 and int(outs["plain"][1].transitions) == 0:
             raise AssertionError("re-armed pod rows did not fire")
     caps = [st.capacity for st in states]
-    ms, plain_ms, wire_ms = time_dispatch(
-        torch, fused.specs[0], fused.specs[1], fused.steps, states, now)
-    return caps, ms, plain_ms, wire_ms
+    t = time_dispatch(torch, fused.specs[0], fused.specs[1], fused.steps, states, now)
+    if timings is not None:
+        timings.update(t)
+    return caps, t["fused_ms"], t["plain_ms"], t["wire_d2h_ms"]
 
 
 def engine_phase(drain_shards: int = 1, use_mesh: bool = False):
@@ -997,9 +1077,12 @@ def engine_phase(drain_shards: int = 1, use_mesh: bool = False):
             raise AssertionError(f"a shard never launched: {eng._mesh.launches}")
         lane_info["shards"] = [str(d) for d in eng._mesh.devices]
         lane_info["shard_launches"] = list(eng._mesh.launches)
-    caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng)
-    log(f"kernel at the engine's capacities {caps} ({drain_shards} lanes): checked; kernel "
-        f"{shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
+    timings: dict = {}
+    caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng, timings=timings)
+    log(f"kernel at the engine's capacities {caps} ({drain_shards} lanes): checked; fused "
+        f"{shape_ms:.4f} ms, whole dispatch {timings['dispatch_ms']:.4f} ms, per-kind "
+        f"{timings['per_kind_ms']:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H "
+        f"{shape_wire_ms:.4f} ms")
     return {
         **lane_info,
         "nodes": ENGINE_NODES, "pods": ENGINE_PODS, "deleted": ENGINE_DELETES,
@@ -1017,6 +1100,8 @@ def engine_phase(drain_shards: int = 1, use_mesh: bool = False):
         "capacities": caps, "kernel_ms_at_capacities": shape_ms,
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
+        "dispatch_ms_at_capacities": timings["dispatch_ms"],
+        "per_kind_ms_at_capacities": timings["per_kind_ms"],
     }
 
 
@@ -1741,9 +1826,12 @@ def cli_phase(native_off: bool = False, mock: str = "native"):
     check_final_pods(pods, m)
     lane_s = lane_seconds(m, n_lanes)
     log(f"cli lanes: drain s {lane_s['drain']}, emit s {lane_s['emit']}")
-    caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(torch, eng, rearm=True)
+    timings: dict = {}
+    caps, shape_ms, shape_plain_ms, shape_wire_ms = engine_shape_check(
+        torch, eng, rearm=True, timings=timings)
     log(f"kernel at the CLI engine's capacities {caps} with the Stage rules: checked; "
-        f"kernel {shape_ms:.4f} ms, plain {shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
+        f"fused {shape_ms:.4f} ms, whole dispatch {timings['dispatch_ms']:.4f} ms, plain "
+        f"{shape_plain_ms:.3f} ms, wire D2H {shape_wire_ms:.4f} ms")
     m_run, m0 = load["m_run"], load["m0"]
     native = native_edge(m, summed(m, "kwok_watch_events_total"), lanes=n_lanes, off=native_off)
     return {
@@ -1769,6 +1857,8 @@ def cli_phase(native_off: bool = False, mock: str = "native"):
         "capacities": caps, "kernel_ms_at_capacities": shape_ms,
         "plain_ms_at_capacities": shape_plain_ms,
         "wire_d2h_ms_at_capacities": shape_wire_ms,
+        "dispatch_ms_at_capacities": timings["dispatch_ms"],
+        "per_kind_ms_at_capacities": timings["per_kind_ms"],
     }
 
 
@@ -3857,7 +3947,8 @@ def mesh_kernel_leg(torch, np) -> list:
                 before = cuda_tick.tick_steps.launches
                 _, wb = split(b, now)
                 split_launches += cuda_tick.tick_steps.launches - before
-                if cuda_tick.tick_steps.launches - before != 2 * MESH_SHARDS:
+                # one fused launch per shard ticks both kinds of its rows
+                if cuda_tick.tick_steps.launches - before != MESH_SHARDS:
                     raise AssertionError(f"mesh {rname} K={steps}: a split dispatch launched "
                                          f"{cuda_tick.tick_steps.launches - before} times")
                 wa, wb = np.asarray(wa), np.asarray(wb)
@@ -3949,22 +4040,32 @@ def mesh_cli_leg() -> dict:
 
 def mesh_phase() -> dict:
     """The row split (ROADMAP item 9b), three legs: (a) the split kernel
-    dispatch against the unsplit one, (b) ClusterEngine(use_mesh=True)
+    dispatch against the unsplit one, then ``graft.dryrun_multichip``
+    over MESH_SHARDS shards of the card, (b) ClusterEngine(use_mesh=True)
     over MESH_SHARDS shards in process at the engine phase's width with
     auto threaded lanes, (c) the entry point with --use-mesh true."""
     import numpy as np
     import torch
 
+    from kwok_tpu_torch import graft
     from kwok_tpu_torch.config.types import resolve_drain_shards
 
     print(f"mesh: torch.cuda.device_count() {torch.cuda.device_count()}", flush=True)
     for i, d in enumerate(mesh_devices(MESH_SHARDS)):
         print(f"mesh: shard {i} on {d} ({torch.cuda.get_device_name(d)})", flush=True)
     kernel = mesh_kernel_leg(torch, np)
+    # graft.dryrun_multichip over MESH_SHARDS shards of the card: it raises
+    # on a failed check; federation_running counts, per member, the pods
+    # that reached Running (Running or, under member 1's chaos rules,
+    # Succeeded)
+    t = time.monotonic()
+    dry = graft.dryrun_multichip(MESH_SHARDS)
+    dry["seconds"] = time.monotonic() - t
+    print(f"mesh: dryrun_multichip({MESH_SHARDS}) {json.dumps(dry)}", flush=True)
     with shards_of():
         engine = engine_phase(resolve_drain_shards(0), use_mesh=True)
     cli = mesh_cli_leg()
-    return {"kernel": kernel, "engine": engine, "cli": cli,
+    return {"kernel": kernel, "dryrun_multichip": dry, "engine": engine, "cli": cli,
             "kernel_launches": engine["kernel_launches"] + cli["kernel_launches"]}
 
 
@@ -4367,6 +4468,8 @@ def main() -> int:
 
     from kwok_tpu_torch import graft, native
 
+    import sass_bound
+
     print(card_line(), flush=True)
     # g++ (the native library, the native mock apiserver) and nvcc (the
     # tick kernel), all at once; the phases before the first HTTP one
@@ -4408,10 +4511,15 @@ def main() -> int:
 
     phase_s: dict = {"build": time.perf_counter() - t0}
     t = time.monotonic()
-    configs, max_abs_err = kernel_phase(torch, np)
+    # the operation bound's counts: the substep loop's shortest path in the
+    # build's SASS (sass_bound.py), per entry
+    sass = sass_bound.substep_counts(sass_bound.disassemble(cuda_tick.tick_steps.library_path))
+    print("sass: " + json.dumps({k: {"loop": v["loop"], "body_instructions": v["body_instructions"],
+                                     "path": v["path"]} for k, v in sass.items()}), flush=True)
+    configs, max_abs_err = kernel_phase(torch, np, sass)
     phase_s["kernel"] = time.monotonic() - t
     t = time.monotonic()
-    graft_cfg = graft_phase(torch, np)
+    graft_cfg = graft_phase(torch, np, sass)
     phase_s["graft"] = time.monotonic() - t
     configs.append(graft_cfg)
     max_abs_err = max(max_abs_err, graft_cfg["max_abs_err"])
@@ -4464,7 +4572,8 @@ def main() -> int:
     card = card_line()
     print(f"engine: {engine['create_to_running_pods_per_s']:.1f} pods/s with 1 lane, "
           f"{lanes_run['create_to_running_pods_per_s']:.1f} pods/s with {n_lanes} lanes; "
-          f"kernel {lanes_run['kernel_ms_at_capacities']:.4f} ms at the stacked "
+          f"fused kernel {lanes_run['kernel_ms_at_capacities']:.4f} ms, whole dispatch "
+          f"{lanes_run['dispatch_ms_at_capacities']:.4f} ms at the stacked "
           f"{lanes_run['capacities']} ({card})", flush=True)
     print(f"restart: recovery {restart['restart_recovery_seconds']:.3f} s, "
           f"{restart['refined']} rows refined, checkpoint {restart['checkpoint_bytes']} B, "
@@ -4624,12 +4733,11 @@ def main() -> int:
 
     main_cfg = next(c for c in configs if c["rules"] == "default" and c["substeps"] == 1)
     kernels = {"kernels": [{
-        "name": "tick",
+        "name": "tick_dispatch",
         "route": "cuda",
         "source": "kwok_tpu_torch/csrc/tick.cu",
         "replaces": "kwok_tpu/ops/pallas_tick.py:407",
-        "launches": (graft_cfg["launches"]
-                     + engine["kernel_launches"] + lanes_run["kernel_launches"]
+        "launches": (engine["kernel_launches"] + lanes_run["kernel_launches"]
                      + restart["kernel_launches"] + cli_run["kernel_launches"]
                      + traced["kernel_launches"]
                      + py_mock["kernel_launches"] + ab_off["kernel_launches"]
@@ -4645,10 +4753,11 @@ def main() -> int:
         "bound_ms": main_cfg["bound_ms"],
         "bound_by": main_cfg["bound_by"],
         "library_ms": None,
+        "dispatch_ms": main_cfg["dispatch_ms"],
         "wire_d2h_ms": main_cfg["wire_d2h_ms"],
-        "shape": f"{POD_ROWS} pod + {NODE_ROWS} node rows, default rules, K=1",
+        "shape": f"{POD_ROWS} pod + {NODE_ROWS} node rows, default rules, K=1: the fused "
+                 "launch and its epilogue (dispatch_ms: with the wire's D2H copy)",
         "launches_by_phase": {
-            "graft": graft_cfg["launches"],
             "engine": engine["kernel_launches"], "lanes": lanes_run["kernel_launches"],
             "restart": restart["kernel_launches"], "cli": cli_run["kernel_launches"],
             "trace": traced["kernel_launches"],
@@ -4669,6 +4778,7 @@ def main() -> int:
         "stacked_capacities": lanes_run["capacities"],
         "stacked_ms": lanes_run["kernel_ms_at_capacities"],
         "stacked_plain_ms": lanes_run["plain_ms_at_capacities"],
+        "stacked_dispatch_ms": lanes_run["dispatch_ms_at_capacities"],
         "stacked_bound_ms": byte_bound_ms(lanes_run["capacities"]),
         "lane_process_capacities": procs["capacities"],
         "lane_process_bound_ms": procs["bound_ms_at_capacities"],
@@ -4678,10 +4788,6 @@ def main() -> int:
         "kwokctl_ms": kwokctl_run["kernel_ms_at_capacities"],
         "kwokctl_plain_ms": kwokctl_run["plain_ms_at_capacities"],
         "kwokctl_bound_ms": kwokctl_run["bound_ms_at_capacities"],
-        "graft_rows": graft_cfg["rows"],
-        "graft_ms": graft_cfg["ms"],
-        "graft_plain_ms": graft_cfg["plain_ms"],
-        "graft_bound_ms": graft_cfg["bound_ms"],
         "federation_groups": [
             {k: g[k] for k in ("members", "capacities", "dispatches", "kernel_ms_at_capacities",
                                "plain_ms_at_capacities", "bound_ms_at_capacities")}
@@ -4702,6 +4808,27 @@ def main() -> int:
         "mesh_cli_ms": mesh["cli"]["kernel_ms_at_capacities"],
         "mesh_cli_plain_ms": mesh["cli"]["plain_ms_at_capacities"],
         "mesh_cli_bound_ms": mesh["cli"]["bound_ms_at_capacities"],
+        "sass_substep_path": sass["fused_tick_kernel"]["path"],
+    }, {
+        "name": "tick",
+        "route": "cuda",
+        "source": "kwok_tpu_torch/csrc/tick.cu",
+        "replaces": "kwok_tpu/ops/pallas_tick.py:407",
+        # the per-kind entry's main path is the graft twin's step
+        "launches": graft_cfg["launches"],
+        "max_abs_err": max_abs_err,
+        "ms": main_cfg["per_kind_ms"],
+        "plain_ms": main_cfg["per_kind_plain_ms"],
+        "bound_ms": main_cfg["per_kind_bound_ms"],
+        "bound_by": main_cfg["per_kind_bound_by"],
+        "library_ms": None,
+        "shape": f"{POD_ROWS} pod + {NODE_ROWS} node rows, default rules, K=1: one launch "
+                 "per kind, masks as bytes",
+        "graft_rows": graft_cfg["rows"],
+        "graft_ms": graft_cfg["ms"],
+        "graft_plain_ms": graft_cfg["plain_ms"],
+        "graft_bound_ms": graft_cfg["bound_ms"],
+        "sass_substep_path": sass["tick_kernel"]["path"],
     }]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

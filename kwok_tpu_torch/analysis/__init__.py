@@ -15,8 +15,9 @@ native C++ of its own, so its invariants are checked here:
                     ``engine/shm.py`` and the status bank's writer set
 - ``spawnonly``   — multiprocessing only through a spawn context
 - ``purity``      — no host syncs or host effects on the tick dispatch
-                    path (the callers of ``cuda_tick.tick_steps`` and the
-                    kernel launch, and ``pack_wire``)
+                    path (the callers of ``cuda_tick.tick_steps``,
+                    ``tick_dispatch`` and their launches, and
+                    ``pack_wire``)
 - ``hygiene``     — no silent broad ``except``
 - ``metrics_doc`` — the telemetry surface and
                     ``kwok_tpu_torch/docs/observability.md`` agree

@@ -7,10 +7,13 @@ the pipelined engine loses its overlap. The JAX package's rule found its
 scope from ``jax.jit``/``shard_map``/``pl.pallas_call``; the port has
 none of these, so the scope is found from the code instead:
 
-- **roots**: every function that calls the kernel's wrapper or its launch
-  (a call whose callee is named ``tick_steps`` or ``kwok_tick_launch``,
-  whatever the receiver: ``cuda_tick.tick_steps(...)``,
-  ``lib.kwok_tick_launch(...)``), and every function named ``pack_wire``;
+- **roots**: every function that calls the kernel's wrappers or its
+  launches (a call whose callee is named ``tick_steps``,
+  ``tick_dispatch``, ``tick_dispatch_part``, ``tick_wire_epilogue``,
+  ``kwok_tick_launch``, ``kwok_tick_dispatch`` or ``kwok_tick_epilogue``,
+  whatever the receiver: ``cuda_tick.tick_dispatch(...)``,
+  ``lib.kwok_tick_dispatch(...)``), and every function named
+  ``pack_wire``;
 - **callees**, within the root's module: ``self.m(...)`` resolved in the
   class and its bases, a bare ``f(...)`` to a module-level function, a
   ``Cls(...)`` to that class's ``__init__``, and ``x.m(...)`` to a method
@@ -36,7 +39,8 @@ Host scalars stay allowed: ``float(np.float32(now0))``, ``int(steps)``,
 ``int(bits.shape[0])``. A tensor expression is found by a local, flow-
 insensitive inference: ``torch.*`` calls (but not ``torch.device`` and
 the like, nor ``torch.cuda.*``), the wrapper's own functions
-(``tick_steps``, ``pack_wire``, ``next_due``, ``packbits``), the row
+(``tick_steps``, ``tick_dispatch``, ``pack_wire``, ``next_due``,
+``packbits``), the row
 fields of ``RowState``/``TickOutputs`` read off any object, parameters
 annotated ``torch.Tensor``, and names, subscripts, arithmetic and method
 results built from those; ``.shape``, ``.dtype``, ``.device`` and
@@ -49,12 +53,16 @@ import ast
 
 from kwok_tpu_torch.analysis.core import Finding, Module, Rule
 
-_ROOT_CALLEES = frozenset({"tick_steps", "kwok_tick_launch"})
+_ROOT_CALLEES = frozenset({
+    "tick_steps", "tick_dispatch", "tick_dispatch_part", "tick_wire_epilogue",
+    "kwok_tick_launch", "kwok_tick_dispatch", "kwok_tick_epilogue",
+})
 _ROOT_FUNCS = frozenset({"pack_wire"})
 
 # calls whose result is a tensor on the dispatch path
 _TENSOR_FUNCS = frozenset({
-    "tick_steps", "tick_steps_plain", "pack_wire", "next_due", "packbits",
+    "tick_steps", "tick_dispatch", "tick_steps_plain", "pack_wire", "next_due",
+    "packbits",
 })
 # row fields of RowState and the tensors of TickOutputs
 _TENSOR_FIELDS = frozenset({

@@ -23,8 +23,9 @@ The engine of ``kwok_tpu.engine.engine`` on PyTorch. With one lane:
   line's), as client-go does, never from behind the drain's backlog.
 - The tick thread is the ONLY mutator of engine state: it drains the
   ingest queue into staged row writes, flushes them to the device, runs
-  the fused tick (``ops/tick.MultiTickKernel``: the CUDA tick kernel per
-  kind plus the packed wire), and turns the wire's masks into patch jobs.
+  the fused tick (``ops/tick.MultiTickKernel``: one launch of the CUDA
+  tick kernel for every kind, which writes the packed wire, and its
+  one-block epilogue), and turns the wire's masks into patch jobs.
   All of its device work runs on one CUDA stream of its own; up to
   ``pipeline_depth`` dispatches are in flight, each with its own pinned
   host wire.
@@ -94,7 +95,8 @@ With ``use_mesh`` every kind's device rows are a ``SplitState`` over
 ``parallel.mesh.make_mesh`` of the engine's device type (every visible
 card once; the CPU once): capacities are padded to a multiple of the
 mesh's size, the fused dispatch launches the kernel once per shard
-(``parallel/sharded_tick.py``) and gathers the wire on the first card,
+(``parallel/sharded_tick.py``), each shard writing its rows of one wire
+on the first card,
 and the ingest scatters, the refine, the checkpoint gather, the epoch
 rebase and the grow work shard by shard. The threaded lanes split their
 stacked state the same way; process lanes refuse it, as ``kwok_tpu``

@@ -15,8 +15,8 @@ own apiserver, through its own client) and checkpoint file, started
 with ``run_tick_loop=False`` (no tick thread, no stream, no device rows
 of its own). One federated tick thread drains every member's queue
 round-robin, flushes each member's staged writes into its slice of its
-group's stacked state, launches the CUDA tick kernel once per kind per
-group (``ops/tick.MultiTickKernel``), and hands each member its slice of
+group's stacked state, runs one fused dispatch per group
+(``ops/tick.MultiTickKernel``), and hands each member its slice of
 the wire to emit. Members that share a compiled rule set, selector bits,
 heartbeat interval, tick interval and substeps share a group; each
 distinct set gets its own stacked state and kernel specs.
@@ -25,8 +25,8 @@ Each group's stacked state is split over the federation's mesh
 (``parallel/``; by default every visible card once, or the CPU once for
 a CPU federation), as the JAX package shards it over its device mesh:
 each group's row count per cluster is padded so that the stack splits
-evenly (``_pad_cluster_capacity``), the dispatch launches the kernel once
-per shard and kind, and a member's slice may straddle shards.
+evenly (``_pad_cluster_capacity``), the dispatch launches the fused
+kernel once per shard, and a member's slice may straddle shards.
 
 Member failover: ONE watchdog supervises every member's watch threads
 (``kwok-watch-<kind>-m<i>``). A crashed one restarts in place on its own

@@ -1,19 +1,28 @@
-"""The tick kernel: K fused lifecycle substeps for one resource kind.
+"""The tick kernel: K fused lifecycle substeps, and the dispatch's wire.
 
 Three pieces, side by side:
 
 - ``csrc/tick.cu``: the hand-written CUDA kernel for Hopper (``sm_90a``),
   one thread per row, all K substeps in registers. It replaces the Pallas
-  TPU kernel ``kwok_tpu/ops/pallas_tick.py::_kernel``. Built with nvcc into
-  a shared library with a plain C interface at first use
-  (``kwok_tpu_torch/_build/``) and bound with ctypes.
-- ``tick_steps_plain``: the same function in plain torch operations, with
-  the same counter-hash RNG and the same float32 rounding, for CPU tensors
-  and as the kernel's yardstick on the card.
-- ``tick_steps``: the wrapper. It checks device, dtype, contiguity and
-  capacity, then launches the kernel for CUDA tensors and runs the plain
-  version for CPU tensors only. Nothing falls back: a CUDA tensor either
-  launches the kernel or raises.
+  TPU kernel ``kwok_tpu/ops/pallas_tick.py::_kernel`` and the XLA program
+  that packs the wire around it. Built with nvcc into a shared library
+  with a plain C interface at first use (``kwok_tpu_torch/_build/``) and
+  bound with ctypes. Two entries share its per-row substeps: the fused
+  dispatch (one launch for every kind that writes the packed wire, then
+  a one-block epilogue for the wire's header and shared mask bytes) and
+  the per-kind launch (masks as bytes).
+- the plain versions: ``tick_steps_plain`` (the substeps in plain torch
+  operations, with the same counter-hash RNG and the same float32
+  rounding) and ``pack_wire`` (the wire from the plain masks and rows),
+  for CPU tensors and as the kernel's yardstick on the card.
+- the wrappers on ``tick_steps``: ``tick_steps(state, spec, ...)`` for
+  one kind and ``tick_dispatch(states, specs, ...)`` for a whole
+  dispatch (``tick_dispatch_part`` and ``tick_wire_epilogue`` for the row
+  split). Each checks device, dtype, contiguity and capacity, then
+  launches the kernel for CUDA tensors and runs the plain version for
+  CPU tensors only. Nothing falls back: a CUDA tensor either launches
+  the kernel or raises. ``tick_steps.launches`` counts launches of
+  either entry (the epilogue is part of its dispatch and adds none).
 
 The state is updated in place (the JAX package returned new, donated
 buffers). Seeds follow ``PallasTickKernel``: dispatch n draws from seed
@@ -35,12 +44,13 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from kwok_tpu_torch.models.compiler import CompiledRules
-from kwok_tpu_torch.ops.state import TORCH_DTYPES, RowState
+from kwok_tpu_torch.ops.state import TORCH_DTYPES, RowState, TickOutputs
 
 MAX_RULES = 32
 # rule-table rows, in the order csrc/tick.cu's RuleRow enum reads them
@@ -51,6 +61,12 @@ _TABLE_ROWS = (
 SEED_BASE = 0x5EEDC0DE
 WEIGHT_SEED_XOR = 0x55AA55AA
 _M32 = 0xFFFFFFFF
+INF = float("inf")
+# csrc/tick.cu's layout constants (checked against the library at load)
+THREADS = 256  # rows a block of the kernel ticks
+RECORD_WORDS = 16  # int32 words a fused block leaves for the epilogue
+DESC_WORDS = 23  # int64 words of one kind's descriptor
+MAX_KINDS = 8  # kinds one fused launch takes
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "tick.cu")
@@ -100,6 +116,11 @@ class TickSpec:
             else:
                 words[i, :n] = col.astype(np.int64).astype(np.uint32).view(np.int32)
         self.words = words.reshape(-1)
+        # the last words of the kind's fused-dispatch descriptor
+        self.desc_tail = [
+            n, int(self.has_weights), self.hb_sel_bit, mask & _M32,
+            int(np.float32(self.hb_interval).view(np.uint32)),
+        ]
         self._cache: dict = {}
 
     def packed(self, device: torch.device) -> torch.Tensor:
@@ -342,6 +363,98 @@ def tick_steps_plain(
     return dirty_acc, del_acc, hb_acc, counts
 
 
+# -------------------------------------------------------- the plain wire
+
+
+def next_due(state: RowState) -> torch.Tensor:
+    """Engine-time of the earliest pending timer (rule fire or heartbeat)
+    across active rows, as a 0-d float32 tensor; +inf when nothing is
+    scheduled. The host tick loop sleeps until then."""
+    dev = state.device
+    # a fill, not torch.tensor(INF, device=...): a host value copied onto
+    # the card is followed by a stream sync, which would make every
+    # dispatch wait for its own kernels here
+    inf = torch.full((), INF, dtype=torch.float32, device=dev)
+    if state.capacity == 0:
+        return inf
+    armed = state.active & (state.pending_rule >= 0)
+    fire = torch.where(armed, state.fire_at, inf).min()
+    hb = torch.where(state.active, state.hb_due, inf).min()
+    return torch.minimum(fire, hb)
+
+
+def packbits(bits: torch.Tensor) -> torch.Tensor:
+    """numpy ``packbits`` (MSB first, zero-padded last byte) of a 1-D
+    bool or 0/1 uint8 tensor, on the tensor's device."""
+    n = int(bits.shape[0])
+    nbytes = (n + 7) // 8
+    b = torch.zeros(nbytes * 8, dtype=torch.uint8, device=bits.device)
+    b[:n] = bits.to(torch.uint8)
+    # bit j of a byte is worth 2**(7-j); the weights come from arange on
+    # the device, as a host table would be copied and synced each call
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
+    w = torch.bitwise_left_shift(torch.ones_like(shifts), shifts)
+    return (b.view(nbytes, 8) * w).sum(dim=1, dtype=torch.int32).to(torch.uint8)
+
+
+def pack_wire(outs, dues=None, rows=None) -> torch.Tensor:
+    """The pack_rows wire of a dispatch's per-kind TickOutputs, as one
+    uint8 tensor on their device: the fused kernel's plain version.
+    ``dues`` (0-d ``next_due`` per kind) and ``rows`` (``(phase,
+    cond_bits)`` per kind) default to those of the outputs' states; a
+    split dispatch passes them gathered."""
+    counters = torch.stack(
+        [o.transitions for o in outs] + [o.heartbeats for o in outs]
+    ).to(torch.int32)
+    if dues is None:
+        dues = [next_due(o.state) for o in outs]
+    if rows is None:
+        rows = [(o.state.phase, o.state.cond_bits) for o in outs]
+    dues = torch.stack(dues).to(torch.float32)
+    parts = [counters.view(torch.uint8), dues.view(torch.uint8)]
+    for o in outs:
+        parts.append(packbits(torch.cat([o.dirty, o.deleted, o.hb_fired])))
+    for phase, cond in rows:
+        parts.append(phase.to(torch.uint8))
+        # an empty tensor may carry a stride that refuses the byte view
+        parts.append(cond.view(torch.uint8) if cond.numel() else phase.new_empty(0, dtype=torch.uint8))
+    return torch.cat(parts)
+
+
+class WireLayout(NamedTuple):
+    """Byte offsets of a wire over kinds of ``capacities`` rows (the
+    offsets ``ops/tick.unpack_wire`` reads)."""
+
+    capacities: tuple
+    nbytes: int
+    mask_offs: tuple  # per kind: its (3*cap+7)//8 mask bytes
+    phase_offs: tuple  # per kind: cap phase bytes
+    cond_offs: tuple  # per kind: cap little-endian uint32 words
+
+
+def wire_layout(capacities) -> WireLayout:
+    """The wire's layout: the int32 counters (2 per kind) and float32 dues
+    (1 per kind), the mask segments, then each kind's phase and cond rows."""
+    caps = tuple(int(c) for c in capacities)
+    off = 12 * len(caps)
+    mask_offs = []
+    for cap in caps:
+        mask_offs.append(off)
+        off += (3 * cap + 7) // 8
+    phase_offs, cond_offs = [], []
+    for cap in caps:
+        phase_offs.append(off)
+        cond_offs.append(off + cap)
+        off += 5 * cap
+    return WireLayout(caps, off, tuple(mask_offs), tuple(phase_offs), tuple(cond_offs))
+
+
+def blocks_of(capacities) -> int:
+    """Blocks of a fused launch over kinds of ``capacities`` rows: the
+    records it leaves for the epilogue."""
+    return sum((int(c) + THREADS - 1) // THREADS for c in capacities)
+
+
 # ------------------------------------------------------------------ kernel
 
 
@@ -381,18 +494,23 @@ def build_library() -> tuple[str, str]:
 
 
 class TickSteps:
-    """The tick wrapper: ``tick_steps(state, spec, now0, seed, steps, dt,
-    row_base=0)``.
+    """The per-kind tick wrapper: ``tick_steps(state, spec, now0, seed,
+    steps, dt, row_base=0)``; the fused dispatch's wrappers
+    (``tick_dispatch``, ``tick_dispatch_part``, ``tick_wire_epilogue``)
+    share its library and its count.
 
-    ``launches`` counts kernel launches (CUDA tensors only; the plain
-    version on CPU tensors adds nothing). ``build_log`` keeps nvcc's
-    output (``-Xptxas -v``: registers, shared memory, spills) of the
-    build this process made, and ``build_seconds`` its time."""
+    ``launches`` counts kernel launches of either entry (CUDA tensors
+    only; the plain version on CPU tensors adds nothing; the fused
+    dispatch's epilogue belongs to its launch and adds nothing).
+    ``build_log`` keeps nvcc's output (``-Xptxas -v``: registers, shared
+    memory, spills) of the build this process made, ``build_seconds`` its
+    time and ``library_path`` the library loaded."""
 
     def __init__(self) -> None:
         self.launches = 0
         self.build_log = ""
         self.build_seconds = 0.0
+        self.library_path = ""
         self._lib = None
         self._lock = threading.Lock()
 
@@ -406,6 +524,7 @@ class TickSteps:
                 path, log = build_library()
                 self.build_seconds = time.perf_counter() - t0
                 self.build_log = log
+                self.library_path = path
                 lib = ctypes.CDLL(path)
                 vp, ci, cu, cf = (
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
@@ -414,14 +533,26 @@ class TickSteps:
                     ci, ci, ci, cf, cf, cu, ci, ci, cf, cu, ci,
                 ] + [vp] * 15
                 lib.kwok_tick_launch.restype = ci
+                lib.kwok_tick_dispatch.argtypes = [vp, ci, ci, cf, cf, cu, vp, vp, vp]
+                lib.kwok_tick_dispatch.restype = ci
+                lib.kwok_tick_epilogue.argtypes = [vp, vp, ci, ci, ci, vp]
+                lib.kwok_tick_epilogue.restype = ci
                 lib.kwok_tick_table_words.argtypes = []
                 lib.kwok_tick_table_words.restype = ci
-                words = lib.kwok_tick_table_words()
-                if words != len(_TABLE_ROWS) * MAX_RULES:
-                    raise RuntimeError(
-                        f"tick kernel table is {words} words, the wrapper "
-                        f"packs {len(_TABLE_ROWS) * MAX_RULES}"
-                    )
+                lib.kwok_tick_constant.argtypes = [ci]
+                lib.kwok_tick_constant.restype = ci
+                agreed = (
+                    ("table words", lib.kwok_tick_table_words(), len(_TABLE_ROWS) * MAX_RULES),
+                    ("threads", lib.kwok_tick_constant(0), THREADS),
+                    ("record words", lib.kwok_tick_constant(1), RECORD_WORDS),
+                    ("descriptor words", lib.kwok_tick_constant(2), DESC_WORDS),
+                    ("kinds", lib.kwok_tick_constant(3), MAX_KINDS),
+                )
+                for what, got, want in agreed:
+                    if got != want:
+                        raise RuntimeError(
+                            f"tick kernel's {what}: {got}, the wrapper's {want}"
+                        )
                 self._lib = lib
             return self._lib
 
@@ -493,3 +624,149 @@ class TickSteps:
 
 #: the process's tick wrapper; ``tick_steps.launches`` counts launches
 tick_steps = TickSteps()
+
+
+def tick_dispatch(
+    states, specs, now0: float, seed: int, steps: int, dt: float,
+    row_bases=None,
+):
+    """One dispatch of every kind: ``(outs, wire)``, ``wire`` the
+    dispatch's packed wire (uint8, on the states' device; the layout
+    of ``wire_layout``) and ``outs`` a TickOutputs per kind. Kind
+    ``k``'s row ``j`` draws as global row ``row_bases[k] + j``.
+
+    CUDA tensors: one fused launch and its epilogue write the wire and
+    nothing else runs on the device; each TickOutputs carries the
+    counters as 0-d int32 views of the wire's header and no masks
+    (``None``: ``unpack_wire`` reads them off the wire). CPU tensors:
+    the plain version, ``tick_steps_plain`` per kind then
+    ``pack_wire``, with the masks."""
+    states = tuple(states)
+    n = len(states)
+    if n != len(specs):
+        raise ValueError(f"{n} states for {len(specs)} specs")
+    if row_bases is None:
+        row_bases = (0,) * n
+    row_bases = tuple(int(b) for b in row_bases)
+    dev = states[0].device
+    for st, rb in zip(states, row_bases):
+        tick_steps.check(st, rb)
+        if st.device != dev:
+            raise ValueError(f"kinds on {st.device} and {dev}")
+    if dev.type == "cpu":
+        outs = []
+        for st, spec, rb in zip(states, specs, row_bases):
+            # kwoklint: disable=kernel-purity -- CPU tensors only: the plain version's host scalars and small tables are copies within host memory, and a CUDA tensor never reaches this call
+            d, x, h, c = tick_steps_plain(st, spec, now0, seed, steps, dt, rb)
+            outs.append(TickOutputs(st, d, x, h, c[0], c[1]))
+        return tuple(outs), pack_wire(outs)
+    if dev.type != "cuda":
+        raise ValueError(f"tick kernel runs on cuda tensors, got {dev}")
+    layout = wire_layout([st.capacity for st in states])
+    blocks = blocks_of(layout.capacities)
+    with torch.cuda.device(dev):
+        wire = torch.empty(layout.nbytes, dtype=torch.uint8, device=dev)
+        records = torch.empty(
+            max(blocks, 1) * RECORD_WORDS, dtype=torch.int32, device=dev
+        )
+        tick_dispatch_part(
+            states, specs, now0, seed, steps, dt, row_bases, (0,) * n,
+            layout, wire, records,
+        )
+        tick_wire_epilogue(wire, records, blocks, n, any(c % 8 for c in layout.capacities))
+    header = wire[: 8 * n].view(torch.int32)
+    outs = tuple(
+        TickOutputs(st, None, None, None, header[k], header[n + k])
+        for k, st in enumerate(states)
+    )
+    return outs, wire
+
+
+def tick_dispatch_part(
+    states, specs, now0: float, seed: int, steps: int, dt: float,
+    row_bases, wire_rows, layout: WireLayout, wire: torch.Tensor,
+    records: torch.Tensor,
+) -> None:
+    """The fused launch alone (no epilogue), on the current stream of
+    the states' card: kind ``k``'s rows, drawing as global rows from
+    ``row_bases[k]``, written as rows ``[wire_rows[k], wire_rows[k] +
+    capacity)`` of a wire laid out as ``layout`` into ``wire``, and
+    ``blocks_of`` of the capacities records into ``records``. The row
+    split launches one per shard, then one ``tick_wire_epilogue`` over
+    every shard's records. CUDA tensors only."""
+    states = tuple(states)
+    n = len(states)
+    if not 0 < n <= MAX_KINDS or n != len(specs) or n != len(layout.capacities):
+        raise ValueError(f"{n} kinds, {len(specs)} specs, a wire of "
+                         f"{len(layout.capacities)} (at most {MAX_KINDS})")
+    dev = wire.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused tick runs on cuda tensors, got {dev}")
+    if wire.dtype != torch.uint8 or wire.dim() != 1 or not wire.is_contiguous() \
+            or int(wire.shape[0]) != layout.nbytes or layout.nbytes >= 2**31:
+        raise ValueError(f"wire of {tuple(wire.shape)} {wire.dtype}, want "
+                         f"({layout.nbytes},) uint8 below 2**31 bytes")
+    blocks = blocks_of(st.capacity for st in states)
+    if records.dtype != torch.int32 or records.device != dev \
+            or not records.is_contiguous() or int(records.numel()) < blocks * RECORD_WORDS:
+        raise ValueError(f"records hold {records.numel()} {records.dtype}, want "
+                         f"{blocks * RECORD_WORDS} int32 on {dev}")
+    words = []
+    for k, (st, spec, rb, wr) in enumerate(zip(states, specs, row_bases, wire_rows)):
+        rb, wr = int(rb), int(wr)
+        tick_steps.check(st, rb)
+        if st.device != dev:
+            raise ValueError(f"kind {k} on {st.device}, the wire on {dev}")
+        if wr < 0 or wr + st.capacity > layout.capacities[k]:
+            raise ValueError(f"kind {k}: rows [{wr}, {wr + st.capacity}) outside "
+                             f"its {layout.capacities[k]} wire rows")
+        words += [t.data_ptr() for t in (
+            st.active, st.has_deletion, st.sel_bits, st.phase, st.cond_bits,
+            st.pending_rule, st.fire_at, st.hb_due, st.gen,
+        )]
+        words += [
+            spec.packed(dev).data_ptr(), layout.mask_offs[k],
+            layout.phase_offs[k], layout.cond_offs[k], st.capacity, rb, wr,
+            layout.capacities[k], k,
+        ]
+        words += spec.desc_tail
+    desc = np.array(words, dtype=np.int64)
+    # kwoklint: disable=kernel-purity -- the library is loaded once per process under _lock before any dispatch (the engines' _warm_tick, ProcLaneSet.prepare); later dispatches read it back
+    lib = tick_steps.library()
+    with torch.cuda.device(dev):
+        err = lib.kwok_tick_dispatch(
+            desc.ctypes.data, n, int(steps), float(np.float32(now0)),
+            float(np.float32(dt)), int(seed) & _M32, wire.data_ptr(),
+            records.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused tick kernel launch failed: cudaError {err}")
+    if blocks:
+        tick_steps.launches += 1
+
+
+def tick_wire_epilogue(wire: torch.Tensor, records: torch.Tensor, n_blocks: int,
+                       n_kinds: int, edges: bool = True) -> None:
+    """The fused dispatch's one-block epilogue on the current stream of
+    the wire's card: the header of ``n_kinds`` kinds from ``n_blocks``
+    records (of one or several ``tick_dispatch_part`` launches, ordered
+    before it on this stream) and, with ``edges``, the mask bytes they
+    share. ``edges`` may be False only when every launch's rows of every
+    kind start and end on a byte of the mask runs (their wire row, count
+    and the kind's wire rows all multiples of 8): then no byte is shared."""
+    dev = wire.device
+    if dev.type != "cuda" or records.device != dev or wire.data_ptr() % 4 \
+            or records.data_ptr() % 16:
+        raise ValueError(f"the epilogue wants a 4-aligned wire and 16-aligned records "
+                         f"on one card, got {dev} and {records.device}")
+    if int(records.numel()) < n_blocks * RECORD_WORDS:
+        raise ValueError(f"{records.numel()} record words for {n_blocks} blocks")
+    # kwoklint: disable=kernel-purity -- the library is loaded once per process under _lock before any dispatch (the engines' _warm_tick, ProcLaneSet.prepare); later dispatches read it back
+    lib = tick_steps.library()
+    with torch.cuda.device(dev):
+        err = lib.kwok_tick_epilogue(
+            wire.data_ptr(), records.data_ptr(), int(n_blocks), int(n_kinds),
+            int(bool(edges)), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"tick wire epilogue launch failed: cudaError {err}")

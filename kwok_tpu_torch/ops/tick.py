@@ -2,10 +2,12 @@
 
 ``MultiTickKernel`` is the port of ``kwok_tpu.ops.tick.MultiTickKernel``
 as the engine builds it (``pack=True, pack_rows=True, steps=K``): one call
-runs the tick kernel (``ops/cuda_tick.py``) once per kind, then packs the
-whole host-visible summary into one uint8 wire on the device and starts
-its copy to the host. The wire's layout is the JAX package's, byte for
-byte, so ``unpack_wire`` (a verbatim copy) reads it:
+is one fused dispatch (``ops/cuda_tick.tick_dispatch``): on a card one
+launch of ``csrc/tick.cu`` ticks every kind and writes the whole
+host-visible summary as one uint8 wire, a one-block epilogue completes
+its header, and the wire's copy to the host starts; nothing else runs on
+the device. The wire's layout is the JAX package's, byte for byte, so
+``unpack_wire`` (a verbatim copy) reads it:
 
   - int32 counters: transitions per kind, then heartbeats per kind;
   - float32 ``next_due`` per kind;
@@ -14,11 +16,13 @@ byte, so ``unpack_wire`` (a verbatim copy) reads it:
     general);
   - per kind, phase as uint8 rows, then cond as little-endian uint32 rows.
 
-With ``mesh`` (``parallel/mesh.py``) the states are split over the
-mesh's shards and the dispatch is ``parallel/sharded_tick.tick_split``:
-one launch per shard and kind, the counters summed and the masks and
-rows gathered on the first shard's device, then the same ``pack_wire``,
-so the wire is byte for byte the unsplit one's.
+On CPU tensors the same call runs the plain version (``tick_steps_plain``
+per kind, then ``pack_wire``; both live in ``ops/cuda_tick.py``). With
+``mesh`` (``parallel/mesh.py``) the states are
+split over the mesh's shards and the dispatch is
+``parallel/sharded_tick.tick_split``: one fused launch per shard, each
+writing its rows of the same wire, and one epilogue; the wire is byte for
+byte the unsplit one's.
 
 The state tensors are updated in place (JAX donated them). The wire is a
 fresh tensor, so it stays self-contained while later dispatches keep
@@ -38,9 +42,7 @@ import numpy as np
 import torch
 
 from kwok_tpu_torch.ops import cuda_tick
-from kwok_tpu_torch.ops.state import RowState, SplitState, TickOutputs
-
-INF = float("inf")
+from kwok_tpu_torch.ops.state import RowState, SplitState
 
 # Engine time is float32. Past 2**17 s (~36h) the ulp grows beyond
 # 2**-6 s; the engine rebases its epoch (rebase_times + an epoch shift on
@@ -58,59 +60,6 @@ def rebase_times(state, shift: float):
     state.fire_at.sub_(s)
     state.hb_due.sub_(s)
     return state
-
-
-def next_due(state: RowState) -> torch.Tensor:
-    """Engine-time of the earliest pending timer (rule fire or heartbeat)
-    across active rows, as a 0-d float32 tensor; +inf when nothing is
-    scheduled. The host tick loop sleeps until then."""
-    dev = state.device
-    # a fill, not torch.tensor(INF, device=...): a host value copied onto
-    # the card is followed by a stream sync, which would make every
-    # dispatch wait for its own kernels here
-    inf = torch.full((), INF, dtype=torch.float32, device=dev)
-    if state.capacity == 0:
-        return inf
-    armed = state.active & (state.pending_rule >= 0)
-    fire = torch.where(armed, state.fire_at, inf).min()
-    hb = torch.where(state.active, state.hb_due, inf).min()
-    return torch.minimum(fire, hb)
-
-
-def packbits(bits: torch.Tensor) -> torch.Tensor:
-    """numpy ``packbits`` (MSB first, zero-padded last byte) of a 1-D
-    bool or 0/1 uint8 tensor, on the tensor's device."""
-    n = int(bits.shape[0])
-    nbytes = (n + 7) // 8
-    b = torch.zeros(nbytes * 8, dtype=torch.uint8, device=bits.device)
-    b[:n] = bits.to(torch.uint8)
-    # bit j of a byte is worth 2**(7-j); the weights come from arange on
-    # the device, as a host table would be copied and synced each call
-    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
-    w = torch.bitwise_left_shift(torch.ones_like(shifts), shifts)
-    return (b.view(nbytes, 8) * w).sum(dim=1, dtype=torch.int32).to(torch.uint8)
-
-
-def pack_wire(outs, dues=None, rows=None) -> torch.Tensor:
-    """The pack_rows wire of a dispatch's per-kind TickOutputs, as one
-    uint8 tensor on their device. ``dues`` (0-d ``next_due`` per kind)
-    and ``rows`` (``(phase, cond_bits)`` per kind) default to those of
-    the outputs' states; a split dispatch passes them gathered."""
-    counters = torch.stack(
-        [o.transitions for o in outs] + [o.heartbeats for o in outs]
-    ).to(torch.int32)
-    if dues is None:
-        dues = [next_due(o.state) for o in outs]
-    if rows is None:
-        rows = [(o.state.phase, o.state.cond_bits) for o in outs]
-    dues = torch.stack(dues).to(torch.float32)
-    parts = [counters.view(torch.uint8), dues.view(torch.uint8)]
-    for o in outs:
-        parts.append(packbits(torch.cat([o.dirty, o.deleted, o.hb_fired])))
-    for phase, cond in rows:
-        parts.append(phase.to(torch.uint8))
-        parts.append(cond.view(torch.uint8))
-    return torch.cat(parts)
 
 
 class Wire:
@@ -155,10 +104,13 @@ class MultiTickKernel:
     ``dt`` starting at ``now`` (state updated in place) and returns
     ``(outs, wire)``: per-kind TickOutputs and the dispatch's ``Wire``.
     Dispatch n draws every kind's delays from seed ``0x5EEDC0DE + n``.
+    On a card the outputs carry the counters as views of the wire's
+    header and no masks (``tick_dispatch``); on the CPU, the masks too.
 
     With ``mesh`` the states are ``SplitState``s over it (``place``
-    splits one) and each kind launches once per shard; its outputs'
-    masks and counters lie on the mesh's first device, ``self.device``.
+    splits one) and each shard launches once for every kind; the wire
+    and the outputs' counters lie on the mesh's first device,
+    ``self.device``.
     """
 
     def __init__(
@@ -195,16 +147,10 @@ class MultiTickKernel:
         if self._split is not None:
             outs, wire = self._split(states, self.specs, now, seed, self.steps, self.dt)
             return outs, Wire(wire)
-        outs = []
-        for st, spec in zip(states, self.specs):
-            dirty, deleted, hb, counts = cuda_tick.tick_steps(
-                st, spec, now, seed, self.steps, self.dt
-            )
-            outs.append(TickOutputs(
-                state=st, dirty=dirty, deleted=deleted, hb_fired=hb,
-                transitions=counts[0], heartbeats=counts[1],
-            ))
-        return tuple(outs), Wire(pack_wire(outs))
+        outs, wire = cuda_tick.tick_dispatch(
+            states, self.specs, now, seed, self.steps, self.dt
+        )
+        return outs, Wire(wire)
 
 
 def unpack_wire(

@@ -190,7 +190,9 @@ class TickProfiler:
     export held the tick thread, and tick-kernel launch counts at start
     and stop
     (``ops/cuda_tick.tick_steps.launches``): on a card the trace holds
-    one ``tick_kernel`` event per launch of the window.
+    one event whose name contains ``tick_kernel`` per launch of the
+    window (the fused dispatch's ``fused_tick_kernel``; its epilogue,
+    ``tick_wire_epilogue``, is part of that launch).
     """
 
     START = 2

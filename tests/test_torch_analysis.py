@@ -209,6 +209,24 @@ class Wire:
         self.n = counts.view(torch.uint8).item()  # F: kernel-purity
 
 
+def fused(states, specs, now):
+    outs, wire = cuda_tick.tick_dispatch(states, specs, now)
+    return outs[0].transitions.item(), wire  # F: kernel-purity
+
+
+def fused_part(lib, desc, wire, records):
+    lib.kwok_tick_dispatch(desc, wire, records)
+    lib.kwok_tick_epilogue(wire, records)
+    return records.cpu()  # F: kernel-purity
+
+
+def split_part(shards, specs, wire, records):
+    cuda_tick.tick_dispatch_part(shards, specs, wire, records)
+    cuda_tick.tick_wire_epilogue(wire, records)
+    print("split")  # F: kernel-purity
+    return wire
+
+
 def off_the_path(state):
     return state.dirty.item(), time.time(), np.asarray(state.fire_at)
 '''
@@ -232,14 +250,19 @@ def test_torch_purity_scope_is_the_real_dispatch_path():
         return {f.qual for f in rule.dispatch_scope(mod)}
 
     tick = scope("kwok_tpu_torch/ops/tick.py")
-    assert {"MultiTickKernel.__call__", "pack_wire", "next_due", "packbits",
-            "Wire.__init__"} <= tick
+    assert {"MultiTickKernel.__call__", "Wire.__init__"} <= tick
     assert "unpack_wire" not in tick and "Wire.__array__" not in tick
     wrapper = scope("kwok_tpu_torch/ops/cuda_tick.py")
-    assert {"TickSteps.__call__", "TickSteps.check", "TickSpec.packed"} <= wrapper
+    # the per-kind entry, the fused dispatch's wrappers and the plain wire
+    # they hand CPU tensors to (pack_wire and what it calls)
+    assert {"TickSteps.__call__", "TickSteps.check", "TickSpec.packed",
+            "tick_dispatch", "tick_dispatch_part", "tick_wire_epilogue",
+            "wire_layout", "blocks_of", "pack_wire", "next_due", "packbits"} <= wrapper
     # the two annotated edges: the once-per-process build, the CPU version
     assert not {"TickSteps.library", "build_library", "tick_steps_plain"} & wrapper
     assert "GraftStep.__call__" in scope("kwok_tpu_torch/graft.py")
+    assert {"_split_on_card", "_owned_ranges",
+            "ShardedTickKernel.__call__"} <= scope("kwok_tpu_torch/parallel/sharded_tick.py")
 
 
 def test_torch_purity_sees_no_dispatch_path_in_a_jax_kernel():

@@ -32,7 +32,8 @@ from kwok_tpu_torch.engine import ClusterEngine, EngineConfig
 from kwok_tpu_torch.models.defaults import chaos_pod_rules
 from kwok_tpu_torch.ops import cuda_tick
 from kwok_tpu_torch.ops import state as ts
-from kwok_tpu_torch.ops.tick import MultiTickKernel
+from kwok_tpu_torch.ops import tick
+from kwok_tpu_torch.ops.tick import MultiTickKernel, unpack_wire
 
 pytestmark = pytest.mark.cuda
 
@@ -141,11 +142,156 @@ def test_fused_wire_on_card_matches_cpu(card):
         assert gw.is_ready()
 
 
+def inactive_population(cap: int):
+    """Rows that match nothing and keep no heartbeat: next_due is +inf."""
+    s = ts.to_numpy(ts.new_row_state(cap, "cpu"))
+    s.phase[:] = 1
+    return s
+
+
+def plain_dispatch(states, specs, now, seed, steps, dt, row_bases):
+    """The fused dispatch's yardstick on the card: tick_steps_plain per
+    kind on the given states, then pack_wire."""
+    outs = []
+    for st, spec, rb in zip(states, specs, row_bases):
+        d, x, h, c = cuda_tick.tick_steps_plain(st, spec, now, seed, steps, 0.05, rb)
+        outs.append(ts.TickOutputs(st, d, x, h, c[0], c[1]))
+    return cuda_tick.pack_wire(outs)
+
+
+def unpacked(wire, caps):
+    counters, masks_fn, dues, rows_fn = unpack_wire(wire.cpu().numpy(), list(caps), rows=True)
+    return counters, masks_fn(), dues, rows_fn()
+
+
+FUSED_CAPS = [(1, 7), (8, 9), (255, 257), (10_240, 1_048_576)]
+
+
+@pytest.mark.parametrize("caps", FUSED_CAPS, ids=lambda c: f"{c[0]}+{c[1]}")
+@pytest.mark.parametrize("steps", [1, 16])
+@pytest.mark.parametrize("rules", ["default", "weighted-uniform", "chaos"])
+def test_fused_dispatch_wire_matches_plain_on_card(card, rules, steps, caps):
+    """tick_dispatch's wire (one fused launch and its epilogue) against the
+    plain wire (tick_steps_plain per kind, then pack_wire) on copies of
+    the same card states, three dispatches with row bases 3 and 1000,
+    then a rebase that makes next_due negative: byte for byte under the
+    default, uniform and weighted rules. Under the exponential chaos
+    rules fire_at is held to rtol 1e-6 and at most 1e-5 of the rows may
+    differ, in the state, the counters and the unpacked wire's masks and
+    rows. The per-kind entry shares the fused entry's substeps: its state
+    equals the fused state bit for bit under every rule set."""
+    specs = [SPECS["nodes-hb"](), SPECS[rules]()]
+    hosts = [population(c, seed=c + steps) for c in caps]
+    fused = [ts.from_numpy(h, card) for h in hosts]
+    plain = [ts.from_numpy(h, card) for h in hosts]
+    per_kind = [ts.from_numpy(h, card) for h in hosts]
+    bases = (3, 1000)
+    exact = rules != "chaos"
+    limit = int(1e-5 * sum(caps))
+    fired = 0
+    nows = (0.0, 0.7, 3.0, 3.0 - 4096.0)
+    for n, now in enumerate(nows, start=1):
+        if n == len(nows):
+            # an epoch rebase past every timer: the armed fire_at go negative
+            for st in (*fused, *plain, *per_kind):
+                tick.rebase_times(st, 4096.0)
+        seed = cuda_tick.SEED_BASE + n
+        before = cuda_tick.tick_steps.launches
+        outs, wire = cuda_tick.tick_dispatch(fused, specs, now, seed, steps, 0.05, bases)
+        assert cuda_tick.tick_steps.launches == before + 1
+        assert all(o.dirty is None for o in outs)
+        want = plain_dispatch(plain, specs, now, seed, steps, 0.05, bases)
+        for st, spec, rb in zip(per_kind, specs, bases):
+            cuda_tick.tick_steps(st, spec, now, seed, steps, 0.05, rb)
+        torch.cuda.synchronize()
+        for x, y in zip(fused, per_kind):
+            for f in ts.RowState._fields:
+                assert torch.equal(getattr(x, f), getattr(y, f)), f
+        got_c, got_m, got_d, got_r = unpacked(wire, caps)
+        want_c, want_m, want_d, want_r = unpacked(want, caps)
+        for k, o in enumerate(outs):
+            assert int(o.transitions) == int(got_c[k]) and int(o.heartbeats) == int(got_c[2 + k])
+        if exact:
+            np.testing.assert_array_equal(np.asarray(wire.cpu()), np.asarray(want.cpu()))
+        else:
+            np.testing.assert_allclose(got_d, want_d, rtol=1e-6)
+            assert np.abs(got_c.astype(np.int64) - want_c).max() <= limit
+            for k in range(2):
+                kf, pf = fused[k].fire_at, plain[k].fire_at
+                assert torch.equal(torch.isinf(kf), torch.isinf(pf))
+                fin = ~torch.isinf(kf)
+                torch.testing.assert_close(kf[fin], pf[fin], rtol=1e-6, atol=0.0)
+                differ = np.zeros(caps[k], bool)
+                for a, b in zip(got_m[k] + got_r[k], want_m[k] + want_r[k]):
+                    differ |= a != b
+                for f in ("phase", "cond_bits", "pending_rule", "gen"):
+                    differ |= (getattr(fused[k], f) != getattr(plain[k], f)).cpu().numpy()
+                assert int(differ.sum()) <= limit
+                # carry the plain side forward from the kernel's state
+                for f in FIELDS:
+                    getattr(plain[k], f).copy_(getattr(fused[k], f))
+        fired += int(got_c.sum())
+        if n == len(nows):
+            # every kind with an armed timer is due before the new epoch's 0
+            armed = np.isfinite(got_d)
+            assert (got_d[armed] < 0.0).all(), got_d
+            assert armed.any() or caps[1] < 255, got_d
+    assert fired > 0
+
+
+def test_fused_dispatch_of_nothing_armed_on_card(card):
+    """Kinds whose rows match nothing and keep no heartbeat: the counters
+    are 0, next_due is +inf, and the wire equals the plain one."""
+    specs = [SPECS["nodes-hb"](), SPECS["default"]()]
+    caps = (9, 257)
+    states = [ts.from_numpy(inactive_population(c), card) for c in caps]
+    copies = [ts.from_numpy(inactive_population(c), card) for c in caps]
+    _, wire = cuda_tick.tick_dispatch(states, specs, 0.0, cuda_tick.SEED_BASE + 1, 1, 0.05)
+    want = plain_dispatch(copies, specs, 0.0, cuda_tick.SEED_BASE + 1, 1, 0.05, (0, 0))
+    np.testing.assert_array_equal(np.asarray(wire.cpu()), np.asarray(want.cpu()))
+    counters, _m, dues, _r = unpacked(wire, caps)
+    assert int(counters.sum()) == 0 and np.isinf(dues).all() and (dues > 0).all()
+
+
+def test_engine_dispatch_holds_two_kernels_and_the_copy_on_card(card, tmp_path):
+    """A torch.profiler window over one unsplit MultiTickKernel dispatch
+    and its wire's arrival on the host: at most two kernel launches (the
+    fused tick and its epilogue), the wire's one D2H copy, and no other
+    device work (no memset, no fill, no torch op)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    kern = MultiTickKernel([
+        (tm.compile_rules(tm.default_node_rules(), tm.ResourceKind.NODE), 30.0, (), 1),
+        (tm.compile_rules(tm.default_pod_rules(), tm.ResourceKind.POD), 30.0, (), -1),
+    ], device=card)
+    states = tuple(ts.from_numpy(population(c, seed=c), card) for c in (16_384, 16_384))
+    for now in (0.0, 0.5):
+        np.asarray(kern(states, now)[1])  # warm: library, rule tables, pinned pool
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wire = kern(states, 1.0)
+        np.asarray(wire)
+        torch.cuda.synchronize()
+    path = tmp_path / "dispatch.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e["name"] for e in device if e["cat"] == "kernel"]
+    copies = [e["name"] for e in device if e["cat"] == "gpu_memcpy"]
+    assert len(kernels) <= 2 and any("fused_tick_kernel" in k for k in kernels), kernels
+    assert len(copies) == 1 and "DtoH" in copies[0], copies
+    assert not [e for e in device if e["cat"] == "gpu_memset"], device
+
+
 def test_split_dispatch_on_card_equals_unsplit(card):
     """4 shards of one card (a mesh may repeat a device), each launched on
     its own stream with its row base: under the exponential chaos rules
     the wire and the state equal the unsplit dispatch's bit for bit, and
-    each dispatch launches once per shard and kind."""
+    each dispatch launches once per shard (one fused launch ticks every
+    kind of the shard)."""
     from kwok_tpu_torch.parallel.mesh import make_mesh
 
     specs = [
@@ -164,7 +310,44 @@ def test_split_dispatch_on_card_equals_unsplit(card):
         _, wa = one(a, now)
         before = cuda_tick.tick_steps.launches
         _, wb = split(b, now)
-        assert cuda_tick.tick_steps.launches - before == 2 * mesh.size
+        assert cuda_tick.tick_steps.launches - before == mesh.size
+        np.testing.assert_array_equal(np.asarray(wb), np.asarray(wa))
+    for x, y in zip(a, b):
+        hx, hy = ts.to_numpy(x), ts.to_numpy(y)
+        for f in ts.RowState._fields:
+            np.testing.assert_array_equal(getattr(hy, f), getattr(hx, f), err_msg=f)
+
+
+def test_split_dispatch_across_cards_equals_unsplit(card):
+    """Shards on every visible card (skips on a host with one): a shard on
+    another card than the first writes its rows into a wire-shaped buffer
+    on its own card, whose rows, whole mask bytes and records are copied
+    to the first card before the epilogue. Shard bases that are not a
+    multiple of 8 make the shards share mask bytes. The wire and the
+    state equal the unsplit dispatch's bit for bit under the chaos rules,
+    and each dispatch launches once per shard."""
+    from kwok_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards: a split across cards")
+    specs = [
+        (tm.compile_rules(tm.default_node_rules(), tm.ResourceKind.NODE), 2.0, (), 1),
+        (tm.compile_rules(chaos_pod_rules(mean_run_seconds=1.0), tm.ResourceKind.POD),
+         2.0, (), -1),
+    ]
+    mesh = make_mesh(devices=[torch.device("cuda", i) for i in range(n)])
+    caps = (n * 257, n * 1025)
+    hosts = [population(c, seed=c) for c in caps]
+    one = MultiTickKernel(specs, steps=16, dt=0.05, device=card)
+    split = MultiTickKernel(specs, steps=16, dt=0.05, mesh=mesh)
+    a = tuple(ts.from_numpy(h, card) for h in hosts)
+    b = tuple(split.place(h) for h in hosts)
+    for now in (0.0, 0.9, 1.8, 2.7):
+        _, wa = one(a, now)
+        before = cuda_tick.tick_steps.launches
+        _, wb = split(b, now)
+        assert cuda_tick.tick_steps.launches - before == mesh.size
         np.testing.assert_array_equal(np.asarray(wb), np.asarray(wa))
     for x, y in zip(a, b):
         hx, hy = ts.to_numpy(x), ts.to_numpy(y)
@@ -217,7 +400,7 @@ def test_pack_wire_does_not_wait_for_the_stream(card):
     """next_due and packbits build their constants on the card: a
     dispatch's wire is enqueued while the stream is still running."""
     from kwok_tpu_torch.ops.state import TickOutputs
-    from kwok_tpu_torch.ops.tick import next_due, pack_wire
+    from kwok_tpu_torch.ops.cuda_tick import next_due, pack_wire
 
     spec = SPECS["chaos"]()
     st = ts.from_numpy(population(70_000, 3), card)
@@ -575,7 +758,7 @@ def test_stacked_lanes_with_regrow_on_card(card):
     row, empty), regrown on the card: the regrow equals the CPU one, the
     kernel is bit-exact against its plain version at the stacked shape,
     and lane_views of the fused wire are each lane's rows."""
-    from kwok_tpu_torch.ops.tick import lane_views, unpack_wire
+    from kwok_tpu_torch.ops.tick import lane_views
 
     n, r, new_r = 4, 1000, 1536
     specs = {
@@ -613,14 +796,19 @@ def test_stacked_lanes_with_regrow_on_card(card):
         (tm.compile_rules(uniform_weighted_rules(), tm.ResourceKind.POD), 30.0, (), -1),
     ], device=card)
     states = tuple(ts.from_numpy(grown[k], card) for k in ("nodes", "pods"))
+    copies = [ts.from_numpy(grown[k], card) for k in ("nodes", "pods")]
     outs, wire = fused(states, 1.0)
+    # the fused outputs carry no masks on the card: the plain version's
+    # dirty mask on a copy is the yardstick
+    dirties = [cuda_tick.tick_steps_plain(st, spec, 1.0, cuda_tick.SEED_BASE + 1, 1, 0.0)[0]
+               for st, spec in zip(copies, fused.specs)]
     cap = n * new_r
     counters, masks_fn, _dues, rows_fn = unpack_wire(np.asarray(wire), [cap, cap], rows=True)
     assert int(counters[0]) + int(counters[1]) > 0
     views = lane_views(masks_fn(), rows_fn(), n, new_r)
     for ki, o in enumerate(outs):
         host = ts.to_numpy(o.state)
-        dirty = o.dirty.cpu().numpy()
+        dirty = dirties[ki].cpu().numpy()
         for li in range(n):
             lo, hi = li * new_r, (li + 1) * new_r
             vd, _vx, _vh, vph, vcb = views[li][ki]

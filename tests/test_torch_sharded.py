@@ -227,6 +227,41 @@ def test_split_equals_unsplit_bit_for_bit(shards, steps):
     assert fired > 0
 
 
+@pytest.mark.parametrize("shards,rows", [(1, 7), (2, 9), (3, 257), (8, 1), (8, 13)])
+def test_owned_ranges_cover_the_rows_and_whole_mask_bytes(shards, rows):
+    """A shard on another card copies these ranges of its own wire-shaped
+    buffer to the first card: its phase and cond rows and the mask bytes
+    wholly inside one of its three runs. Across the shards they are
+    disjoint, cover every row byte of the kind, and leave out exactly the
+    mask bytes that hold bits of two runs or padding (those the epilogue
+    rebuilds from the shards' records)."""
+    from kwok_tpu_torch.ops import cuda_tick
+    from kwok_tpu_torch.parallel.sharded_tick import _owned_ranges
+
+    total = shards * rows
+    layout = cuda_tick.wire_layout([5, total])  # a kind before: no offset is 0
+    k = 1
+    owner = {}
+    for i in range(shards):
+        for lo, hi in _owned_ranges(layout, k, i * rows, rows):
+            for b in range(lo, hi):
+                assert b not in owner, b
+                owner[b] = i
+    phase, cond = layout.phase_offs[k], layout.cond_offs[k]
+    for b in range(phase, cond + 4 * total):
+        row = b - phase if b < cond else (b - cond) // 4
+        assert owner.pop(b) == row // rows, b
+    for j in range((3 * total + 7) // 8):
+        runs = {(bit // total, bit % total // rows) if bit < 3 * total else None
+                for bit in range(8 * j, 8 * j + 8)}
+        whole = len(runs) == 1 and None not in runs
+        got = owner.pop(layout.mask_offs[k] + j, None)
+        assert (got is not None) == whole, j
+        if whole:
+            assert got == next(iter(runs))[1], j
+    assert not owner  # nothing outside the kind's masks and rows
+
+
 # ------------------------------------------------ state ops across shards
 
 
@@ -427,4 +462,6 @@ def test_dryrun_multichip_on_8_cpu_shards():
     assert got["node_transitions"] == 65_536
     assert got["pod_transitions"] == 65_536 + 2048
     assert got["post_growth_pod_transitions"] >= 512
+    # every pod of both members reached Running (member 1's chaos rules
+    # may already have moved some on to Succeeded)
     assert got["federation_groups"] == 2 and got["federation_running"] == [4, 4]

@@ -36,6 +36,7 @@ from kwok_tpu_torch import models as tm
 from kwok_tpu_torch.models.defaults import chaos_pod_rules
 from kwok_tpu_torch.ops import cuda_tick
 from kwok_tpu_torch.ops import state as ts
+from kwok_tpu_torch.ops import tick as ttick
 from kwok_tpu_torch.ops.tick import MultiTickKernel, unpack_wire
 
 FIELDS = ("phase", "cond_bits", "pending_rule", "fire_at", "hb_due", "gen")
@@ -277,9 +278,14 @@ def test_multitick_matches_xla(steps):
         now += 1.7
 
 
-@pytest.mark.parametrize("caps", [(1001, 1001), (13, 4099)])
+@pytest.mark.parametrize(
+    "caps", [(1001, 1001), (13, 4099), (0, 257), (1, 9), (7, 257)],
+    ids=lambda c: f"{c[0]}+{c[1]}",
+)
 def test_wire_bytes_match_pack_rows(caps):
-    """Non-byte-aligned capacities: `deleted` starts at bit cap."""
+    """Non-byte-aligned capacities: `deleted` starts at bit cap; a kind of
+    no rows (0), one row, and 7, 9 and 257 rows, whose mask segments end
+    mid-byte."""
     jk = JaxMultiTickKernel(engine_specs("jax"), pack=True, pack_rows=True,
                             steps=4, dt=0.05)
     tk = MultiTickKernel(engine_specs("torch"), steps=4, dt=0.05, device="cpu")
@@ -298,6 +304,98 @@ def test_wire_bytes_match_pack_rows(caps):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
     assert int(tc.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["rebased", "unarmed"])
+def test_wire_next_due_matches_pack_rows(case):
+    """The wire's next_due, byte for byte against kwok_tpu's pack_rows
+    wire: negative after an epoch rebase (rebase_times past every timer on
+    both sides), and +inf where nothing is armed and no heartbeat is due
+    (no active row)."""
+    from kwok_tpu.ops.tick import rebase_times as jax_rebase_times
+
+    caps = (9, 257)
+    jk = JaxMultiTickKernel(engine_specs("jax"), pack=True, pack_rows=True, steps=4, dt=0.05)
+    tk = MultiTickKernel(engine_specs("torch"), steps=4, dt=0.05, device="cpu")
+    jstates = engine_states(*caps)
+    if case == "unarmed":
+        for st in jstates:
+            st.active[:] = False
+    tstates = tuple(ts.from_numpy(s, "cpu") for s in jstates)
+    jouts, _ = jk(jstates, 0.0)
+    jstates = tuple(o.state for o in jouts)
+    tk(tstates, 0.0)
+    now, shift = 0.5, 0.0
+    if case == "rebased":
+        shift = 4096.0
+        jstates = tuple(jax_rebase_times(s, shift) for s in jstates)
+        for st in tstates:
+            ttick.rebase_times(st, shift)
+    _, jwire = jk(jstates, now - shift)
+    _, twire = tk(tstates, now - shift)
+    jb, tb = np.asarray(jwire), np.asarray(twire)
+    np.testing.assert_array_equal(tb, jb)
+    dues = unpack_wire(tb, list(caps))[2]
+    if case == "rebased":
+        # the nodes' heartbeats stay armed; the pods may all have settled
+        armed = np.isfinite(dues)
+        assert armed[0] and (dues[armed] < 0).all(), dues
+    else:
+        assert np.isinf(dues).all() and (dues > 0).all(), dues
+
+
+@pytest.mark.parametrize("caps", [(0,), (1, 7), (9, 257, 0), (1001, 4099)],
+                         ids=lambda c: "+".join(map(str, c)))
+def test_wire_layout_is_where_unpack_wire_reads(caps):
+    """The offsets the fused wrapper hands the kernel (wire_layout) are
+    where the port's and kwok_tpu's unpack_wire read each kind's masks,
+    phase and cond rows, in a wire of wire_layout's length."""
+    layout = cuda_tick.wire_layout(caps)
+    blob = np.random.default_rng(len(caps)).integers(0, 256, layout.nbytes).astype(np.uint8)
+    for unpack in (unpack_wire, jax_unpack_wire):
+        counters, masks, dues, rows = unpack(blob, list(caps), lazy=False, rows=True)
+        assert counters.tobytes() == blob[: 8 * len(caps)].tobytes()
+        assert dues.tobytes() == blob[8 * len(caps): 12 * len(caps)].tobytes()
+        for k, cap in enumerate(caps):
+            seg = blob[layout.mask_offs[k]: layout.mask_offs[k] + (3 * cap + 7) // 8]
+            bits = np.unpackbits(seg, count=3 * cap).reshape(3, cap).astype(bool)
+            for m in range(3):
+                np.testing.assert_array_equal(masks[k][m], bits[m])
+            phase, cond = rows()[k]
+            np.testing.assert_array_equal(phase, blob[layout.phase_offs[k]: layout.phase_offs[k] + cap])
+            assert cond.tobytes() == blob[layout.cond_offs[k]: layout.cond_offs[k] + 4 * cap].tobytes()
+    last = len(caps) - 1
+    assert layout.nbytes == layout.cond_offs[last] + 4 * caps[last]
+    assert cuda_tick.blocks_of(caps) == sum(-(-c // cuda_tick.THREADS) for c in caps)
+
+
+def test_tick_dispatch_on_cpu_is_the_plain_version():
+    """On CPU tensors tick_dispatch runs tick_steps_plain per kind (with
+    the row bases) and pack_wire, returns the masks, and launches
+    nothing; the launch-only wrappers refuse CPU tensors (no fallback)."""
+    specs = [cuda_tick.TickSpec(t, i, ph, sb) for t, i, ph, sb in engine_specs("torch")]
+    hosts = engine_states(1001, 257)
+    a = [ts.from_numpy(h, "cpu") for h in hosts]
+    b = [ts.from_numpy(h, "cpu") for h in hosts]
+    before = cuda_tick.tick_steps.launches
+    outs, wire = cuda_tick.tick_dispatch(a, specs, 0.3, cuda_tick.SEED_BASE + 1, 6, 0.05, (5, 0))
+    assert cuda_tick.tick_steps.launches == before
+    want = []
+    for st, spec, rb in zip(b, specs, (5, 0)):
+        d, x, h, c = cuda_tick.tick_steps_plain(st, spec, 0.3, cuda_tick.SEED_BASE + 1, 6, 0.05, rb)
+        want.append(ts.TickOutputs(st, d, x, h, c[0], c[1]))
+    assert torch.equal(wire, cuda_tick.pack_wire(want))
+    for o, w in zip(outs, want):
+        for m in ("dirty", "deleted", "hb_fired", "transitions", "heartbeats"):
+            assert torch.equal(getattr(o, m), getattr(w, m)), m
+    layout = cuda_tick.wire_layout([1001, 257])
+    with pytest.raises(ValueError, match="cuda"):
+        cuda_tick.tick_dispatch_part(a, specs, 0.0, 1, 1, 0.0, (0, 0), (0, 0), layout,
+                                     torch.empty(layout.nbytes, dtype=torch.uint8),
+                                     torch.empty(64, dtype=torch.int32))
+    with pytest.raises(ValueError, match="card"):
+        cuda_tick.tick_wire_epilogue(torch.empty(layout.nbytes, dtype=torch.uint8),
+                                     torch.empty(64, dtype=torch.int32), 4, 2)
 
 
 def test_wire_handle_is_ready_on_cpu():
